@@ -1,0 +1,83 @@
+"""Audio frontend in PyTorch: PCM → STFT → Whisper-style log-mel.
+
+Counterpart of ``qwen3_asr_tpu/audio/frontend.py`` (``hann_window``,
+``_log_mel_impl``): n_fft=400, hop=160, periodic Hann, slaney mel, log10,
+the max-8 clamp with its max taken over ``max_frames``, (x+4)/4, and padded
+frames forced to the floor value.
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from .mel import mel_filter_bank
+
+N_FFT = 400
+HOP_LENGTH = 160
+SAMPLE_RATE = 16000
+
+
+def hann_window(n: int = N_FFT) -> np.ndarray:
+    """Periodic Hann window (matches torch.hann_window / np.hanning(n+1)[:-1])."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+def log_mel(audio: torch.Tensor, n_valid: Union[int, torch.Tensor],
+            window: torch.Tensor, mel_fb: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """audio: [B, N] float32 (bucket-padded); n_valid: true sample count
+    (int or [B]); window [n_fft]; mel_fb [n_fft//2+1, n_mels].
+
+    Returns (log_mel [B, n_mels, T], valid_frames [B]) with T = N // hop.
+    """
+    b, n = audio.shape
+    t = n // HOP_LENGTH
+    dev = audio.device
+    n_valid = torch.as_tensor(n_valid, dtype=torch.int64,
+                              device=dev).expand(b)[:, None]
+    audio = torch.where(torch.arange(n, device=dev)[None, :] < n_valid,
+                        audio, torch.zeros((), dtype=audio.dtype, device=dev))
+
+    pad = N_FFT // 2
+    padded = torch.nn.functional.pad(audio[:, None, :], (pad, pad),
+                                     mode="reflect")[:, 0]
+    frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :t] * window  # [B,T,n_fft]
+    spec = torch.fft.rfft(frames, n=N_FFT, dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2                     # [B,T,201]
+    mel = power @ mel_fb                                         # [B,T,n_mels]
+    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
+
+    frame_idx = torch.arange(t, device=dev)[None, :, None]
+    valid_frames = torch.clamp((n_valid + HOP_LENGTH - 1) // HOP_LENGTH,
+                               max=t)                            # [B,1]
+    max_frames = torch.clamp((n_valid + pad + HOP_LENGTH - 1) // HOP_LENGTH,
+                             max=t)
+    masked = torch.where(frame_idx < max_frames[:, :, None], log_spec,
+                         torch.full_like(log_spec, -1e30))
+    global_max = masked.amax(dim=(1, 2), keepdim=True)          # per row
+    log_spec = torch.maximum(log_spec, global_max - 8.0)
+    log_spec = (log_spec + 4.0) / 4.0
+    floor = (torch.clamp(global_max - 8.0, min=-10.0) + 4.0) / 4.0
+    log_spec = torch.where(frame_idx < valid_frames[:, :, None], log_spec,
+                           floor)
+    return log_spec.transpose(1, 2), valid_frames[:, 0]
+
+
+class LogMelFrontend:
+    """Whisper-compatible log-mel extractor with its constants on a device."""
+
+    def __init__(self, n_mels: int, device: Union[str, torch.device]):
+        self.n_mels = n_mels
+        self.window = torch.from_numpy(hann_window()).to(device)
+        self.mel_fb = torch.from_numpy(mel_filter_bank(
+            N_FFT // 2 + 1, n_mels, 0.0, SAMPLE_RATE / 2.0, SAMPLE_RATE
+        ).astype(np.float32)).to(device)
+
+    def __call__(self, audio: torch.Tensor,
+                 n_valid: Union[int, torch.Tensor, None] = None):
+        """audio: float32 [B, N] on the frontend's device."""
+        if n_valid is None:
+            n_valid = audio.shape[-1]
+        return log_mel(audio, n_valid, self.window, self.mel_fb)

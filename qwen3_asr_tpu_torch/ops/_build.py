@@ -1,0 +1,91 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, loaded with ``ctypes``. The
+library's file name carries a hash of its source and flags, so an edited
+source rebuilds and an unchanged one is reused. Builds happen at first use
+(never at import) into ``qwen3_asr_tpu_torch/_build/``. A failed build
+raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that is not built yet, all at once (one
+    ``nvcc`` process per source). Returns ``{name: ptxas report}``, read
+    from the log kept beside each library."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    reports = {}
+    for name in names:
+        log = library_path(name).with_suffix(".log")
+        reports[name] = log.read_text() if log.exists() else ""
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,79 @@
+"""The attention entry point of the port: ``attend(q, k, v, spec)``.
+
+Counterpart of ``qwen3_asr_tpu/ops/attention.py``. Two routes and no third:
+a decode step (one query token, no causal or window mask) goes to
+``ops.decode_attention``; every other shape goes to ``ops.flash_attention``.
+Both launch a hand-written CUDA kernel on a CUDA tensor and take their plain
+PyTorch version only on a CPU tensor.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import torch
+
+# Masked-score sentinel shared by every attention path. Finite on purpose:
+# -inf breaks the exp/alpha arithmetic of fully masked rows, and the
+# online-softmax residuals (m, l) of different kernels must agree.
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+class AttnSpec(NamedTuple):
+    """Structured attention-mask descriptor (never a dense [B, T, S] bool
+    on the kernel path).
+
+      causal       — col ≤ row + q_offset
+      q_offset     — global position of q row 0 (int or [B] int32)
+      valid_from   — [B] first attendable key (left-padded prompt)
+      valid_to     — [B] one-past-last attendable key (right padding)
+      window_block — block-diagonal width (encoder windows), 0 = off
+    """
+    causal: bool = False
+    q_offset: Union[int, torch.Tensor] = 0
+    valid_from: Optional[torch.Tensor] = None
+    valid_to: Optional[torch.Tensor] = None
+    window_block: int = 0
+
+    def dense_mask(self, b: int, t: int, s: int,
+                   device: Union[str, torch.device]) -> torch.Tensor:
+        """Expand to a [B, T, S] boolean mask (True = attend)."""
+        q_off = torch.as_tensor(self.q_offset, dtype=torch.int64,
+                                device=device).expand(b)
+        rows = (torch.arange(t, device=device)[None, :, None]
+                + q_off[:, None, None])
+        cols = torch.arange(s, device=device)[None, None, :]
+        mask = torch.ones((b, t, s), dtype=torch.bool, device=device)
+        if self.causal:
+            mask &= cols <= rows
+        if self.window_block > 0:
+            w = self.window_block
+            mask &= (rows // w) == (cols // w)
+        if self.valid_from is not None:
+            mask &= cols >= self.valid_from.to(device)[:, None, None]
+        if self.valid_to is not None:
+            mask &= cols < self.valid_to.to(device)[:, None, None]
+        return mask
+
+
+def is_decode_step(q: torch.Tensor, spec: AttnSpec) -> bool:
+    return q.shape[-2] == 1 and not spec.causal and spec.window_block == 0
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           spec: AttnSpec, *, scale: Optional[float] = None,
+           layer_idx: int = 0) -> torch.Tensor:
+    """q: [B, Nq, T, D]; k/v: [B, Nkv, S, D], or the stacked cache
+    [L, B, Nkv, S, D] with ``layer_idx`` for a decode step."""
+    if is_decode_step(q, spec):
+        from .decode_attention import decode_attention
+        return decode_attention(q, k, v, layer_idx=layer_idx,
+                                kv_valid_from=spec.valid_from,
+                                kv_valid_to=spec.valid_to, sm_scale=scale)
+    if k.dim() == 5:
+        k, v = k[layer_idx], v[layer_idx]   # contiguous views, no copy
+    from .flash_attention import flash_attention
+    return flash_attention(q, k, v, causal=spec.causal,
+                           q_offset=spec.q_offset,
+                           kv_valid_from=spec.valid_from,
+                           kv_valid_to=spec.valid_to,
+                           window_block=spec.window_block, sm_scale=scale)

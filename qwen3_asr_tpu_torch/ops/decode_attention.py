@@ -1,0 +1,145 @@
+"""Single-token decode attention against the KV cache: a CUDA kernel written
+by hand for Hopper (``csrc/decode_attention.cu``), its plain PyTorch
+version, and the wrapper.
+
+Replaces the TPU kernel ``qwen3_asr_tpu/ops/decode_attention.py``
+``_kernel`` (public ``decode_attention``).
+
+What it computes: one query token per row, ``q [B,Nq,1,D]``, against one
+layer's cache ``[B,Nkv,S,D]`` or the stacked cache ``[L,B,Nkv,S,D]`` at a
+runtime ``layer_idx`` (read through a pointer offset, no slice copy), over
+the keys in ``[valid_from, valid_to)`` only, with an f32 online softmax and
+a safe divide.
+
+What bounds it on the H100: the bytes of the live cache — each decode step
+reads every live K and V row of every layer once, and the arithmetic per
+byte is tiny. What the design does about it: keys outside the valid range
+are never read, K/V rows are read with lanes across the head dim
+(coalesced), and each KV head's rows are read once for its whole query
+group. At batch 1 there are only Nkv blocks (8 at 1.7B), far fewer than the
+card's 132 SMs, so this first kernel is latency-bound there; splitting S
+across blocks (flash-decoding) is later work.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._build import load
+from .attention import MASK_VALUE
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GROUP = 8           # kMaxG in csrc/decode_attention.cu
+_MAX_D = 128
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid_from: torch.Tensor, valid_to: torch.Tensor, *,
+                           layer_idx: int, sm_scale: float) -> torch.Tensor:
+    """Dense restatement of the kernel's function in f32."""
+    if k.dim() == 5:
+        k, v = k[layer_idx], v[layer_idx]
+    b, nq, _, d = q.shape
+    _, nkv, s_len, _ = k.shape
+    g = nq // nkv
+    qf = q.reshape(b, nkv, g, d).float() * sm_scale
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k.float())
+    cols = torch.arange(s_len, device=q.device)[None, :]
+    mask = ((cols >= valid_from.long()[:, None])
+            & (cols < valid_to.long()[:, None]))[:, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / l_safe
+    return out.reshape(b, nq, 1, d).to(q.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    lib = load("decode_attention")
+    fn = lib.decode_attention_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(q, k, v, vf, vt, *, layer_idx, sm_scale):
+    b, nq, _, d = q.shape
+    stacked = k.dim() == 5
+    n_layers = k.shape[0] if stacked else 1
+    nkv, s_len = k.shape[-3], k.shape[-2]
+    dev = q.device
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"decode_attention takes f32 or bf16 q/k/v of one "
+                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.device != dev or v.device != dev:
+        raise ValueError("q, k and v must be on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("decode_attention needs contiguous q, k and v")
+    if d % 8 or d > _MAX_D:
+        raise ValueError(f"head_dim {d} is not a multiple of 8 up to {_MAX_D}")
+    if (v.shape != k.shape or k.shape[-4] != b or k.shape[-1] != d
+            or k.dim() not in (4, 5)):
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if nq // nkv > _MAX_GROUP:
+        raise ValueError(f"query group {nq // nkv} exceeds {_MAX_GROUP}")
+    if not 0 <= layer_idx < n_layers:
+        raise ValueError(f"layer_idx {layer_idx} outside [0, {n_layers})")
+    for x, name in ((vf, "kv_valid_from"), (vt, "kv_valid_to")):
+        if (x.dtype != torch.int32 or x.shape != (b,) or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor "
+                             f"on {dev}")
+    out = torch.empty_like(q)
+    err = _library().decode_attention_fwd(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), vf.data_ptr(), vt.data_ptr(),
+        layer_idx if stacked else 0, b, nq, nkv, s_len, d, float(sm_scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     layer_idx: int = 0,
+                     kv_valid_from: Optional[torch.Tensor] = None,
+                     kv_valid_to: Optional[torch.Tensor] = None,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, Nq, 1, D] → [B, Nq, 1, D].
+
+    k/v: one layer's cache [B, Nkv, S, D] (``layer_idx`` ignored), or the
+    stacked cache [L, B, Nkv, S, D] with ``layer_idx`` selecting the layer
+    without a copy. A CUDA tensor launches the kernel or raises; only a CPU
+    tensor takes the plain version."""
+    b, nq, t, d = q.shape
+    if t != 1:
+        raise ValueError("decode_attention is for single-token queries")
+    nkv, s_len = k.shape[-3], k.shape[-2]
+    if nq % nkv:
+        raise ValueError(f"query heads {nq} not divisible by kv heads {nkv}")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    dev = q.device
+    vf = (torch.zeros((b,), dtype=torch.int32, device=dev)
+          if kv_valid_from is None else kv_valid_from.to(dev, torch.int32))
+    vt = (torch.full((b,), s_len, dtype=torch.int32, device=dev)
+          if kv_valid_to is None else kv_valid_to.to(dev, torch.int32))
+    layer_idx = int(layer_idx)
+    if dev.type == "cpu":
+        return decode_attention_plain(q, k, v, vf, vt, layer_idx=layer_idx,
+                                      sm_scale=float(sm_scale))
+    return _launch(q, k, v, vf.contiguous(), vt.contiguous(),
+                   layer_idx=layer_idx, sm_scale=float(sm_scale))
+
+
+decode_attention.launches = 0

@@ -1,0 +1,283 @@
+"""TranscriptionEngine: bucketed, batched ASR inference in PyTorch.
+
+Counterpart of ``qwen3_asr_tpu/runtime/engine.py`` for the batch
+transcription path: audio is zero-padded to a length bucket, log-mel and
+the encoder run on the padded bucket, the prompt is a PREFIX_BUDGET-token
+left-padded prefix + the audio embeddings + the suffix, and greedy decoding
+produces the tokens. Audio longer than MAX_SEGMENT_S is split at the
+quietest 25 ms frame near each window's end, and same-bucket segments run
+as one batch. AOT caches, meshes, draft models, resume and streaming are
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..audio.frontend import HOP_LENGTH, LogMelFrontend
+from ..audio.resample import resample
+from ..models.asr import AsrModel, normalize_language
+from ..models.decoder import embed_tokens
+from ..models.encoder import encoder_forward
+from ..utils.device import resolve_device, working_dtype
+from .batcher import _pad_pow2
+from .generate import cache_length, greedy_generate, strip_generation
+
+TARGET_SR = 16000
+AUDIO_BUCKETS_S: Tuple[float, ...] = (1, 2, 4, 6, 10, 15, 20, 30)
+PREFIX_BUDGET = 64          # left-padded prompt prefix tokens
+MAX_SEGMENT_S = 30.0        # beyond this, silence-boundary chunking
+LONG_FORM_BATCH = 8         # most same-bucket segments per long-form run
+
+
+@dataclasses.dataclass
+class TranscriptionResult:
+    text: str
+    language: str = ""
+    start_time: float = 0.0
+    end_time: float = 0.0
+    token_ids: Optional[List[int]] = None
+
+
+def max_new_tokens_for(seconds: float) -> int:
+    """Token budget per bucket: generous for dense CJK speech (~8 tok/s)."""
+    return int(16 + 8 * seconds)
+
+
+class TranscriptionEngine:
+    def __init__(self, model: AsrModel, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
+        """``model.params`` must already be on ``device``. dtype defaults to
+        bf16 on the card and f32 on the CPU; the KV cache uses it too."""
+        self.model = model
+        self.device = resolve_device(device)
+        self.dtype = dtype or working_dtype(self.device)
+        self.frontend = LogMelFrontend(n_mels=model.cfg.encoder.num_mel_bins,
+                                       device=self.device)
+        self._chunk_frames = model.cfg.encoder.n_window * 2
+        self._suffix_ids = model.tokenizer.encode(model.template.suffix_text())
+        # shapes and counts of the last bucket run (for measurement scripts)
+        self.last_run: dict = {}
+
+    # -- bucketing ---------------------------------------------------------------
+    def bucket_frames(self, n_samples: int) -> Tuple[int, float]:
+        """Smallest bucket (mel frames, effective seconds) covering
+        n_samples. Frames round up to the encoder chunk, and the seconds
+        returned are that rounded coverage, so the token budget matches the
+        audio the bucket holds."""
+        mel_frames = max(1, n_samples // HOP_LENGTH)
+        chunk = self._chunk_frames
+        for sec in AUDIO_BUCKETS_S:
+            frames = -(-int(sec * 100) // chunk) * chunk
+            if mel_frames <= frames:
+                return frames, frames / 100.0
+        frames = -(-int(AUDIO_BUCKETS_S[-1] * 100) // chunk) * chunk
+        return frames, frames / 100.0
+
+    def padded_prefix(self, language: Optional[str], context: str = "",
+                      batch: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+        """PREFIX_BUDGET-left-padded prompt prefix ids and valid_from."""
+        prefix_ids, _, _ = self.model.prompt_ids(0, language, context)
+        if len(prefix_ids) > PREFIX_BUDGET:
+            prefix_ids = prefix_ids[-PREFIX_BUDGET:]
+        pad_count = PREFIX_BUDGET - len(prefix_ids)
+        prefix = np.full((batch, PREFIX_BUDGET), self.model.pad_id, np.int32)
+        prefix[:, pad_count:] = prefix_ids
+        valid_from = np.full((batch,), pad_count, np.int32)
+        return prefix, valid_from
+
+    def prompt_embeds(self, audio: torch.Tensor, prefix_ids: torch.Tensor,
+                      bucket_frames: int) -> torch.Tensor:
+        """[B, n_samples] f32 or s16 PCM on the device → [prefix, audio,
+        suffix] inputs_embeds [B, PREFIX_BUDGET + n_audio + n_suffix, H]."""
+        cfg, params = self.model.cfg, self.model.params
+        if audio.dtype == torch.int16:
+            audio = audio.float() * (1.0 / 32768.0)
+        n_samples = bucket_frames * HOP_LENGTH
+        mel, _ = self.frontend(audio, n_samples)
+        b = audio.shape[0]
+        flens = torch.full((b,), bucket_frames, dtype=torch.int32,
+                           device=self.device)
+        audio_embeds, _ = encoder_forward(params["encoder"], cfg.encoder,
+                                          mel.to(self.dtype), flens)
+        suffix = torch.tensor(self._suffix_ids, dtype=torch.int64,
+                              device=self.device).expand(b, -1)
+        pre = embed_tokens(params["decoder"], prefix_ids.long())
+        suf = embed_tokens(params["decoder"], suffix)
+        return torch.cat([pre.to(self.dtype), audio_embeds.to(self.dtype),
+                          suf.to(self.dtype)], dim=1)
+
+    # -- core batched path --------------------------------------------------------
+    def _run_bucket(self, clips: Sequence[np.ndarray], bucket_frames: int,
+                    bucket_s: float, language: Optional[str],
+                    context: str = "") -> Tuple[List[str], List[List[int]]]:
+        """All clips already ≤ bucket. Returns (texts, token_id_lists)."""
+        n_samples = bucket_frames * HOP_LENGTH
+        batch = len(clips)
+        in_dtype = (np.int16 if all(c.dtype == np.int16 for c in clips)
+                    else np.float32)
+        audio = np.zeros((batch, n_samples), dtype=in_dtype)
+        for i, clip in enumerate(clips):
+            c = clip[:n_samples]
+            if c.dtype == np.int16 and in_dtype == np.float32:
+                c = c.astype(np.float32) / 32768.0  # mixed batch: rescale
+            audio[i, :len(c)] = c
+        prefix, valid_from = self.padded_prefix(language, context, batch)
+        max_new = max_new_tokens_for(bucket_s)
+
+        with torch.inference_mode():
+            inputs = self.prompt_embeds(
+                torch.from_numpy(audio).to(self.device),
+                torch.from_numpy(prefix).to(self.device), bucket_frames)
+            result = greedy_generate(
+                self.model.params["decoder"], self.model.cfg.decoder, inputs,
+                torch.from_numpy(valid_from).to(self.device),
+                max_new=max_new, eos_id=self.model.eos_id, pad_id=self.model.pad_id,
+                cache_dtype=self.dtype)
+        tokens = result.tokens.cpu().numpy()
+        lengths = result.lengths.cpu().numpy()
+        self.last_run = {"batch": batch, "bucket_frames": bucket_frames,
+                         "prompt_len": int(inputs.shape[1]),
+                         "cache_len": cache_length(int(inputs.shape[1]),
+                                                   max_new),
+                         "max_new": max_new, "steps": int(result.steps),
+                         "generated": int(lengths.sum())}
+        texts, id_lists = [], []
+        for i in range(batch):
+            ids = strip_generation(tokens[i], int(lengths[i]),
+                                   self.model.eos_id)
+            texts.append(self.model.tokenizer.decode(ids).strip())
+            id_lists.append(ids)
+        return texts, id_lists
+
+    # -- segmentation ---------------------------------------------------------------
+    @staticmethod
+    def _split_long_audio(audio: np.ndarray, max_samples: int,
+                          search_s: float = 5.0) -> List[Tuple[int, np.ndarray]]:
+        """Split at the lowest-energy 25 ms frame within the last
+        ``search_s`` seconds of each max-length window."""
+        if len(audio) <= max_samples:
+            return [(0, audio)]
+        segments = []
+        start = 0
+        search = int(search_s * TARGET_SR)
+        frame = 400
+        while len(audio) - start > max_samples:
+            hi = start + max_samples
+            lo = max(start + 1, hi - search)
+            window = audio[lo:hi].astype(np.float32)  # int16² would overflow
+            n_frames = max(1, len(window) // frame)
+            frames = window[:n_frames * frame].reshape(n_frames, frame)
+            energies = np.sqrt(np.mean(frames ** 2, axis=1))
+            cut = lo + int(np.argmin(energies)) * frame + frame // 2
+            segments.append((start, audio[start:cut]))
+            start = cut
+        segments.append((start, audio[start:]))
+        return segments
+
+    # -- public API -------------------------------------------------------------------
+    def transcribe(self, audio: np.ndarray, sr: int,
+                   language: Optional[str] = None,
+                   context: str = "") -> List[TranscriptionResult]:
+        """One clip of any length → one result per segment."""
+        audio = _prep_audio(audio, sr)
+        if len(audio) == 0:
+            return []
+        lang_code, _ = normalize_language(language)
+        segments = self._split_long_audio(audio,
+                                          int(MAX_SEGMENT_S * TARGET_SR))
+        if len(segments) == 1:
+            seg = segments[0][1]
+            bucket_frames, bucket_s = self.bucket_frames(len(seg))
+            texts, id_lists = self._run_bucket([seg], bucket_frames, bucket_s,
+                                               language, context)
+        else:
+            texts, id_lists = self._run_segments_batched(segments, language,
+                                                         context)
+        results = []
+        for (seg_start, seg), text, token_ids in zip(segments, texts,
+                                                     id_lists):
+            results.append(TranscriptionResult(
+                text=text, language=_response_language(text, lang_code),
+                start_time=seg_start / TARGET_SR,
+                end_time=(seg_start + len(seg)) / TARGET_SR,
+                token_ids=token_ids))
+        return results
+
+    def _run_segments_batched(self, segments, language, context):
+        """Long-form path: same-bucket segments share batches of up to
+        LONG_FORM_BATCH rows (padded to a power of two). Rows are
+        independent, so each segment's output matches the batch-1 path."""
+        cap = LONG_FORM_BATCH
+        by_bucket = {}
+        for idx, (_, seg) in enumerate(segments):
+            by_bucket.setdefault(self.bucket_frames(len(seg)), []).append(idx)
+        texts: List[Optional[str]] = [None] * len(segments)
+        id_lists: List[Optional[List[int]]] = [None] * len(segments)
+        for (bf, bs), idxs in by_bucket.items():
+            for off in range(0, len(idxs), cap):
+                chunk = idxs[off:off + cap]
+                clips = [segments[i][1] for i in chunk]
+                _pad_pow2(clips, dtype=clips[0].dtype)
+                t, il = self._run_bucket(clips, bf, bs, language, context)
+                for j, i in enumerate(chunk):
+                    texts[i], id_lists[i] = t[j], il[j]
+        return texts, id_lists
+
+    def transcribe_batch(self, clips: Sequence[Tuple[np.ndarray, int]],
+                         language: Optional[str] = None
+                         ) -> List[TranscriptionResult]:
+        """Batch same-bucket clips (each ≤ MAX_SEGMENT_S) into single runs."""
+        prepped = [_prep_audio(audio, sr) for audio, sr in clips]
+        max_samples = int(MAX_SEGMENT_S * TARGET_SR)
+        too_long = [i for i, a in enumerate(prepped) if len(a) > max_samples]
+        if too_long:
+            raise ValueError(
+                f"clips {too_long} exceed MAX_SEGMENT_S={MAX_SEGMENT_S}s — "
+                "use transcribe() (silence-boundary segmentation) for long "
+                "audio")
+        lang_code, _ = normalize_language(language)
+        by_bucket = {}
+        for idx, audio in enumerate(prepped):
+            by_bucket.setdefault(self.bucket_frames(len(audio)), []).append(idx)
+        out: List[Optional[TranscriptionResult]] = [None] * len(prepped)
+        for (bf, bs), idxs in by_bucket.items():
+            texts, id_lists = self._run_bucket([prepped[i] for i in idxs], bf,
+                                               bs, language)
+            for i, text, ids in zip(idxs, texts, id_lists):
+                out[i] = TranscriptionResult(
+                    text=text, language=_response_language(text, lang_code),
+                    start_time=0.0, end_time=len(prepped[i]) / TARGET_SR,
+                    token_ids=ids)
+        return out  # type: ignore[return-value]
+
+
+def _prep_audio(audio, sr: int) -> np.ndarray:
+    """Mono 16 kHz s16 PCM stays int16; everything else becomes mono
+    float32 at TARGET_SR."""
+    audio = np.asarray(audio)
+    if audio.dtype == np.int16 and audio.ndim == 1 and sr == TARGET_SR:
+        return audio
+    if audio.dtype == np.int16:
+        audio = audio.astype(np.float32) / 32768.0
+    else:
+        audio = audio.astype(np.float32, copy=False)
+    if audio.ndim > 1:
+        audio = audio.mean(axis=1)
+    if sr != TARGET_SR:
+        audio = resample(audio, sr, TARGET_SR)
+    return audio
+
+
+def _response_language(text: str, lang_code: Optional[str]) -> str:
+    """Explicit language echoes back; language=auto runs script-based
+    detection on the produced text."""
+    if lang_code:
+        return lang_code
+    if text:
+        from ..text.langid import detect_language
+        return detect_language(text) or "auto"
+    return "auto"

@@ -1,0 +1,67 @@
+"""Engine loading from a ``MODEL_ID``.
+
+Counterpart of ``qwen3_asr_tpu/runtime/lifecycle.py`` ``_load_engine_sync``:
+``MODEL_ID`` is a local checkpoint directory or ``preset:NAME``, which
+builds that architecture with zero weights and a byte-level tokenizer.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from ..models.asr import AsrModel, PromptTemplate
+from ..models.config import preset
+from ..models.decoder import init_decoder_params
+from ..models.encoder import init_encoder_params
+from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
+from ..utils.device import resolve_device, working_dtype
+from .checkpoint import load_asr_checkpoint
+from .engine import TranscriptionEngine
+
+
+def preset_tokenizer(vocab_size: int) -> BpeTokenizer:
+    """Byte-level tokenizer with the six special tokens inside the vocab
+    (small presets put them at the top of their vocab, big presets keep the
+    real Qwen id block)."""
+    byte_vocab = {c: i for i, c in enumerate(bytes_to_unicode().values())}
+    base = 151640 if vocab_size > 151646 else vocab_size - 6
+    specials = {t: base + i for i, t in enumerate(
+        ["<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|AUDIO|>",
+         "<|audio_bos|>", "<|audio_eos|>"])}
+    return BpeTokenizer(byte_vocab, [], specials)
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+def load_engine(model_id: str, device="cuda",
+                dtype: Optional[torch.dtype] = None) -> TranscriptionEngine:
+    """A ready engine for ``model_id`` on ``device`` (bf16 on the card and
+    f32 on the CPU unless ``dtype`` says otherwise)."""
+    dev = resolve_device(device)
+    dtype = dtype or working_dtype(dev)
+    if os.path.isdir(model_id):
+        cfg, params = load_asr_checkpoint(model_id, dev, dtype)
+        tokenizer = BpeTokenizer.from_file(os.path.join(model_id,
+                                                        "tokenizer.json"))
+        model = AsrModel(cfg, params, tokenizer,
+                         PromptTemplate.from_checkpoint(model_id))
+    elif model_id.startswith("preset:"):
+        cfg = preset(model_id.split(":", 1)[1])
+        gen = torch.Generator(device=dev).manual_seed(0)
+        # zero weights, as the JAX server's presets (shapes from init_*)
+        params = _zeros_like_tree({
+            "encoder": init_encoder_params(cfg.encoder, gen, dev, dtype),
+            "decoder": init_decoder_params(cfg.decoder, gen, dev, dtype)})
+        model = AsrModel(cfg, params,
+                         preset_tokenizer(cfg.decoder.vocab_size))
+    else:
+        raise FileNotFoundError(
+            f"MODEL_ID '{model_id}' is neither a local checkpoint directory "
+            "nor preset:NAME")
+    return TranscriptionEngine(model, device=dev, dtype=dtype)

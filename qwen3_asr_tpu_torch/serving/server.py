@@ -1,0 +1,189 @@
+"""HTTP server for the port, on the standard library.
+
+Counterpart of the batch-transcription part of
+``qwen3_asr_tpu/serving/server.py``: ``GET /health`` and
+``POST /v1/audio/transcriptions`` (multipart upload with ``file`` and an
+optional ``language``), answering ``{"text", "language"}`` or the same
+error bodies (422 AUDIO_DECODE_FAILED). Requests are served one at a time
+under a lock; the micro-batcher and the other routes are not ported yet.
+``return_timestamps=true`` answers 501 until the aligner is ported.
+
+Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
+qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
+``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights).
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from email import policy
+from email.parser import BytesParser
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional, Tuple
+
+from ..audio.codec import AudioDecodeError, decode_audio
+from ..runtime.engine import TranscriptionEngine
+from ..text.repetition import detect_and_fix_repetitions
+from ..utils.errors import error_body
+
+log = logging.getLogger(__name__)
+
+MAX_UPLOAD_BYTES = 512 * 1024 ** 2
+
+
+def merge_results(results) -> Tuple[str, str]:
+    """Join per-segment results into the one response the API promises."""
+    text = " ".join(r.text for r in results if r.text)
+    language = next((r.language for r in results if r.language), "")
+    return text, language
+
+
+def parse_bool(raw: Optional[str], default: bool = False) -> bool:
+    if raw is None:
+        return default
+    return str(raw).lower() in ("true", "1", "yes", "on")
+
+
+def parse_multipart(content_type: str, body: bytes
+                    ) -> Tuple[dict, Optional[bytes], str]:
+    """A multipart/form-data body → (fields, file_bytes, filename)."""
+    fields: dict = {}
+    file_bytes: Optional[bytes] = None
+    filename = ""
+    if not content_type.startswith("multipart/"):
+        return fields, file_bytes, filename
+    msg = BytesParser(policy=policy.HTTP).parsebytes(
+        b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n"
+        + body)
+    if not msg.is_multipart():
+        return fields, file_bytes, filename
+    for part in msg.iter_parts():
+        name = part.get_param("name", header="content-disposition")
+        payload = part.get_payload(decode=True) or b""
+        if name == "file":
+            file_bytes = payload
+            filename = part.get_filename() or ""
+        elif name:
+            fields[name] = payload.decode("utf-8", errors="replace")
+    return fields, file_bytes, filename
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server: "AsrServer"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # route access logs to logging
+        log.debug("%s " + fmt, self.address_string(), *args)
+
+    def _json(self, status: int, body: dict) -> None:
+        data = json.dumps(body, ensure_ascii=False).encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _error(self, code: str, message: str, status: int, **context) -> None:
+        self._json(status, error_body(code, message, status, **context))
+
+    def do_GET(self):
+        if self.path.split("?", 1)[0] != "/health":
+            self._error("NOT_FOUND", f"no route {self.path}", 404)
+            return
+        engine = self.server.engine
+        self._json(200, {"status": "ok",
+                         "model_loaded": True,
+                         "device": str(engine.device),
+                         "dtype": str(engine.dtype).replace("torch.", "")})
+
+    def do_POST(self):
+        if self.path.split("?", 1)[0] != "/v1/audio/transcriptions":
+            self._error("NOT_FOUND", f"no route {self.path}", 404)
+            return
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_UPLOAD_BYTES:
+            self._error("PAYLOAD_TOO_LARGE", "upload exceeds 512 MiB", 413)
+            return
+        body = self.rfile.read(length)
+        fields, file_bytes, _ = parse_multipart(
+            self.headers.get("Content-Type", ""), body)
+        if parse_bool(fields.get("return_timestamps")):
+            self._error("NOT_IMPLEMENTED",
+                        "return_timestamps is not supported yet", 501)
+            return
+        if not file_bytes:
+            self._error("AUDIO_DECODE_FAILED",
+                        "Could not decode audio: empty file", 422, fileSize=0)
+            return
+        try:
+            audio, sr = decode_audio(file_bytes)
+        except AudioDecodeError as e:
+            self._error("AUDIO_DECODE_FAILED", f"Could not decode audio: {e}",
+                        422, fileSize=len(file_bytes))
+            return
+        language = fields.get("language", "auto")
+        lang_code = None if language == "auto" else language
+        t0 = time.time()
+        try:
+            with self.server.lock:
+                results = self.server.engine.transcribe(audio, sr, lang_code)
+        except Exception as e:  # the server must keep answering
+            log.exception("transcription failed")
+            self._error("TRANSCRIPTION_FAILED", f"{type(e).__name__}: {e}",
+                        500)
+            return
+        if results:
+            text, language_code = merge_results(results)
+            text = detect_and_fix_repetitions(text)
+        else:
+            text, language_code = "", (lang_code or language)
+        log.info("POST /v1/audio/transcriptions | %.2fs text_len=%d lang=%s",
+                 time.time() - t0, len(text), language_code)
+        self._json(200, {"text": text, "language": language_code})
+
+
+class AsrServer(ThreadingHTTPServer):
+    daemon_threads = True
+
+    def __init__(self, engine: TranscriptionEngine, host: str, port: int):
+        super().__init__((host, port), _Handler)
+        self.engine = engine
+        self.lock = threading.Lock()   # one transcription at a time
+
+
+def build_server(engine: TranscriptionEngine, host: str = "127.0.0.1",
+                 port: int = 0) -> AsrServer:
+    """A server for a ready engine (port 0 picks a free port; read it from
+    ``server.server_address``). Call ``serve_forever()`` to run it and
+    ``shutdown()`` then ``server_close()`` to stop it."""
+    return AsrServer(engine, host, port)
+
+
+def main():
+    import argparse
+    from ..runtime.lifecycle import load_engine
+    parser = argparse.ArgumentParser(description="Qwen3-ASR server (PyTorch)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int,
+                        default=int(os.getenv("PORT", "8000")))
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+    logging.basicConfig(level=logging.INFO)
+    model_id = os.environ.get("MODEL_ID")
+    if not model_id:
+        parser.error("set MODEL_ID to a checkpoint directory or preset:NAME")
+    engine = load_engine(model_id, device=args.device)
+    server = build_server(engine, args.host, args.port)
+    log.info("serving %s on %s:%d (%s)", model_id, args.host,
+             server.server_address[1], engine.device)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

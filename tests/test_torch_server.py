@@ -1,0 +1,141 @@
+"""The port's HTTP server on the CPU with the trained checkpoint, on an
+ephemeral port, driven with urllib: the same JSON as the JAX engine after
+the repetition fix, and the JAX server's error bodies."""
+import json
+import os
+import threading
+import urllib.error
+import urllib.request
+import uuid
+
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from qwen3_asr_tpu.audio.codec import AudioDecodeError as JaxDecodeError
+from qwen3_asr_tpu.audio.codec import decode_audio as jax_decode_audio
+from qwen3_asr_tpu.models.asr import AsrModel as JaxModel
+from qwen3_asr_tpu.models.asr import PromptTemplate as JaxTemplate
+from qwen3_asr_tpu.runtime.checkpoint import load_asr_checkpoint as jax_load
+from qwen3_asr_tpu.runtime.engine import TranscriptionEngine as JaxEngine
+from qwen3_asr_tpu.serving.server import merge_results as jax_merge
+from qwen3_asr_tpu.text.repetition import detect_and_fix_repetitions
+from qwen3_asr_tpu.text.tokenizer import BpeTokenizer as JaxTokenizer
+from qwen3_asr_tpu.utils.errors import error_body as jax_error_body
+from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+from qwen3_asr_tpu_torch.serving.server import build_server
+
+ROOT = os.path.join(os.path.dirname(__file__), "..", "e2e", "data")
+CKPT = os.path.join(ROOT, "trained_ckpt")
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def url():
+    server = build_server(load_engine(CKPT, device="cpu"), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    cfg, params = jax_load(CKPT, dtype=jnp.float32, cache=False)
+    model = JaxModel(cfg, params,
+                     JaxTokenizer.from_file(os.path.join(CKPT,
+                                                         "tokenizer.json")),
+                     JaxTemplate.from_checkpoint(CKPT))
+    return JaxEngine(model, dtype=jnp.float32)
+
+
+def _post(url, data: bytes, fields=()):
+    bnd = uuid.uuid4().hex
+    body = b""
+    for k, v in fields:
+        body += (f"--{bnd}\r\nContent-Disposition: form-data; name=\"{k}\""
+                 f"\r\n\r\n{v}\r\n").encode()
+    body += (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\"; "
+             f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n"
+             ).encode() + data + f"\r\n--{bnd}--\r\n".encode()
+    req = urllib.request.Request(
+        url + "/v1/audio/transcriptions", data=body, method="POST",
+        headers={"Content-Type": f"multipart/form-data; boundary={bnd}"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_health(url):
+    with urllib.request.urlopen(url + "/health", timeout=10) as r:
+        assert r.status == 200
+        body = json.loads(r.read())
+    assert body["status"] == "ok" and body["device"] == "cpu"
+
+
+@pytest.mark.parametrize("clip,language", [("english_01", "auto"),
+                                           ("japanese_02", "auto"),
+                                           ("hindi_01", "hi")])
+def test_transcription_json_matches_jax(url, jax_engine, clip, language):
+    with open(os.path.join(ROOT, "real", clip + ".wav"), "rb") as f:
+        data = f.read()
+    status, body = _post(url, data, [("language", language)])
+    audio, sr = jax_decode_audio(data)
+    results = jax_engine.transcribe(audio, sr,
+                                    None if language == "auto" else language)
+    text, lang, _ = jax_merge(results)
+    assert status == 200
+    assert body == {"text": detect_and_fix_repetitions(text),
+                    "language": lang}
+
+
+def _jax_decode_error(data: bytes) -> dict:
+    """The JAX server's 422 body for these bytes, minus its request id."""
+    if not data:
+        return jax_error_body("AUDIO_DECODE_FAILED",
+                              "Could not decode audio: empty file", 422,
+                              fileSize=0)
+    with pytest.raises(JaxDecodeError) as e:
+        jax_decode_audio(data)
+    return jax_error_body("AUDIO_DECODE_FAILED",
+                          f"Could not decode audio: {e.value}", 422,
+                          fileSize=len(data))
+
+
+@pytest.mark.parametrize("data", [b"", b"not audio"], ids=["empty", "short"])
+def test_decode_errors_match_jax_body(url, data):
+    status, body = _post(url, data)
+    assert status == 422
+    assert body == _jax_decode_error(data)
+
+
+def test_non_wav_gets_422(url):
+    data = b"fLaC" + bytes(100)
+    status, body = _post(url, data)
+    assert status == 422
+    assert body["code"] == "AUDIO_DECODE_FAILED"
+    assert body["statusCode"] == 422
+    assert body["context"] == {"fileSize": len(data)}
+    assert body["message"].startswith("Could not decode audio: FLAC")
+
+
+def test_timestamps_answer_501(url):
+    with open(os.path.join(ROOT, "real", "english_02.wav"), "rb") as f:
+        status, body = _post(url, f.read(), [("return_timestamps", "true")])
+    assert status == 501 and body["statusCode"] == 501
