@@ -3,30 +3,43 @@
 Run from the repository root: ``python3 chip_smoke.py``. It exits non-zero
 without a CUDA device, and whenever any phase fails. Phases:
 
-1. the card's name and power limit; build both CUDA kernels from
+1. the card's name and power limit; build the four CUDA kernels from
    ``qwen3_asr_tpu_torch/csrc`` (one nvcc each, in parallel) and print
    ptxas' registers, shared memory and spills;
 2. each kernel against its plain PyTorch version at the main path's shapes
-   for preset:1.7b (encoder 30 s, prefill 30 s, decode step; B=1 and B=4)
-   in f32 (TF32 off) and bf16;
+   for preset:1.7b: flash attention (encoder 30 s, prefill 30 s) and the
+   single-token decode step at B=1 and B=4 in f32 (TF32 off) and bf16; the
+   batched decode step at S=768 for B=1 and B=8 with bf16 and fp8 caches,
+   and at the JAX serving shape B=96, S=512 with fp8; the slab-read probe
+   at its three shapes;
 3. device times (CUDA graph replays between CUDA events) of kernel, plain
-   version and one SDPA call (yardstick only), beside the bound (bytes /
-   3.35 TB/s against FLOPs / 989 TFLOP/s, counting only the work the mask
-   leaves); the decode step steps through all layers of the stacked cache,
-   as the decode loop does, so each call finds its layer cold in HBM;
+   version and one SDPA call (yardstick only; on a bf16 copy of an fp8
+   cache), beside the bound (bytes / 3.35 TB/s against FLOPs /
+   989 TFLOP/s, counting only the work the mask leaves); decode steps step
+   through all layers of the stacked cache, as the decode loop does, so
+   each call finds its layer cold in HBM;
 4. real text: e2e/data/trained_ckpt on the card in f32 must give token ids
-   identical to the same port on the CPU and the reference transcripts;
-5. the main path: a preset:1.7b engine in bf16 with seeded random weights,
-   served by the port's HTTP server on 127.0.0.1, answers three uploads
-   (10 s, 15 s and 30 s buckets) with both kernels' launch counts growing;
-6. where the time goes: the 30 s upload once more through the warm engine
-   under ``torch.profiler``: wall, device busy share and the top kernels.
+   identical to the same port on the CPU and the reference transcripts,
+   one clip at a time, and then with the 12 clips sent at once through
+   the port's server and its micro-batcher (fewer dispatches than clips);
+5. the main path at B=1: a preset:1.7b engine in bf16 with seeded random
+   weights, served by the port's HTTP server on 127.0.0.1, answers three
+   uploads (10 s, 15 s and 30 s buckets) one after another;
+6. the main path at batch: 8 concurrent uploads of the 10 s bucket on the
+   same engine with a bf16 KV cache and with fp8, in turns (bf16, fp8,
+   fp8, bf16), each answered from ONE dispatch at B=8 through the batched
+   decode kernel;
+7. where the time goes: the 30 s upload once more through the warm engine
+   under ``torch.profiler``: wall, device busy share and the top kernels;
+8. the KV read-rate probe (``tools_perf/attn_phase.py``) at its shapes.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. The line before the card line is the
+kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import glob
 import json
 import os
@@ -76,45 +89,19 @@ def eager_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, reps: int = 10) -> float:
-    """Device time of one call: ``reps`` calls captured in one CUDA graph,
-    replayed ``iters`` times between CUDA events, so host overhead does not
-    hide the kernel's own time."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
-
-
 # -- phase 1 ---------------------------------------------------------------------
 
 def build_kernels() -> None:
     from qwen3_asr_tpu_torch.ops import _build
     t0 = time.time()
-    reports = _build.build(["flash_attention", "decode_attention"])
-    log(f"[build] both kernels ready in {time.time() - t0:.1f} s")
+    reports = _build.build(list(KERNELS))
+    log(f"[build] {len(reports)} kernels ready in {time.time() - t0:.1f} s")
     for name, text in reports.items():
         entry = None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                entry = "bf16" if "bfloat16" in m.group(1) else "f32"
+                entry = re.sub(r"_ZN\w*?_cu_\w{8}\d+", "", m.group(1))[:48]
             elif "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}<{entry}>: {line.strip()}")
 
@@ -241,19 +228,125 @@ def make_cases(sh, batch: int, dtype, dev):
     return [encoder(), prefill(), decode()]
 
 
+def batched_cases(sh, dev):
+    """The batched decode step (kernel #3) at the decode shapes: the 30 s
+    bucket's cache (S=768) mid-budget for B=1 and B=8 with bf16 and fp8
+    caches, and the JAX serving shape (B=96, S=512, fp8) at S/2. At B=8
+    with bf16, the single-token kernel (#2) runs on the same tensors. The
+    SDPA yardstick reads a bf16 copy of an fp8 cache. Same tuple as
+    ``make_cases``, and a note for the SDPA column."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        decode_attention_batched, decode_attention_batched_plain)
+    nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
+    bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
+    s30, vf30, vt30 = sh["cache"], sh["valid_from"], sh["decode_pos"] + 1
+    for batch, s, kv_dtype, vf0, vt0 in (
+            (1, s30, bf16, vf30, vt30), (8, s30, bf16, vf30, vt30),
+            (1, s30, fp8, vf30, vt30), (8, s30, fp8, vf30, vt30),
+            (96, 512, fp8, 0, 257)):
+        gen = torch.Generator(device=dev).manual_seed(batch + s)
+        q = torch.randn((batch, nq, 1, d), generator=gen,
+                        device=dev).to(bf16)
+        k, v = (torch.randn((layers, batch, nkv, s, d), generator=gen,
+                            device=dev).to(kv_dtype) for _ in range(2))
+        vf = torch.full((batch,), vf0, dtype=torch.int32, device=dev)
+        vt = torch.full((batch,), vt0, dtype=torch.int32, device=dev)
+        kb, vb = (k, v) if kv_dtype == bf16 else (k.to(bf16), v.to(bf16))
+        mask = AttnSpec(valid_from=vf, valid_to=vt).dense_mask(batch, 1, s,
+                                                               dev)
+        live = vt0 - vf0
+        nbytes = (2 * batch * nq * d * 2
+                  + 2 * batch * nkv * live * d * k.element_size() + 8 * batch)
+        flops = 4 * d * nq * batch * live
+        kv_name = "bf16" if kv_dtype == bf16 else "fp8"
+
+        def sdpa(layer, kb=kb, vb=vb, q=q, mask=mask):
+            return F.scaled_dot_product_attention(
+                q, kb[layer], vb[layer], attn_mask=mask[:, None],
+                enable_gqa=True)
+
+        yield (f"batched_b{batch}_s{s}_{kv_name}", "decode_attention_batch",
+               lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
+                   decode_attention_batched(q, k, v, layer_idx=layer,
+                                            kv_valid_from=vf,
+                                            kv_valid_to=vt),),
+               lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
+                   decode_attention_batched_plain(q, k, v, vf, vt,
+                                                  layer_idx=layer,
+                                                  sm_scale=d ** -0.5),),
+               sdpa, nbytes, flops, layers,
+               "" if kv_dtype == bf16 else " on a bf16 copy of the cache")
+        if batch == 8 and kv_dtype == bf16:
+            yield (f"decode_step_b8_s{s}", "decode_attention",
+                   lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
+                       decode_attention(q, k, v, layer_idx=layer,
+                                        kv_valid_from=vf, kv_valid_to=vt),),
+                   lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
+                       decode_attention_plain(q, k, v, vf, vt,
+                                              layer_idx=layer,
+                                              sm_scale=d ** -0.5),),
+                   sdpa, nbytes, flops, layers, "")
+        del k, v, kb, vb
+
+
+def slab_cases(dev):
+    """The slab-read probe (kernel #4) at the probe's shapes, on the last
+    layer of its seeded cache. (label, kernel call, plain call, bytes)."""
+    from qwen3_asr_tpu_torch.ops.slab_reader import (slab_read,
+                                                     slab_read_plain)
+    from qwen3_asr_tpu_torch.tools_perf.attn_phase import (
+        LAYERS, SHAPES, stacked_cache)
+    for name, batch, seq, dtype in SHAPES:
+        k, v = stacked_cache(batch, seq, dtype, dev)
+        yield (name,
+               lambda layer, k=k, v=v: slab_read(k, v, layer_idx=layer,
+                                                 seed=1),
+               lambda layer, k=k, v=v: slab_read_plain(
+                   k, v, layer_idx=layer, seed=1, block_s=128),
+               2 * batch * 8 * seq * 128 * k.element_size(), LAYERS)
+        del k, v
+
+
 def per_call_ms(fn, layers: int) -> float:
     """Device ms of one call; with ``layers``, the calls step through every
     layer of the stacked cache (larger than L2), as the decode loop does."""
+    from qwen3_asr_tpu_torch.tools_perf.attn_phase import device_ms
     if not layers:
         return device_ms(fn)
     return device_ms(lambda: [fn(i) for i in range(layers)]) / layers
+
+
+def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
+             card, sdpa_note=""):
+    """Phase 3 for one case in bf16: the row of the kernel table."""
+    ms = per_call_ms(run, layers)
+    plain_ms = per_call_ms(plain, layers)
+    lib_ms = per_call_ms(sdpa, layers)
+    call_ms = eager_ms(run if not layers else (lambda: run(layers - 1)), 50)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {"shape": label, "dtype": dt, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "eager_ms": call_ms, "bytes": nbytes, "flops": flops}
+    log(f"[timing] {label} bf16 (device): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa{sdpa_note} {lib_ms:.4f} ms; one "
+        f"eager call {call_ms:.4f} ms; bound "
+        f"{bound:.5f} ms ({row['bound_by']}), share "
+        f"{bound / ms:.3%} | {card}")
+    return row
 
 
 def kernel_phases(sh, dev):
     """Parity (phase 2) in f32 and bf16, timing (phase 3) in bf16, the
     working dtype on the card. Returns {kernel: [per-shape rows]}."""
     card = card_line()
-    rows = {"flash_attention": [], "decode_attention": []}
+    rows = {name: [] for name in KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         for batch in (1, 4):
             for label, kernel, run, plain, sdpa, nbytes, flops, layers in \
@@ -276,46 +369,97 @@ def kernel_phases(sh, dev):
                 if not err <= tol:
                     raise AssertionError(f"{kernel} {label} {dt}: error "
                                          f"{err} above {tol}")
-                if dtype != torch.bfloat16:
-                    continue
-                ms = per_call_ms(run, layers)
-                plain_ms = per_call_ms(plain, layers)
-                lib_ms = per_call_ms(sdpa, layers)
-                call_ms = eager_ms(run, 50)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / BF16_FLOPS * 1e3
-                bound = max(t_bytes, t_ops)
-                row = {"shape": label, "dtype": dt, "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                       "bound_ms": bound,
-                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                       "eager_ms": call_ms, "bytes": nbytes, "flops": flops}
-                rows[kernel].append(row)
-                log(f"[timing] {label} bf16 (device): kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; one "
-                    f"eager call {call_ms:.4f} ms; bound "
-                    f"{bound:.5f} ms ({row['bound_by']}), share "
-                    f"{bound / ms:.3%} | {card}")
+                if dtype == torch.bfloat16:
+                    rows[kernel].append(time_row(
+                        label, dt, err, run, plain, sdpa, nbytes, flops,
+                        layers, card))
+    # the batched decode step: bf16 q (and output) over bf16 or fp8 caches;
+    # the plain version takes the same per-block max and rounding points
+    tol = TOL[torch.bfloat16]
+    for label, kernel, run, plain, sdpa, nbytes, flops, layers, note in \
+            batched_cases(sh, dev):
+        errs = []
+        for layer in (0, layers - 1):
+            out, ref = run(layer)[0], plain(layer)[0]
+            torch.cuda.synchronize()
+            errs.append(float((out.float() - ref.float()).abs().max()))
+        err = max(errs)
+        log(f"[parity] {label} bf16 (layers 0 and {layers - 1}): "
+            f"max_abs_err={err:.3e} (bound {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {label}: error {err} above {tol}")
+        rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
+                                     sdpa, nbytes, flops, layers, card,
+                                     note))
+    # the slab-read probe: f32 sums of the same terms in another order
+    for label, run, plain, nbytes, layers in slab_cases(dev):
+        out, ref = run(layers - 1), plain(layers - 1)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+        plain_ms = per_call_ms(plain, layers)
+        log(f"[parity] {label}: max_abs_err={err:.3e} (bound 1e-5 + "
+            f"1e-5 relative); plain {plain_ms:.4f} ms (device) | {card}")
+        rows["slab_reader"].append({
+            "shape": label, "max_abs_err": err, "plain_ms": plain_ms,
+            "library_ms": None, "bytes": nbytes})
     return rows
 
 
 # -- phase 4 ---------------------------------------------------------------------
 
+@contextlib.contextmanager
+def serving(manager):
+    """The port's HTTP server for ``manager`` on 127.0.0.1 (an ephemeral
+    port); yields the transcription URL, and stops both afterwards."""
+    from qwen3_asr_tpu_torch.serving.server import build_server
+    manager.start()
+    server = build_server(manager, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield (f"http://127.0.0.1:{server.server_address[1]}"
+               "/v1/audio/transcriptions")
+    finally:
+        server.shutdown()
+        server.server_close()
+        manager.stop()
+        thread.join(timeout=30)
+
+
+def post_all(url: str, bodies):
+    """POST every body at once, one thread each: ([response], [wall s])."""
+    def one(data):
+        t0 = time.perf_counter()
+        body = post(url, data)
+        return body, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+        out = list(pool.map(one, bodies))
+    return [b for b, _ in out], [w for _, w in out]
+
+
 def real_text_phase(dev):
     from qwen3_asr_tpu_torch.audio.codec import decode_audio
     from qwen3_asr_tpu_torch.ops.decode_attention import decode_attention
     from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
-    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager, load_engine
+    from qwen3_asr_tpu_torch.serving.server import merge_results
+    from qwen3_asr_tpu_torch.text.repetition import detect_and_fix_repetitions
     ckpt = os.path.join(DATA, "trained_ckpt")
     gpu = load_engine(ckpt, device=dev, dtype=torch.float32)
     cpu = load_engine(ckpt, device="cpu")
     flash_attention.launches = decode_attention.launches = 0
     clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))
+    wavs, refs = [], []
     for path in clips:
         with open(path, "rb") as f:
-            audio, sr = decode_audio(f.read())
+            wavs.append(f.read())
+        audio, sr = decode_audio(wavs[-1])
         ours = gpu.transcribe(audio, sr)[0]
-        ref = cpu.transcribe(audio, sr)[0]
+        refs.append(cpu.transcribe(audio, sr))
+        ref = refs[-1][0]
         with open(path[:-4] + ".txt", encoding="utf-8") as f:
             want = f.read().strip()
         if ours.token_ids != ref.token_ids or ours.text != want:
@@ -327,6 +471,31 @@ def real_text_phase(dev):
         f"flash={flash_attention.launches} decode={decode_attention.launches}")
     if not (flash_attention.launches and decode_attention.launches):
         raise AssertionError("a kernel was not launched on the real-text run")
+
+    # All 12 at once: through the server (texts), then straight through
+    # the batcher the server calls (token ids), each against the CPU solo.
+    manager = ModelManager(gpu)
+    manager.batcher = MicroBatcher(manager, window_ms=500, max_batch=8)
+    with serving(manager) as url:
+        bodies, _ = post_all(url, wavs)
+        by_http = manager.batcher.dispatches
+        futures = [manager.batcher.transcribe(*decode_audio(w), None)
+                   for w in wavs]
+        batched = [f.result(timeout=600)[0] for f in futures]
+        direct = manager.batcher.dispatches - by_http
+    for path, body, res, ref in zip(clips, bodies, batched, refs):
+        text, lang = merge_results(ref)
+        want = {"text": detect_and_fix_repetitions(text), "language": lang}
+        if body != want or res.token_ids != ref[0].token_ids:
+            raise AssertionError(f"{os.path.basename(path)} at batch: "
+                                 f"{body} / {res.token_ids} vs cpu solo "
+                                 f"{want} / {ref[0].token_ids}")
+    log(f"[real] {len(clips)} clips at once through the server, then "
+        f"straight through the batcher: texts and token ids equal to the "
+        f"CPU's solo ones, in {by_http} and {direct} dispatches")
+    if max(by_http, direct) >= len(clips):
+        raise AssertionError(f"{by_http}/{direct} dispatches for "
+                             f"{len(clips)} clips: nothing batched")
 
 
 # -- phase 5 ---------------------------------------------------------------------
@@ -347,18 +516,24 @@ def full_width_engine(dev):
     return TranscriptionEngine(model, device=dev, dtype=torch.bfloat16)
 
 
+def real_audio():
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    parts = []
+    for path in sorted(glob.glob(os.path.join(DATA, "real", "*.wav"))):
+        with open(path, "rb") as f:
+            parts.append(decode_audio(f.read())[0])
+    return np.concatenate(parts)
+
+
 def upload_bodies():
-    from qwen3_asr_tpu_torch.audio.codec import decode_audio, encode_wav
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
     real = os.path.join(DATA, "real")
 
     def read(name):
         with open(os.path.join(real, name), "rb") as f:
             return f.read()
 
-    parts = []
-    for path in sorted(glob.glob(os.path.join(real, "*.wav"))):
-        parts.append(decode_audio(read(os.path.basename(path)))[0])
-    long = np.concatenate(parts)[:int(29.5 * 16000)]
+    long = real_audio()[:int(29.5 * 16000)]
     return [("chinese_02.wav", read("chinese_02.wav")),
             ("japanese_02.wav", read("japanese_02.wav")),
             ("concat_29.5s.wav", encode_wav(long, 16000))]
@@ -378,10 +553,27 @@ def post(url: str, data: bytes) -> dict:
         return json.loads(r.read())
 
 
-def main_path_phase(engine, uploads, dev):
+def reset_launches():
+    """Set every kernel's launch count to 0; returns a reader of them."""
     from qwen3_asr_tpu_torch.ops.decode_attention import decode_attention
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        decode_attention_batched)
     from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
-    from qwen3_asr_tpu_torch.serving.server import build_server
+    from qwen3_asr_tpu_torch.ops.slab_reader import slab_read
+    wrappers = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention,
+                "decode_attention_batch": decode_attention_batched,
+                "slab_reader": slab_read}
+    for w in wrappers.values():
+        w.launches = 0
+    return lambda: {name: w.launches for name, w in wrappers.items()}
+
+
+def main_path_phase(engine, uploads, dev):
+    """Three uploads one after another: each runs at B=1 (bf16 cache, the
+    single-token decode kernel). Returns (launches, B=1 figure of the
+    10 s upload)."""
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
     card = card_line()
     # the full-width encoder and prompt: finite and of the expected shape
     audio = torch.zeros((1, 3000 * 160), device=dev)
@@ -393,12 +585,9 @@ def main_path_phase(engine, uploads, dev):
             not bool(torch.isfinite(embeds).all()):
         raise AssertionError(f"bad prompt embeddings {tuple(embeds.shape)}")
 
-    server = build_server(engine, "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/v1/audio/transcriptions"
-    try:
-        flash_attention.launches = decode_attention.launches = 0
+    first = None
+    with serving(ModelManager(engine)) as url:
+        read_launches = reset_launches()
         for name, data in uploads:
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
@@ -409,24 +598,78 @@ def main_path_phase(engine, uploads, dev):
             if not isinstance(body.get("text"), str) or "language" not in body:
                 raise AssertionError(f"{name}: bad response {body}")
             run = engine.last_run
+            first = first or (wall, run["generated"])
             log(f"[serve] preset:1.7b bf16 {name}: {wall:.3f} s wall, "
                 f"{run['generated']} tokens generated, prompt "
                 f"{run['prompt_len']}, cache {run['cache_len']}, bucket "
                 f"{run['bucket_frames']} frames, peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
-        launches = {"flash_attention": flash_attention.launches,
-                    "decode_attention": decode_attention.launches}
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        launches = read_launches()
     log(f"[serve] launches on the main path: {launches}")
-    if not all(launches.values()):
+    if not (launches["flash_attention"] and launches["decode_attention"]):
         raise AssertionError(f"a kernel was not launched: {launches}")
-    return launches
+    return launches, first
 
 
 # -- phase 6 ---------------------------------------------------------------------
+
+def batch_phase(engine, dev, solo):
+    """8 concurrent uploads of the 10 s bucket with a bf16 KV cache and
+    with fp8, in turns (bf16, fp8, fp8, bf16) so that the two compare
+    within one call: each run must come back from ONE dispatch at B=8,
+    every decode step through the batched kernel. Returns its launches."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    card = card_line()
+    audio = real_audio()
+    seg = int(9.5 * 16000)
+    bodies = [encode_wav(audio[i * seg:(i + 1) * seg], 16000)
+              for i in range(8)]
+    total = {}
+    bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
+    for kv in (bf16, fp8, fp8, bf16):
+        eng = TranscriptionEngine(engine.model, device=dev,
+                                  dtype=torch.bfloat16, cache_dtype=kv)
+        manager = ModelManager(eng)
+        manager.batcher = MicroBatcher(manager, window_ms=1000, max_batch=8)
+        with serving(manager) as url:
+            torch.cuda.reset_peak_memory_stats()
+            read_launches = reset_launches()
+            t0 = time.perf_counter()
+            replies, walls = post_all(url, bodies)
+            torch.cuda.synchronize()
+            batch_wall = time.perf_counter() - t0
+            launches = read_launches()
+        run = eng.last_run
+        name = "bf16" if kv == bf16 else "fp8"
+        for body in replies:
+            if not isinstance(body.get("text"), str) or "language" not in body:
+                raise AssertionError(f"{name}: bad response {body}")
+        want = 28 * (run["steps"] - 1)
+        log(f"[batch] preset:1.7b bf16, KV cache {name}: 8 uploads at once "
+            f"-> {manager.batcher.dispatches} dispatch, batch {run['batch']},"
+            f" {run['generated']} tokens in {batch_wall:.3f} s = "
+            f"{run['generated'] / batch_wall:.1f} tokens/s (B=1 phase 5: "
+            f"{solo[1]} tokens in {solo[0]:.3f} s = "
+            f"{solo[1] / solo[0]:.1f} tokens/s); request walls "
+            f"{', '.join(f'{w:.3f}' for w in walls)} s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{launches} | {card}")
+        if (manager.batcher.dispatches != 1 or run["batch"] != 8
+                or launches["decode_attention_batch"] != want
+                or launches["decode_attention"] or
+                not launches["flash_attention"]):
+            raise AssertionError(f"{name}: {manager.batcher.dispatches} "
+                                 f"dispatches, batch {run['batch']}, "
+                                 f"launches {launches}, want batched {want}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+# -- phase 7 ---------------------------------------------------------------------
 
 def profile_phase(engine, wav: bytes, top: int = 12) -> None:
     """One more transcription of ``wav`` through the warm engine under
@@ -458,6 +701,26 @@ def profile_phase(engine, wav: bytes, top: int = 12) -> None:
             f"{e.count:7d} calls  {e.key[:90]}")
 
 
+# -- phase 8 ---------------------------------------------------------------------
+
+def probe_phase():
+    """The KV read-rate probe at its shapes. Returns its rows and the
+    launches."""
+    from qwen3_asr_tpu_torch.tools_perf.attn_phase import probe
+    card = card_line()
+    read_launches = reset_launches()
+    rows = probe()
+    launches = read_launches()
+    for r in rows:
+        log(f"[probe] {r['shape']}: {r['ms']:.4f} ms per layer "
+            f"({r['bytes'] / 1e6:.1f} MB), {r['gb_s']:.0f} GB/s = "
+            f"{r['share']:.1%} of 3.35 TB/s | {card}")
+    if not launches["slab_reader"]:
+        raise AssertionError(f"the probe launched no slab read: {launches}")
+    return rows, launches
+
+
+# name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
                         "qwen3_asr_tpu/ops/flash_attention.py:39",
@@ -465,6 +728,13 @@ KERNELS = {
     "decode_attention": ("qwen3_asr_tpu_torch/csrc/decode_attention.cu",
                          "qwen3_asr_tpu/ops/decode_attention.py:39",
                          "decode_step_b1"),
+    "decode_attention_batch": (
+        "qwen3_asr_tpu_torch/csrc/decode_attention_batch.cu",
+        "qwen3_asr_tpu/ops/decode_attention_batch.py:62",
+        "batched_b8_s768_bf16"),
+    "slab_reader": ("qwen3_asr_tpu_torch/csrc/slab_reader.cu",
+                    "tools_perf/attn_phase.py:108",
+                    "engine_b8_s768_bf16"),
 }
 
 
@@ -478,15 +748,37 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card} | torch.cuda: {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.time()
+    t_start = t0 = time.time()
+
+    def phase_done(name):
+        nonlocal t0
+        now = time.time()
+        log(f"[time] {name}: {now - t0:.1f} s")
+        t0 = now
+
     build_kernels()
+    phase_done("phase 1 (build)")
     sh = main_path_shapes()
     log(f"[shapes] {sh}")
     rows = kernel_phases(sh, dev)
+    phase_done("phases 2-3 (kernel parity and timing)")
     real_text_phase(dev)
+    phase_done("phase 4 (real text)")
     engine, uploads = full_width_engine(dev), upload_bodies()
-    launches = main_path_phase(engine, uploads, dev)
+    launches, solo = main_path_phase(engine, uploads, dev)
+    phase_done("phase 5 (main path at B=1)")
+    batched = batch_phase(engine, dev, solo)
+    launches["decode_attention_batch"] = batched["decode_attention_batch"]
+    phase_done("phase 6 (main path at B=8)")
     profile_phase(engine, uploads[-1][1])
+    phase_done("phase 7 (profile)")
+    probe_rows, probe_launches = probe_phase()
+    launches["slab_reader"] = probe_launches["slab_reader"]
+    for r in probe_rows:
+        head = next(x for x in rows["slab_reader"] if x["shape"] == r["shape"])
+        head.update(ms=r["ms"], bound_ms=r["bound_ms"], bound_by="bytes",
+                    gb_s=r["gb_s"])
+    phase_done("phase 8 (probe)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():
@@ -499,7 +791,7 @@ def main() -> int:
                       "bound_by": head["bound_by"],
                       "library_ms": head["library_ms"],
                       "shape": headline, "shapes": rows[name]})
-    log(f"[done] all phases passed in {time.time() - t0:.1f} s")
+    log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

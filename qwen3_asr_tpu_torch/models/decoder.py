@@ -1,12 +1,14 @@
 """Qwen3 text decoder in PyTorch: GQA + QK-norm + RoPE + SwiGLU.
 
-Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for bf16/f32 weights and
-caches (no quantized weights or KV in this slice). Parameters are the JAX
-package's stacked layout (``[L, ...]`` per-layer tensors, matrices as
-``[in, out]``); the layer loop is a Python loop. The KV cache is the stacked
+Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for bf16/f32 weights,
+with a KV cache in the working dtype or in fp8 (no quantized weights, and
+no int4 KV, in the port yet). Parameters are the JAX package's stacked
+layout (``[L, ...]`` per-layer tensors, matrices as ``[in, out]``); the
+layer loop is a Python loop. The KV cache is the stacked
 ``[L, B, n_kv, S, D]`` pair; prefill attention goes through the flash kernel
-and each decode step through the decode kernel, which reads the stacked
-cache at the layer index without a copy.
+and each decode step through a decode kernel (``ops.attention.attend``
+picks which), which reads the stacked cache at the layer index without a
+copy.
 """
 from __future__ import annotations
 
@@ -25,8 +27,17 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+KV_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+
+
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                   dtype: torch.dtype, device) -> KVCache:
+    """Zeros in ``dtype``: f32, bf16, or fp8 (``float8_e4m3fn``, the JAX
+    package's plain ``astype`` cache, with no scales)."""
+    if dtype not in KV_DTYPES:
+        raise NotImplementedError(
+            f"KV cache dtype {dtype} is not ported: quantized caches with "
+            f"scales (int4) wait on ROADMAP §1 item 6")
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
              max_len, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -108,15 +119,21 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
     k = apply_rope(rms_norm(k, lp["k_norm"], eps), cos, sin)
 
     # Written IN PLACE at (layer i, write_pos): only the T new tokens are
-    # stored. (The JAX package's dynamic_update_slice is functional and
-    # relies on XLA aliasing for the same effect.)
+    # stored, cast to the cache dtype. (The JAX package's
+    # dynamic_update_slice is functional and relies on XLA aliasing for the
+    # same effect.)
     cache.k[i, :, :, write_pos:write_pos + t] = k.to(cache.k.dtype)
     cache.v[i, :, :, write_pos:write_pos + t] = v.to(cache.v.dtype)
 
     if is_decode_step(q, spec):
         attn = attend(q, cache.k, cache.v, spec, scale=d ** -0.5, layer_idx=i)
     else:
-        attn = attend(q, cache.k[i], cache.v[i], spec, scale=d ** -0.5)
+        # The flash kernel takes K/V in q's dtype, so a prefill over an fp8
+        # cache widens this layer first, as the JAX decoder's
+        # ``k_layer.astype(q.dtype)`` does: a copy of one layer, once per
+        # request and layer.
+        attn = attend(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype),
+                      spec, scale=d ** -0.5)
     attn = attn.transpose(1, 2).reshape(b, t, nq * d)
     hidden = hidden + attn @ lp["wo"]
 
@@ -133,9 +150,9 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
     the stacked cache, updated in place at ``write_pos`` (a host int).
 
     Returns (final_hidden [B,T,H], cache)."""
-    if cache.k.dtype != inputs_embeds.dtype:
-        raise ValueError(f"cache dtype {cache.k.dtype} differs from the "
-                         f"working dtype {inputs_embeds.dtype}")
+    if cache.k.dtype not in (inputs_embeds.dtype, torch.float8_e4m3fn):
+        raise ValueError(f"cache dtype {cache.k.dtype} is neither the "
+                         f"working dtype {inputs_embeds.dtype} nor fp8")
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     hidden = inputs_embeds
     for i in range(cfg.num_hidden_layers):

@@ -1,9 +1,10 @@
 """The attention entry point of the port: ``attend(q, k, v, spec)``.
 
-Counterpart of ``qwen3_asr_tpu/ops/attention.py``. Two routes and no third:
-a decode step (one query token, no causal or window mask) goes to
-``ops.decode_attention``; every other shape goes to ``ops.flash_attention``.
-Both launch a hand-written CUDA kernel on a CUDA tensor and take their plain
+Counterpart of ``qwen3_asr_tpu/ops/attention.py``. Three routes and no
+fourth: a decode step (one query token, no causal or window mask) goes to
+``ops.decode_attention_batch`` or ``ops.decode_attention`` by the rule in
+``decode_kernel``; every other shape goes to ``ops.flash_attention``. Each
+launches a hand-written CUDA kernel on a CUDA tensor and takes its plain
 PyTorch version only on a CPU tensor.
 """
 from __future__ import annotations
@@ -59,12 +60,43 @@ def is_decode_step(q: torch.Tensor, spec: AttnSpec) -> bool:
     return q.shape[-2] == 1 and not spec.causal and spec.window_block == 0
 
 
+def decode_kernel(batch: int, head_dim: int, cache_len: int,
+                  cache_dtype: torch.dtype) -> str:
+    """Which kernel takes a decode step, by one rule:
+
+    - ``"batched"`` (``ops.decode_attention_batch``, the TPU's batch-major
+      kernel) takes every step whose cache is fp8, and every bf16 step at
+      B >= 2. Both need head_dim 128 and a cache length that is a multiple
+      of 128, as the TPU kernel does (``cache_length`` rounds it to 128).
+    - ``"single"`` (``ops.decode_attention``) keeps f32 caches, and bf16
+      at B = 1 or head_dim != 128.
+
+    An fp8 cache with head_dim != 128 has no kernel and raises ValueError;
+    the engine asks at construction, so a request never meets it."""
+    fits = head_dim == 128 and cache_len % 128 == 0
+    if cache_dtype == torch.float8_e4m3fn:
+        if not fits:
+            raise ValueError(f"an fp8 KV cache needs head_dim 128 and a "
+                             f"cache length that is a multiple of 128, got "
+                             f"{head_dim} and {cache_len}")
+        return "batched"
+    if cache_dtype == torch.bfloat16 and batch >= 2 and fits:
+        return "batched"
+    return "single"
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            spec: AttnSpec, *, scale: Optional[float] = None,
            layer_idx: int = 0) -> torch.Tensor:
     """q: [B, Nq, T, D]; k/v: [B, Nkv, S, D], or the stacked cache
     [L, B, Nkv, S, D] with ``layer_idx`` for a decode step."""
     if is_decode_step(q, spec):
+        if decode_kernel(q.shape[0], q.shape[-1], k.shape[-2],
+                         k.dtype) == "batched":
+            from .decode_attention_batch import decode_attention_batched
+            return decode_attention_batched(
+                q, k, v, layer_idx=layer_idx, kv_valid_from=spec.valid_from,
+                kv_valid_to=spec.valid_to, sm_scale=scale)
         from .decode_attention import decode_attention
         return decode_attention(q, k, v, layer_idx=layer_idx,
                                 kv_valid_from=spec.valid_from,

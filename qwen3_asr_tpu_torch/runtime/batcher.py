@@ -1,17 +1,196 @@
-"""Batch padding policy (the micro-batcher itself is not ported yet).
+"""Micro-batching: concurrent transcriptions that land in the same length
+bucket within a short window run as ONE batched device call.
 
-Counterpart of ``qwen3_asr_tpu/runtime/batcher.py`` ``_pad_pow2``.
+Counterpart of ``qwen3_asr_tpu/runtime/batcher.py`` (``_pad_pow2``,
+``_Collector`` and ``MicroBatcher``). ``_Collector`` keeps a keyed group
+map guarded by one lock, a flush timer per group, power-of-two batch
+padding, and future settling that survives any failure. Device dispatch
+always happens OUTSIDE the lock: a batched call can take seconds and must
+not stall the admission of other requests. The port's server runs a thread
+per request, so the lock is a ``threading.Lock``, the timer a
+``threading.Timer`` and each reply a ``concurrent.futures.Future``. The WS
+tick batchers (``TickBatcher``, ``GroupTickBatcher``) wait for resume and
+streaming (ROADMAP §1 items 8 and 10).
 """
 from __future__ import annotations
 
+import concurrent.futures
+import logging
+import os
+import threading
+from typing import Callable, List, Optional
+
 import numpy as np
+
+from .queue import STANDARD, settle
+
+log = logging.getLogger(__name__)
+
+
+class _Pending:
+    __slots__ = ("audio", "language", "future", "priority")
+
+    def __init__(self, audio, language, future, priority=STANDARD):
+        self.audio = audio
+        self.language = language
+        self.future = future
+        # Queue lane for the request (0 = express, 1 = standard). A
+        # coalesced group dispatches at its most urgent member's lane.
+        self.priority = priority
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
 
 
 def _pad_pow2(clips: list, dtype=np.float32) -> None:
-    """Pad in place to a power-of-two batch with 0.1 s silent clips, so the
-    long-form path only ever runs batches of {1, 2, 4, 8, ...}."""
+    """Pad in place to a power-of-two batch with 0.1 s silent clips, so
+    only batches of {1, 2, 4, 8, ...} ever run."""
     n = 1
     while n < len(clips):
         n *= 2
     while len(clips) < n:
         clips.append(np.zeros(1600, dtype=dtype))
+
+
+class _Collector:
+    """Keyed group collection + settle-safe dispatch. Subclasses define
+    ``_submit(key, group)``."""
+
+    def __init__(self, manager, window_s: float, max_batch: int):
+        self.manager = manager
+        self.window_s = window_s
+        # Round the cap DOWN to a power of two: groups are padded UP to a
+        # power-of-two batch before dispatch, so a cap of 6 would dispatch
+        # batches of 8, past the configured cap.
+        cap = _pow2_floor(max_batch)
+        if cap != max_batch:
+            log.warning("batch cap %d rounded down to power-of-two %d",
+                        max_batch, cap)
+        self.max_batch = cap
+        self.dispatches = 0           # device jobs submitted (for tests)
+        self._groups: dict = {}
+        self._lock = threading.Lock()
+
+    def _enqueue(self, key, pending: _Pending) -> None:
+        """Admit one item. The lock guards ONLY the group map — dispatch
+        happens outside it."""
+        to_submit = None
+        with self._lock:
+            group = self._groups.get(key)
+            if group is None:
+                group = [pending]
+                self._groups[key] = group
+                timer = threading.Timer(self.window_s, self._flush_later,
+                                        args=(key, group))
+                timer.daemon = True
+                timer.start()
+            else:
+                group.append(pending)
+                if len(group) >= self.max_batch:
+                    to_submit = self._groups.pop(key)
+        if to_submit:
+            self._submit(key, to_submit)
+
+    def _flush_later(self, key, group) -> None:
+        with self._lock:
+            # Only flush the group this timer was made for: a group filled
+            # to the cap may already have gone, and a successor started
+            # under the same key.
+            if self._groups.get(key) is not group:
+                return
+            self._groups.pop(key)
+        self._submit(key, group)
+
+    def _count_dispatch(self) -> None:
+        with self._lock:
+            self.dispatches += 1
+
+    def _dispatch(self, group: List[_Pending], job: Callable,
+                  priority: int) -> None:
+        """Run ``job`` on the inference queue and settle every member's
+        future, whatever happens: a refused submit, a failing job or a
+        stopped queue must not leave a coalesced request waiting until its
+        timeout."""
+        self._count_dispatch()
+        try:
+            reply = self.manager.queue.submit(job, priority=priority)
+        except Exception as e:
+            for p in group:
+                settle(p.future, exc=e)
+            return
+
+        def done(reply: concurrent.futures.Future) -> None:
+            try:
+                results = reply.result()
+            except (Exception, concurrent.futures.CancelledError) as e:
+                for p in group:
+                    settle(p.future, exc=e)
+                return
+            for p, res in zip(group, results):
+                settle(p.future, result=res)
+
+        reply.add_done_callback(done)
+
+
+class MicroBatcher(_Collector):
+    """Collects same-(bucket, language) transcriptions for a few ms, then
+    submits one batched job to the priority queue."""
+
+    def __init__(self, manager, window_ms: Optional[float] = None,
+                 max_batch: Optional[int] = None):
+        super().__init__(
+            manager,
+            (window_ms if window_ms is not None else
+             float(os.getenv("ASR_BATCH_WINDOW_MS", "20"))) / 1000,
+            max_batch or int(os.getenv("ASR_MAX_BATCH", "8")))
+
+    def transcribe(self, audio: np.ndarray, sr: int,
+                   language: Optional[str], priority: int = STANDARD
+                   ) -> concurrent.futures.Future:
+        """A future of the request's results (a list of
+        ``TranscriptionResult``). Batched when possible; a solo job for
+        requests that cannot batch (resampling, multichannel, longer than
+        MAX_SEGMENT_S, or a cap of 1). ``priority`` is the queue lane; a
+        mixed group dispatches at its most urgent member's lane."""
+        from ..models.asr import normalize_language
+        from .engine import MAX_SEGMENT_S, TARGET_SR
+        mgr = self.manager
+        if (sr != TARGET_SR or audio.ndim > 1
+                or len(audio) > MAX_SEGMENT_S * TARGET_SR
+                or self.max_batch <= 1):
+            self._count_dispatch()
+            return mgr.queue.submit(
+                lambda: mgr.engine.transcribe(audio, sr, language),
+                priority=priority)
+        bucket = mgr.engine.bucket_frames(len(audio))
+        # Normalize the language BEFORE grouping: "en" and "English" are
+        # the same request (identical prompt) and must batch together and
+        # echo the same metadata the solo path returns.
+        language, _ = normalize_language(language)
+        future: concurrent.futures.Future = concurrent.futures.Future()
+        self._enqueue((bucket, language or ""),
+                      _Pending(audio, language, future, priority))
+        return future
+
+    def _submit(self, key, group: List[_Pending]) -> None:
+        (bucket_frames, bucket_s), language = key[0], key[1] or None
+        engine = self.manager.engine
+        if len(group) > 1:
+            log.debug("micro-batch: %d requests in bucket %ss", len(group),
+                      bucket_s)
+
+        def run():
+            from .engine import (TARGET_SR, TranscriptionResult,
+                                 _response_language)
+            clips = [p.audio for p in group]
+            _pad_pow2(clips)
+            texts, id_lists = engine._run_bucket(clips, bucket_frames,
+                                                 bucket_s, language)
+            return [[TranscriptionResult(
+                text=text, language=_response_language(text, language),
+                start_time=0.0, end_time=len(p.audio) / TARGET_SR,
+                token_ids=ids)]
+                for p, text, ids in zip(group, texts, id_lists)]
+
+        self._dispatch(group, run, priority=min(p.priority for p in group))

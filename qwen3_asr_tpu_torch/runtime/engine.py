@@ -22,6 +22,7 @@ from ..audio.resample import resample
 from ..models.asr import AsrModel, normalize_language
 from ..models.decoder import embed_tokens
 from ..models.encoder import encoder_forward
+from ..ops.attention import decode_kernel
 from ..utils.device import resolve_device, working_dtype
 from .batcher import _pad_pow2
 from .generate import cache_length, greedy_generate, strip_generation
@@ -49,12 +50,21 @@ def max_new_tokens_for(seconds: float) -> int:
 
 class TranscriptionEngine:
     def __init__(self, model: AsrModel, device="cuda",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 cache_dtype: Optional[torch.dtype] = None):
         """``model.params`` must already be on ``device``. dtype defaults to
-        bf16 on the card and f32 on the CPU; the KV cache uses it too."""
+        bf16 on the card and f32 on the CPU. The KV cache is in
+        ``cache_dtype``: the working dtype by default, or fp8
+        (``torch.float8_e4m3fn``), which needs head_dim 128."""
         self.model = model
         self.device = resolve_device(device)
         self.dtype = dtype or working_dtype(self.device)
+        self.cache_dtype = cache_dtype or self.dtype
+        if self.cache_dtype not in (self.dtype, torch.float8_e4m3fn):
+            raise ValueError(f"KV cache dtype {self.cache_dtype} is neither "
+                             f"the working dtype {self.dtype} nor fp8")
+        # raises now for a cache no decode kernel takes, not mid-request
+        decode_kernel(1, model.cfg.decoder.head_dim, 128, self.cache_dtype)
         self.frontend = LogMelFrontend(n_mels=model.cfg.encoder.num_mel_bins,
                                        device=self.device)
         self._chunk_frames = model.cfg.encoder.n_window * 2
@@ -136,7 +146,7 @@ class TranscriptionEngine:
                 self.model.params["decoder"], self.model.cfg.decoder, inputs,
                 torch.from_numpy(valid_from).to(self.device),
                 max_new=max_new, eos_id=self.model.eos_id, pad_id=self.model.pad_id,
-                cache_dtype=self.dtype)
+                cache_dtype=self.cache_dtype)
         tokens = result.tokens.cpu().numpy()
         lengths = result.lengths.cpu().numpy()
         self.last_run = {"batch": batch, "bucket_frames": bucket_frames,

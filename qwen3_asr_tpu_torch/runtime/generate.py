@@ -10,7 +10,7 @@ tokens after a row is done are ``pad_id``; ``lengths`` counts tokens
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,12 +33,16 @@ def cache_length(prompt_len: int, max_new: int) -> int:
 def greedy_generate(params: dict, cfg: DecoderConfig,
                     inputs_embeds: torch.Tensor, valid_from: torch.Tensor, *,
                     max_new: int, eos_id: int, pad_id: int,
-                    cache_dtype: torch.dtype) -> GenerateResult:
+                    cache_dtype: Optional[torch.dtype] = None
+                    ) -> GenerateResult:
     """inputs_embeds: [B, prompt_len, H]; valid_from: [B] int32 — LEFT-padded
     prompts: keys below valid_from are masked. Positions are absolute
-    (0..prompt_len-1 for the prompt), whatever valid_from is."""
+    (0..prompt_len-1 for the prompt), whatever valid_from is. The KV cache
+    is in ``cache_dtype``: the working dtype (inputs_embeds') by default,
+    or fp8."""
     b, prompt_len, _ = inputs_embeds.shape
     dev = inputs_embeds.device
+    cache_dtype = cache_dtype or inputs_embeds.dtype
     valid_from = valid_from.to(dev, torch.int32)
     cache = init_kv_cache(cfg, b, cache_length(prompt_len, max_new),
                           cache_dtype, dev)

@@ -1,8 +1,12 @@
-"""Engine loading from a ``MODEL_ID``.
+"""Engine loading from a ``MODEL_ID``, and the manager a server holds.
 
-Counterpart of ``qwen3_asr_tpu/runtime/lifecycle.py`` ``_load_engine_sync``:
-``MODEL_ID`` is a local checkpoint directory or ``preset:NAME``, which
-builds that architecture with zero weights and a byte-level tokenizer.
+Counterpart of ``qwen3_asr_tpu/runtime/lifecycle.py``: ``load_engine`` is
+its ``_load_engine_sync`` (``MODEL_ID`` is a local checkpoint directory or
+``preset:NAME``, which builds that architecture with zero weights and a
+byte-level tokenizer; ``ASR_KV_CACHE_DTYPE`` picks the KV cache dtype), and
+``ModelManager`` holds the fields of its ``ModelManager`` that the batcher
+and the server use. Idle unload, the watchdog, the fast engine and the pool
+are not ported yet (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -17,8 +21,14 @@ from ..models.decoder import init_decoder_params
 from ..models.encoder import init_encoder_params
 from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
+from .batcher import MicroBatcher
 from .checkpoint import load_asr_checkpoint
 from .engine import TranscriptionEngine
+from .queue import PriorityInferQueue
+
+# ASR_KV_CACHE_DTYPE: "" keeps the working dtype.
+KV_CACHE_DTYPES = {"": None, "bf16": torch.bfloat16,
+                   "fp8": torch.float8_e4m3fn}
 
 
 def preset_tokenizer(vocab_size: int) -> BpeTokenizer:
@@ -39,12 +49,29 @@ def _zeros_like_tree(tree):
     return torch.zeros_like(tree)
 
 
+def kv_cache_dtype_from_env() -> Optional[torch.dtype]:
+    """``ASR_KV_CACHE_DTYPE``: "" (the working dtype), ``bf16`` or
+    ``fp8``. ``int4`` needs per-(token, head) scales, which are not ported
+    yet."""
+    name = os.getenv("ASR_KV_CACHE_DTYPE", "").lower()
+    if name == "int4":
+        raise NotImplementedError(
+            "ASR_KV_CACHE_DTYPE=int4 is not ported: the int4 KV cache with "
+            "scales waits on ROADMAP §1 item 6")
+    if name not in KV_CACHE_DTYPES:
+        raise ValueError(f"ASR_KV_CACHE_DTYPE={name!r} is not one of "
+                         f"{sorted(KV_CACHE_DTYPES)}")
+    return KV_CACHE_DTYPES[name]
+
+
 def load_engine(model_id: str, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> TranscriptionEngine:
     """A ready engine for ``model_id`` on ``device`` (bf16 on the card and
-    f32 on the CPU unless ``dtype`` says otherwise)."""
+    f32 on the CPU unless ``dtype`` says otherwise), with its KV cache in
+    the dtype ``ASR_KV_CACHE_DTYPE`` names."""
     dev = resolve_device(device)
     dtype = dtype or working_dtype(dev)
+    cache_dtype = kv_cache_dtype_from_env()
     if os.path.isdir(model_id):
         cfg, params = load_asr_checkpoint(model_id, dev, dtype)
         tokenizer = BpeTokenizer.from_file(os.path.join(model_id,
@@ -64,4 +91,25 @@ def load_engine(model_id: str, device="cuda",
         raise FileNotFoundError(
             f"MODEL_ID '{model_id}' is neither a local checkpoint directory "
             "nor preset:NAME")
-    return TranscriptionEngine(model, device=dev, dtype=dtype)
+    return TranscriptionEngine(model, device=dev, dtype=dtype,
+                               cache_dtype=cache_dtype)
+
+
+class ModelManager:
+    """Owns the engine and its scheduler; one per serving process.
+
+    ``start()`` starts the queue's device thread and ``stop()`` settles
+    every job still waiting for it. ``REQUEST_TIMEOUT`` (seconds, default
+    300) bounds how long the server waits for one transcription."""
+
+    def __init__(self, engine: TranscriptionEngine):
+        self.engine = engine
+        self.queue = PriorityInferQueue()
+        self.batcher = MicroBatcher(self)
+        self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
+
+    def start(self) -> None:
+        self.queue.start()
+
+    def stop(self) -> None:
+        self.queue.stop()

@@ -4,20 +4,25 @@ Counterpart of the batch-transcription part of
 ``qwen3_asr_tpu/serving/server.py``: ``GET /health`` and
 ``POST /v1/audio/transcriptions`` (multipart upload with ``file`` and an
 optional ``language``), answering ``{"text", "language"}`` or the same
-error bodies (422 AUDIO_DECODE_FAILED). Requests are served one at a time
-under a lock; the micro-batcher and the other routes are not ported yet.
-``return_timestamps=true`` answers 501 until the aligner is ported.
+error bodies (422 AUDIO_DECODE_FAILED, 504 TRANSCRIPTION_TIMEOUT). Each
+request runs on its own thread and goes through the manager's
+micro-batcher, which joins concurrent same-bucket uploads into one batched
+engine run on the queue's one device thread (that thread serializes all
+device work, so the handlers need no lock). The other routes are not
+ported yet; ``return_timestamps=true`` answers 501 until the aligner is.
 
 Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
 qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
-``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights).
+``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights);
+``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``), ``ASR_MAX_BATCH`` (8),
+``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import logging
 import os
-import threading
 import time
 from email import policy
 from email.parser import BytesParser
@@ -25,7 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
 from ..audio.codec import AudioDecodeError, decode_audio
-from ..runtime.engine import TranscriptionEngine
+from ..runtime.lifecycle import ModelManager, load_engine
 from ..text.repetition import detect_and_fix_repetitions
 from ..utils.errors import error_body
 
@@ -93,11 +98,13 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path.split("?", 1)[0] != "/health":
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
-        engine = self.server.engine
+        engine = self.server.manager.engine
         self._json(200, {"status": "ok",
                          "model_loaded": True,
                          "device": str(engine.device),
-                         "dtype": str(engine.dtype).replace("torch.", "")})
+                         "dtype": str(engine.dtype).replace("torch.", ""),
+                         "kv_cache_dtype": str(engine.cache_dtype).replace(
+                             "torch.", "")})
 
     def do_POST(self):
         if self.path.split("?", 1)[0] != "/v1/audio/transcriptions":
@@ -126,10 +133,20 @@ class _Handler(BaseHTTPRequestHandler):
             return
         language = fields.get("language", "auto")
         lang_code = None if language == "auto" else language
+        mgr = self.server.manager
         t0 = time.time()
         try:
-            with self.server.lock:
-                results = self.server.engine.transcribe(audio, sr, lang_code)
+            # Micro-batched: concurrent same-bucket uploads share one
+            # device dispatch (a solo job when the request cannot batch).
+            future = mgr.batcher.transcribe(audio, sr, lang_code)
+            results = future.result(timeout=mgr.request_timeout)
+        except concurrent.futures.TimeoutError:
+            future.cancel()       # skips the device work if still queued
+            log.warning("POST /v1/audio/transcriptions | timed out after "
+                        "%.2fs", time.time() - t0)
+            self._error("TRANSCRIPTION_TIMEOUT", "Transcription timed out",
+                        504, elapsed=round(time.time() - t0, 2))
+            return
         except Exception as e:  # the server must keep answering
             log.exception("transcription failed")
             self._error("TRANSCRIPTION_FAILED", f"{type(e).__name__}: {e}",
@@ -148,23 +165,22 @@ class _Handler(BaseHTTPRequestHandler):
 class AsrServer(ThreadingHTTPServer):
     daemon_threads = True
 
-    def __init__(self, engine: TranscriptionEngine, host: str, port: int):
+    def __init__(self, manager: ModelManager, host: str, port: int):
         super().__init__((host, port), _Handler)
-        self.engine = engine
-        self.lock = threading.Lock()   # one transcription at a time
+        self.manager = manager
 
 
-def build_server(engine: TranscriptionEngine, host: str = "127.0.0.1",
+def build_server(manager: ModelManager, host: str = "127.0.0.1",
                  port: int = 0) -> AsrServer:
-    """A server for a ready engine (port 0 picks a free port; read it from
-    ``server.server_address``). Call ``serve_forever()`` to run it and
-    ``shutdown()`` then ``server_close()`` to stop it."""
-    return AsrServer(engine, host, port)
+    """A server for a started manager (port 0 picks a free port; read it
+    from ``server.server_address``). Call ``serve_forever()`` to run it and
+    ``shutdown()`` then ``server_close()`` to stop it; the caller stops the
+    manager."""
+    return AsrServer(manager, host, port)
 
 
 def main():
     import argparse
-    from ..runtime.lifecycle import load_engine
     parser = argparse.ArgumentParser(description="Qwen3-ASR server (PyTorch)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int,
@@ -175,14 +191,17 @@ def main():
     model_id = os.environ.get("MODEL_ID")
     if not model_id:
         parser.error("set MODEL_ID to a checkpoint directory or preset:NAME")
-    engine = load_engine(model_id, device=args.device)
-    server = build_server(engine, args.host, args.port)
-    log.info("serving %s on %s:%d (%s)", model_id, args.host,
-             server.server_address[1], engine.device)
+    manager = ModelManager(load_engine(model_id, device=args.device))
+    manager.start()
+    server = build_server(manager, args.host, args.port)
+    log.info("serving %s on %s:%d (%s, KV cache %s)", model_id, args.host,
+             server.server_address[1], manager.engine.device,
+             manager.engine.cache_dtype)
     try:
         server.serve_forever()
     finally:
         server.server_close()
+        manager.stop()
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ import torch
 
 from qwen3_asr_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+    decode_attention_batched, decode_attention_batched_plain)
 from qwen3_asr_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+from qwen3_asr_tpu_torch.ops.slab_reader import slab_read, slab_read_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +116,74 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q16 = torch.zeros((1, 2, 1, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         decode_attention(q16, q16[:, :1], q16[:, :1])
+
+
+BATCH_CASES = {
+    # (layers, b, nq, nkv, s, layer, valid_from, valid_to)
+    "stacked_1p7b_b8": (3, 8, 16, 8, 768, 2, [12] * 7 + [700],
+                        [570] * 7 + [768]),
+    "one_layer_left_pad": (0, 4, 8, 4, 256, 0, [0, 130, 5, 40],
+                           [256, 256, 6, 40]),
+    "group8_b2": (2, 2, 16, 2, 384, 1, [0, 200], [129, 384]),
+}
+# The plain version takes the same per-block max and rounds p and q·scale
+# to bf16 at the same points: f32 outputs differ by summation order and
+# by expf against torch.exp, which can move one bf16(p) by an ulp.
+BATCH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float8_e4m3fn), (torch.float32,
+                                            torch.float8_e4m3fn)],
+    ids=["f32", "bf16", "bf16_fp8", "f32_fp8"])
+@pytest.mark.parametrize("name", list(BATCH_CASES))
+def test_batched_decode_kernel_matches_plain(dev, name, q_dtype, kv_dtype):
+    n_layers, b, nq, nkv, s, layer, vf, vt = BATCH_CASES[name]
+    rng = np.random.default_rng(2)
+    shape = ((n_layers,) if n_layers else ()) + (b, nkv, s, 128)
+    q = _randn(rng, (b, nq, 1, 128), q_dtype, dev)
+    k = _randn(rng, shape, torch.float32, dev).to(kv_dtype)
+    v = _randn(rng, shape, torch.float32, dev).to(kv_dtype)
+    vf = torch.tensor(vf, dtype=torch.int32, device=dev)
+    vt = torch.tensor(vt, dtype=torch.int32, device=dev)
+    before = decode_attention_batched.launches
+    out = decode_attention_batched(q, k, v, layer_idx=layer,
+                                   kv_valid_from=vf, kv_valid_to=vt)
+    torch.cuda.synchronize()
+    assert decode_attention_batched.launches == before + 1
+    ref = decode_attention_batched_plain(q, k, v, vf, vt, layer_idx=layer,
+                                         sm_scale=128 ** -0.5)
+    tol = BATCH_TOL[q_dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    dead = (torch.minimum(vt, torch.tensor(s, device=dev))
+            <= vf.clamp(min=0))
+    assert not out[dead].float().abs().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn],
+                         ids=["bf16", "fp8"])
+@pytest.mark.parametrize("bs", [128, 32])
+def test_slab_kernel_matches_plain(dev, dtype, bs):
+    rng = np.random.default_rng(3)
+    shape = (3, 4, 8, 512, 128)
+    k = _randn(rng, shape, torch.float32, dev).to(dtype)
+    v = _randn(rng, shape, torch.float32, dev).to(dtype)
+    before = slab_read.launches
+    out = slab_read(k, v, layer_idx=1, seed=5, block_s=bs)
+    torch.cuda.synchronize()
+    assert slab_read.launches == before + 1
+    ref = slab_read_plain(k, v, layer_idx=1, seed=5, block_s=bs)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.zeros((2, 4, 1, 128), device=dev, dtype=torch.float16)
+    k = torch.zeros((2, 2, 128, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        decode_attention_batched(q, k, k)        # f16 q
+    with pytest.raises(ValueError):
+        decode_attention_batched(q.bfloat16(), k[None], k[None],
+                                 layer_idx=1)     # one layer only
+    with pytest.raises(ValueError):
+        slab_read(k.float(), k.float())          # f32 cache

@@ -203,3 +203,65 @@ def test_init_params_have_the_jax_layout():
             for key in path:
                 node = node[key.key]
             assert tuple(node.shape) == tuple(leaf.shape), path
+
+
+# The tiny head_dim-128 config of tests/test_decode_attention_batch.py
+ROUTED = DecoderConfig(vocab_size=96, hidden_size=64, intermediate_size=128,
+                       num_hidden_layers=2, num_attention_heads=2,
+                       num_key_value_heads=1, head_dim=128,
+                       rms_norm_eps=1e-6, rope_theta=10000.0,
+                       tie_word_embeddings=True)
+
+
+def test_fp8_greedy_through_batched_kernel_matches_jax(monkeypatch):
+    """greedy_generate with an fp8 cache at B=2: every decode step takes the
+    batched kernel (its plain version here) in the port, and the TPU
+    kernel in interpret mode in the JAX package. Seed 1 and weights at
+    scale 0.3 make each row emit many distinct ids, so the match is not
+    the trivial one of a row repeating one id or ending at once."""
+    from qwen3_asr_tpu.runtime.generate import greedy_generate as jax_generate
+    from qwen3_asr_tpu_torch.runtime.generate import greedy_generate
+    jc = _to_jax_cfg(ROUTED)
+    rng = np.random.default_rng(1)
+    tree = {}
+    for k, v in _shapes(jax_init_dec, jc).items():
+        tree[k] = ({n: (rng.standard_normal(x.shape) * 0.3).astype(np.float32)
+                    for n, x in v.items()} if isinstance(v, dict) else
+                   (rng.standard_normal(v.shape) * 0.3).astype(np.float32))
+    for n in ("ln1", "ln2", "q_norm", "k_norm"):
+        tree["layers"][n] = 1.0 + tree["layers"][n] / 3
+    tree["final_norm"] = 1.0 + tree["final_norm"] / 3
+    embeds = rng.standard_normal((2, 12, ROUTED.hidden_size)).astype(
+        np.float32)
+    vf = np.asarray([0, 3], np.int32)
+    max_new, eos, pad = 20, 1, 0
+
+    monkeypatch.setenv("ASR_ATTN_BACKEND", "bstream_interpret")
+    ref = jax_generate(jax.tree.map(jnp.asarray, tree), jc,
+                       jnp.asarray(embeds), jnp.asarray(vf), max_new=max_new,
+                       eos_id=eos, pad_id=pad, cache_dtype=jnp.float8_e4m3fn)
+    ours = greedy_generate(params_from_jax(tree, "cpu"), ROUTED,
+                           torch.from_numpy(embeds), torch.from_numpy(vf),
+                           max_new=max_new, eos_id=eos, pad_id=pad,
+                           cache_dtype=torch.float8_e4m3fn)
+    np.testing.assert_array_equal(ours.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(ours.lengths.numpy(),
+                                  np.asarray(ref.lengths))
+    for row in ours.tokens.tolist():
+        text = row[:row.index(eos)] if eos in row else row
+        assert len(set(text) - {pad}) >= 3
+
+
+def test_kv_cache_refuses_dtypes_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
+        init_kv_cache(ROUTED, 1, 128, torch.int8, "cpu")
+    assert init_kv_cache(ROUTED, 1, 128, torch.float8_e4m3fn,
+                         "cpu").k.dtype == torch.float8_e4m3fn
+    # an f32 cache under bf16 activations is neither the working dtype
+    # nor fp8 (the check comes before any weight is read)
+    with pytest.raises(ValueError, match="neither"):
+        decoder_forward({}, ROUTED,
+                        torch.zeros((1, 1, 64), dtype=torch.bfloat16),
+                        torch.zeros((1, 1), dtype=torch.int64),
+                        init_kv_cache(ROUTED, 1, 128, torch.float32, "cpu"),
+                        0, AttnSpec())

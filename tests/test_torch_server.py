@@ -1,13 +1,17 @@
 """The port's HTTP server on the CPU with the trained checkpoint, on an
 ephemeral port, driven with urllib: the same JSON as the JAX engine after
-the repetition fix, and the JAX server's error bodies."""
+the repetition fix, the JAX server's error bodies, concurrent uploads
+answered from one batched dispatch, and 504 past REQUEST_TIMEOUT."""
+import contextlib
 import json
 import os
 import threading
+import time
 import urllib.error
 import urllib.request
 import uuid
 
+import numpy as np
 import pytest
 
 import jax
@@ -24,8 +28,10 @@ from qwen3_asr_tpu.serving.server import merge_results as jax_merge
 from qwen3_asr_tpu.text.repetition import detect_and_fix_repetitions
 from qwen3_asr_tpu.text.tokenizer import BpeTokenizer as JaxTokenizer
 from qwen3_asr_tpu.utils.errors import error_body as jax_error_body
-from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
-from qwen3_asr_tpu_torch.serving.server import build_server
+from qwen3_asr_tpu_torch.audio.codec import decode_audio, encode_wav
+from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
+from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager, load_engine
+from qwen3_asr_tpu_torch.serving.server import build_server, merge_results
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "e2e", "data")
 CKPT = os.path.join(ROOT, "trained_ckpt")
@@ -39,9 +45,11 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(scope="module")
-def url():
-    server = build_server(load_engine(CKPT, device="cpu"), "127.0.0.1", 0)
+@contextlib.contextmanager
+def serving(manager):
+    """The server for ``manager`` on an ephemeral port; yields its URL."""
+    manager.start()
+    server = build_server(manager, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -49,8 +57,20 @@ def url():
     finally:
         server.shutdown()
         server.server_close()
+        manager.stop()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def engine():
+    return load_engine(CKPT, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def url(engine):
+    with serving(ModelManager(engine)) as u:
+        yield u
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +107,7 @@ def test_health(url):
         assert r.status == 200
         body = json.loads(r.read())
     assert body["status"] == "ok" and body["device"] == "cpu"
+    assert body["kv_cache_dtype"] == "float32"
 
 
 @pytest.mark.parametrize("clip,language", [("english_01", "auto"),
@@ -139,3 +160,47 @@ def test_timestamps_answer_501(url):
     with open(os.path.join(ROOT, "real", "english_02.wav"), "rb") as f:
         status, body = _post(url, f.read(), [("return_timestamps", "true")])
     assert status == 501 and body["statusCode"] == 501
+
+
+def test_concurrent_uploads_share_one_dispatch(engine):
+    """Four uploads of the 10 s bucket at once: all 200, with the solo
+    path's texts, from fewer dispatches than uploads."""
+    names = ["cantonese_01", "chinese_02", "english_02", "thai_02"]
+    data = {}
+    for n in names:
+        with open(os.path.join(ROOT, "real", n + ".wav"), "rb") as f:
+            data[n] = f.read()
+    manager = ModelManager(engine)
+    manager.batcher = MicroBatcher(manager, window_ms=2000, max_batch=8)
+    replies = {}
+    with serving(manager) as u:
+        threads = [threading.Thread(
+            target=lambda n=n: replies.__setitem__(n, _post(u, data[n])))
+            for n in names]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    assert manager.batcher.dispatches < len(names)
+    for n in names:
+        text, lang = merge_results(engine.transcribe(*decode_audio(data[n])))
+        assert replies[n] == (200, {"text": detect_and_fix_repetitions(text),
+                                    "language": lang})
+
+
+def test_request_timeout_answers_504(engine):
+    manager = ModelManager(engine)
+    manager.request_timeout = 0.3
+    gate = threading.Event()
+    data = encode_wav(np.zeros(8000, np.float32), 16000)
+    with serving(manager) as u:
+        held = manager.queue.submit(lambda: gate.wait(30))  # device busy
+        t0 = time.monotonic()
+        status, body = _post(u, data)
+        gate.set()
+        held.result(timeout=30)
+    assert status == 504 and time.monotonic() - t0 < 30
+    assert body["code"] == "TRANSCRIPTION_TIMEOUT"
+    assert body["statusCode"] == 504
+    assert body["context"]["elapsed"] >= 0.3
