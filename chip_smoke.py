@@ -24,13 +24,18 @@ without a CUDA device, and whenever any phase fails. Phases:
    the port's server and its micro-batcher (fewer dispatches than clips);
 5. the main path at B=1: a preset:1.7b engine in bf16 with seeded random
    weights, served by the port's HTTP server on 127.0.0.1, answers three
-   uploads (10 s, 15 s and 30 s buckets) one after another;
+   uploads (10 s, 15 s and 30 s buckets) one after another; flash runs
+   once per encoder and decoder layer and request, the single-token decode
+   kernel once per layer and decode step (one launch each);
 6. the main path at batch: 8 concurrent uploads of the 10 s bucket on the
    same engine with a bf16 KV cache and with fp8, in turns (bf16, fp8,
    fp8, bf16), each answered from ONE dispatch at B=8 through the batched
    decode kernel;
 7. where the time goes: the 30 s upload once more through the warm engine
-   under ``torch.profiler``: wall, device busy share and the top kernels;
+   under ``torch.profiler``, recording CUDA activity only (the host events
+   of the loop cost minutes of post-processing and the device share does
+   not need them): wall, device busy share, the top kernels, and one
+   decode kernel per layer and step;
 8. the KV read-rate probe (``tools_perf/attn_phase.py``) at its shapes.
 
 Each phase prints its seconds. The line before the card line is the
@@ -586,6 +591,9 @@ def main_path_phase(engine, uploads, dev):
         raise AssertionError(f"bad prompt embeddings {tuple(embeds.shape)}")
 
     first = None
+    layers = engine.model.cfg.decoder.num_hidden_layers
+    per_request = layers + engine.model.cfg.encoder.encoder_layers
+    want_decode = 0
     with serving(ModelManager(engine)) as url:
         read_launches = reset_launches()
         for name, data in uploads:
@@ -598,6 +606,7 @@ def main_path_phase(engine, uploads, dev):
             if not isinstance(body.get("text"), str) or "language" not in body:
                 raise AssertionError(f"{name}: bad response {body}")
             run = engine.last_run
+            want_decode += layers * (run["steps"] - 1)
             first = first or (wall, run["generated"])
             log(f"[serve] preset:1.7b bf16 {name}: {wall:.3f} s wall, "
                 f"{run['generated']} tokens generated, prompt "
@@ -605,9 +614,13 @@ def main_path_phase(engine, uploads, dev):
                 f"{run['bucket_frames']} frames, peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
         launches = read_launches()
-    log(f"[serve] launches on the main path: {launches}")
-    if not (launches["flash_attention"] and launches["decode_attention"]):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    log(f"[serve] launches on the main path: {launches} (want flash "
+        f"{per_request * len(uploads)}, decode {want_decode})")
+    if (launches["flash_attention"] != per_request * len(uploads)
+            or launches["decode_attention"] != want_decode):
+        raise AssertionError(f"launches {launches}: want flash "
+                             f"{per_request * len(uploads)} and decode "
+                             f"{want_decode}, one per layer and step")
     return launches, first
 
 
@@ -673,13 +686,14 @@ def batch_phase(engine, dev, solo):
 
 def profile_phase(engine, wav: bytes, top: int = 12) -> None:
     """One more transcription of ``wav`` through the warm engine under
-    torch.profiler: wall, device busy time (sum of CUDA kernel time) and its
-    share of the wall, and the kernels that took the most device time."""
+    torch.profiler (CUDA activity only): wall, device busy time (sum of
+    CUDA kernel time) and its share of the wall, the kernels that took the
+    most device time, and one single-token decode kernel per layer and
+    decode step."""
     from qwen3_asr_tpu_torch.audio.codec import decode_audio
     audio, sr = decode_audio(wav)
     card = card_line()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         engine.transcribe(audio, sr)
@@ -698,7 +712,15 @@ def profile_phase(engine, wav: bytes, top: int = 12) -> None:
     for e in sorted(kernels, key=lambda e: e.device_time_total,
                     reverse=True)[:top]:
         log(f"[profile] {e.device_time_total / 1e3:10.3f} ms "
-            f"{e.count:7d} calls  {e.key[:90]}")
+            f"{e.count:7d} calls  {e.key[:90]} "
+            f"({e.device_time_total / 1e6 / busy:.1%} of busy)")
+    decode = [(e.key[:60], e.count) for e in kernels
+              if "decode_split_kernel" in e.key]
+    want = engine.model.cfg.decoder.num_hidden_layers * (run["steps"] - 1)
+    log(f"[profile] decode kernels: {decode} (want one name, {want} calls)")
+    if len(decode) != 1 or decode[0][1] != want:
+        raise AssertionError(f"decode kernels {decode}: want one name with "
+                             f"{want} calls")
 
 
 # -- phase 8 ---------------------------------------------------------------------

@@ -8,26 +8,67 @@
 //   per-row [valid_from, valid_to), S tail); masked scores = MASK_VALUE and
 //   p = 0 there; l == 0 rows divide by 1 (output 0); m, l returned in f32.
 //
-// Design. One block per (tile of query rows, KV head, batch row); the block's
-// 64 rows are the tile's rows for ALL G query heads of the KV head
-// (row r = g * block_q + t_local, block_q = 64 / G), so each K/V tile is read
-// once for the whole group. Four warps own 16 rows each. K/V tiles of 32 keys
-// are staged in shared memory as f32; lane j of a warp scores key j against
-// the warp's rows, the warp reduces max and sum with shuffles, and each lane
-// accumulates P.V for the head dims lane, lane+32, ... (up to 128). All
-// arithmetic and statistics are f32. KV tiles outside the tile's live key
-// range (window, causal limit, [valid_from, valid_to)) are never loaded.
+// Both routes take one block per (tile of query rows, KV head, batch row);
+// the block's 64 rows are the tile's rows for ALL G query heads of the KV
+// head (row r = g * block_q + t_local, block_q = 64 / G), so each K/V tile
+// is read once for the whole group, and KV tiles outside the tile's live
+// key range (window, causal limit, [valid_from, valid_to)) are never
+// loaded. Masks inside a live tile apply per element: encoder windows of
+// 50 keys do not align with the tiles.
 //
-// What bounds it: on the CUDA cores in f32, reads of the shared-memory Q
-// tile dominate; the tensor cores (wgmma), TMA and a deeper pipeline are for
-// a later change. The dynamic shared memory exceeds 48 KB at head_dim 128 and
-// is raised once with cudaFuncSetAttribute.
+// bf16 route (tensor cores). Two consumer warpgroups (128 threads each)
+// and one producer warp per block. Both products run on `wgmma`: S = Q K^T
+// as m64n64k16 (64 keys per tile) with Q held in registers as the A operand
+// (loaded once per block), and O += P V as m64n{D}k16 with P taken from
+// registers: the online softmax runs in f32 on the S fragment, which is
+// then rounded to bf16 in registers -- the TPU kernel's rounding point
+// (`p.astype(v.dtype)`). V is the B operand in MN-major layout through the
+// instruction's transpose bit, so it is never transposed in memory. The
+// producer's lane 0 loads K and V tiles with TMA (`cp.async.bulk.tensor`,
+// 128-byte swizzle, a 256-byte row at D = 128 split into two 64-column
+// boxes) into a 4-stage ring, with one mbarrier per tile for K, one for V
+// (so Q K^T starts before V lands) and one that frees the stage. Head dims
+// below the template's D (64 or 128) are zero-filled by TMA past the last
+// column. The tensor maps are built on the host per call, through
+// cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint (no -lcuda).
+// Warpgroup w takes the key tiles w, w + 2, ... of the block's rows with
+// its own running m, l and O, so one group's softmax overlaps the other's
+// matrix products and a long causal row walks half as many tiles in
+// series; at the end group 1 parks its state in shared memory and group 0
+// merges it. The softmax is lean because it runs with one warp per SM
+// sub-partition and is latency-bound: the scale folds into one FMA before
+// `ex2.approx`, masked scores become -inf (p = 0 with no test), and a tile
+// that is live for all of a thread's rows skips the mask.
+//
+// f32 route (CUDA cores), the parity dtype: no tensor core computes f32 to
+// 2e-5. Four warps own 16 rows each; K/V tiles of 32 keys are staged in
+// shared memory as f32; lane j scores key j against the warp's rows, and
+// each lane accumulates P.V for the head dims lane, lane+32, ...
+//
+// What bounds it: at the main path's shapes (encoder windows of 50 tokens,
+// a prefill of a few hundred) the bytes and FLOPs are small (a bound of
+// 1-2 microseconds), so the cost is the serial chain of key tiles a block
+// walks (per tile: the K wait, Q K^T, the softmax, the V wait, P V) and the
+// block's output stores; the ring keeps later tiles' loads in flight while
+// a tile computes.
 
+#include <cuda.h>           // CUtensorMap and its enums (header only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using sm90::kMaskValue;
+using sm90::smem_u32;
+
+// ---------------------------------------------------------------------------
+// f32 route: CUDA cores.
+
+namespace core {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -36,16 +77,6 @@ constexpr int kRows = kWarps * kRowsPerWarp;   // query rows per block
 constexpr int kBlockK = 32;                     // keys per tile, one per lane
 constexpr int kMaxD = 128;
 constexpr int kDPerLane = kMaxD / 32;
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -65,10 +96,9 @@ size_t smem_bytes(int d) {
                           (size_t)kBlockK * d + (size_t)kRows * kBlockK);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ m_out, float* __restrict__ l_out,
                  const int* __restrict__ valid_from,
                  const int* __restrict__ valid_to,
@@ -95,7 +125,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r < rows_used) {
       const int g = r / block_q, t = t0 + r % block_q;
       if (t < t_len)
-        x = to_f32(q[(((size_t)b * nq + h * group + g) * t_len + t) * d + dd]);
+        x = q[(((size_t)b * nq + h * group + g) * t_len + t) * d + dd];
     }
     q_s[i] = x;
   }
@@ -127,8 +157,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const size_t head = ((size_t)b * nkv + h) * (size_t)s_len * d;
-  const T* k_head = k + head;
-  const T* v_head = v + head;
+  const float* k_head = k + head;
+  const float* v_head = v + head;
   const float* q_warp = q_s + warp * kRowsPerWarp * d;
   float* p_warp = p_s + warp * kRowsPerWarp * kBlockK;
 
@@ -139,8 +169,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = c0 + j;
       float kx = 0.f, vx = 0.f;
       if (c < s_len) {
-        kx = to_f32(k_head[(size_t)c * d + dd]);
-        vx = to_f32(v_head[(size_t)c * d + dd]);
+        kx = k_head[(size_t)c * d + dd];
+        vx = v_head[(size_t)c * d + dd];
       }
       k_s[j * dk + dd] = kx;
       v_s[j * d + dd] = vx;
@@ -203,7 +233,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < kDPerLane; ++e) {
       const int dd = lane + 32 * e;
-      if (dd < d) store(&o[row * d + dd], acc[i][e] / l_safe);
+      if (dd < d) o[row * d + dd] = acc[i][e] / l_safe;
     }
     if (lane == 0) {
       m_out[row] = m_run[i];
@@ -212,35 +242,534 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* m,
-           float* l, const int* vf, const int* vt, const int* q_off, int b,
-           int nq, int nkv, int t_len, int s_len, int d, int causal,
-           int window, float sm_scale, cudaStream_t stream) {
-  const int group = nq / nkv;
-  const int block_q = kRows / group;
-  // Above 48 KB only after opting in; once per instantiation, for the
-  // largest head dim, so no launch (nor a graph capture) repeats it.
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* m, float* l, const int* vf, const int* vt,
+           const int* q_off, int b, int nq, int nkv, int t_len, int s_len,
+           int d, int causal, int window, float sm_scale,
+           cudaStream_t stream) {
+  const int block_q = kRows / (nq / nkv);
+  // Above 48 KB only after opting in; once, for the largest head dim, so
+  // no launch (nor a graph capture) repeats it.
   static bool smem_raised = false;
   if (!smem_raised) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes(kMaxD));
     if (err != cudaSuccess) return (int)err;
     smem_raised = true;
   }
-  const size_t smem = smem_bytes(d);
   const dim3 grid((t_len + block_q - 1) / block_q, nkv, b);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), m, l, vf, vt, q_off, nq,
-      nkv, t_len, s_len, d, block_q, causal, window, sm_scale);
+  flash_f32_kernel<<<grid, kThreads, smem_bytes(d), stream>>>(
+      q, k, v, o, m, l, vf, vt, q_off, nq, nkv, t_len, s_len, d, block_q,
+      causal, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
+}  // namespace core
+
+// ---------------------------------------------------------------------------
+// bf16 route: wgmma + TMA.
+
+namespace tc {
+
+constexpr int kRows = 64;                 // query rows per block: wgmma M
+constexpr int kBlockK = 64;               // keys per tile
+constexpr int kStages = 4;                // ring of K/V tiles
+constexpr int kGroups = 2;                // consumer warpgroups: group w
+                                          // takes key tiles w, w + 2, ...
+constexpr int kConsumers = 128;           // threads of one warpgroup
+constexpr int kThreads = kGroups * kConsumers + 32;  // + a producer warp
+constexpr int kBox = 64;                  // columns per TMA box: 128 bytes
+constexpr int kBoxBytes = kBlockK * kBox * 2;   // 8 KB, 1024-aligned
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int kD>
+struct Tile {
+  static constexpr int kBoxes = kD / kBox;
+  static constexpr int kBytes = kBoxBytes * kBoxes;        // K or V tile
+  static constexpr int kSmem = kStages * 2 * kBytes + 1024;  // + alignment
+};
+
+// Shared-memory matrix descriptor, 128-byte swizzle. Byte offsets: `lbo`
+// between 64-element chunks along the contiguous (MN-major) dimension,
+// `sbo` between groups of 8 rows.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from reading an accumulator before the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 64] += A[64 x 16] (bf16, registers) * B[16 x 64] (bf16, shared
+// memory by descriptor); kTransB = 1 reads B MN-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
+// O[64 x kD] += P[64 x 16] * V[16 x kD], V read MN-major.
+template <int kD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[kD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  wgmma_m64n64k16<1>(o, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  wgmma_m64n128k16<1>(o, a, desc);
+}
+
+// Box [1 head][64 rows][64 columns] of a [heads, S, d] bf16 tensor.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int col, int row, int head,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The accumulator fragment of m64nNk16: thread t of the warpgroup holds,
+// for each 8-column group j, d[4j], d[4j+1] at row 16*(t/32) + (t%32)/4,
+// columns 8j + 2*(t%4) + {0, 1}, and d[4j+2], d[4j+3] at that row + 8. The
+// register A fragment of k16 takes the same rows: {row, k0..k0+1},
+// {row+8, k0..}, {row, k0+8..}, {row+8, k0+8..} with k0 = 2*(t%4).
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __nv_bfloat16* __restrict__ q,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                  float* __restrict__ l_out,
+                  const int* __restrict__ valid_from,
+                  const int* __restrict__ valid_to,
+                  const int* __restrict__ q_offset, int nq, int nkv,
+                  int t_len, int s_len, int d, int block_q, int causal,
+                  int window, float sm_scale) {
+  using T = Tile<kD>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_k[kStages], full_v[kStages],
+      empty[kStages];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int group = nq / nkv;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int t0 = blockIdx.x * block_q;
+  const int vf = valid_from[b], vt = valid_to[b], qoff = q_offset[b];
+
+  // Live key range of this tile of query rows; tiles outside are skipped.
+  const int t_last = min(t0 + block_q, t_len) - 1;
+  const int pos_lo = t0 + qoff, pos_hi = t_last + qoff;
+  int lo = max(vf, 0), hi = min(vt, s_len);
+  if (causal) hi = min(hi, pos_hi + 1);
+  if (window > 0) {
+    lo = max(lo, (pos_lo / window) * window);
+    hi = min(hi, (pos_hi / window + 1) * window);
+  }
+  const int first = (lo / kBlockK) * kBlockK;
+  const int n_tiles = lo < hi ? (hi - first + kBlockK - 1) / kBlockK : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full_k[s], 1);
+      sm90::mbar_init(&full_v[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);   // the one group that reads it
+    }
+  }
+  __syncthreads();
+
+  if (tid >= kGroups * kConsumers) {
+    // Producer: lane 0 keeps the ring full; the warp does nothing else.
+    if (tid == kGroups * kConsumers) {
+      const int head = b * nkv + h;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages)
+          sm90::mbar_wait(&empty[st], ((it / kStages) - 1) & 1);
+        const int c0 = first + it * kBlockK;
+        unsigned char* kt = tiles + st * 2 * T::kBytes;
+        unsigned char* vtile = kt + T::kBytes;
+        sm90::mbar_expect_tx(&full_k[st], T::kBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_3d(kt + x * kBoxBytes, &k_map, x * kBox, c0, head,
+                      &full_k[st]);
+        sm90::mbar_expect_tx(&full_v[st], T::kBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_3d(vtile + x * kBoxBytes, &v_map, x * kBox, c0, head,
+                      &full_v[st]);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups. Tile it sits in stage it % 4 and goes to group
+  // it % 2, so each group double-buffers its own tiles.
+  const int wg = tid / kConsumers;
+  const int warp = (tid % kConsumers) >> 5, lane = tid & 31;
+  const int cq = 2 * (lane & 3);
+  const int rows_used = group * block_q;
+  int row_lo[2], row_hi[2];
+  bool row_ok[2];
+  size_t row_idx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    const int g = r / block_q, t = t0 + r % block_q;
+    row_ok[i] = r < rows_used && t < t_len;
+    row_idx[i] = row_ok[i] ? ((size_t)b * nq + h * group + g) * t_len + t : 0;
+    const int pos = t + qoff;
+    int rl = max(vf, 0), rh = min(vt, s_len);
+    if (causal) rh = min(rh, pos + 1);
+    if (window > 0) {
+      rl = max(rl, (pos / window) * window);
+      rh = min(rh, (pos / window + 1) * window);
+    }
+    row_lo[i] = row_ok[i] ? rl : 0;
+    row_hi[i] = row_ok[i] ? rh : 0;
+  }
+
+  // Q as the register A operand, one k16 slice of head dims at a time.
+  uint32_t qa[kD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = x & 1;
+      const int col = kk * 16 + cq + 8 * (x >> 1);
+      qa[kk][x] = (row_ok[i] && col < d)
+                      ? *reinterpret_cast<const uint32_t*>(
+                            q + row_idx[i] * d + col)
+                      : 0u;
+    }
+  }
+
+  float o_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o_acc[i] = 0.f;
+  const float scale_log2 = sm_scale * kLog2e;
+  float m_run[2] = {kMaskValue, kMaskValue}, l_run[2] = {0.f, 0.f};
+
+  for (int it = wg; it < n_tiles; it += kGroups) {
+    const int st = it % kStages;
+    const uint32_t par = (it / kStages) & 1;
+    const int c0 = first + it * kBlockK;
+    const uint32_t kt = smem_u32(tiles + st * 2 * T::kBytes);
+    const uint32_t vtile = kt + T::kBytes;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    sm90::mbar_wait(&full_k[st], par);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)   // K is K-major: 32 bytes a slice
+      wgmma_m64n64k16<0>(
+          s, qa[kk],
+          desc_sw128(kt + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Mask, then the online softmax in f32 on the fragment. A masked score
+    // becomes -inf here, so it adds nothing to the max and its p is
+    // 2^-inf = 0 without a test; m and l keep the TPU kernel's meaning
+    // (m = MASK_VALUE while a row has seen no live key). A tile that is
+    // live for both of this thread's rows skips the mask.
+    if (!(row_lo[0] <= c0 && c0 + kBlockK <= row_hi[0] && row_lo[1] <= c0 &&
+          c0 + kBlockK <= row_hi[1])) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1;
+        const int c = c0 + 8 * (x >> 2) + cq + (x & 1);
+        if (c < row_lo[i] || c >= row_hi[i]) s[x] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int x = 0; x < 32; ++x)
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+    float mneg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // max(s) * scale == max(s * scale): the scale is positive
+      const float m_new = fmaxf(
+          m_run[i], mx[i] == -INFINITY ? kMaskValue : mx[i] * sm_scale);
+      const float alpha = ex2((m_run[i] - m_new) * kLog2e);
+      m_run[i] = m_new;
+      l_run[i] *= alpha;
+#pragma unroll
+      for (int x = 2 * i; x < kD / 2; x += 4) {
+        o_acc[x] *= alpha;
+        o_acc[x + 1] *= alpha;
+      }
+      mneg[i] = m_new == kMaskValue ? -INFINITY : -m_new * kLog2e;
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1;
+      s[x] = ex2(fmaf(s[x], scale_log2, mneg[i]));
+      l_run[i] += s[x];
+    }
+
+    // P rounded to bf16 in registers: the A operand of P V.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    }
+
+    sm90::mbar_wait(&full_v[st], par);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)   // V is MN-major: 16 keys = 2048 bytes
+      wgmma_pv<kD>(o_acc, pa[kk],
+                   desc_sw128(vtile + kk * 2048, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    sm90::mbar_arrive(&empty[st]);
+  }
+
+  // Merge the groups' (m, l, O): group 1 parks its state in its own ring
+  // stages (1 and 3; it has waited for every tile they held), group 0
+  // folds it in and writes the output.
+  float l_sum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_sum[i] = l_run[i];
+    l_sum[i] += __shfl_xor_sync(0xffffffffu, l_sum[i], 1);
+    l_sum[i] += __shfl_xor_sync(0xffffffffu, l_sum[i], 2);
+  }
+  const int ct = tid % kConsumers;
+  float* park_o = reinterpret_cast<float*>(tiles + 2 * T::kBytes);
+  float* park_ml = reinterpret_cast<float*>(tiles + 6 * T::kBytes);
+  if (wg == 1) {
+#pragma unroll
+    for (int x = 0; x < kD / 2; ++x) park_o[x * kConsumers + ct] = o_acc[x];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      park_ml[i * kConsumers + ct] = m_run[i];
+      park_ml[(2 + i) * kConsumers + ct] = l_sum[i];
+    }
+    asm volatile("bar.arrive 1, %0;\n" ::"n"(kGroups * kConsumers) : "memory");
+    return;
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kGroups * kConsumers) : "memory");
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m1 = park_ml[i * kConsumers + ct];
+    const float m = fmaxf(m_run[i], m1);
+    const float a0 = ex2((m_run[i] - m) * kLog2e);
+    const float a1 = ex2((m1 - m) * kLog2e);
+    m_run[i] = m;
+    l_sum[i] = l_sum[i] * a0 + park_ml[(2 + i) * kConsumers + ct] * a1;
+#pragma unroll
+    for (int x = 2 * i; x < kD / 2; x += 4) {
+      o_acc[x] = o_acc[x] * a0 + park_o[x * kConsumers + ct] * a1;
+      o_acc[x + 1] =
+          o_acc[x + 1] * a0 + park_o[(x + 1) * kConsumers + ct] * a1;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = l_sum[i];
+    if (!row_ok[i]) continue;
+    const float l_safe = l == 0.f ? 1.f : l;
+    __nv_bfloat16* orow = o + row_idx[i] * d;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o_acc[4 * j + 2 * i] / l_safe,
+                                  o_acc[4 * j + 2 * i + 1] / l_safe);
+    }
+    if ((lane & 3) == 0) {
+      m_out[row_idx[i]] = m_run[i];
+      l_out[row_idx[i]] = l;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's encoder, through the runtime: the library needs no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// K or V [heads, S, d] bf16, read in boxes of 64 rows x 64 columns with
+// 128-byte swizzle; rows past S and columns past d read as zero.
+bool kv_map(CUtensorMap* map, const void* base, int heads, int s_len, int d) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s_len,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)s_len * d * 2};
+  const cuuint32_t box[3] = {kBox, kBlockK, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* o, float* m,
+           float* l, const int* vf, const int* vt, const int* q_off, int b,
+           int nq, int nkv, int t_len, int s_len, int d, int causal,
+           int window, float sm_scale, cudaStream_t stream) {
+  static bool smem_raised = false;
+  if (!smem_raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bf16_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Tile<kD>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_raised = true;
+  }
+  CUtensorMap k_map, v_map;
+  if (!kv_map(&k_map, k, b * nkv, s_len, d) ||
+      !kv_map(&v_map, v, b * nkv, s_len, d))
+    return (int)cudaErrorInvalidValue;
+  const int block_q = kRows / (nq / nkv);
+  const dim3 grid((t_len + block_q - 1) / block_q, nkv, b);
+  flash_bf16_kernel<kD><<<grid, kThreads, Tile<kD>::kSmem, stream>>>(
+      k_map, v_map, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(o), m, l, vf, vt, q_off, nq, nkv, t_len,
+      s_len, d, block_q, causal, window, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (wgmma + TMA route).
+// Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, void* m, void* l,
                                    const void* valid_from,
@@ -248,8 +777,8 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    int b, int nq, int nkv, int t_len,
                                    int s_len, int d, int causal, int window,
                                    float sm_scale, void* stream) {
-  if (d <= 0 || d > kMaxD || d % 8 != 0 || nkv <= 0 || nq % nkv != 0 ||
-      nq / nkv > kRows)
+  if (d <= 0 || d > 128 || d % 8 != 0 || nkv <= 0 || nq % nkv != 0 ||
+      nq / nkv > 64 || s_len <= 0)
     return (int)cudaErrorInvalidValue;
   auto* m_f = static_cast<float*>(m);
   auto* l_f = static_cast<float*>(l);
@@ -258,11 +787,16 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   auto* qo = static_cast<const int*>(q_offset);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, m_f, l_f, vf, vt, qo, b, nq, nkv, t_len,
-                         s_len, d, causal, window, sm_scale, st);
+    return core::launch(static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(o),
+                        m_f, l_f, vf, vt, qo, b, nq, nkv, t_len, s_len, d,
+                        causal, window, sm_scale, st);
+  if (dtype == 1 && d <= 64)
+    return tc::launch<64>(q, k, v, o, m_f, l_f, vf, vt, qo, b, nq, nkv,
+                          t_len, s_len, d, causal, window, sm_scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, m_f, l_f, vf, vt, qo, b, nq, nkv,
-                                 t_len, s_len, d, causal, window, sm_scale,
-                                 st);
+    return tc::launch<128>(q, k, v, o, m_f, l_f, vf, vt, qo, b, nq, nkv,
+                           t_len, s_len, d, causal, window, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

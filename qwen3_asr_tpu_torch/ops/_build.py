@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused. Builds happen at first use
+library's file name carries a hash of its source, of every header under
+``csrc/`` (``*.cuh``) and of the flags, so an edited source or header
+rebuilds and an unchanged one is reused. Builds happen at first use
 (never at import) into ``qwen3_asr_tpu_torch/_build/``. A failed build
 raises; nothing falls back.
 """
@@ -41,9 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

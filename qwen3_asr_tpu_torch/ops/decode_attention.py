@@ -8,22 +8,23 @@ Replaces the TPU kernel ``qwen3_asr_tpu/ops/decode_attention.py``
 What it computes: one query token per row, ``q [B,Nq,1,D]``, against one
 layer's cache ``[B,Nkv,S,D]`` or the stacked cache ``[L,B,Nkv,S,D]`` at a
 runtime ``layer_idx`` (read through a pointer offset, no slice copy), over
-the keys in ``[valid_from, valid_to)`` only, with an f32 online softmax and
-a safe divide.
+the keys in ``[valid_from, valid_to)`` only, with f32 arithmetic and a safe
+divide.
 
-What bounds it on the H100: the bytes of the live cache — each decode step
-reads every live K and V row of every layer once, and the arithmetic per
-byte is tiny. What the design does about it: keys outside the valid range
-are never read, K/V rows are read with lanes across the head dim
-(coalesced), and each KV head's rows are read once for its whole query
-group. At batch 1 there are only Nkv blocks (8 at 1.7B), far fewer than the
-card's 132 SMs, so this first kernel is latency-bound there; splitting S
-across blocks (flash-decoding) is later work.
+What bounds it on the H100: the bytes of the live cache are a few hundred
+KB per layer at batch 1, well under a microsecond of HBM time, so the cost
+is latency. The kernel splits S across blocks in ONE launch: the grid is
+(n_split, Nkv, B) with the chunk length picked here from the cache length
+alone (``split_plan``), so batch 1 still fills the card's SMs; each block
+copies its chunk's live K and V rows with one bulk copy each, writes its
+partial m, l and acc to f32 scratch, and the last block of each (row, KV
+head) to take a ticket combines them in split order and resets it. The
+output is the same bits on every run and under CUDA-graph replay.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +34,29 @@ from .attention import MASK_VALUE
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 8           # kMaxG in csrc/decode_attention.cu
 _MAX_D = 128
+_MAX_CHUNK = 128         # kMaxChunk
+_MIN_CHUNK = 16
+_CHUNK_BYTES = 16384     # kChunkBytes: one chunk of K (or of V)
+_SMS = 132               # streaming multiprocessors of an H100 SXM
+_TICKETS = 4096          # ticket slots, one per (row, KV head) of a call
+# One zeroed ticket buffer per device, left zeroed by every call; calls on
+# one device share it, so they run one at a time (one stream, as the engine
+# runs them).
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_plan(s_len: int, batch: int, nkv: int, head_dim: int,
+               itemsize: int) -> Tuple[int, int]:
+    """(chunk, n_split) for the kernel's grid (n_split, Nkv, B): the largest
+    power-of-two chunk of keys whose K rows fit ``_CHUNK_BYTES``, halved
+    while the grid has fewer blocks than the card has SMs (down to 16
+    keys). Depends on the cache length only, never on the valid range."""
+    chunk = _MAX_CHUNK
+    while chunk > _MIN_CHUNK and chunk * head_dim * itemsize > _CHUNK_BYTES:
+        chunk //= 2
+    while chunk > _MIN_CHUNK and -(-s_len // chunk) * nkv * batch < _SMS:
+        chunk //= 2
+    return chunk, -(-s_len // chunk)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,7 +87,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
@@ -97,12 +121,20 @@ def _launch(q, k, v, vf, vt, *, layer_idx, sm_scale):
                 or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor "
                              f"on {dev}")
+    chunk, n_split = split_plan(s_len, b, nkv, d, q.element_size())
+    tickets = _tickets.get(dev)
+    if tickets is None or tickets.numel() < b * nkv:
+        tickets = torch.zeros(max(_TICKETS, b * nkv), dtype=torch.int32,
+                              device=dev)
+        _tickets[dev] = tickets
     out = torch.empty_like(q)
+    part = torch.empty(b * n_split * nq * (d + 4),
+                       dtype=torch.float32, device=dev)
     err = _library().decode_attention_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), vf.data_ptr(), vt.data_ptr(),
-        layer_idx if stacked else 0, b, nq, nkv, s_len, d, float(sm_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), vf.data_ptr(), vt.data_ptr(), part.data_ptr(),
+        tickets.data_ptr(), layer_idx if stacked else 0, b, nq, nkv, s_len,
+        d, chunk, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

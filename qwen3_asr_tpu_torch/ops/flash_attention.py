@@ -13,16 +13,22 @@ scores are ``MASK_VALUE`` and their p is zeroed; fully masked rows divide
 safely and give 0. It also returns the f32 softmax residuals m and l
 ``[B,Nq,T]``.
 
+Two routes, chosen by dtype, both counted in ``flash_attention.launches``:
+bf16, the working dtype on the card, runs both products on the tensor
+cores (``wgmma``: Q in registers, P rounded to bf16 in registers as the TPU
+kernel rounds it, V read MN-major through the transpose bit) with K/V
+tiles of 64 keys loaded by TMA into a 4-stage ring, two warpgroups taking
+alternate tiles; f32, the parity dtype, runs on the CUDA cores (no tensor
+core computes f32 to 2e-5).
+
 What bounds it on the H100: at the main path's shapes the work is small
-(encoder windows of 50 tokens, a prefill of a few hundred), so neither the
-3.35 TB/s of HBM nor the tensor cores are near their limit; this first
-kernel computes on the CUDA cores in f32 and is bound by its shared-memory
-reads. What the design does about the real costs: one block per (batch row,
-KV head, tile of query rows) computes the tile for all G heads so K/V are
-read once per group, never repeated; KV tiles that the mask kills entirely
-are skipped before they are loaded, so encoder work follows the window and
-not T²; the [T,S] scores never reach device memory. ``wgmma``, TMA and
-deeper pipelining are later work.
+(encoder windows of 50 tokens, a prefill of a few hundred), a bound of 1-2
+microseconds, so the cost is the chain of tiles each block walks and their
+load latency. One block per (batch row, KV head, tile of query rows)
+computes the tile for all G heads so K/V are read once per group; KV tiles
+that the mask kills entirely are skipped before they are loaded, so
+encoder work follows the window and not T²; the [T,S] scores never reach
+device memory.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from ._build import load
 from .attention import MASK_VALUE
 
+# the route: 0 = f32 on the CUDA cores, 1 = bf16 on wgmma + TMA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS_PER_BLOCK = 64     # kRows in csrc/flash_attention.cu
 _MAX_D = 128
@@ -44,7 +51,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: torch.Tensor, *, causal: bool,
                           window_block: int, sm_scale: float):
     """Dense restatement of the kernel's function in f32: MASK_VALUE
-    scores, p zeroed where masked, safe divide. Returns (out, m, l)."""
+    scores, p zeroed where masked, safe divide. Like the TPU kernel, p is
+    rounded to q's dtype before P·V (a no-op in f32) while l sums the f32
+    p. Returns (out, m, l)."""
     b, nq, t, d = q.shape
     _, nkv, s_len, _ = k.shape
     g = nq // nkv
@@ -65,7 +74,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.einsum("bhgts,bhsd->bhgtd", p, v.float()) / l_safe[..., None]
+    p_v = p.to(q.dtype).float()
+    out = (torch.einsum("bhgts,bhsd->bhgtd", p_v, v.float())
+           / l_safe[..., None])
     return (out.reshape(b, nq, t, d).to(q.dtype), m.reshape(b, nq, t),
             l.reshape(b, nq, t))
 

@@ -10,6 +10,7 @@ import pytest
 
 import torch
 
+from qwen3_asr_tpu_torch.ops import decode_attention as decode_module
 from qwen3_asr_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_plain)
 from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
@@ -49,6 +50,16 @@ FLASH_CASES = {
     "d24_q_offset": (2, 4, 2, 33, 140, 24, True, 0, [0, 5], [140, 120],
                      [60, 100]),
     "fully_masked_rows": (1, 2, 2, 40, 40, 64, False, 0, [45], [40], [0]),
+    # the main path's shapes at preset:1.7b (encoder 30 s, prefill 30 s)
+    "encoder_30s": (1, 20, 20, 375, 375, 64, False, 50, [0], [375], [0]),
+    "prefill_30s": (1, 16, 8, 453, 768, 128, True, 0, [50], [768], [0]),
+    # windows crossing 64-key tiles, T not a multiple of the tile's rows
+    "window_crossing_tiles": (2, 2, 2, 230, 230, 64, False, 50, [0, 0],
+                              [230, 171], [0, 0]),
+    # a group of 3 (21 rows a head) and of 8 (8 rows), d 48 and 96
+    "group3_d48_q_offset": (2, 6, 2, 50, 120, 48, True, 0, [7, 0],
+                            [120, 90], [40, 70]),
+    "group8_d96": (1, 16, 2, 29, 200, 96, True, 0, [3], [200], [171]),
 }
 
 
@@ -83,6 +94,11 @@ DECODE_CASES = {
     "stacked_1p7b": (4, 2, 16, 8, 768, 128, 3, [20, 63], [500, 768]),
     "one_layer_d48": (0, 3, 4, 2, 256, 48, 0, [0, 30, 10], [129, 200, 10]),
     "stacked_d24": (2, 1, 4, 2, 128, 24, 1, [64], [100]),
+    # shorter than one chunk, valid_from inside a chunk, an empty range,
+    # valid_to past S
+    "short_live_range": (2, 1, 16, 8, 768, 128, 1, [100], [109]),
+    "vf_mid_chunk_vt_past_s": (0, 2, 4, 2, 256, 64, 0, [37, 5], [300, 256]),
+    "empty_range": (0, 2, 8, 1, 128, 128, 0, [60, 0], [60, 128]),
 }
 
 
@@ -107,6 +123,53 @@ def test_decode_kernel_matches_plain(dev, name, dtype):
                                  sm_scale=d ** -0.5)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    dead = torch.minimum(vt, torch.tensor(s, device=dev)) <= vf.clamp(min=0)
+    assert not out[dead].float().abs().any()
+
+
+def _decode_inputs(dev, dtype=torch.bfloat16):
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (1, 16, 1, 128), dtype, dev)
+    k = _randn(rng, (4, 1, 8, 768, 128), dtype, dev)
+    v = _randn(rng, (4, 1, 8, 768, 128), dtype, dev)
+    vf = torch.tensor([50], dtype=torch.int32, device=dev)
+    vt = torch.tensor([620], dtype=torch.int32, device=dev)
+    return q, k, v, vf, vt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_is_deterministic(dev, dtype):
+    """One launch per call; the same bits twice; every ticket back at 0."""
+    q, k, v, vf, vt = _decode_inputs(dev, dtype)
+    before = decode_attention.launches
+    outs = [decode_attention(q, k, v, layer_idx=2, kv_valid_from=vf,
+                             kv_valid_to=vt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+    assert not decode_module._tickets[outs[0].device].any()
+
+
+def test_decode_kernel_replays_in_a_cuda_graph(dev):
+    q, k, v, vf, vt = _decode_inputs(dev)
+    eager = decode_attention(q, k, v, layer_idx=3, kv_valid_from=vf,
+                             kv_valid_to=vt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(q, k, v, layer_idx=3, kv_valid_from=vf,
+                         kv_valid_to=vt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, layer_idx=3, kv_valid_from=vf,
+                               kv_valid_to=vt)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert not decode_module._tickets[out.device].any()
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

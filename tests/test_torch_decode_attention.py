@@ -9,7 +9,8 @@ import torch
 
 from qwen3_asr_tpu.ops.decode_attention import decode_attention as jax_decode
 from qwen3_asr_tpu_torch.ops.attention import AttnSpec, attend
-from qwen3_asr_tpu_torch.ops.decode_attention import decode_attention
+from qwen3_asr_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      split_plan)
 
 TOL = 2e-5
 
@@ -66,3 +67,24 @@ def test_attend_routes_decode_step_with_layer_idx():
     ref = decode_attention(q, k[2], v[2], kv_valid_from=spec.valid_from,
                            kv_valid_to=spec.valid_to)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("s_len,batch,nkv,d,itemsize", [
+    (768, 1, 8, 128, 2), (768, 8, 8, 128, 2), (768, 1, 8, 128, 4),
+    (256, 1, 2, 48, 4), (300, 2, 2, 24, 2), (4096, 1, 8, 128, 2),
+    (5, 1, 1, 8, 4)])
+def test_decode_split_plan_tiles_the_cache(s_len, batch, nkv, d, itemsize):
+    """The kernel's chunks tile [0, S) exactly, a chunk of K fits the
+    kernel's 16 KB, and the grid fills the card's 132 SMs where S allows."""
+    chunk, n_split = split_plan(s_len, batch, nkv, d, itemsize)
+    starts = [j * chunk for j in range(n_split)]
+    assert starts[0] == 0 and starts[-1] < s_len <= starts[-1] + chunk
+    assert chunk & (chunk - 1) == 0 and 16 <= chunk <= 128
+    assert chunk * d * itemsize <= 16384
+    if chunk > 16:
+        assert n_split * nkv * batch >= 132
+
+
+def test_decode_split_plan_fills_the_card_at_batch_1():
+    chunk, n_split = split_plan(768, 1, 8, 128, 2)   # preset:1.7b, bf16
+    assert (chunk, n_split) == (32, 24) and n_split * 8 >= 132
