@@ -15,9 +15,12 @@ without a CUDA device, and whenever any phase fails. Phases:
 3. device times (CUDA graph replays between CUDA events) of kernel, plain
    version and one SDPA call (yardstick only; on a bf16 copy of an fp8
    cache), beside the bound (bytes / 3.35 TB/s against FLOPs /
-   989 TFLOP/s, counting only the work the mask leaves); decode steps step
-   through all layers of the stacked cache, as the decode loop does, so
-   each call finds its layer cold in HBM;
+   989 TFLOP/s, counting only the work the mask leaves) and, in the log
+   only, kernels #3 and #4's times before their redesign as PERF.md
+   records them; decode steps step through all layers of the stacked
+   cache, as the decode loop does, so each call finds its layer cold in
+   HBM. One call of kernels #3 and #4 under torch.profiler must run one
+   device kernel;
 4. real text: e2e/data/trained_ckpt on the card in f32 must give token ids
    identical to the same port on the CPU and the reference transcripts,
    one clip at a time, and then with the 12 clips sent at once through
@@ -36,7 +39,8 @@ without a CUDA device, and whenever any phase fails. Phases:
    of the loop cost minutes of post-processing and the device share does
    not need them): wall, device busy share, the top kernels, and one
    decode kernel per layer and step;
-8. the KV read-rate probe (``tools_perf/attn_phase.py``) at its shapes.
+8. the KV read-rate probe (``tools_perf/attn_phase.py``) at its shapes,
+   each beside kernel #3's read rate at the same B and cache dtype.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -299,11 +303,12 @@ def batched_cases(sh, dev):
 
 def slab_cases(dev):
     """The slab-read probe (kernel #4) at the probe's shapes, on the last
-    layer of its seeded cache. (label, kernel call, plain call, bytes)."""
+    layer of its seeded cache. (label, kernel call, plain call, bytes,
+    layers)."""
     from qwen3_asr_tpu_torch.ops.slab_reader import (slab_read,
                                                      slab_read_plain)
     from qwen3_asr_tpu_torch.tools_perf.attn_phase import (
-        LAYERS, SHAPES, stacked_cache)
+        LAYERS, NKV, SHAPES, stacked_cache)
     for name, batch, seq, dtype in SHAPES:
         k, v = stacked_cache(batch, seq, dtype, dev)
         yield (name,
@@ -311,7 +316,7 @@ def slab_cases(dev):
                                                  seed=1),
                lambda layer, k=k, v=v: slab_read_plain(
                    k, v, layer_idx=layer, seed=1, block_s=128),
-               2 * batch * 8 * seq * 128 * k.element_size(), LAYERS)
+               2 * batch * NKV * seq * 128 * k.element_size(), LAYERS)
         del k, v
 
 
@@ -324,6 +329,41 @@ def per_call_ms(fn, layers: int) -> float:
     return device_ms(lambda: [fn(i) for i in range(layers)]) / layers
 
 
+# Device ms of kernels #3 and #4 before their redesign, as PERF.md's kernel
+# table records them (its earlier-time column, from a run of this script on
+# an NVIDIA H100 80GB HBM3 at 700 W). Printed beside this run's in the log
+# only: they are not this run's, so no row of the kernel table holds them.
+EARLIER_MS = {
+    "batched_b1_s768_bf16": 0.0134, "batched_b8_s768_bf16": 0.0212,
+    "batched_b1_s768_fp8": 0.0118, "batched_b8_s768_fp8": 0.0191,
+    "batched_b96_s512_fp8": 0.0728, "engine_b8_s768_bf16": 0.0115,
+    "engine_b8_s768_fp8": 0.0078, "jax_default_b96_s512_fp8": 0.0353}
+
+
+def one_kernel_per_call(name, fn, calls: int = 3) -> None:
+    """``calls`` calls of ``fn`` under torch.profiler (CUDA activity only)
+    must run exactly one device kernel each, all of one name. A spin kernel
+    opens the window (on the card a second profiler run in a process has
+    dropped its first kernel event) and is left out of the count."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key[:60], e.count) for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin" not in e.key]
+    log(f"[profile] {name}: {calls} calls ran {kernels}")
+    if len(kernels) != 1 or kernels[0][1] != calls:
+        raise AssertionError(f"{name}: want one device kernel a call, got "
+                             f"{kernels}")
+
+
 def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
              card, sdpa_note=""):
     """Phase 3 for one case in bf16: the row of the kernel table."""
@@ -334,16 +374,19 @@ def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
+    earlier = EARLIER_MS.get(label)
     row = {"shape": label, "dtype": dt, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "eager_ms": call_ms, "bytes": nbytes, "flops": flops}
-    log(f"[timing] {label} bf16 (device): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa{sdpa_note} {lib_ms:.4f} ms; one "
-        f"eager call {call_ms:.4f} ms; bound "
-        f"{bound:.5f} ms ({row['bound_by']}), share "
-        f"{bound / ms:.3%} | {card}")
+    log(f"[timing] {label} bf16 (device): kernel {ms:.4f} ms"
+        + (f" (before the redesign, PERF.md: {earlier:.4f})" if earlier
+           else "")
+        + f", plain {plain_ms:.4f} ms, sdpa{sdpa_note} {lib_ms:.4f} ms "
+        f"(kernel / sdpa {ms / lib_ms:.3f}); one eager call "
+        f"{call_ms:.4f} ms; bound {bound:.5f} ms ({row['bound_by']}), "
+        f"share {bound / ms:.3%} | {card}")
     return row
 
 
@@ -379,7 +422,8 @@ def kernel_phases(sh, dev):
                         label, dt, err, run, plain, sdpa, nbytes, flops,
                         layers, card))
     # the batched decode step: bf16 q (and output) over bf16 or fp8 caches;
-    # the plain version takes the same per-block max and rounding points
+    # the plain version takes the same max per chunk of the same plan and
+    # the same rounding points
     tol = TOL[torch.bfloat16]
     for label, kernel, run, plain, sdpa, nbytes, flops, layers, note in \
             batched_cases(sh, dev):
@@ -393,10 +437,14 @@ def kernel_phases(sh, dev):
             f"max_abs_err={err:.3e} (bound {tol:g})")
         if not err <= tol:
             raise AssertionError(f"{kernel} {label}: error {err} above {tol}")
+        if label == KERNELS[kernel][2]:
+            one_kernel_per_call(f"{kernel} {label}",
+                                lambda: run(layers - 1))
         rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
                                      sdpa, nbytes, flops, layers, card,
                                      note))
-    # the slab-read probe: f32 sums of the same terms in another order
+    # the slab-read probe: f32 sums of the same terms in another order;
+    # its own time is phase 8's
     for label, run, plain, nbytes, layers in slab_cases(dev):
         out, ref = run(layers - 1), plain(layers - 1)
         torch.cuda.synchronize()
@@ -405,6 +453,9 @@ def kernel_phases(sh, dev):
         plain_ms = per_call_ms(plain, layers)
         log(f"[parity] {label}: max_abs_err={err:.3e} (bound 1e-5 + "
             f"1e-5 relative); plain {plain_ms:.4f} ms (device) | {card}")
+        if label == KERNELS["slab_reader"][2]:
+            one_kernel_per_call(f"slab_reader {label}",
+                                lambda: run(layers - 1))
         rows["slab_reader"].append({
             "shape": label, "max_abs_err": err, "plain_ms": plain_ms,
             "library_ms": None, "bytes": nbytes})
@@ -725,8 +776,15 @@ def profile_phase(engine, wav: bytes, top: int = 12) -> None:
 
 # -- phase 8 ---------------------------------------------------------------------
 
-def probe_phase():
-    """The KV read-rate probe at its shapes. Returns its rows and the
+# the batched decode case (kernel #3) at each probe shape's B and dtype
+PROBE_TWIN = {"engine_b8_s768_bf16": "batched_b8_s768_bf16",
+              "engine_b8_s768_fp8": "batched_b8_s768_fp8",
+              "jax_default_b96_s512_fp8": "batched_b96_s512_fp8"}
+
+
+def probe_phase(batched_rows):
+    """The KV read-rate probe at its shapes, each beside kernel #3's read
+    rate at the same B and cache dtype (phase 3). Returns its rows and the
     launches."""
     from qwen3_asr_tpu_torch.tools_perf.attn_phase import probe
     card = card_line()
@@ -734,9 +792,16 @@ def probe_phase():
     rows = probe()
     launches = read_launches()
     for r in rows:
+        twin = next(x for x in batched_rows
+                    if x["shape"] == PROBE_TWIN[r["shape"]])
+        rate = twin["bytes"] / twin["ms"] / 1e6
         log(f"[probe] {r['shape']}: {r['ms']:.4f} ms per layer "
             f"({r['bytes'] / 1e6:.1f} MB), {r['gb_s']:.0f} GB/s = "
-            f"{r['share']:.1%} of 3.35 TB/s | {card}")
+            f"{r['share']:.1%} of 3.35 TB/s (before the redesign, "
+            f"PERF.md: {EARLIER_MS[r['shape']]:.4f} ms); kernel #3 "
+            f"{twin['shape']} "
+            f"reads {rate:.0f} GB/s = {rate / r['gb_s']:.1%} of the probe's "
+            f"rate | {card}")
     if not launches["slab_reader"]:
         raise AssertionError(f"the probe launched no slab read: {launches}")
     return rows, launches
@@ -794,7 +859,7 @@ def main() -> int:
     phase_done("phase 6 (main path at B=8)")
     profile_phase(engine, uploads[-1][1])
     phase_done("phase 7 (profile)")
-    probe_rows, probe_launches = probe_phase()
+    probe_rows, probe_launches = probe_phase(rows["decode_attention_batch"])
     launches["slab_reader"] = probe_launches["slab_reader"]
     for r in probe_rows:
         head = next(x for x in rows["slab_reader"] if x["shape"] == r["shape"])

@@ -40,6 +40,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "split_combine.cuh"
 
 namespace {
 
@@ -53,7 +54,6 @@ constexpr int kMaxG = 8;
 constexpr int kMaxD = 128;
 constexpr int kMaxChunk = 128;
 constexpr int kChunkBytes = 16384;           // K (or V) bytes of one chunk
-constexpr int kRoundSplits = 64;             // chunks per combine round
 constexpr size_t kSmemBytes =
     2 * kChunkBytes + sizeof(float) * kMaxG * kMaxChunk;
 
@@ -86,15 +86,8 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Partials: one record of d + 4 f32 per (row, KV head, chunk, query
-// head), [B * nkv][n_split][G][m, l, -, -, acc[d]], so the live chunks of a
-// (row, KV head) are one contiguous, 16-byte aligned span. kG >= G =
-// nq / nkv sizes the registers (q, scores, acc) for the query group.
+// Partials: the records of csrc/split_combine.cuh. kG >= G = nq / nkv
+// sizes the registers (q, scores, acc) for the query group.
 template <typename T, int kG>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -107,10 +100,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kPer = Word<T>::kPer;               // values per 16 bytes
   constexpr int kWordsPerLane = 8 / kPer;           // 1 (bf16) or 2 (f32)
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bar, bar_c;
-  __shared__ float m_s[kMaxG], l_s[kMaxG], scale_s[kMaxG];
-  __shared__ float w_s[kRoundSplits * kMaxG];
-  __shared__ int last_s;
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ float m_s[kMaxG], l_s[kMaxG];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = reinterpret_cast<T*>(smem + kChunkBytes);
   float* ps = reinterpret_cast<float*>(smem + 2 * kChunkBytes);  // [G][chunk]
@@ -243,105 +234,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // The last block of this (row, KV head) to take a ticket combines. The
-  // ticket is an acq_rel atomic after a __syncthreads(): it publishes the
-  // whole block's partial, and in the last block it orders the loads below
-  // after every other block's.
-  __syncthreads();
-  if (tid == 0)
-    last_s = sm90::atomic_add_acq_rel(&tickets[bh], 1u) ==
-             (unsigned)(n_split - 1);
-  __syncthreads();
-  if (!last_s) return;
-
-  // Only the chunks that hold a live key wrote a partial; every block
-  // derives the same range from [valid_from, valid_to). Their records are
-  // one span: copy it into shared memory with one bulk copy per round of
-  // up to `per_round` chunks, and fold each round into a running m, l
-  // and acc in split order (the same bits on every run).
-  const int lo_all = max(valid_from[b], 0), hi_all = min(valid_to[b], s_len);
-  const int j0 = lo_all / chunk;
-  const int n_live_split =
-      lo_all < hi_all ? (hi_all + chunk - 1) / chunk - j0 : 0;
-  const int per_round = min(
-      kRoundSplits, (int)(kSmemBytes / (sizeof(float) * group * rec)));
-  const float* span = part + (bh * n_split + j0) * group * rec;
-  float* staged = reinterpret_cast<float*>(smem);
-  if (tid == 0) {
-    sm90::mbar_init(&bar_c, 1);
-    // the other blocks' records, written through the generic proxy, are
-    // read by the bulk copy's async proxy
-    asm volatile("fence.proxy.async.global;\n" ::: "memory");
-  }
-  if (tid < group) {
-    m_s[tid] = kMaskValue;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-  const int n_out = group * d;
-  float acc_c[kG];
-#pragma unroll
-  for (int x = 0; x < kG; ++x) acc_c[x] = 0.f;
-  for (int s0 = 0, round = 0; s0 < n_live_split; s0 += per_round, ++round) {
-    const int cnt = min(per_round, n_live_split - s0);
-    if (tid == 0) {
-      const uint32_t bytes = (uint32_t)(cnt * group * rec * sizeof(float));
-      sm90::mbar_expect_tx(&bar_c, bytes);
-      sm90::bulk_load(staged, span + (size_t)s0 * group * rec, bytes, &bar_c);
-    }
-    sm90::mbar_wait(&bar_c, round & 1);
-    for (int g = warp; g < group; g += kWarps) {
-      float m_r = kMaskValue;
-      for (int s = lane; s < cnt; s += 32)
-        m_r = fmaxf(m_r, staged[(s * group + g) * rec]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m_r = fmaxf(m_r, __shfl_xor_sync(0xffffffffu, m_r, off));
-      const float m_new = fmaxf(m_s[g], m_r);
-      float l_r = 0.f;
-      for (int s = lane; s < cnt; s += 32) {
-        const float* r = staged + (s * group + g) * rec;
-        const float w = expf(r[0] - m_new);
-        w_s[s * group + g] = w;
-        l_r = fmaf(r[1], w, l_r);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        l_r += __shfl_xor_sync(0xffffffffu, l_r, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float scale = expf(m_s[g] - m_new);
-        scale_s[g] = scale;
-        l_s[g] = fmaf(l_s[g], scale, l_r);
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int x = 0; x < kG; ++x) {
-      const int i = tid + x * kThreads;
-      if (i < n_out) {
-        const int g = i / d;
-        const float* col = staged + g * rec + 4 + (i - g * d);
-        float a = acc_c[x] * scale_s[g];
-        for (int s = 0; s < cnt; ++s)
-          a = fmaf(col[(size_t)s * group * rec], w_s[s * group + g], a);
-        acc_c[x] = a;
-      }
-    }
-    __syncthreads();   // before the next round overwrites the staging
-  }
-#pragma unroll
-  for (int x = 0; x < kG; ++x) {
-    const int i = tid + x * kThreads;
-    if (i < n_out) {
-      const int g = i / d;
-      const float l = l_s[g] == 0.f ? 1.f : l_s[g];
-      store(&o[((size_t)b * nq + h * group + g) * d + (i - g * d)],
-            acc_c[x] / l);
-    }
-  }
-  if (tid == 0) tickets[bh] = 0u;
+  // The last block of this (row, KV head) to take a ticket combines the
+  // live chunks' partials in split order (csrc/split_combine.cuh).
+  split::ticket_and_combine<T, kThreads, kG>(
+      part, tickets, o, bh, b, h, nq, group, d, n_split, n_split, chunk,
+      max(valid_from[b], 0), min(valid_to[b], s_len),
+      reinterpret_cast<float*>(smem), (int)kSmemBytes);
 }
 
 template <typename T, int kG>

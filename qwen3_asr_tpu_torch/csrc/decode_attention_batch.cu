@@ -14,22 +14,44 @@
 //
 // What it leaves behind: the TPU kernel packs rows and heads into one
 // 128x128 MXU matmul with an iota mask (>= 64x redundant FLOPs), which
-// exists only to fill the TPU's matrix unit. Here each block does only the
-// dot products it needs, on the CUDA cores.
+// exists only to fill the TPU's matrix unit.
 //
 // What bounds it: the bytes of the live cache, 2 * B * Nkv * live * 128 *
 // itemsize per layer (fp8 halves them against bf16); the arithmetic is
-// about G = Nq / Nkv multiply-adds per byte. The TPU kernel's sequential
-// S axis (a running softmax carried across grid steps) becomes a split and
-// a combine: kernel 1 runs one block per (128-key block j, KV head, row),
-// 384 blocks at B=8 and S=768 where csrc/decode_attention.cu has 64 (and 8
-// at B=1, the latency-bound shape PERF.md measured). Each block stages its
-// K and V tiles in shared memory with 16-byte loads of the live rows only,
-// widens them there (nothing widened ever goes back to device memory), and
-// writes the block's partial m, l and acc for its G query heads into f32
-// scratch that the wrapper allocates. Blocks wholly outside
-// [valid_from, valid_to) exit at once. Kernel 2 combines the partials of
-// the live blocks by m and l and writes the output.
+// about G = Nq / Nkv multiply-adds per byte, far below the card's ridge.
+// So the design keeps every byte of a block's chunk in flight at once and
+// keeps the work after the copy lands short:
+//
+// - One launch, S split by a plan. Grid (n_split, Nkv, B): the wrapper
+//   picks the chunk length (a power of two that divides 128) from S, B,
+//   Nkv and the itemsize alone, never from the valid range, so that even
+//   B = 1 fills the SMs (ops/decode_attention_batch.py `batch_plan`). A
+//   block reads one chunk of one (row, KV head), and nothing if the chunk
+//   holds no live key. At most 32 KB of shared memory a block, so six
+//   blocks an SM keep their copies in flight at once.
+// - Bulk copies of the live rows. A chunk's live K rows and its live V
+//   rows are each contiguous in the cache, so each comes in one 1-D
+//   `cp.async.bulk` onto a barrier of its own (the scores start while V
+//   flies). fp8 and bf16 land as raw bytes: nothing widened goes back to
+//   device memory.
+// - Both products on tensor cores (mma.sync m16n8k16, bf16 operands, f32
+//   accumulators), the small side as N: scores S^T = K_chunk [keys x 128] .
+//   qs^T [128 x 8] with 16 keys a tile as M and the query group (G <= 8,
+//   zero-padded) as N; output O^T = V^T [128 x keys] . bf16(P)^T [keys x 8]
+//   with 16 head dims a tile as M. The contraction order is free, so the
+//   scores take head dims [32p + 8t, 32p + 8t + 8) of a K row as one
+//   16-byte load per lane (t = lane % 4), and P.V takes four adjacent head
+//   dims of a V row as one 8-byte load, pairing two keys per register with
+//   one byte permute. Tiles are widened (fp8 -> bf16 is exact) or rounded
+//   (f32) to bf16 as the fragments are formed.
+// - Softmax per chunk: the max over the chunk's live keys, p rounded to
+//   bf16 against it; the scale folded into q. The plain version takes the
+//   same max per chunk of the same plan.
+// - Each block writes its chunk's partial m, l and acc to f32 scratch;
+//   the last block of a (row, KV head) to take an acq_rel ticket combines
+//   the live chunks in split order and resets the ticket
+//   (csrc/split_combine.cuh). The output is the same bits on every run and
+//   under CUDA-graph replay.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,19 +59,25 @@
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+#include "split_combine.cuh"
+
 namespace {
 
+using sm90::kMaskValue;
+
 constexpr int kD = 128;                 // head dim (the TPU kernel's too)
-constexpr int kBlockS = 128;            // keys per block
-constexpr int kThreads = 128;           // one thread per key, then per dim
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;                // query heads per KV head
-constexpr int kStride = kD + 2;         // bf16 row stride in shared memory:
-                                        // 65 words, so rows hit distinct banks
-constexpr int kBatchLoads = 8;          // 16-byte loads in flight per tile
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-static_assert(kThreads == kBlockS && kThreads == kD,
-              "thread t takes key t, then head dim t");
+constexpr int kMaxG = split::kMaxG;     // query heads per KV head: mma's N
+constexpr int kMaxChunk = 128;          // keys of one chunk: 8 tiles of 16
+constexpr int kChunkBytes = 16384;      // K (or V) bytes of one chunk
+constexpr int kCombineBytes = 65536;    // records a combine round stages
+constexpr int kMaxSmem = kCombineBytes > 2 * kChunkBytes ? kCombineBytes
+                                                         : 2 * kChunkBytes;
+constexpr int kPStride = kMaxChunk + 8; // bf16 row stride of P: the rows of
+                                        // a B fragment load on distinct banks
+constexpr int kRec = kD + 4;            // floats per partial record
 
 struct Fp8E4M3 { uint8_t bits; };       // torch.float8_e4m3fn storage
 
@@ -57,273 +85,298 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Widen one 16-byte chunk of cache values into bf16 pairs at `dst`.
-template <typename KV> struct Widen;
-template <> struct Widen<float> {
-  static constexpr int kPerChunk = 4;
-  __device__ static void run(const uint4& raw, __nv_bfloat162* dst) {
-    dst[0] = __floats2bfloat162_rn(__uint_as_float(raw.x),
-                                   __uint_as_float(raw.y));
-    dst[1] = __floats2bfloat162_rn(__uint_as_float(raw.z),
-                                   __uint_as_float(raw.w));
-  }
-};
-template <> struct Widen<__nv_bfloat16> {
-  static constexpr int kPerChunk = 8;
-  __device__ static void run(const uint4& raw, __nv_bfloat162* dst) {
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      dst[i] = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-  }
-};
-template <> struct Widen<Fp8E4M3> {
-  static constexpr int kPerChunk = 16;
-  // Four e4m3 values; e4m3 -> f16 is exact, and so is f16 -> bf16 for
-  // e4m3's values.
-  __device__ static void word(uint32_t w, __nv_bfloat162* dst) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
-          (__nv_fp8x2_storage_t)(w >> (16 * half)), __NV_E4M3);
-      dst[half] = __float22bfloat162_rn(__half22float2(__half2(hr)));
-    }
-  }
-  __device__ static void run(const uint4& raw, __nv_bfloat162* dst) {
-    word(raw.x, dst);
-    word(raw.y, dst + 2);
-    word(raw.z, dst + 4);
-    word(raw.w, dst + 6);
-  }
-};
-
-// Stage the live rows of one [kBlockS, kD] tile into shared memory as bf16;
-// dead rows become zeros. Chunk i of the tile is row i / kChunksPerRow.
-template <typename KV>
-__device__ __forceinline__ void stage_tiles(const KV* __restrict__ kg,
-                                            const KV* __restrict__ vg,
-                                            __nv_bfloat16* ks,
-                                            __nv_bfloat16* vs, int row_lo,
-                                            int row_hi) {
-  constexpr int kPer = Widen<KV>::kPerChunk;
-  constexpr int kChunksPerRow = kD / kPer;
-  constexpr int kChunks = kBlockS * kChunksPerRow;
-  const uint4* k4 = reinterpret_cast<const uint4*>(kg);
-  const uint4* v4 = reinterpret_cast<const uint4*>(vg);
-  for (int base = 0; base < kChunks; base += kThreads * kBatchLoads) {
-    uint4 kr[kBatchLoads], vr[kBatchLoads];
-#pragma unroll
-    for (int u = 0; u < kBatchLoads; ++u) {
-      const int i = base + u * kThreads + threadIdx.x;
-      const int row = i / kChunksPerRow;
-      const bool live = i < kChunks && row >= row_lo && row < row_hi;
-      kr[u] = live ? __ldg(k4 + i) : make_uint4(0, 0, 0, 0);
-      vr[u] = live ? __ldg(v4 + i) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatchLoads; ++u) {
-      const int i = base + u * kThreads + threadIdx.x;
-      if (i < kChunks) {
-        const int row = i / kChunksPerRow, col = (i % kChunksPerRow) * kPer;
-        Widen<KV>::run(kr[u], reinterpret_cast<__nv_bfloat162*>(
-                                  ks + row * kStride + col));
-        Widen<KV>::run(vr[u], reinterpret_cast<__nv_bfloat162*>(
-                                  vs + row * kStride + col));
-      }
-    }
-  }
+// Two e4m3 values (the low 16 bits of w) as a bf16 pair; exact.
+__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(uint32_t w) {
+  const __half2_raw hr =
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w & 0xffffu),
+                                 __NV_E4M3);
+  const float2 f = __half22float2(__half2(hr));
+  return pack_bf16(f.x, f.y);
 }
 
-constexpr size_t kSmemBytes =
-    2 * kBlockS * kStride * sizeof(__nv_bfloat16)   // K and V tiles
-    + 2 * kMaxG * kBlockS * sizeof(float)           // qs and bf16(p)
-    + 2 * kMaxG * kWarps * sizeof(float);           // cross-warp max, sum
+// Cache values of one row in shared memory, from head dim c on, as bf16
+// pairs (the low half holds the lower dim); zeros for a dead row.
+template <typename KV> struct Row;
+template <> struct Row<__nv_bfloat16> {
+  __device__ static uint4 eight(const unsigned char* row, int c, bool live) {
+    return live ? *reinterpret_cast<const uint4*>(row + 2 * c)
+                : make_uint4(0, 0, 0, 0);
+  }
+  __device__ static uint2 four(const unsigned char* row, int c, bool live) {
+    return live ? *reinterpret_cast<const uint2*>(row + 2 * c)
+                : make_uint2(0, 0);
+  }
+};
+template <> struct Row<Fp8E4M3> {
+  __device__ static uint4 eight(const unsigned char* row, int c, bool live) {
+    if (!live) return make_uint4(0, 0, 0, 0);
+    const uint2 w = *reinterpret_cast<const uint2*>(row + c);
+    return make_uint4(fp8x2_to_bf16x2(w.x), fp8x2_to_bf16x2(w.x >> 16),
+                      fp8x2_to_bf16x2(w.y), fp8x2_to_bf16x2(w.y >> 16));
+  }
+  __device__ static uint2 four(const unsigned char* row, int c, bool live) {
+    if (!live) return make_uint2(0, 0);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(row + c);
+    return make_uint2(fp8x2_to_bf16x2(w), fp8x2_to_bf16x2(w >> 16));
+  }
+};
+template <> struct Row<float> {
+  __device__ static uint4 eight(const unsigned char* row, int c, bool live) {
+    if (!live) return make_uint4(0, 0, 0, 0);
+    const float4* p = reinterpret_cast<const float4*>(row + 4 * c);
+    const float4 a = p[0], b = p[1];
+    return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                      pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+  }
+  __device__ static uint2 four(const unsigned char* row, int c, bool live) {
+    if (!live) return make_uint2(0, 0);
+    const float4 a = *reinterpret_cast<const float4*>(row + 4 * c);
+    return make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+  }
+};
 
-// Kernel 1: grid (S / kBlockS, Nkv, B). Partials are indexed
-// ((b * nkv + h) * n_blk + j) * group + g.
+// c += a . b: a 16x16 bf16 (row-major fragment), b 16x8 bf16, c 16x8 f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Grid (n_split, Nkv, B). Dynamic shared memory: [K chunk | V chunk],
+// reused by the combine (`smem_bytes` in all).
 template <typename Q, typename KV>
 __global__ void __launch_bounds__(kThreads)
-partial_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
-               const KV* __restrict__ v, const int* __restrict__ valid_from,
-               const int* __restrict__ valid_to, float* __restrict__ m_out,
-               float* __restrict__ l_out, float* __restrict__ acc_out,
-               int layer, int batch, int nq, int nkv, int s_len,
-               float sm_scale) {
+decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, Q* __restrict__ o,
+                    const int* __restrict__ valid_from,
+                    const int* __restrict__ valid_to,
+                    float* __restrict__ part, unsigned* __restrict__ tickets,
+                    int layer, int batch, int nq, int nkv, int s_len,
+                    int chunk, float sm_scale, int smem_bytes) {
+  constexpr int kRowBytes = kD * (int)sizeof(KV);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t k_full, v_full;
+  __shared__ __align__(16) __nv_bfloat16 ps[kMaxG * kPStride];
+  __shared__ float red_max[kWarps][kMaxG], red_sum[kWarps][kMaxG];
+
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_blk = gridDim.x;
+  const int n_split = s_len / chunk;
   const int group = nq / nkv;
-  const int c0 = j * kBlockS;
-  const int lo = max(max(valid_from[b], 0), c0);
-  const int hi = min(min(valid_to[b], s_len), c0 + kBlockS);
-  if (lo >= hi) return;           // no live key here: the combine skips it
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tig = lane & 3;    // fragment row, column pair
+  const int lo_all = max(valid_from[b], 0);
+  const int hi_all = min(valid_to[b], s_len);
+  // this block's live keys [lo, lo + n_live), row 0 of the tiles
+  const int lo = max(lo_all, j * chunk);
+  const int n_live = min(hi_all, j * chunk + chunk) - lo;
+  const size_t bh = (size_t)b * nkv + h;
+  const unsigned char* ks = smem;
+  const unsigned char* vs = smem + chunk * kRowBytes;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kBlockS * kStride;
-  float* qs = reinterpret_cast<float*>(vs + kBlockS * kStride);  // [G][kD]
-  float* ps = qs + kMaxG * kD;                                   // [G][kBlockS]
-  float* red_max = ps + kMaxG * kBlockS;                         // [G][kWarps]
-  float* red_sum = red_max + kMaxG * kWarps;
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  for (int i = t; i < group * kD; i += kThreads) {
-    const int g = i / kD, d = i % kD;
-    qs[g * kD + d] = round_bf16(
-        to_f32(q[((size_t)b * nq + h * group + g) * kD + d]) * sm_scale);
-  }
-  const size_t tile =
-      ((((size_t)layer * batch + b) * nkv + h) * s_len + c0) * kD;
-  stage_tiles<KV>(k + tile, v + tile, ks, vs, lo - c0, hi - c0);
-  __syncthreads();
-
-  // Scores: thread t takes key c0 + t.
-  const bool live = c0 + t >= lo && c0 + t < hi;
-  float s[kMaxG];
+  if (n_live > 0) {
+    // Thread 0: the live rows, K and V on barriers of their own, so the
+    // scores start while V flies.
+    if (tid == 0) {
+      const size_t first = (((size_t)layer * batch + b) * nkv + h) * s_len +
+                           lo;
+      const uint32_t bytes = (uint32_t)n_live * kRowBytes;
+      sm90::mbar_init(&k_full, 1);
+      sm90::mbar_init(&v_full, 1);
+      sm90::mbar_expect_tx(&k_full, bytes);
+      sm90::bulk_load(smem, k + first * kD, bytes, &k_full);
+      sm90::mbar_expect_tx(&v_full, bytes);
+      sm90::bulk_load(smem + chunk * kRowBytes, v + first * kD, bytes,
+                      &v_full);
+    }
+    // While the copies fly: the B fragments of the scores, bf16(q * scale)
+    // of head gr (0 past the group) at dims [32p + 8 tig, +8), the k pairs
+    // (2 tig, 2 tig + 8) of k-steps 2p and 2p + 1.
+    const Q* qh = q + ((size_t)b * nq + h * group + min(gr, group - 1)) * kD;
+    uint4 qf[4];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-  const __nv_bfloat162* krow =
-      reinterpret_cast<const __nv_bfloat162*>(ks + t * kStride);
-  for (int w = 0; w < kD / 2; ++w) {
-    const float2 kf = __bfloat1622float2(krow[w]);
+    for (int p = 0; p < 4; ++p) {
+      uint32_t w[4];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < group) {
-        const float2 qf = reinterpret_cast<const float2*>(qs + g * kD)[w];
-        s[g] = fmaf(qf.x, kf.x, s[g]);
-        s[g] = fmaf(qf.y, kf.y, s[g]);
+      for (int e = 0; e < 4; ++e) {
+        const int c = 32 * p + 8 * tig + 2 * e;
+        w[e] = gr < group ? pack_bf16(to_f32(qh[c]) * sm_scale,
+                                      to_f32(qh[c + 1]) * sm_scale)
+                          : 0u;
+      }
+      qf[p] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncthreads();   // the barriers' init
+
+    sm90::mbar_wait(&k_full, 0);
+
+    // Scores: warp w takes the 16-key tiles w and w + 4. sc[t] holds
+    // keys r, r + 8 (r = 16 tile + gr) for heads 2 tig, 2 tig + 1.
+    float sc[2][4];
+    float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int r = (warp + kWarps * t) * 16 + gr;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[t][e] = 0.f;
+      if (r - gr < n_live) {                 // the tile holds a live key
+        const unsigned char* ra = ks + r * kRowBytes;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const uint4 ka = Row<KV>::eight(ra, 32 * p + 8 * tig, r < n_live);
+          const uint4 kb = Row<KV>::eight(ra + 8 * kRowBytes,
+                                          32 * p + 8 * tig, r + 8 < n_live);
+          mma_bf16(sc[t], ka.x, kb.x, ka.y, kb.y, qf[p].x, qf[p].y);
+          mma_bf16(sc[t], ka.z, kb.z, ka.w, kb.w, qf[p].z, qf[p].w);
+        }
+      }
+      if (r >= n_live) sc[t][0] = sc[t][1] = kMaskValue;
+      if (r + 8 >= n_live) sc[t][2] = sc[t][3] = kMaskValue;
+      mx[0] = fmaxf(mx[0], fmaxf(sc[t][0], sc[t][2]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[t][1], sc[t][3]));
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], off));
+      mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], off));
+    }
+    if (gr == 0) {
+      red_max[warp][2 * tig] = mx[0];
+      red_max[warp][2 * tig + 1] = mx[1];
+    }
+    __syncthreads();
+
+    // p against the chunk's max; l sums the f32 p, P.V takes bf16(p).
+    float m[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m[e] = red_max[0][2 * tig + e];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w)
+        m[e] = fmaxf(m[e], red_max[w][2 * tig + e]);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = (warp + kWarps * t) * 16 + gr + 8 * half;
+        if (r < chunk) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p =
+                r < n_live ? expf(sc[t][2 * half + e] - m[e]) : 0.f;
+            ls[e] += p;
+            ps[(2 * tig + e) * kPStride + r] = __float2bfloat16(p);
+          }
+        }
       }
     }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      ls[0] += __shfl_xor_sync(0xffffffffu, ls[0], off);
+      ls[1] += __shfl_xor_sync(0xffffffffu, ls[1], off);
+    }
+    if (gr == 0) {
+      red_sum[warp][2 * tig] = ls[0];
+      red_sum[warp][2 * tig + 1] = ls[1];
+    }
+    __syncthreads();
+
+    sm90::mbar_wait(&v_full, 0);
+    // O^T = V^T P^T: warp w takes head dims [32 w, 32 w + 32); lane
+    // (gr, tig) holds dims dc .. dc + 3 (dc = 32 w + 4 gr) as rows gr and
+    // gr + 8 of two 16-dim tiles. k-step kt pairs keys (k, k + 1) and
+    // (k + 8, k + 9), k = 16 kt + 2 tig.
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const int dc = 32 * warp + 4 * gr;
+    const int n_kt = (n_live + 15) / 16;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int key = 16 * kt + 2 * tig;
+      const unsigned char* rv = vs + key * kRowBytes;
+      const uint2 va = Row<KV>::four(rv, dc, key < n_live);
+      const uint2 vb = Row<KV>::four(rv + kRowBytes, dc, key + 1 < n_live);
+      const uint2 vc =
+          Row<KV>::four(rv + 8 * kRowBytes, dc, key + 8 < n_live);
+      const uint2 vd =
+          Row<KV>::four(rv + 9 * kRowBytes, dc, key + 9 < n_live);
+      const __nv_bfloat16* pg = ps + gr * kPStride + key;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(pg);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(pg + 8);
+      mma_bf16(acc[0], __byte_perm(va.x, vb.x, 0x5410),
+               __byte_perm(va.x, vb.x, 0x7632),
+               __byte_perm(vc.x, vd.x, 0x5410),
+               __byte_perm(vc.x, vd.x, 0x7632), b0, b1);
+      mma_bf16(acc[1], __byte_perm(va.y, vb.y, 0x5410),
+               __byte_perm(va.y, vb.y, 0x7632),
+               __byte_perm(vc.y, vd.y, 0x5410),
+               __byte_perm(vc.y, vd.y, 0x7632), b0, b1);
+    }
+
+    // The chunk's record (csrc/split_combine.cuh).
+    float* mine = part + (bh * n_split + j) * group * kRec;
+    if (2 * tig < group)
+      *reinterpret_cast<float4*>(mine + 2 * tig * kRec + 4 + dc) =
+          make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
+    if (2 * tig + 1 < group)
+      *reinterpret_cast<float4*>(mine + (2 * tig + 1) * kRec + 4 + dc) =
+          make_float4(acc[0][1], acc[0][3], acc[1][1], acc[1][3]);
+    if (tid < group) {
+      float mm = red_max[0][tid], ll = red_sum[0][tid];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        mm = fmaxf(mm, red_max[w][tid]);
+        ll += red_sum[w][tid];
+      }
+      mine[tid * kRec] = mm;
+      mine[tid * kRec + 1] = ll;
+    }
   }
 
-  // Block-local max and sum per query head, then bf16(p) into shared.
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < group) {
-      float x = live ? s[g] : kMaskValue;
-      s[g] = x;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-      if (lane == 0) red_max[g * kWarps + warp] = x;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < group) {
-      float m = red_max[g * kWarps];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_max[g * kWarps + w]);
-      const float p = live ? expf(s[g] - m) : 0.f;
-      ps[g * kBlockS + t] = round_bf16(p);
-      float x = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-      if (lane == 0) red_sum[g * kWarps + warp] = x;
-      if (t == 0) m_out[((size_t)(b * nkv + h) * n_blk + j) * group + g] = m;
-    }
-  }
-  __syncthreads();
-
-  // acc: thread t takes head dim t, over the live rows only.
-  for (int g = 0; g < group; ++g) {
-    float acc = 0.f;
-    for (int r = lo - c0; r < hi - c0; ++r)
-      acc = fmaf(ps[g * kBlockS + r], __bfloat162float(vs[r * kStride + t]),
-                 acc);
-    const size_t idx = ((size_t)(b * nkv + h) * n_blk + j) * group + g;
-    acc_out[idx * kD + t] = acc;
-    if (t == 0) {
-      float l = 0.f;
-      for (int w = 0; w < kWarps; ++w) l += red_sum[g * kWarps + w];
-      l_out[idx] = l;
-    }
-  }
-}
-
-// Kernel 2: grid (Nkv, B), thread t = head dim t. Combines the partials of
-// the blocks that hold a live key (exactly those kernel 1 did not skip).
-template <typename Q>
-__global__ void __launch_bounds__(kD)
-combine_kernel(const float* __restrict__ m_in, const float* __restrict__ l_in,
-               const float* __restrict__ acc_in,
-               const int* __restrict__ valid_from,
-               const int* __restrict__ valid_to, Q* __restrict__ o, int nq,
-               int nkv, int s_len, int n_blk) {
-  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int group = nq / nkv;
-  const int lo = max(valid_from[b], 0), hi = min(valid_to[b], s_len);
-  const int j0 = lo / kBlockS;
-  const int j1 = lo < hi ? (hi + kBlockS - 1) / kBlockS : j0;
-  for (int g = 0; g < group; ++g) {
-    const size_t base = (size_t)(b * nkv + h) * n_blk;
-    float m_all = kMaskValue;
-    for (int j = j0; j < j1; ++j)
-      m_all = fmaxf(m_all, m_in[(base + j) * group + g]);
-    float l_all = 0.f, acc = 0.f;
-    for (int j = j0; j < j1; ++j) {
-      const size_t idx = (base + j) * group + g;
-      const float w = expf(m_in[idx] - m_all);
-      l_all = fmaf(l_in[idx], w, l_all);
-      acc = fmaf(acc_in[idx * kD + t], w, acc);
-    }
-    const float l_safe = l_all == 0.f ? 1.f : l_all;
-    store(&o[((size_t)b * nq + h * group + g) * kD + t], acc / l_safe);
-  }
+  split::ticket_and_combine<Q, kThreads, kMaxG>(
+      part, tickets, o, bh, b, h, nq, group, kD, gridDim.x, n_split, chunk,
+      lo_all, hi_all, reinterpret_cast<float*>(smem), smem_bytes);
 }
 
 template <typename Q, typename KV>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const int* vf, const int* vt, float* m, float* l, float* acc,
-           int layer, int batch, int nq, int nkv, int s_len, float sm_scale,
-           cudaStream_t stream) {
-  // Above 48 KB only after opting in; once per instantiation, so no launch
-  // (nor a graph capture) repeats it.
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        partial_kernel<Q, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_raised = true;
-  }
-  const int n_blk = s_len / kBlockS;
-  partial_kernel<Q, KV><<<dim3(n_blk, nkv, batch), kThreads, kSmemBytes,
-                          stream>>>(
-      static_cast<const Q*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), vf, vt, m, l, acc, layer, batch, nq, nkv,
-      s_len, sm_scale);
-  const cudaError_t err = cudaGetLastError();
+           const int* vf, const int* vt, float* part, unsigned* tickets,
+           int layer, int batch, int nq, int nkv, int s_len, int chunk,
+           float sm_scale, int smem_bytes, cudaStream_t stream) {
+  if (chunk * kD * (int)sizeof(KV) > kChunkBytes ||
+      smem_bytes < 2 * chunk * kD * (int)sizeof(KV))
+    return (int)cudaErrorInvalidValue;
+  static bool raised[sm90::kMaxDevices] = {};
+  const cudaError_t err =
+      sm90::max_smem(decode_batch_kernel<Q, KV>, kMaxSmem, raised);
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<Q><<<dim3(nkv, batch), kD, 0, stream>>>(
-      m, l, acc, vf, vt, static_cast<Q*>(o), nq, nkv, s_len, n_blk);
+  decode_batch_kernel<Q, KV><<<dim3(s_len / chunk, nkv, batch), kThreads,
+                               smem_bytes, stream>>>(
+      static_cast<const Q*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<Q*>(o), vf, vt, part, tickets,
+      layer, batch, nq, nkv, s_len, chunk, sm_scale, smem_bytes);
   return (int)cudaGetLastError();
 }
 
 template <typename Q>
 int launch_q(int kv_dtype, const void* q, const void* k, const void* v,
-             void* o, const int* vf, const int* vt, float* m, float* l,
-             float* acc, int layer, int batch, int nq, int nkv, int s_len,
-             float sm_scale, cudaStream_t st) {
-  if (kv_dtype == 0)
-    return launch<Q, float>(q, k, v, o, vf, vt, m, l, acc, layer, batch, nq,
-                            nkv, s_len, sm_scale, st);
-  if (kv_dtype == 1)
-    return launch<Q, __nv_bfloat16>(q, k, v, o, vf, vt, m, l, acc, layer,
-                                    batch, nq, nkv, s_len, sm_scale, st);
-  if (kv_dtype == 2)
-    return launch<Q, Fp8E4M3>(q, k, v, o, vf, vt, m, l, acc, layer, batch,
-                              nq, nkv, s_len, sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+             void* o, const int* vf, const int* vt, float* part,
+             unsigned* tickets, int layer, int batch, int nq, int nkv,
+             int s_len, int chunk, float sm_scale, int smem_bytes,
+             cudaStream_t st) {
+  auto* go = kv_dtype == 0   ? launch<Q, float>
+             : kv_dtype == 1 ? launch<Q, __nv_bfloat16>
+             : kv_dtype == 2 ? launch<Q, Fp8E4M3>
+                             : nullptr;
+  if (go == nullptr) return (int)cudaErrorInvalidValue;
+  return go(q, k, v, o, vf, vt, part, tickets, layer, batch, nq, nkv, s_len,
+            chunk, sm_scale, smem_bytes, st);
 }
 
 }  // namespace
@@ -331,29 +384,34 @@ int launch_q(int kv_dtype, const void* q, const void* k, const void* v,
 // q_dtype: 0 = float32, 1 = bfloat16 (the output's too). kv_dtype: 0 =
 // float32, 1 = bfloat16, 2 = float8_e4m3fn. k/v point at the start of the
 // stacked cache [L, B, nkv, s_len, 128] (L = 1 for one layer); `layer`
-// selects the layer. m/l: [B, nkv, s_len / 128, nq / nkv] f32 scratch, acc
-// the same with 128 more; all three written before they are read. Returns
-// the first launch error (cudaError_t), 0 if both launched.
+// selects the layer. The plan: `chunk` keys a block (16, 32, 64 or 128, at
+// most 16 KB of K), `smem_bytes` of dynamic shared memory (the chunk's K
+// and V, and at least one combine round's records). part: f32 scratch of
+// B * nkv * (s_len / chunk) * (nq / nkv) * 132 values; tickets: B * nkv
+// zeroed unsigned ints, left zeroed. Returns the launch's cudaError_t.
 extern "C" int decode_attention_batch_fwd(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
-    void* o, const void* valid_from, const void* valid_to, void* m, void* l,
-    void* acc, int layer, int batch, int nq, int nkv, int s_len, int d,
-    float sm_scale, void* stream) {
-  if (d != kD || s_len <= 0 || s_len % kBlockS != 0 || nkv <= 0 ||
-      nq % nkv != 0 || nq / nkv > kMaxG || layer < 0 || batch <= 0)
+    void* o, const void* valid_from, const void* valid_to, void* part,
+    void* tickets, int layer, int batch, int nq, int nkv, int s_len, int d,
+    int chunk, float sm_scale, int smem_bytes, void* stream) {
+  if (d != kD || nkv <= 0 || nq % nkv != 0 || nq / nkv > kMaxG ||
+      layer < 0 || batch <= 0 || chunk < 16 || chunk > kMaxChunk ||
+      (chunk & (chunk - 1)) != 0 || s_len <= 0 || s_len % chunk != 0 ||
+      smem_bytes > kMaxSmem ||
+      smem_bytes < (int)sizeof(float) * (nq / nkv) * kRec)
     return (int)cudaErrorInvalidValue;
   auto* vf = static_cast<const int*>(valid_from);
   auto* vt = static_cast<const int*>(valid_to);
-  auto* mp = static_cast<float*>(m);
-  auto* lp = static_cast<float*>(l);
-  auto* ap = static_cast<float*>(acc);
+  auto* pp = static_cast<float*>(part);
+  auto* tk = static_cast<unsigned*>(tickets);
   auto st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
-    return launch_q<float>(kv_dtype, q, k, v, o, vf, vt, mp, lp, ap, layer,
-                           batch, nq, nkv, s_len, sm_scale, st);
+    return launch_q<float>(kv_dtype, q, k, v, o, vf, vt, pp, tk, layer,
+                           batch, nq, nkv, s_len, chunk, sm_scale,
+                           smem_bytes, st);
   if (q_dtype == 1)
-    return launch_q<__nv_bfloat16>(kv_dtype, q, k, v, o, vf, vt, mp, lp, ap,
-                                   layer, batch, nq, nkv, s_len, sm_scale,
-                                   st);
+    return launch_q<__nv_bfloat16>(kv_dtype, q, k, v, o, vf, vt, pp, tk,
+                                   layer, batch, nq, nkv, s_len, chunk,
+                                   sm_scale, smem_bytes, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel tools_perf/attn_phase.py `_slab_kernel` (built by
 // `make_slab_reader`): a read-rate probe of one layer of the stacked cache
-// [L, B, Nkv, S, D], streamed in batch-major slabs. Its output is exactly
+// [L, B, Nkv, S, 128], streamed in batch-major slabs. Its output is exactly
 // that kernel's:
 //
 //   o[b, :] = sum over j of (k[b, 0, j*bs, :] + v[b, 0, j*bs, :] + seed)
@@ -11,19 +11,23 @@
 //
 // Reading every byte. On the TPU the auto-pipeline copies whole blocks into
 // VMEM whatever the kernel body touches, so the sliver sum reads the whole
-// cache. A GPU thread loads only what it asks for, so here every thread
-// loads its share of the slab with 16-byte loads and folds every loaded
-// word into an XOR. If that XOR equals `sentinel`, a value the caller
-// passes at run time, the thread writes it to `sink`. The compiler cannot
-// know the sentinel, so it must keep every load; a chance match costs one
-// store to a scratch word and changes no output.
+// cache. Here every byte of the layer lands in shared memory through 1-D
+// bulk copies (`cp.async.bulk`), which the compiler cannot elide, and the
+// sliver terms are read from there.
 //
-// What bounds it: bytes only, 2 * B * Nkv * S * D * itemsize per layer over
-// the card's 3.35 TB/s; it does no arithmetic worth counting. Kernel 1 runs
-// one block per (slab j, KV head, row), each streaming a contiguous
-// [bs, D] run of K and of V. On a GPU blocks carry no sums across the grid,
-// so the head-0 blocks write their sliver term to f32 scratch and kernel 2
-// sums the terms over j in order.
+// What it measures: the read ceiling of csrc/decode_attention_batch.cu's
+// own design. It reads the layer exactly as that kernel reads a fully live
+// cache: the same plan (ops/decode_attention_batch.py `batch_plan`: the
+// chunk length), grid (n_split, Nkv, B), one chunk a block, its K rows and
+// its V rows by one bulk copy each onto one mbarrier, and a ticket per
+// row. It does no arithmetic worth
+// counting, so it is bound by bytes only: 2 * B * Nkv * S * 128 * itemsize
+// per layer over the card's 3.35 TB/s.
+//
+// One launch: the head-0 blocks write the sliver term of every slab that
+// starts in their chunk to f32 scratch; the last block of row b to
+// take an acq_rel ticket sums the terms in order of j and resets the
+// ticket.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -31,105 +35,121 @@
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+constexpr int kD = 128;
+constexpr int kThreads = kD;            // thread t takes head dim t
+constexpr int kChunkBytes = 16384;      // as csrc/decode_attention_batch.cu
+constexpr int kBatch = 8;               // sliver terms loaded at once
 
-__device__ __forceinline__ float value(const uint8_t* p, size_t i) {
+__device__ __forceinline__ float value(const uint8_t* p, int i) {
   const __half_raw hr = __nv_cvt_fp8_to_halfraw(p[i], __NV_E4M3);
   return __half2float(__half(hr));
 }
-__device__ __forceinline__ float value(const __nv_bfloat16* p, size_t i) {
+__device__ __forceinline__ float value(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
 }
 
+// Grid (n_split, Nkv, B). Dynamic shared memory: [K chunk | V chunk].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 slab_kernel(const T* __restrict__ k, const T* __restrict__ v,
-            float* __restrict__ terms, unsigned* __restrict__ sink,
-            unsigned sentinel, int layer, int batch, int nkv, int s_len,
-            int d, int bs, float seed) {
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const size_t run = (((size_t)layer * batch + b) * nkv + h) * s_len +
-                     (size_t)j * bs;                     // first row
-  const T* kr = k + run * d;
-  const T* vr = v + run * d;
-  const int n16 = (int)((size_t)bs * d * sizeof(T) / 16);
-  const uint4* k4 = reinterpret_cast<const uint4*>(kr);
-  const uint4* v4 = reinterpret_cast<const uint4*>(vr);
-  unsigned x = 0;
-  for (int i = threadIdx.x; i < n16; i += kThreads * kUnroll) {
-    uint4 a[kUnroll], c[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = i + u * kThreads;
-      a[u] = idx < n16 ? __ldcs(k4 + idx) : make_uint4(0, 0, 0, 0);
-      c[u] = idx < n16 ? __ldcs(v4 + idx) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      x ^= a[u].x ^ a[u].y ^ a[u].z ^ a[u].w ^ c[u].x ^ c[u].y ^ c[u].z ^
-           c[u].w;
-  }
-  if (x == sentinel) *sink = x;
-  if (h == 0) {
-    for (int t = threadIdx.x; t < d; t += kThreads)
-      terms[((size_t)b * gridDim.x + j) * d + t] =
-          (value(kr, t) + value(vr, t)) + seed;
-  }
-}
+            float* __restrict__ terms, float* __restrict__ o,
+            unsigned* __restrict__ tickets, int layer, int batch, int nkv,
+            int s_len, int bs, int chunk, float seed) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full;
+  __shared__ int last_s;
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int n_slab = s_len / bs;
+  const int tile_bytes = chunk * kD * (int)sizeof(T);
+  const T* ks = reinterpret_cast<const T*>(smem);
+  const T* vs = ks + chunk * kD;
 
-// grid (B), thread t = dim t: o[b, t] = sum over j in order of terms.
-__global__ void sum_kernel(const float* __restrict__ terms,
-                           float* __restrict__ o, int n_slab, int d) {
-  const int b = blockIdx.x;
-  for (int t = threadIdx.x; t < d; t += blockDim.x) {
-    float acc = 0.f;
-    for (int j = 0; j < n_slab; ++j)
-      acc += terms[((size_t)b * n_slab + j) * d + t];
-    o[(size_t)b * d + t] = acc;
+  if (tid == 0) {
+    const size_t first =
+        (((size_t)layer * batch + b) * nkv + h) * s_len + (size_t)j * chunk;
+    sm90::mbar_init(&full, 1);
+    sm90::mbar_expect_tx(&full, 2 * tile_bytes);
+    sm90::bulk_load(smem, k + first * kD, tile_bytes, &full);
+    sm90::bulk_load(smem + tile_bytes, v + first * kD, tile_bytes, &full);
   }
+  __syncthreads();   // the barrier's init
+  sm90::mbar_wait(&full, 0);
+  if (h == 0) {
+    const int c0 = j * chunk;
+    for (int i = (c0 + bs - 1) / bs; i * bs < c0 + chunk; ++i) {
+      const int r = (i * bs - c0) * kD + tid;
+      terms[((size_t)b * n_slab + i) * kD + tid] =
+          (value(ks, r) + value(vs, r)) + seed;
+    }
+  }
+  __syncthreads();   // the block's terms, before its ticket
+
+  if (tid == 0)
+    last_s = sm90::atomic_add_acq_rel(&tickets[b], 1u) ==
+             (unsigned)(gridDim.x * nkv - 1);
+  __syncthreads();
+  if (!last_s) return;
+  // kBatch terms in flight at once (one round trip to L2), summed in order
+  const float* col = terms + (size_t)b * n_slab * kD + tid;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < n_slab; j0 += kBatch) {
+    float t[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      t[u] = j0 + u < n_slab ? __ldcg(col + (size_t)(j0 + u) * kD) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j0 + u < n_slab) acc += t[u];
+  }
+  o[(size_t)b * kD + tid] = acc;
+  if (tid == 0) tickets[b] = 0u;
 }
 
 template <typename T>
 int launch(const void* k, const void* v, float* terms, float* o,
-           unsigned* sink, unsigned sentinel, int layer, int batch, int nkv,
-           int s_len, int d, int bs, float seed, cudaStream_t st) {
-  const int n_slab = s_len / bs;
-  slab_kernel<T><<<dim3(n_slab, nkv, batch), kThreads, 0, st>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), terms, sink,
-      sentinel, layer, batch, nkv, s_len, d, bs, seed);
-  const cudaError_t err = cudaGetLastError();
+           unsigned* tickets, int layer, int batch, int nkv, int s_len,
+           int bs, int chunk, float seed, cudaStream_t st) {
+  const int tile_bytes = chunk * kD * (int)sizeof(T);
+  if (tile_bytes > kChunkBytes) return (int)cudaErrorInvalidValue;
+  static bool raised[sm90::kMaxDevices] = {};
+  const cudaError_t err =
+      sm90::max_smem(slab_kernel<T>, 2 * kChunkBytes, raised);
   if (err != cudaSuccess) return (int)err;
-  sum_kernel<<<batch, 128, 0, st>>>(terms, o, n_slab, d);
+  slab_kernel<T><<<dim3(s_len / chunk, nkv, batch), kThreads,
+                   2 * tile_bytes, st>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), terms, o, tickets,
+      layer, batch, nkv, s_len, bs, chunk, seed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 1 = bfloat16, 2 = float8_e4m3fn. k/v point at the start of the
-// stacked cache [L, B, nkv, s_len, d]; `layer` selects the layer. terms:
-// [B, s_len / bs, d] f32 scratch; o: [B, d] f32; sink: one scratch word.
-// Returns the first launch error (cudaError_t), 0 if both launched.
+// stacked cache [L, B, nkv, s_len, 128]; `layer` selects the layer.
+// `chunk` is kernel #3's for this cache. terms: [B, s_len / bs, 128] f32
+// scratch; o: [B, 128] f32; tickets: B zeroed unsigned ints, left zeroed.
+// Returns the launch's cudaError_t.
 extern "C" int slab_read_fwd(int dtype, const void* k, const void* v,
-                             void* terms, void* o, void* sink,
-                             unsigned sentinel, int layer, int batch, int nkv,
-                             int s_len, int d, int bs, float seed,
-                             void* stream) {
-  const int item = dtype == 1 ? 2 : 1;
-  if (batch <= 0 || nkv <= 0 || d <= 0 || bs <= 0 || s_len % bs != 0 ||
-      ((size_t)bs * d * item) % 16 != 0 || layer < 0)
+                             void* terms, void* o, void* tickets, int layer,
+                             int batch, int nkv, int s_len, int d, int bs,
+                             int chunk, float seed, void* stream) {
+  if (batch <= 0 || nkv <= 0 || d != kD || bs <= 0 || s_len % bs != 0 ||
+      chunk < 16 || (chunk & (chunk - 1)) != 0 || s_len % chunk != 0 ||
+      layer < 0)
     return (int)cudaErrorInvalidValue;
   auto* tp = static_cast<float*>(terms);
   auto* op = static_cast<float*>(o);
-  auto* sp = static_cast<unsigned*>(sink);
+  auto* tk = static_cast<unsigned*>(tickets);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(k, v, tp, op, sp, sentinel, layer, batch,
-                                 nkv, s_len, d, bs, seed, st);
+    return launch<__nv_bfloat16>(k, v, tp, op, tk, layer, batch, nkv, s_len,
+                                 bs, chunk, seed, st);
   if (dtype == 2)
-    return launch<uint8_t>(k, v, tp, op, sp, sentinel, layer, batch, nkv,
-                           s_len, d, bs, seed, st);
+    return launch<uint8_t>(k, v, tp, op, tk, layer, batch, nkv, s_len, bs,
+                           chunk, seed, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels under csrc/: the
 // shared-memory barrier (mbarrier) that asynchronous copies complete on,
-// the one-dimensional bulk copy from device to shared memory, and an
-// acquire-release atomic. Raw PTX, no CUTLASS headers, so a source that
-// includes this still builds in seconds.
+// the one-dimensional bulk copy from device to shared memory, an
+// acquire-release atomic, and the shared-memory opt-in of a launch. Raw
+// PTX, no CUTLASS headers, so a source that includes this still builds in
+// seconds.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,14 +64,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
-// device memory into shared memory; completes on `bar`.
+// device memory into shared memory; completes on `bar`. Every caller reads
+// its bytes once (a layer of the cache, or partials), so the copy asks L2
+// to evict them first.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
       : "memory");
+}
+
+// Order this thread's earlier shared-memory accesses before a later
+// asynchronous copy into the same bytes.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+constexpr int kMaxDevices = 64;
+
+// Let `kernel` take up to `dynamic_bytes` of dynamic shared memory (above
+// 48 KB only after this opt-in) and ask for the largest shared-memory
+// carveout, so the blocks its shared memory allows are all resident. Both
+// attributes hold per device: `done` marks the devices already set, so no
+// later launch on one (nor a graph capture) repeats the calls. Host side;
+// returns cudaError_t.
+template <typename Kernel>
+inline cudaError_t max_smem(Kernel kernel, int dynamic_bytes,
+                            bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
 }
 
 // atomicAdd with acquire-release semantics at device scope.

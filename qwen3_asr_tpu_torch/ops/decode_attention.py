@@ -39,10 +39,25 @@ _MIN_CHUNK = 16
 _CHUNK_BYTES = 16384     # kChunkBytes: one chunk of K (or of V)
 _SMS = 132               # streaming multiprocessors of an H100 SXM
 _TICKETS = 4096          # ticket slots, one per (row, KV head) of a call
-# One zeroed ticket buffer per device, left zeroed by every call; calls on
-# one device share it, so they run one at a time (one stream, as the engine
-# runs them).
+# One zeroed ticket buffer per device, shared by the kernels that combine
+# across blocks (this one, ops/decode_attention_batch.py and
+# ops/slab_reader.py) and left zeroed by every call; calls on one device
+# share it, so they run one at a time (one stream, as the engine runs them).
 _tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    """The zeroed ticket buffer of ``dev``, for a call that takes ``n``
+    tickets; raises if it has fewer. Never reallocated, so a captured CUDA
+    graph keeps a valid pointer."""
+    if n > _TICKETS:
+        raise ValueError(f"{n} tickets (rows x KV heads) exceed the "
+                         f"{_TICKETS} the kernels keep")
+    tickets = _tickets.get(dev)
+    if tickets is None:
+        tickets = torch.zeros(_TICKETS, dtype=torch.int32, device=dev)
+        _tickets[dev] = tickets
+    return tickets
 
 
 def split_plan(s_len: int, batch: int, nkv: int, head_dim: int,
@@ -122,11 +137,7 @@ def _launch(q, k, v, vf, vt, *, layer_idx, sm_scale):
             raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor "
                              f"on {dev}")
     chunk, n_split = split_plan(s_len, b, nkv, d, q.element_size())
-    tickets = _tickets.get(dev)
-    if tickets is None or tickets.numel() < b * nkv:
-        tickets = torch.zeros(max(_TICKETS, b * nkv), dtype=torch.int32,
-                              device=dev)
-        _tickets[dev] = tickets
+    tickets = ticket_buffer(dev, b * nkv)
     out = torch.empty_like(q)
     part = torch.empty(b * n_split * nq * (d + 4),
                        dtype=torch.float32, device=dev)

@@ -16,28 +16,55 @@ package's plain ``astype`` cache with no scales), bf16 or f32.
 
 What bounds it on the H100: the bytes of the live cache,
 ``2·B·Nkv·live·128·itemsize`` per layer. What the design does about it:
-one block per (128-key block, KV head, row) reads only the live rows of
-its K and V tiles with 16-byte loads and widens them in shared memory;
-a second kernel combines the blocks' partial softmax states by m and l.
-Both the kernel and the plain version take the softmax max per 128-key
-block (the TPU kernel takes a running max), so p is rounded against the
-same max on both.
+one launch over a grid (n_split, Nkv, B) from ``batch_plan`` (a chunk
+length from the cache's shape alone); each block copies its chunk's live K
+and V rows into shared memory by bulk copies, computes both products on
+tensor cores, and writes one partial softmax state; the last block of each
+(row, KV head) to take a ticket combines them in split order. Both the kernel and the plain version
+take the softmax max per chunk of the plan (the TPU kernel takes a running
+max), so p is rounded against the same max on both.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ._build import load
 from .attention import MASK_VALUE
+from .decode_attention import split_plan, ticket_buffer
 
 HEAD_DIM = 128            # kD in csrc/decode_attention_batch.cu
-BLOCK_S = 128             # kBlockS: keys per block, and S must be a multiple
+CACHE_TILE = 128          # S must be a multiple (a chunk divides it)
 _MAX_GROUP = 8            # kMaxG
+_RECORD = HEAD_DIM + 4    # floats of one partial: m, l, -, -, acc
+_COMBINE_BYTES = 65536    # shared memory a combine round stages at most
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
+class Plan(NamedTuple):
+    """How kernel #3 (and the read-rate probe) cut one layer of the cache:
+    ``chunk`` keys a block (the softmax max is taken per chunk), ``n_split``
+    chunks per (row, KV head)."""
+    chunk: int
+    n_split: int
+
+    def smem_bytes(self, itemsize: int, group: int) -> int:
+        """Dynamic shared memory of a block: the chunk's K and V, and room
+        for one combine round of partial records."""
+        tiles = 2 * self.chunk * HEAD_DIM * itemsize
+        records = min(self.n_split * group * _RECORD * 4, _COMBINE_BYTES)
+        return max(tiles, records)
+
+
+def batch_plan(s_len: int, batch: int, nkv: int, itemsize: int) -> Plan:
+    """The plan for a cache [.., B, Nkv, S, 128] of ``itemsize`` bytes: the
+    chunk of ``split_plan`` (a power of two that divides 128, at most 16 KB
+    of K, halved while the grid has fewer blocks than the card has SMs),
+    from the shape alone, never from the valid range."""
+    return Plan(*split_plan(s_len, batch, nkv, HEAD_DIM, itemsize))
 
 
 def decode_attention_batched_plain(q: torch.Tensor, k: torch.Tensor,
@@ -45,30 +72,31 @@ def decode_attention_batched_plain(q: torch.Tensor, k: torch.Tensor,
                                    valid_to: torch.Tensor, *, layer_idx: int,
                                    sm_scale: float) -> torch.Tensor:
     """Dense restatement of the kernel's function, with its rounding points
-    and its per-block softmax max and combine."""
+    and its softmax max per chunk of ``batch_plan`` and combine."""
     if k.dim() == 5:
         k, v = k[layer_idx], v[layer_idx]
     b, nq, _, d = q.shape
     _, nkv, s_len, _ = k.shape
-    g, n_blk = nq // nkv, s_len // BLOCK_S
+    chunk = batch_plan(s_len, b, nkv, k.element_size()).chunk
+    g, n_blk = nq // nkv, s_len // chunk
     bf16 = torch.bfloat16
     qs = (q.float() * sm_scale).to(bf16).float().reshape(b, nkv, g, d)
     kb = k.to(bf16).float()
-    vb = v.to(bf16).float().reshape(b, nkv, n_blk, BLOCK_S, d)
+    vb = v.to(bf16).float().reshape(b, nkv, n_blk, chunk, d)
     s = torch.einsum("bhgd,bhsd->bhgs", qs, kb)
     cols = torch.arange(s_len, device=q.device)[None, :]
     live = ((cols >= valid_from.long()[:, None])
             & (cols < valid_to.long()[:, None]))[:, None, None, :]
     s = torch.where(live, s, torch.full_like(s, MASK_VALUE))
-    s = s.reshape(b, nkv, g, n_blk, BLOCK_S)
-    live = live.reshape(b, 1, 1, n_blk, BLOCK_S)
-    m = s.amax(dim=-1, keepdim=True)                     # per block
+    s = s.reshape(b, nkv, g, n_blk, chunk)
+    live = live.reshape(b, 1, 1, n_blk, chunk)
+    m = s.amax(dim=-1, keepdim=True)                     # per chunk
     p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1)                                    # [b,h,g,blk]
+    l = p.sum(dim=-1)                                    # [b,h,g,chunk]
     acc = torch.einsum("bhgjc,bhjcd->bhgjd", p.to(bf16).float(), vb)
     m = m[..., 0]
-    # Blocks with no live key have m = MASK_VALUE and l = 0, so their
-    # weight is 0 beside any live block, and a row with none gives 0.
+    # Chunks with no live key have m = MASK_VALUE and l = 0, so their
+    # weight is 0 beside any live chunk, and a row with none gives 0.
     w = torch.exp(m - m.amax(dim=-1, keepdim=True))
     l_all = (l * w).sum(dim=-1)[..., None]
     out = (acc * w[..., None]).sum(dim=-2)
@@ -81,8 +109,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.decode_attention_batch_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -108,8 +136,9 @@ def _launch(q, k, v, vf, vt, *, layer_idx, sm_scale):
     if v.shape != k.shape or k.shape[-4] != b or k.dim() not in (4, 5):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if nq // nkv > _MAX_GROUP:
-        raise ValueError(f"query group {nq // nkv} exceeds {_MAX_GROUP}")
+    group = nq // nkv
+    if group > _MAX_GROUP:
+        raise ValueError(f"query group {group} exceeds {_MAX_GROUP}")
     if not 0 <= layer_idx < n_layers:
         raise ValueError(f"layer_idx {layer_idx} outside [0, {n_layers})")
     for x, name in ((vf, "kv_valid_from"), (vt, "kv_valid_to")):
@@ -117,18 +146,18 @@ def _launch(q, k, v, vf, vt, *, layer_idx, sm_scale):
                 or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 [{b}] tensor "
                              f"on {dev}")
+    plan = batch_plan(s_len, b, nkv, k.element_size())
+    tickets = ticket_buffer(dev, b * nkv)
     out = torch.empty_like(q)
-    n_blk = s_len // BLOCK_S
-    m = torch.empty((b, nkv, n_blk, nq // nkv), dtype=torch.float32,
-                    device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b, nkv, n_blk, nq // nkv, d), dtype=torch.float32,
-                      device=dev)
+    part = torch.empty(b * nkv * plan.n_split * group * _RECORD,
+                       dtype=torch.float32, device=dev)
     err = _library().decode_attention_batch_fwd(
         _Q_CODE[q.dtype], _KV_CODE[k.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), vf.data_ptr(), vt.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), layer_idx, b, nq, nkv,
-        s_len, d, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+        part.data_ptr(), tickets.data_ptr(), layer_idx, b, nq, nkv, s_len, d,
+        plan.chunk, float(sm_scale),
+        plan.smem_bytes(k.element_size(), group),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_batched kernel launch failed: "
                            f"CUDA error {err}")
@@ -155,9 +184,9 @@ def decode_attention_batched(q: torch.Tensor, k: torch.Tensor,
     if d != HEAD_DIM or k.shape[-1] != HEAD_DIM:
         raise ValueError(f"decode_attention_batched needs head_dim "
                          f"{HEAD_DIM}, got {d}")
-    if s_len % BLOCK_S:
+    if s_len % CACHE_TILE:
         raise ValueError(f"cache length {s_len} is not a multiple of "
-                         f"{BLOCK_S}")
+                         f"{CACHE_TILE}")
     if nq % nkv:
         raise ValueError(f"query heads {nq} not divisible by kv heads {nkv}")
     if sm_scale is None:

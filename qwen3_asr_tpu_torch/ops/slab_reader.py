@@ -3,27 +3,28 @@
 
 Replaces the TPU kernel ``tools_perf/attn_phase.py`` ``_slab_kernel``
 (built by ``make_slab_reader``). It reads one layer of the stacked cache
-``[L, B, Nkv, S, D]``, every byte of it, in batch-major slabs of ``bs``
-positions, and returns that kernel's ``[B, D]`` f32 output::
+``[L, B, Nkv, S, 128]``, every byte of it, and returns that kernel's
+``[B, 128]`` f32 output over slabs of ``bs`` positions::
 
     o[b, :] = sum over j of (k[b, 0, j*bs, :] + v[b, 0, j*bs, :] + seed)
 
-It does no work worth counting besides the read, so its time is the read
-rate of the cache on this card: the realistic ceiling for the decode
-attention kernels (``tools_perf/attn_phase.py`` measures it).
+It reads the layer as kernel #3 (``ops/decode_attention_batch.py``) reads
+a fully live cache: the same plan (``batch_plan``), one chunk a block, its
+K and V rows by one bulk copy each into shared memory, one launch with a
+ticket per row. It does no work worth counting besides the read, so
+its time is the read ceiling of that kernel's design on this card
+(``tools_perf/attn_phase.py`` measures it).
 """
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from ._build import load
+from .decode_attention import ticket_buffer
+from .decode_attention_batch import CACHE_TILE, HEAD_DIM, batch_plan
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-# Compared at run time with each thread's XOR of the words it loaded, so
-# the compiler must keep every load (csrc/slab_reader.cu).
-SENTINEL = 0x9E3779B9
 
 
 def slab_read_plain(k: torch.Tensor, v: torch.Tensor, *, layer_idx: int,
@@ -41,7 +42,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.slab_read_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, ctypes.c_uint, i, i, i, i, i, i,
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
@@ -61,19 +62,20 @@ def _launch(k, v, *, layer_idx, seed, block_s):
         raise ValueError("slab_read needs a contiguous cache")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("the cache must be 16-byte aligned")
-    if (block_s * d * k.element_size()) % 16:
-        raise ValueError(f"a slab row run of {block_s}x{d} is not a whole "
-                         f"number of 16-byte loads")
+    if d != HEAD_DIM:
+        raise ValueError(f"slab_read needs head_dim {HEAD_DIM}, got {d}")
     if not 0 <= layer_idx < n_layers:
         raise ValueError(f"layer_idx {layer_idx} outside [0, {n_layers})")
+    chunk = batch_plan(s_len, b, nkv, k.element_size()).chunk
+    tickets = ticket_buffer(dev, b)
     terms = torch.empty((b, s_len // block_s, d), dtype=torch.float32,
                         device=dev)
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
-    sink = torch.empty((1,), dtype=torch.int32, device=dev)
     err = _library().slab_read_fwd(
         _DTYPE_CODE[k.dtype], k.data_ptr(), v.data_ptr(), terms.data_ptr(),
-        out.data_ptr(), sink.data_ptr(), SENTINEL, layer_idx, b, nkv, s_len,
-        d, block_s, float(seed), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), tickets.data_ptr(), layer_idx, b, nkv, s_len, d,
+        block_s, chunk, float(seed),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slab_read kernel launch failed: CUDA error {err}")
     slab_read.launches += 1
@@ -82,14 +84,16 @@ def _launch(k, v, *, layer_idx, seed, block_s):
 
 def slab_read(k: torch.Tensor, v: torch.Tensor, *, layer_idx: int = 0,
               seed: int = 0, block_s: int = 128) -> torch.Tensor:
-    """k/v: the stacked cache [L, B, Nkv, S, D] (or one layer [B, Nkv, S,
-    D]), bf16 or fp8, S a multiple of ``block_s`` → [B, D] f32.
+    """k/v: the stacked cache [L, B, Nkv, S, 128] (or one layer [B, Nkv, S,
+    128]), bf16 or fp8, S a multiple of 128 and of ``block_s`` → [B, 128]
+    f32.
 
     A CUDA tensor launches the kernel or raises; only a CPU tensor takes
     the plain version."""
-    if k.shape[-2] % block_s:
-        raise ValueError(f"cache length {k.shape[-2]} is not a multiple of "
-                         f"block_s {block_s}")
+    s_len = k.shape[-2]
+    if s_len % block_s or s_len % CACHE_TILE:
+        raise ValueError(f"cache length {s_len} is not a multiple of "
+                         f"block_s {block_s} and of {CACHE_TILE}")
     layer_idx = int(layer_idx) if k.dim() == 5 else 0
     if k.device.type == "cpu":
         return slab_read_plain(k, v, layer_idx=layer_idx, seed=int(seed),

@@ -2,10 +2,11 @@
 cache be read in batch-major slabs?
 
 Counterpart of ``tools_perf/attn_phase.py``'s slab reader (its variant 2).
-The answer is the realistic ceiling for the decode attention kernels
-(``ops/decode_attention.py``, ``ops/decode_attention_batch.py``), which
-read the same cache. Each probe call reads one layer through the slab-read
-kernel (``ops/slab_reader.py``); the timing steps the layer through all of
+The slab-read kernel (``ops/slab_reader.py``) reads a layer as the batched
+decode kernel (``ops/decode_attention_batch.py``) reads a fully live one:
+the same plan, the same bulk copies into shared memory. So the answer is
+the read ceiling of that kernel's design, the yardstick for its read rate.
+Each probe call reads one layer; the timing steps the layer through all of
 them, so each call finds its layer cold in device memory, as the decode
 loop does.
 

@@ -188,10 +188,20 @@ BATCH_CASES = {
     "one_layer_left_pad": (0, 4, 8, 4, 256, 0, [0, 130, 5, 40],
                            [256, 256, 6, 40]),
     "group8_b2": (2, 2, 16, 2, 384, 1, [0, 200], [129, 384]),
+    # B=1: the plan's smallest chunks (16 keys at S=256, 32 at S=768)
+    "b1_s256_chunk16": (2, 1, 16, 8, 256, 1, [37], [141]),
+    "b1_s768_1p7b": (2, 1, 16, 8, 768, 0, [50], [621]),
+    # the JAX serving shape, rows at different fill levels
+    "serving_b96_s512": (0, 96, 16, 8, 512, 0, [i % 3 for i in range(96)],
+                         [257 + 50 * (i % 5) for i in range(96)]),
+    # a live range inside one chunk (64 keys at B=2), one of a single key
+    "inside_one_chunk": (0, 2, 16, 8, 768, 0, [70, 200], [75, 201]),
+    "empty_range": (0, 2, 8, 4, 256, 0, [60, 0], [60, 0]),
 }
-# The plain version takes the same per-block max and rounds p and q·scale
-# to bf16 at the same points: f32 outputs differ by summation order and
-# by expf against torch.exp, which can move one bf16(p) by an ulp.
+# The plain version takes the same max per chunk of the same plan and
+# rounds p and q·scale to bf16 at the same points: f32 outputs differ by
+# summation order and by expf against torch.exp, which can move one bf16(p)
+# by an ulp.
 BATCH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 
 
@@ -224,20 +234,69 @@ def test_batched_decode_kernel_matches_plain(dev, name, q_dtype, kv_dtype):
     assert not out[dead].float().abs().any()
 
 
+def _batch_inputs(dev, kv_dtype):
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (8, 16, 1, 128), torch.bfloat16, dev)
+    k = _randn(rng, (4, 8, 8, 768, 128), torch.float32, dev).to(kv_dtype)
+    v = _randn(rng, (4, 8, 8, 768, 128), torch.float32, dev).to(kv_dtype)
+    vf = torch.tensor([12] * 7 + [700], dtype=torch.int32, device=dev)
+    vt = torch.tensor([570] * 7 + [768], dtype=torch.int32, device=dev)
+    return q, k, v, vf, vt
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn],
+                         ids=["bf16", "fp8"])
+def test_batched_decode_kernel_is_deterministic(dev, kv_dtype):
+    """One launch per call; the same bits twice; every ticket back at 0."""
+    q, k, v, vf, vt = _batch_inputs(dev, kv_dtype)
+    before = decode_attention_batched.launches
+    outs = [decode_attention_batched(q, k, v, layer_idx=2, kv_valid_from=vf,
+                                     kv_valid_to=vt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert decode_attention_batched.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+    assert not decode_module._tickets[outs[0].device].any()
+
+
+def test_batched_decode_kernel_replays_in_a_cuda_graph(dev):
+    q, k, v, vf, vt = _batch_inputs(dev, torch.float8_e4m3fn)
+    eager = decode_attention_batched(q, k, v, layer_idx=3, kv_valid_from=vf,
+                                     kv_valid_to=vt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_batched(q, k, v, layer_idx=3, kv_valid_from=vf,
+                                 kv_valid_to=vt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_batched(q, k, v, layer_idx=3,
+                                       kv_valid_from=vf, kv_valid_to=vt)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert not decode_module._tickets[out.device].any()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn],
                          ids=["bf16", "fp8"])
 @pytest.mark.parametrize("bs", [128, 32])
 def test_slab_kernel_matches_plain(dev, dtype, bs):
+    """One launch per call, the same bits twice, tickets back at 0."""
     rng = np.random.default_rng(3)
     shape = (3, 4, 8, 512, 128)
     k = _randn(rng, shape, torch.float32, dev).to(dtype)
     v = _randn(rng, shape, torch.float32, dev).to(dtype)
     before = slab_read.launches
-    out = slab_read(k, v, layer_idx=1, seed=5, block_s=bs)
+    outs = [slab_read(k, v, layer_idx=1, seed=5, block_s=bs)
+            for _ in range(2)]
     torch.cuda.synchronize()
-    assert slab_read.launches == before + 1
+    assert slab_read.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+    assert not decode_module._tickets[outs[0].device].any()
     ref = slab_read_plain(k, v, layer_idx=1, seed=5, block_s=bs)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
 
 
 def test_new_kernels_refuse_what_they_do_not_take(dev):

@@ -2,8 +2,9 @@
 JAX Pallas kernel ``decode_attention_batched`` in interpret mode.
 
 Tolerance atol = rtol = 1e-2 in f32: both round p to bf16 before it weights
-V, the port against a per-block softmax max and the TPU kernel against its
-running max, so the rounding of p differs by up to half a bf16 ulp."""
+V, the port against the softmax max of each chunk of its plan
+(``batch_plan``: 16 to 128 keys) and the TPU kernel against its running
+max, so the rounding of p differs by up to half a bf16 ulp."""
 import ml_dtypes
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import torch
 from qwen3_asr_tpu.ops.decode_attention_batch import (
     decode_attention_batched as jax_batched)
 from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
-    decode_attention_batched)
+    batch_plan, decode_attention_batched)
 
 TOL = 1e-2
 
@@ -53,7 +54,22 @@ CASES = {
                              [10, 200, 300, 0], [150, 512, 301, 512], 0),
     "fully_masked_rows": (0, 4, 8, 4, 256, "f32", "f32", [0, 0, 50, 0],
                           [0, 256, 50, 64], 0),
+    # the plan's small chunks (16, 32 and 64 keys): live ranges that start
+    # and end inside a chunk, one inside a single chunk, a fully dead row
+    "chunk16_b1_s256": (0, 1, 16, 8, 256, "bf16", "bf16", [37], [141], 0),
+    "chunk16_inside_one_chunk": (0, 1, 8, 4, 256, "f32", "f32", [19], [27],
+                                 0),
+    "chunk32_b1_s768_fp8": (2, 1, 16, 8, 768, "fp8", "bf16", [50], [621], 1),
+    "chunk64_b2_s768_dead_row": (0, 2, 16, 8, 768, "bf16", "f32", [70, 0],
+                                 [563, 0], 0),
 }
+
+
+def test_cases_reach_the_small_chunks():
+    chunks = {batch_plan(s, b, nkv, 1 if kv == "fp8" else 4 if kv == "f32"
+                         else 2).chunk
+              for _, b, _, nkv, s, kv, *_ in CASES.values()}
+    assert {16, 32, 64} <= chunks
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -90,6 +106,42 @@ def test_plain_matches_jax_interpret(name):
     for row in range(b):
         if min(vt[row], s) <= max(vf[row], 0):       # no live key: 0
             assert not ours[row].float().abs().any()
+
+
+@pytest.mark.parametrize("s_len,batch,nkv,itemsize", [
+    (256, 1, 8, 2), (768, 1, 8, 2), (768, 2, 8, 2), (768, 8, 8, 2),
+    (768, 8, 8, 1), (768, 1, 8, 1), (512, 96, 8, 1), (256, 4, 4, 4),
+    (128, 1, 1, 2), (4096, 1, 8, 1)])
+def test_batch_plan(s_len, batch, nkv, itemsize):
+    """The chunk comes from the shape alone, divides 128 (so it tiles any
+    cache the kernel takes), never falls below 16 keys, keeps one chunk of
+    K within 16 KB, and is the largest such chunk that still gives the
+    card's 132 SMs a block each where S allows."""
+    plan = batch_plan(s_len, batch, nkv, itemsize)
+    assert plan == batch_plan(s_len, batch, nkv, itemsize)
+    assert 128 % plan.chunk == 0 and 16 <= plan.chunk
+    assert plan.chunk * 128 * itemsize <= 16384
+    assert plan.n_split * plan.chunk == s_len
+    blocks = plan.n_split * nkv * batch
+    if plan.chunk > 16:
+        assert blocks >= 132
+    if plan.chunk < 128 and plan.chunk * 256 * itemsize <= 16384:
+        assert blocks // 2 < 132          # a larger chunk would not fill
+    smem = plan.smem_bytes(itemsize, 8)
+    assert 2 * plan.chunk * 128 * itemsize <= smem <= 65536   # K and V
+    assert smem >= 8 * 132 * 4                      # and a combine round
+
+
+def test_ticket_buffer_refuses_more_than_it_keeps():
+    """The split kernels share one zeroed ticket buffer per device (one
+    ticket per row and KV head); a call that needs more raises instead of
+    reallocating it under a captured CUDA graph."""
+    from qwen3_asr_tpu_torch.ops.decode_attention import ticket_buffer
+    dev = torch.device("cpu")
+    tickets = ticket_buffer(dev, 96 * 8)
+    assert ticket_buffer(dev, 4096) is tickets and not tickets.any()
+    with pytest.raises(ValueError, match="tickets"):
+        ticket_buffer(dev, 4097)
 
 
 def test_fp8_bytes_match_ml_dtypes_up_to_448():
