@@ -35,8 +35,12 @@ def log_mel(audio: torch.Tensor, n_valid: Union[int, torch.Tensor],
     b, n = audio.shape
     t = n // HOP_LENGTH
     dev = audio.device
-    n_valid = torch.as_tensor(n_valid, dtype=torch.int64,
-                              device=dev).expand(b)[:, None]
+    # a host int becomes a device fill, not a host-to-device copy (which a
+    # CUDA graph capture refuses)
+    n_valid = (n_valid.to(dev, torch.int64).expand(b)[:, None]
+               if torch.is_tensor(n_valid) else
+               torch.full((b, 1), int(n_valid), dtype=torch.int64,
+                          device=dev))
     audio = torch.where(torch.arange(n, device=dev)[None, :] < n_valid,
                         audio, torch.zeros((), dtype=audio.dtype, device=dev))
 

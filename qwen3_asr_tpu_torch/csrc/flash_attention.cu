@@ -248,16 +248,12 @@ int launch(const float* q, const float* k, const float* v, float* o,
            int d, int causal, int window, float sm_scale,
            cudaStream_t stream) {
   const int block_q = kRows / (nq / nkv);
-  // Above 48 KB only after opting in; once, for the largest head dim, so
-  // no launch (nor a graph capture) repeats it.
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(kMaxD));
-    if (err != cudaSuccess) return (int)err;
-    smem_raised = true;
-  }
+  // Above 48 KB only after opting in; once per device, for the largest
+  // head dim, so no later launch (nor a graph capture) repeats it.
+  static bool raised[sm90::kMaxDevices] = {};
+  const cudaError_t err =
+      sm90::max_smem(flash_f32_kernel, (int)smem_bytes(kMaxD), raised);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_len + block_q - 1) / block_q, nkv, b);
   flash_f32_kernel<<<grid, kThreads, smem_bytes(d), stream>>>(
       q, k, v, o, m, l, vf, vt, q_off, nq, nkv, t_len, s_len, d, block_q,
@@ -743,14 +739,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
            float* l, const int* vf, const int* vt, const int* q_off, int b,
            int nq, int nkv, int t_len, int s_len, int d, int causal,
            int window, float sm_scale, cudaStream_t stream) {
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Tile<kD>::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_raised = true;
-  }
+  static bool raised[sm90::kMaxDevices] = {};
+  const cudaError_t err =
+      sm90::max_smem(flash_bf16_kernel<kD>, Tile<kD>::kSmem, raised);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap k_map, v_map;
   if (!kv_map(&k_map, k, b * nkv, s_len, d) ||
       !kv_map(&v_map, v, b * nkv, s_len, d))

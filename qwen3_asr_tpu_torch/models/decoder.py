@@ -12,7 +12,7 @@ copy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -103,9 +103,28 @@ def init_decoder_params(cfg: DecoderConfig, generator: torch.Generator,
     return params
 
 
+def _write_kv(layer: torch.Tensor, new: torch.Tensor,
+              write_pos: Union[int, torch.Tensor]) -> None:
+    """layer [B, n_kv, S, D] <- new [B, n_kv, T, D] (cast to the cache
+    dtype) at keys ``write_pos .. write_pos + T - 1``, IN PLACE. A host int
+    slices; a 0-d int64 device tensor (the decode step, which a CUDA graph
+    replays at a new position each time) indexes on the device."""
+    new = new.to(layer.dtype)
+    if not torch.is_tensor(write_pos):
+        layer[:, :, write_pos:write_pos + new.shape[2]] = new
+        return
+    idx = write_pos.reshape(1) + torch.arange(new.shape[2],
+                                              device=layer.device)
+    if layer.dtype == torch.float8_e4m3fn:
+        # index_copy_ has no fp8 kernel: the same bytes through uint8 views
+        layer, new = layer.view(torch.uint8), new.view(torch.uint8)
+    layer.index_copy_(2, idx, new)
+
+
 def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
            cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
-           write_pos: int, spec: AttnSpec) -> torch.Tensor:
+           write_pos: Union[int, torch.Tensor], spec: AttnSpec
+           ) -> torch.Tensor:
     lp = {k: w[i] for k, w in params["layers"].items()}
     b, t, _ = hidden.shape
     nq, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -119,11 +138,10 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
     k = apply_rope(rms_norm(k, lp["k_norm"], eps), cos, sin)
 
     # Written IN PLACE at (layer i, write_pos): only the T new tokens are
-    # stored, cast to the cache dtype. (The JAX package's
-    # dynamic_update_slice is functional and relies on XLA aliasing for the
-    # same effect.)
-    cache.k[i, :, :, write_pos:write_pos + t] = k.to(cache.k.dtype)
-    cache.v[i, :, :, write_pos:write_pos + t] = v.to(cache.v.dtype)
+    # stored. (The JAX package's dynamic_update_slice is functional and
+    # relies on XLA aliasing for the same effect.)
+    _write_kv(cache.k[i], k, write_pos)
+    _write_kv(cache.v[i], v, write_pos)
 
     if is_decode_step(q, spec):
         attn = attend(q, cache.k, cache.v, spec, scale=d ** -0.5, layer_idx=i)
@@ -144,10 +162,12 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
 
 def decoder_forward(params: dict, cfg: DecoderConfig,
                     inputs_embeds: torch.Tensor, positions: torch.Tensor,
-                    cache: KVCache, write_pos: int, spec: AttnSpec
-                    ) -> Tuple[torch.Tensor, KVCache]:
+                    cache: KVCache, write_pos: Union[int, torch.Tensor],
+                    spec: AttnSpec) -> Tuple[torch.Tensor, KVCache]:
     """Run all layers. inputs_embeds: [B,T,H]; positions: [B,T]; cache:
-    the stacked cache, updated in place at ``write_pos`` (a host int).
+    the stacked cache, updated in place at ``write_pos``: a host int (the
+    prefill), or a 0-d int64 tensor on the cache's device (a decode step,
+    which then holds no host integer).
 
     Returns (final_hidden [B,T,H], cache)."""
     if cache.k.dtype not in (inputs_embeds.dtype, torch.float8_e4m3fn):
@@ -156,8 +176,8 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     hidden = inputs_embeds
     for i in range(cfg.num_hidden_layers):
-        hidden = _layer(cfg, hidden, params, i, cos, sin, cache,
-                        int(write_pos), spec)
+        hidden = _layer(cfg, hidden, params, i, cos, sin, cache, write_pos,
+                        spec)
     return rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps), cache
 
 

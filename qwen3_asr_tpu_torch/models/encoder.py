@@ -12,6 +12,7 @@ length per row (``valid_to``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -30,6 +31,16 @@ def sinusoid_position_embedding(length: int, channels: int,
     inv = np.exp(-log_inc * np.arange(channels // 2))
     scaled = np.arange(length)[:, None] * inv[None, :]
     return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _position_embedding(length: int, channels: int, device: torch.device,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The sinusoid PE on ``device``, copied there once: a CUDA graph
+    capture refuses host-to-device copies, and the eager run before it
+    fills this cache."""
+    return torch.from_numpy(sinusoid_position_embedding(length, channels)).to(
+        device=device, dtype=dtype)
 
 
 def conv_tokens_per_chunk(chunk_frames: int) -> int:
@@ -111,9 +122,7 @@ def _conv_frontend(params: dict, cfg: AudioEncoderConfig,
     bc, c, f, tt = x.shape                     # [B*n_chunks, ch, f, tok]
     x = x.permute(0, 3, 1, 2).reshape(bc, tt, c * f)
     x = x @ params["conv_out_w"].to(x.dtype)
-    pe = torch.from_numpy(sinusoid_position_embedding(tt, cfg.d_model)).to(
-        device=x.device, dtype=x.dtype)
-    x = x + pe[None]
+    x = x + _position_embedding(tt, cfg.d_model, x.device, x.dtype)[None]
     return x.reshape(b, n_chunks * tt, cfg.d_model)
 
 

@@ -6,13 +6,22 @@ the encoder run on the padded bucket, the prompt is a PREFIX_BUDGET-token
 left-padded prefix + the audio embeddings + the suffix, and greedy decoding
 produces the tokens. Audio longer than MAX_SEGMENT_S is split at the
 quietest 25 ms frame near each window's end, and same-bucket segments run
-as one batch. AOT caches, meshes, draft models, resume and streaming are
-not ported yet.
+as one batch.
+
+Each (bucket_frames, max_new, batch, cache dtype) owns a
+``BucketExecutable``, the counterpart of the JAX engine's fused executable
+per bucket (``_fused_fn``): persistent input buffers, the greedy loop's
+state and its KV cache, and on the card two CUDA graphs (everything up to
+the first token; a chunk of decode steps), so a warm request is a copy in,
+a few replays and a copy out. ``warmup`` builds them at load. AOT caches,
+meshes, draft models, resume and streaming are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,11 +30,13 @@ from ..audio.frontend import HOP_LENGTH, LogMelFrontend
 from ..audio.resample import resample
 from ..models.asr import AsrModel, normalize_language
 from ..models.decoder import embed_tokens
-from ..models.encoder import encoder_forward
+from ..models.encoder import encoder_forward, encoder_output_length
 from ..ops.attention import decode_kernel
 from ..utils.device import resolve_device, working_dtype
 from .batcher import _pad_pow2
-from .generate import cache_length, greedy_generate, strip_generation
+from .generate import (GenerateResult, GreedyLoop, cache_length, run_loop,
+                       strip_generation)
+from .graphs import Graph
 
 TARGET_SR = 16000
 AUDIO_BUCKETS_S: Tuple[float, ...] = (1, 2, 4, 6, 10, 15, 20, 30)
@@ -48,6 +59,50 @@ def max_new_tokens_for(seconds: float) -> int:
     return int(16 + 8 * seconds)
 
 
+class BucketExecutable:
+    """One key's executable: audio [B, n_samples] f32, prefix ids [B,
+    PREFIX_BUDGET] and valid_from [B] as persistent input buffers, a
+    ``GreedyLoop`` (state and KV cache, allocated here and reused by every
+    request of the key), and two ``Graph``s: ``front`` (frontend, encoder,
+    prompt, prefill, the first token; kernel #1) and ``chunk`` (decode
+    steps; kernels #2 and #3). Build it under inference mode."""
+
+    def __init__(self, engine: "TranscriptionEngine", bucket_frames: int,
+                 max_new: int, batch: int):
+        cfg, dev = engine.model.cfg, engine.device
+        self.engine, self.bucket_frames = engine, bucket_frames
+        self.audio = torch.zeros((batch, bucket_frames * HOP_LENGTH),
+                                 dtype=torch.float32, device=dev)
+        self.prefix = torch.zeros((batch, PREFIX_BUDGET), dtype=torch.int32,
+                                  device=dev)
+        self.loop = GreedyLoop(
+            engine.model.params["decoder"], cfg.decoder, batch,
+            engine.prompt_length(bucket_frames), max_new,
+            eos_id=engine.model.eos_id, pad_id=engine.model.pad_id,
+            cache_dtype=engine.cache_dtype, device=dev)
+        self.front = Graph(self._front, dev, engine.graph_pool)
+        self.chunk = Graph(self.loop.chunk, dev, engine.graph_pool)
+
+    def _front(self) -> None:
+        self.loop.prefill(self.engine.prompt_embeds(
+            self.audio, self.prefix, self.bucket_frames))
+
+    @torch.inference_mode()
+    def run(self, audio: np.ndarray, prefix: np.ndarray,
+            valid_from: np.ndarray, eager: bool = False) -> GenerateResult:
+        """Copy the inputs in, replay ``front`` and then ``chunk`` until no
+        row is active. ``eager`` runs the same functions without the graphs
+        (on the card only to hold the graphs against them)."""
+        self.audio.copy_(torch.from_numpy(audio))
+        self.prefix.copy_(torch.from_numpy(prefix))
+        self.loop.valid_from.copy_(torch.from_numpy(valid_from))
+        if eager:
+            chunks = run_loop(self._front, self.loop.chunk, self.loop.active)
+        else:
+            chunks = run_loop(self.front, self.chunk, self.loop.active)
+        return self.loop.result(chunks)
+
+
 class TranscriptionEngine:
     def __init__(self, model: AsrModel, device="cuda",
                  dtype: Optional[torch.dtype] = None,
@@ -68,7 +123,15 @@ class TranscriptionEngine:
         self.frontend = LogMelFrontend(n_mels=model.cfg.encoder.num_mel_bins,
                                        device=self.device)
         self._chunk_frames = model.cfg.encoder.n_window * 2
-        self._suffix_ids = model.tokenizer.encode(model.template.suffix_text())
+        self._suffix = torch.tensor(
+            model.tokenizer.encode(model.template.suffix_text()),
+            dtype=torch.int64, device=self.device)
+        # One executable per (bucket_frames, max_new, batch, cache dtype);
+        # their graphs share one memory pool (one device thread replays
+        # them, one at a time).
+        self.executables: Dict[tuple, BucketExecutable] = {}
+        self.graph_pool = (torch.cuda.graph_pool_handle()
+                           if self.device.type == "cuda" else None)
         # shapes and counts of the last bucket run (for measurement scripts)
         self.last_run: dict = {}
 
@@ -99,13 +162,17 @@ class TranscriptionEngine:
         valid_from = np.full((batch,), pad_count, np.int32)
         return prefix, valid_from
 
+    def prompt_length(self, bucket_frames: int) -> int:
+        """Prompt tokens of a bucket: prefix, audio tokens, suffix."""
+        return (PREFIX_BUDGET + len(self._suffix)
+                + encoder_output_length(bucket_frames, self._chunk_frames))
+
     def prompt_embeds(self, audio: torch.Tensor, prefix_ids: torch.Tensor,
                       bucket_frames: int) -> torch.Tensor:
-        """[B, n_samples] f32 or s16 PCM on the device → [prefix, audio,
-        suffix] inputs_embeds [B, PREFIX_BUDGET + n_audio + n_suffix, H]."""
+        """[B, n_samples] f32 PCM on the device → [prefix, audio, suffix]
+        inputs_embeds [B, prompt_length(bucket_frames), H]. Device work
+        only (no host-to-device copy), so a CUDA graph can capture it."""
         cfg, params = self.model.cfg, self.model.params
-        if audio.dtype == torch.int16:
-            audio = audio.float() * (1.0 / 32768.0)
         n_samples = bucket_frames * HOP_LENGTH
         mel, _ = self.frontend(audio, n_samples)
         b = audio.shape[0]
@@ -113,47 +180,85 @@ class TranscriptionEngine:
                            device=self.device)
         audio_embeds, _ = encoder_forward(params["encoder"], cfg.encoder,
                                           mel.to(self.dtype), flens)
-        suffix = torch.tensor(self._suffix_ids, dtype=torch.int64,
-                              device=self.device).expand(b, -1)
         pre = embed_tokens(params["decoder"], prefix_ids.long())
-        suf = embed_tokens(params["decoder"], suffix)
+        suf = embed_tokens(params["decoder"], self._suffix.expand(b, -1))
         return torch.cat([pre.to(self.dtype), audio_embeds.to(self.dtype),
                           suf.to(self.dtype)], dim=1)
 
+    # -- executables ------------------------------------------------------------
+    def executable(self, bucket_frames: int, max_new: int,
+                   batch: int) -> Tuple[BucketExecutable, float]:
+        """The key's executable, built (its graphs captured, on the card)
+        on first use; and the seconds this call spent building it."""
+        key = (bucket_frames, max_new, batch, self.cache_dtype)
+        exe = self.executables.get(key)
+        if exe is not None:
+            return exe, 0.0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            exe = BucketExecutable(self, bucket_frames, max_new, batch)
+        self.executables[key] = exe
+        return exe, time.perf_counter() - t0
+
+    def warmup(self, buckets: Optional[Sequence[float]] = None,
+               language: Optional[str] = "en") -> None:
+        """Build and run the executables of ``buckets`` (default: the
+        smallest two) at B=1, and at each batch of
+        ``ASR_WARMUP_BATCH_SHAPES`` ("2,4,8"), on 0.01-scale noise, as the
+        JAX engine's ``warmup`` does; on the card the first run of a key
+        captures its graphs and the warm-up request replays them once.
+        (The JAX engine also warms its resume and WS paths, which the port
+        does not have yet.)"""
+        buckets = buckets or AUDIO_BUCKETS_S[:2]
+        batch_shapes = [int(x) for x in
+                        os.getenv("ASR_WARMUP_BATCH_SHAPES", "").split(",")
+                        if x.strip()]
+        rng = np.random.default_rng(42)
+        for sec in buckets:
+            dummy = (rng.standard_normal(int(TARGET_SR * sec))
+                     .astype(np.float32) * 0.01)
+            bf, bs = self.bucket_frames(len(dummy))
+            for batch in [1] + batch_shapes:
+                self._run_bucket([dummy] * batch, bf, bs, language)
+
     # -- core batched path --------------------------------------------------------
+    def bucket_inputs(self, clips: Sequence[np.ndarray], bucket_frames: int,
+                      language: Optional[str], context: str = ""
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """An executable's inputs for clips ≤ the bucket: audio [B,
+        n_samples] f32 (s16 clips scaled by 2^-15, exactly), the prefix ids
+        and valid_from."""
+        n_samples = bucket_frames * HOP_LENGTH
+        audio = np.zeros((len(clips), n_samples), dtype=np.float32)
+        for i, clip in enumerate(clips):
+            c = clip[:n_samples]
+            if c.dtype == np.int16:
+                c = c.astype(np.float32) / 32768.0
+            audio[i, :len(c)] = c
+        return (audio,) + self.padded_prefix(language, context, len(clips))
+
     def _run_bucket(self, clips: Sequence[np.ndarray], bucket_frames: int,
                     bucket_s: float, language: Optional[str],
                     context: str = "") -> Tuple[List[str], List[List[int]]]:
         """All clips already ≤ bucket. Returns (texts, token_id_lists)."""
-        n_samples = bucket_frames * HOP_LENGTH
         batch = len(clips)
-        in_dtype = (np.int16 if all(c.dtype == np.int16 for c in clips)
-                    else np.float32)
-        audio = np.zeros((batch, n_samples), dtype=in_dtype)
-        for i, clip in enumerate(clips):
-            c = clip[:n_samples]
-            if c.dtype == np.int16 and in_dtype == np.float32:
-                c = c.astype(np.float32) / 32768.0  # mixed batch: rescale
-            audio[i, :len(c)] = c
-        prefix, valid_from = self.padded_prefix(language, context, batch)
         max_new = max_new_tokens_for(bucket_s)
-
-        with torch.inference_mode():
-            inputs = self.prompt_embeds(
-                torch.from_numpy(audio).to(self.device),
-                torch.from_numpy(prefix).to(self.device), bucket_frames)
-            result = greedy_generate(
-                self.model.params["decoder"], self.model.cfg.decoder, inputs,
-                torch.from_numpy(valid_from).to(self.device),
-                max_new=max_new, eos_id=self.model.eos_id, pad_id=self.model.pad_id,
-                cache_dtype=self.cache_dtype)
+        exe, capture_s = self.executable(bucket_frames, max_new, batch)
+        audio, prefix, valid_from = self.bucket_inputs(clips, bucket_frames,
+                                                       language, context)
+        replays = exe.front.replays + exe.chunk.replays
+        result = exe.run(audio, prefix, valid_from)
         tokens = result.tokens.cpu().numpy()
         lengths = result.lengths.cpu().numpy()
+        prompt_len = exe.loop.prompt_len
         self.last_run = {"batch": batch, "bucket_frames": bucket_frames,
-                         "prompt_len": int(inputs.shape[1]),
-                         "cache_len": cache_length(int(inputs.shape[1]),
-                                                   max_new),
-                         "max_new": max_new, "steps": int(result.steps),
+                         "prompt_len": prompt_len,
+                         "cache_len": cache_length(prompt_len, max_new),
+                         "max_new": max_new, "steps": result.steps,
+                         "steps_run": result.steps_run,
+                         "replays": (exe.front.replays + exe.chunk.replays
+                                     - replays),
+                         "capture_s": capture_s,
                          "generated": int(lengths.sum())}
         texts, id_lists = [], []
         for i in range(batch):

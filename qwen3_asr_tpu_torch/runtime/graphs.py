@@ -1,0 +1,114 @@
+"""CUDA graphs: how the port runs a request as a few replays on the card.
+
+Counterpart of the JAX engine's one executable per bucket
+(``qwen3_asr_tpu/runtime/engine.py`` ``_fused_fn``, kept in
+``_generate_fns``): XLA compiles the frontend, encoder, prefill and the
+``while_loop`` decode into one dispatch. PyTorch runs eagerly, so the port
+captures the same work as CUDA graphs instead: ``Graph`` wraps one function
+that reads and writes only persistent tensors (allocated outside it) and
+replays it, and the engine keeps two per key (``runtime/engine.py``
+``BucketExecutable``: everything up to the first token, and a chunk of
+decode steps from ``runtime/generate.py``).
+
+On the card, building a ``Graph`` runs its function once eagerly on a side
+stream (the serving path's only eager run: it builds the kernels, sets
+their shared-memory opt-ins, allocates the ticket buffer, cuBLAS
+workspaces and cuFFT plans, none of which a capture may do), then captures
+it in thread-local mode, so other threads may use CUDA meanwhile. A
+failure in either raises; nothing falls back to running eagerly. On the CPU a
+``Graph`` is its function, run eagerly: the CPU tests run the very code the
+card captures, on the same persistent buffers.
+
+The wrappers' launch counters move when a kernel is launched eagerly or
+recorded into a capture, never on a replay; ``Graph.recorded`` keeps what
+its capture recorded and ``Graph.replays`` counts replays, so a run's
+launches are the eager ones plus recorded × replays (``launches``).
+"""
+from __future__ import annotations
+
+import gc
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+
+# One capture stream per device: warm-up and capture run on the same stream
+# (so the capture finds the cuBLAS workspace its warm-up allocated), and
+# captures happen on one thread at a time (the queue's device thread).
+_capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The launch counters of the kernels a request runs (#1-#3)."""
+    from ..ops.decode_attention import decode_attention
+    from ..ops.decode_attention_batch import decode_attention_batched
+    from ..ops.flash_attention import flash_attention
+    return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches,
+            "decode_attention_batch": decode_attention_batched.launches}
+
+
+class Graph:
+    """``fn`` as a CUDA graph on a CUDA device, or as itself on the CPU.
+
+    ``fn`` takes no arguments and touches only tensors that outlive it, so
+    a replay redoes its work on whatever those tensors hold. Graphs built
+    with one ``pool`` share their memory for temporaries; that is safe
+    because nothing a graph leaves for later lives in the pool and replays
+    never overlap (one device thread, one stream)."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 pool=None):
+        self.fn = fn
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.recorded: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s = 0.0     # warm-up run and capture, seconds
+        if device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        stream = _capture_streams.get(device)
+        if stream is None:
+            stream = _capture_streams[device] = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        before = kernel_launches()
+        graph = torch.cuda.CUDAGraph()
+        # No garbage collection inside the capture: it could free another
+        # graph (one left in a reference cycle, e.g. by a failed build),
+        # and destroying a graph invalidates a capture in progress.
+        # torch.cuda.graph collects once before it begins.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.inference_mode(), torch.cuda.graph(
+                    graph, pool=pool, stream=stream,
+                    capture_error_mode="thread_local"):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
+        after = kernel_launches()
+        self.recorded = {k: after[k] - before[k] for k in after}
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.fn()
+            return
+        self.graph.replay()
+        self.replays += 1
+
+
+def launches(graphs: Iterable[Graph], eager: Dict[str, int]
+             ) -> Dict[str, int]:
+    """Each kernel's launches: ``eager`` (the counters' reading) plus, for
+    every graph, what its capture recorded times its replays."""
+    total = dict(eager)
+    for g in graphs:
+        for name, n in g.recorded.items():
+            total[name] = total.get(name, 0) + n * g.replays
+    return total

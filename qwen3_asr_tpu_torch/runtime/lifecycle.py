@@ -5,11 +5,14 @@ its ``_load_engine_sync`` (``MODEL_ID`` is a local checkpoint directory or
 ``preset:NAME``, which builds that architecture with zero weights and a
 byte-level tokenizer; ``ASR_KV_CACHE_DTYPE`` picks the KV cache dtype), and
 ``ModelManager`` holds the fields of its ``ModelManager`` that the batcher
-and the server use. Idle unload, the watchdog, the fast engine and the pool
-are not ported yet (ROADMAP §1 item 7).
+and the server use, and warms the engine's executables on start
+(``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it). Idle unload, the
+watchdog, the fast engine and the pool are not ported yet (ROADMAP §1
+item 7).
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional
 
@@ -23,8 +26,10 @@ from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
 from .batcher import MicroBatcher
 from .checkpoint import load_asr_checkpoint
-from .engine import TranscriptionEngine
+from .engine import AUDIO_BUCKETS_S, TranscriptionEngine
 from .queue import PriorityInferQueue
+
+log = logging.getLogger(__name__)
 
 # ASR_KV_CACHE_DTYPE: "" keeps the working dtype.
 KV_CACHE_DTYPES = {"": None, "bf16": torch.bfloat16,
@@ -64,6 +69,44 @@ def kv_cache_dtype_from_env() -> Optional[torch.dtype]:
     return KV_CACHE_DTYPES[name]
 
 
+def _warmup_buckets():
+    """Buckets the load-time warmup sweep covers (the JAX package's policy,
+    with its environment variables and meanings).
+
+    Priority: ``USE_CUDA_GRAPHS=true`` sweeps the FULL ladder (it names the
+    whole ladder, not whether graphs are used: on the card every key runs
+    as CUDA graphs); ``ASR_WARMUP_BUCKETS="1,2,6"`` names an explicit list
+    (unknown or malformed entries dropped with a warning, where the JAX
+    package raises mid-load on a malformed one; none known: the smallest
+    two); the default is
+    the WS-reachable prefix of the ladder: every bucket a streaming session
+    at ``WS_WINDOW_MAX_S`` can touch, including the flush window's (cap +
+    ``WS_FLUSH_SILENCE_MS`` of padded silence, which rounds UP to the next
+    bucket)."""
+    if os.getenv("USE_CUDA_GRAPHS", "").lower() == "true":
+        return AUDIO_BUCKETS_S
+    explicit = os.getenv("ASR_WARMUP_BUCKETS", "").strip()
+    if explicit:
+        ladder = set()
+        for entry in filter(None, map(str.strip, explicit.split(","))):
+            try:
+                ladder.add(float(entry))
+            except ValueError:
+                log.warning("ASR_WARMUP_BUCKETS: %r is not a number of "
+                            "seconds; skipped", entry)
+        return tuple(b for b in AUDIO_BUCKETS_S if b in ladder) \
+            or AUDIO_BUCKETS_S[:2]
+    cap = float(os.getenv("WS_WINDOW_MAX_S", "6.0") or 6.0)
+    flush_s = cap + int(os.getenv("WS_FLUSH_SILENCE_MS", "600")) / 1000.0
+    need = [b for b in AUDIO_BUCKETS_S if b <= cap]
+    for b in AUDIO_BUCKETS_S:
+        if b >= flush_s:
+            if b not in need:
+                need.append(b)
+            break
+    return tuple(need) or AUDIO_BUCKETS_S[:2]
+
+
 def load_engine(model_id: str, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> TranscriptionEngine:
     """A ready engine for ``model_id`` on ``device`` (bf16 on the card and
@@ -98,17 +141,24 @@ def load_engine(model_id: str, device="cuda",
 class ModelManager:
     """Owns the engine and its scheduler; one per serving process.
 
-    ``start()`` starts the queue's device thread and ``stop()`` settles
-    every job still waiting for it. ``REQUEST_TIMEOUT`` (seconds, default
-    300) bounds how long the server waits for one transcription."""
+    ``start()`` warms the engine's executables for ``_warmup_buckets()``
+    (once per manager, unless ``SKIP_WARMUP=true``), then starts the
+    queue's device thread; ``stop()`` settles every job still waiting for
+    it. ``REQUEST_TIMEOUT`` (seconds, default 300) bounds how long the
+    server waits for one transcription."""
 
     def __init__(self, engine: TranscriptionEngine):
         self.engine = engine
         self.queue = PriorityInferQueue()
         self.batcher = MicroBatcher(self)
         self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
+        self.warmed = False
 
     def start(self) -> None:
+        if not self.warmed and os.getenv("SKIP_WARMUP",
+                                         "").lower() != "true":
+            self.engine.warmup(_warmup_buckets())
+            self.warmed = True
         self.queue.start()
 
     def stop(self) -> None:

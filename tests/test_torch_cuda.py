@@ -5,11 +5,17 @@ fixture, so every worker collects the same tests). On a machine with one
 (which need not have JAX, hence ``--noconftest``):
 ``python -m pytest -m cuda --noconftest tests/test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 import torch
 
+from qwen3_asr_tpu_torch.models.asr import AsrModel
+from qwen3_asr_tpu_torch.models.config import AsrConfig, DecoderConfig, preset
+from qwen3_asr_tpu_torch.models.decoder import init_decoder_params
+from qwen3_asr_tpu_torch.models.encoder import init_encoder_params
 from qwen3_asr_tpu_torch.ops import decode_attention as decode_module
 from qwen3_asr_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_plain)
@@ -18,6 +24,11 @@ from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
 from qwen3_asr_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 from qwen3_asr_tpu_torch.ops.slab_reader import slab_read, slab_read_plain
+from qwen3_asr_tpu_torch.runtime import graphs
+from qwen3_asr_tpu_torch.runtime.engine import (TranscriptionEngine,
+                                                max_new_tokens_for)
+from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK, GreedyLoop
+from qwen3_asr_tpu_torch.runtime.lifecycle import preset_tokenizer
 
 pytestmark = pytest.mark.cuda
 
@@ -309,3 +320,127 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
                                  layer_idx=1)     # one layer only
     with pytest.raises(ValueError):
         slab_read(k.float(), k.float())          # f32 cache
+
+
+# -- the executables: CUDA graphs of the whole request ---------------------------
+
+# preset:tiny's encoder into a 2-layer decoder at head_dim 128 (so B >= 2
+# in bf16, and fp8 at any B, take kernel #3), weights at scale 0.2
+SMALL = AsrConfig(
+    encoder=dataclasses.replace(preset("tiny").encoder, output_dim=256),
+    decoder=DecoderConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_hidden_layers=2,
+                          num_attention_heads=4, num_key_value_heads=2,
+                          head_dim=128),
+    pad_token_id=0)
+
+
+def _model(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dec = init_decoder_params(SMALL.decoder, gen, dev, torch.bfloat16)
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        dec["layers"][k] *= 10
+    params = {"encoder": init_encoder_params(SMALL.encoder, gen, dev,
+                                             torch.bfloat16),
+              "decoder": dec}
+    return AsrModel(SMALL, params, preset_tokenizer(512))
+
+
+def _request(eng, batch, seed=0, seconds=1.5):
+    """The key and inputs of a ``batch``-row request in the 2 s bucket:
+    noise clips of ``seconds`` and the default prompt."""
+    rng = np.random.default_rng(seed)
+    bf, bs = eng.bucket_frames(32000)
+    audio = np.zeros((batch, bf * 160), np.float32)
+    audio[:, :int(16000 * seconds)] = rng.standard_normal(
+        (batch, int(16000 * seconds))) * 0.1
+    prefix, vf = eng.padded_prefix(None, "", batch)
+    return (bf, max_new_tokens_for(bs), batch), (audio, prefix, vf)
+
+
+@pytest.mark.parametrize("batch,kv", [(1, torch.bfloat16),
+                                      (8, torch.bfloat16),
+                                      (8, torch.float8_e4m3fn)],
+                         ids=["b1_bf16", "b8_bf16", "b8_fp8"])
+def test_graph_replay_equals_eager_steps(dev, batch, kv):
+    """The captured request gives the tokens, bit for bit, of the same
+    functions run eagerly; B=1 bf16 decodes on kernel #2, B=8 on #3."""
+    eng = TranscriptionEngine(_model(dev), device=dev, cache_dtype=kv)
+    key, inputs = _request(eng, batch)
+    exe, capture_s = eng.executable(*key)
+    assert capture_s > 0 and exe.chunk.graph is not None
+    kernel = "decode_attention" if batch == 1 else "decode_attention_batch"
+    assert exe.chunk.recorded[kernel] == DECODE_CHUNK * 2
+    graph = exe.run(*inputs)
+    eager = exe.run(*inputs, eager=True)
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert (graph.steps, graph.steps_run) == (eager.steps, eager.steps_run)
+    assert len(set(graph.tokens[0].tolist())) >= 3
+
+
+def test_warm_request_makes_no_eager_launch(dev):
+    """A warm request is replays only: the wrappers' counters do not move,
+    and the launches are recorded x replays, one flash launch per layer
+    and one decode launch per layer and computed step."""
+    eng = TranscriptionEngine(_model(dev), device=dev)
+    key, (audio, _, _) = _request(eng, 1)
+    eng._run_bucket([audio[0]], key[0], key[0] / 100, None)
+    exe = eng.executables[key + (torch.bfloat16,)]
+    exe.front.replays = exe.chunk.replays = 0
+    before = graphs.kernel_launches()
+    eng._run_bucket([audio[0]], key[0], key[0] / 100, None)
+    assert graphs.kernel_launches() == before
+    run = eng.last_run
+    assert run["capture_s"] == 0.0
+    assert run["replays"] == 1 + run["steps_run"] // DECODE_CHUNK
+    got = graphs.launches([exe.front, exe.chunk],
+                          dict.fromkeys(before, 0))
+    layers = SMALL.encoder.encoder_layers + SMALL.decoder.num_hidden_layers
+    assert got == {"flash_attention": layers,
+                   "decode_attention": 2 * run["steps_run"],
+                   "decode_attention_batch": 0}
+
+
+def test_failed_capture_raises_and_never_runs_eagerly(dev, monkeypatch):
+    """A capture that fails raises out of the request; the engine keeps no
+    executable for the key and runs nothing eagerly beyond the warm-up
+    runs before the captures."""
+    chunk = GreedyLoop.chunk
+
+    def failing(self):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("capture made to fail")
+        chunk(self)
+
+    monkeypatch.setattr(GreedyLoop, "chunk", failing)
+    eng = TranscriptionEngine(_model(dev), device=dev)
+    key, (audio, _, _) = _request(eng, 1)
+    before = graphs.kernel_launches()
+    with pytest.raises(RuntimeError, match="capture made to fail"):
+        eng._run_bucket([audio[0]], key[0], key[0] / 100, None)
+    torch.cuda.synchronize()
+    assert not eng.executables
+    after = graphs.kernel_launches()
+    layers = SMALL.encoder.encoder_layers + SMALL.decoder.num_hidden_layers
+    # front: warm-up and capture; chunk: warm-up only
+    assert after["flash_attention"] - before["flash_attention"] == 2 * layers
+    assert (after["decode_attention"] - before["decode_attention"]
+            == DECODE_CHUNK * SMALL.decoder.num_hidden_layers)
+
+
+def test_reused_key_and_tickets_after_replays(dev):
+    """Two requests on one key give a fresh engine's tokens (the cache is
+    never read stale), and every ticket is back at 0 after the replays."""
+    eng = TranscriptionEngine(_model(dev), device=dev,
+                              cache_dtype=torch.float8_e4m3fn)
+    key, first = _request(eng, 8, seed=1, seconds=1.9)
+    _, second = _request(eng, 8, seed=2, seconds=0.6)
+    exe, _ = eng.executable(*key)
+    exe.run(*first)
+    reused = exe.run(*second)
+    fresh = TranscriptionEngine(_model(dev), device=dev,
+                                cache_dtype=torch.float8_e4m3fn)
+    again = fresh.executable(*key)[0].run(*second)
+    assert torch.equal(reused.tokens, again.tokens)
+    torch.cuda.synchronize()
+    assert not decode_module._tickets[torch.device("cuda", 0)].any()

@@ -37,6 +37,15 @@ ROOT = os.path.join(os.path.dirname(__file__), "..", "e2e", "data")
 CKPT = os.path.join(ROOT, "trained_ckpt")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _skip_warmup():
+    """Managers here start without warming the engine's executables (the
+    warmup has tests of its own in test_torch_generate.py)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SKIP_WARMUP", "true")
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _few_threads():
     prev = torch.get_num_threads()
