@@ -52,12 +52,27 @@
 //   the live chunks in split order and resets the ticket
 //   (csrc/split_combine.cuh). The output is the same bits on every run and
 //   under CUDA-graph replay.
+//
+// The int4 route (no TPU kernel: JAX keeps int4 decode steps on XLA,
+// `attend_xla` with scores-side scales, qwen3_asr_tpu/ops/attention.py):
+// the cache holds two values a byte (dims 2j, 2j + 1 of a row as the low
+// and high nibble, each value + 8; 64 bytes a row) with bf16 scales
+// [L, B, Nkv, S, 1] per (token, head). The chunk's live payload rows come
+// in as above and the chunk's K and V scale rows by one more bulk copy each
+// (the whole chunk: 32-byte aligned), both on K's barrier, since the
+// softmax weights P by V's scales; nibbles widen to bf16 exactly as the
+// fragments are formed, and the scales ride the scores and weights:
+//   s = (q . k) * scale * ks in f32 (q in bf16, not pre-scaled); p =
+//   exp(s - m) per chunk; l = sum p; acc = sum bf16(p * vs) * v.
+// Nothing widened is written back to device memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 #include "split_combine.cuh"
@@ -80,6 +95,13 @@ constexpr int kPStride = kMaxChunk + 8; // bf16 row stride of P: the rows of
 constexpr int kRec = kD + 4;            // floats per partial record
 
 struct Fp8E4M3 { uint8_t bits; };       // torch.float8_e4m3fn storage
+struct Int4x2 { uint8_t bits; };        // two int4 values, dims 2j, 2j + 1
+
+// Bytes of one cache row (128 head dims).
+template <typename KV> struct RowBytes {
+  static constexpr int value = kD * (int)sizeof(KV);
+};
+template <> struct RowBytes<Int4x2> { static constexpr int value = kD / 2; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -124,6 +146,24 @@ template <> struct Row<Fp8E4M3> {
     return make_uint2(fp8x2_to_bf16x2(w), fp8x2_to_bf16x2(w >> 16));
   }
 };
+// Nibbles of one byte (value + 8 each) as a bf16 pair; exact.
+__device__ __forceinline__ uint32_t int4x2_to_bf16x2(uint32_t byte) {
+  return pack_bf16((float)((int)(byte & 15u) - 8),
+                   (float)((int)((byte >> 4) & 15u) - 8));
+}
+template <> struct Row<Int4x2> {
+  __device__ static uint4 eight(const unsigned char* row, int c, bool live) {
+    if (!live) return make_uint4(0, 0, 0, 0);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(row + c / 2);
+    return make_uint4(int4x2_to_bf16x2(w), int4x2_to_bf16x2(w >> 8),
+                      int4x2_to_bf16x2(w >> 16), int4x2_to_bf16x2(w >> 24));
+  }
+  __device__ static uint2 four(const unsigned char* row, int c, bool live) {
+    if (!live) return make_uint2(0, 0);
+    const uint32_t w = *reinterpret_cast<const uint16_t*>(row + c / 2);
+    return make_uint2(int4x2_to_bf16x2(w), int4x2_to_bf16x2(w >> 8));
+  }
+};
 template <> struct Row<float> {
   __device__ static uint4 eight(const unsigned char* row, int c, bool live) {
     if (!live) return make_uint4(0, 0, 0, 0);
@@ -151,19 +191,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
 }
 
 // Grid (n_split, Nkv, B). Dynamic shared memory: [K chunk | V chunk],
-// reused by the combine (`smem_bytes` in all).
+// reused by the combine (`smem_bytes` in all). k_sc / v_sc: the int4
+// route's scale planes (null otherwise).
 template <typename Q, typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
-                    const KV* __restrict__ v, Q* __restrict__ o,
-                    const int* __restrict__ valid_from,
+                    const KV* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ k_sc,
+                    const __nv_bfloat16* __restrict__ v_sc,
+                    Q* __restrict__ o, const int* __restrict__ valid_from,
                     const int* __restrict__ valid_to,
                     float* __restrict__ part, unsigned* __restrict__ tickets,
                     int layer, int batch, int nq, int nkv, int s_len,
                     int chunk, float sm_scale, int smem_bytes) {
-  constexpr int kRowBytes = kD * (int)sizeof(KV);
+  constexpr int kRowBytes = RowBytes<KV>::value;
+  constexpr bool kInt4 = std::is_same<KV, Int4x2>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t k_full, v_full;
+  __shared__ __align__(16) __nv_bfloat16 kss[kMaxChunk], vss[kMaxChunk];
   __shared__ __align__(16) __nv_bfloat16 ps[kMaxG * kPStride];
   __shared__ float red_max[kWarps][kMaxG], red_sum[kWarps][kMaxG];
 
@@ -180,25 +225,39 @@ decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   const size_t bh = (size_t)b * nkv + h;
   const unsigned char* ks = smem;
   const unsigned char* vs = smem + chunk * kRowBytes;
+  const int sc0 = lo - j * chunk;    // row 0's index in the chunk's scales
 
   if (n_live > 0) {
     // Thread 0: the live rows, K and V on barriers of their own, so the
     // scores start while V flies.
     if (tid == 0) {
-      const size_t first = (((size_t)layer * batch + b) * nkv + h) * s_len +
-                           lo;
+      const size_t base = (((size_t)layer * batch + b) * nkv + h) * s_len;
+      const size_t first = base + lo;
       const uint32_t bytes = (uint32_t)n_live * kRowBytes;
+      const uint32_t sbytes = kInt4 ? (uint32_t)chunk * 2u : 0u;
+      const unsigned char* kbytes = reinterpret_cast<const unsigned char*>(k);
+      const unsigned char* vbytes = reinterpret_cast<const unsigned char*>(v);
       sm90::mbar_init(&k_full, 1);
       sm90::mbar_init(&v_full, 1);
-      sm90::mbar_expect_tx(&k_full, bytes);
-      sm90::bulk_load(smem, k + first * kD, bytes, &k_full);
+      // both scale rows land with K: the softmax reads vs before P.V
+      // waits for V's payload
+      sm90::mbar_expect_tx(&k_full, bytes + 2 * sbytes);
+      sm90::bulk_load(smem, kbytes + first * kRowBytes, bytes, &k_full);
+      if (kInt4) {
+        sm90::bulk_load(kss, k_sc + base + (size_t)j * chunk, sbytes,
+                        &k_full);
+        sm90::bulk_load(vss, v_sc + base + (size_t)j * chunk, sbytes,
+                        &k_full);
+      }
       sm90::mbar_expect_tx(&v_full, bytes);
-      sm90::bulk_load(smem + chunk * kRowBytes, v + first * kD, bytes,
-                      &v_full);
+      sm90::bulk_load(smem + chunk * kRowBytes, vbytes + first * kRowBytes,
+                      bytes, &v_full);
     }
     // While the copies fly: the B fragments of the scores, bf16(q * scale)
     // of head gr (0 past the group) at dims [32p + 8 tig, +8), the k pairs
-    // (2 tig, 2 tig + 8) of k-steps 2p and 2p + 1.
+    // (2 tig, 2 tig + 8) of k-steps 2p and 2p + 1. The int4 route takes q
+    // as it is (bf16) and scales the scores instead.
+    const float q_mul = kInt4 ? 1.f : sm_scale;
     const Q* qh = q + ((size_t)b * nq + h * group + min(gr, group - 1)) * kD;
     uint4 qf[4];
 #pragma unroll
@@ -207,8 +266,8 @@ decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 32 * p + 8 * tig + 2 * e;
-        w[e] = gr < group ? pack_bf16(to_f32(qh[c]) * sm_scale,
-                                      to_f32(qh[c + 1]) * sm_scale)
+        w[e] = gr < group ? pack_bf16(to_f32(qh[c]) * q_mul,
+                                      to_f32(qh[c + 1]) * q_mul)
                           : 0u;
       }
       qf[p] = make_uint4(w[0], w[1], w[2], w[3]);
@@ -235,6 +294,17 @@ decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
                                           32 * p + 8 * tig, r + 8 < n_live);
           mma_bf16(sc[t], ka.x, kb.x, ka.y, kb.y, qf[p].x, qf[p].y);
           mma_bf16(sc[t], ka.z, kb.z, ka.w, kb.w, qf[p].z, qf[p].w);
+        }
+        if (kInt4) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int rr = r + 8 * half;
+            if (rr < n_live) {
+              const float kscale = __bfloat162float(kss[sc0 + rr]);
+              sc[t][2 * half] = sc[t][2 * half] * sm_scale * kscale;
+              sc[t][2 * half + 1] = sc[t][2 * half + 1] * sm_scale * kscale;
+            }
+          }
         }
       }
       if (r >= n_live) sc[t][0] = sc[t][1] = kMaskValue;
@@ -273,7 +343,9 @@ decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
             const float p =
                 r < n_live ? expf(sc[t][2 * half + e] - m[e]) : 0.f;
             ls[e] += p;
-            ps[(2 * tig + e) * kPStride + r] = __float2bfloat16(p);
+            const float pw =
+                kInt4 && r < n_live ? p * __bfloat162float(vss[sc0 + r]) : p;
+            ps[(2 * tig + e) * kPStride + r] = __float2bfloat16(pw);
           }
         }
       }
@@ -345,12 +417,14 @@ decode_batch_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
 }
 
 template <typename Q, typename KV>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* vf, const int* vt, float* part, unsigned* tickets,
-           int layer, int batch, int nq, int nkv, int s_len, int chunk,
-           float sm_scale, int smem_bytes, cudaStream_t stream) {
-  if (chunk * kD * (int)sizeof(KV) > kChunkBytes ||
-      smem_bytes < 2 * chunk * kD * (int)sizeof(KV))
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, void* o, const int* vf, const int* vt,
+           float* part, unsigned* tickets, int layer, int batch, int nq,
+           int nkv, int s_len, int chunk, float sm_scale, int smem_bytes,
+           cudaStream_t stream) {
+  if (chunk * RowBytes<KV>::value > kChunkBytes ||
+      smem_bytes < 2 * chunk * RowBytes<KV>::value ||
+      (std::is_same<KV, Int4x2>::value && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
   static bool raised[sm90::kMaxDevices] = {};
   const cudaError_t err =
@@ -359,30 +433,41 @@ int launch(const void* q, const void* k, const void* v, void* o,
   decode_batch_kernel<Q, KV><<<dim3(s_len / chunk, nkv, batch), kThreads,
                                smem_bytes, stream>>>(
       static_cast<const Q*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<Q*>(o), vf, vt, part, tickets,
-      layer, batch, nq, nkv, s_len, chunk, sm_scale, smem_bytes);
+      static_cast<const KV*>(v), static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<Q*>(o), vf, vt,
+      part, tickets, layer, batch, nq, nkv, s_len, chunk, sm_scale,
+      smem_bytes);
   return (int)cudaGetLastError();
 }
 
+// The int4 route takes bf16 q only (its q fragments are q itself).
 template <typename Q>
 int launch_q(int kv_dtype, const void* q, const void* k, const void* v,
-             void* o, const int* vf, const int* vt, float* part,
-             unsigned* tickets, int layer, int batch, int nq, int nkv,
-             int s_len, int chunk, float sm_scale, int smem_bytes,
-             cudaStream_t st) {
-  auto* go = kv_dtype == 0   ? launch<Q, float>
-             : kv_dtype == 1 ? launch<Q, __nv_bfloat16>
-             : kv_dtype == 2 ? launch<Q, Fp8E4M3>
-                             : nullptr;
+             const void* ks, const void* vs, void* o, const int* vf,
+             const int* vt, float* part, unsigned* tickets, int layer,
+             int batch, int nq, int nkv, int s_len, int chunk,
+             float sm_scale, int smem_bytes, cudaStream_t st) {
+  using Go = int (*)(const void*, const void*, const void*, const void*,
+                     const void*, void*, const int*, const int*, float*,
+                     unsigned*, int, int, int, int, int, int, float, int,
+                     cudaStream_t);
+  Go go = nullptr;
+  if (kv_dtype == 0) go = launch<Q, float>;
+  if (kv_dtype == 1) go = launch<Q, __nv_bfloat16>;
+  if (kv_dtype == 2) go = launch<Q, Fp8E4M3>;
+  if constexpr (std::is_same<Q, __nv_bfloat16>::value)
+    if (kv_dtype == 3) go = launch<Q, Int4x2>;
   if (go == nullptr) return (int)cudaErrorInvalidValue;
-  return go(q, k, v, o, vf, vt, part, tickets, layer, batch, nq, nkv, s_len,
-            chunk, sm_scale, smem_bytes, st);
+  return go(q, k, v, ks, vs, o, vf, vt, part, tickets, layer, batch, nq,
+            nkv, s_len, chunk, sm_scale, smem_bytes, st);
 }
 
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16 (the output's too). kv_dtype: 0 =
-// float32, 1 = bfloat16, 2 = float8_e4m3fn. k/v point at the start of the
+// float32, 1 = bfloat16, 2 = float8_e4m3fn, 3 = packed int4 (bf16 q only;
+// k_scale / v_scale are its [L, B, nkv, s_len, 1] bf16 planes, null for
+// the others). k/v point at the start of the
 // stacked cache [L, B, nkv, s_len, 128] (L = 1 for one layer); `layer`
 // selects the layer. The plan: `chunk` keys a block (16, 32, 64 or 128, at
 // most 16 KB of K), `smem_bytes` of dynamic shared memory (the chunk's K
@@ -391,7 +476,8 @@ int launch_q(int kv_dtype, const void* q, const void* k, const void* v,
 // zeroed unsigned ints, left zeroed. Returns the launch's cudaError_t.
 extern "C" int decode_attention_batch_fwd(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
-    void* o, const void* valid_from, const void* valid_to, void* part,
+    const void* k_scale, const void* v_scale, void* o,
+    const void* valid_from, const void* valid_to, void* part,
     void* tickets, int layer, int batch, int nq, int nkv, int s_len, int d,
     int chunk, float sm_scale, int smem_bytes, void* stream) {
   if (d != kD || nkv <= 0 || nq % nkv != 0 || nq / nkv > kMaxG ||
@@ -406,12 +492,12 @@ extern "C" int decode_attention_batch_fwd(
   auto* tk = static_cast<unsigned*>(tickets);
   auto st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
-    return launch_q<float>(kv_dtype, q, k, v, o, vf, vt, pp, tk, layer,
-                           batch, nq, nkv, s_len, chunk, sm_scale,
-                           smem_bytes, st);
+    return launch_q<float>(kv_dtype, q, k, v, k_scale, v_scale, o, vf, vt,
+                           pp, tk, layer, batch, nq, nkv, s_len, chunk,
+                           sm_scale, smem_bytes, st);
   if (q_dtype == 1)
-    return launch_q<__nv_bfloat16>(kv_dtype, q, k, v, o, vf, vt, pp, tk,
-                                   layer, batch, nq, nkv, s_len, chunk,
-                                   sm_scale, smem_bytes, st);
+    return launch_q<__nv_bfloat16>(kv_dtype, q, k, v, k_scale, v_scale, o,
+                                   vf, vt, pp, tk, layer, batch, nq, nkv,
+                                   s_len, chunk, sm_scale, smem_bytes, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,45 +1,66 @@
 """Qwen3 text decoder in PyTorch: GQA + QK-norm + RoPE + SwiGLU.
 
-Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for bf16/f32 weights,
-with a KV cache in the working dtype or in fp8 (no quantized weights, and
-no int4 KV, in the port yet). Parameters are the JAX package's stacked
-layout (``[L, ...]`` per-layer tensors, matrices as ``[in, out]``); the
-layer loop is a Python loop. The KV cache is the stacked
-``[L, B, n_kv, S, D]`` pair; prefill attention goes through the flash kernel
-and each decode step through a decode kernel (``ops.attention.attend``
-picks which), which reads the stacked cache at the layer index without a
-copy.
+Counterpart of ``qwen3_asr_tpu/models/decoder.py``. Weights are bf16/f32,
+or int8/fp8 leaves of ``ops.quant`` (every projection through ``qdot``,
+the embedding and lm_head per vocab row). The KV cache is in the working
+dtype, in fp8, or int4 with per-(token, head) scales (``torch.int4`` names
+it; ``ops/kv_int4.py`` holds its layout). Parameters are the JAX package's
+stacked layout (``[L, ...]`` per-layer tensors, matrices as ``[in, out]``;
+quantized payloads ``[..., out, in]``); the layer loop is a Python loop.
+The KV cache is the stacked ``[L, B, n_kv, S, D]`` pair (plus the scale
+planes); prefill attention goes through the flash kernel and each decode
+step through a decode kernel (``ops.attention.attend`` picks which), which
+reads the stacked cache at the layer index without a copy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend, is_decode_step
+from ..ops.kv_int4 import dequantize_layer, kv_int4_write
+from ..ops.quant import is_quantized, layer_slice, qdot, qlogits
 from .config import DecoderConfig
 
 
 class KVCache(NamedTuple):
-    """[L, B, n_kv, S, D] stacked cache (k, v)."""
+    """[L, B, n_kv, S, D] stacked cache (k, v). An int4 cache holds the
+    values packed two a byte, [L, B, n_kv, S, D/2] uint8, and its bf16
+    scale planes ``k_scale``/``v_scale`` [L, B, n_kv, S, 1]."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def int4(self) -> bool:
+        return self.k_scale is not None
 
 
-KV_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+KV_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn, torch.int4)
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                   dtype: torch.dtype, device) -> KVCache:
-    """Zeros in ``dtype``: f32, bf16, or fp8 (``float8_e4m3fn``, the JAX
-    package's plain ``astype`` cache, with no scales)."""
+    """Zeros in ``dtype``: f32, bf16, fp8 (``float8_e4m3fn``, the JAX
+    package's plain ``astype`` cache, with no scales), or ``torch.int4``
+    (packed values and bf16 scales, the JAX package's int4 cache)."""
     if dtype not in KV_DTYPES:
         raise NotImplementedError(
-            f"KV cache dtype {dtype} is not ported: quantized caches with "
-            f"scales (int4) wait on ROADMAP §1 item 6")
+            f"KV cache dtype {dtype} is not ported: the port takes "
+            f"{KV_DTYPES} (ROADMAP §1 item 6)")
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
              max_len, cfg.head_dim)
+    if dtype == torch.int4:
+        packed = shape[:-1] + (cfg.head_dim // 2,)
+        scales = shape[:-1] + (1,)
+        return KVCache(
+            torch.zeros(packed, dtype=torch.uint8, device=device),
+            torch.zeros(packed, dtype=torch.uint8, device=device),
+            torch.zeros(scales, dtype=torch.bfloat16, device=device),
+            torch.zeros(scales, dtype=torch.bfloat16, device=device))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -125,26 +146,39 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
            cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
            write_pos: Union[int, torch.Tensor], spec: AttnSpec
            ) -> torch.Tensor:
-    lp = {k: w[i] for k, w in params["layers"].items()}
+    lp = layer_slice(params["layers"], i)
     b, t, _ = hidden.shape
     nq, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
 
     x = rms_norm(hidden, lp["ln1"], eps)
-    q = (x @ lp["wq"]).reshape(b, t, nq, d).transpose(1, 2)
-    k = (x @ lp["wk"]).reshape(b, t, nkv, d).transpose(1, 2)
-    v = (x @ lp["wv"]).reshape(b, t, nkv, d).transpose(1, 2)
+    q = qdot(x, lp["wq"]).reshape(b, t, nq, d).transpose(1, 2)
+    k = qdot(x, lp["wk"]).reshape(b, t, nkv, d).transpose(1, 2)
+    v = qdot(x, lp["wv"]).reshape(b, t, nkv, d).transpose(1, 2)
     q = apply_rope(rms_norm(q, lp["q_norm"], eps), cos, sin).contiguous()
     k = apply_rope(rms_norm(k, lp["k_norm"], eps), cos, sin)
 
     # Written IN PLACE at (layer i, write_pos): only the T new tokens are
     # stored. (The JAX package's dynamic_update_slice is functional and
-    # relies on XLA aliasing for the same effect.)
-    _write_kv(cache.k[i], k, write_pos)
-    _write_kv(cache.v[i], v, write_pos)
+    # relies on XLA aliasing for the same effect.) An int4 cache quantizes
+    # them on the way (kernel B on the card, one launch for K and V).
+    if cache.int4:
+        kv_int4_write(cache, i, k, v, write_pos)
+    else:
+        _write_kv(cache.k[i], k, write_pos)
+        _write_kv(cache.v[i], v, write_pos)
 
     if is_decode_step(q, spec):
-        attn = attend(q, cache.k, cache.v, spec, scale=d ** -0.5, layer_idx=i)
+        attn = attend(q, cache.k, cache.v, spec, scale=d ** -0.5, layer_idx=i,
+                      k_scale=cache.k_scale, v_scale=cache.v_scale)
+    elif cache.int4:
+        # A prefill folds the scales into a widened copy of this layer, as
+        # the JAX package's TPU route does before flash: once per request
+        # and layer.
+        attn = attend(q, dequantize_layer(cache.k[i], cache.k_scale[i],
+                                          q.dtype),
+                      dequantize_layer(cache.v[i], cache.v_scale[i], q.dtype),
+                      spec, scale=d ** -0.5)
     else:
         # The flash kernel takes K/V in q's dtype, so a prefill over an fp8
         # cache widens this layer first, as the JAX decoder's
@@ -153,11 +187,11 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
         attn = attend(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype),
                       spec, scale=d ** -0.5)
     attn = attn.transpose(1, 2).reshape(b, t, nq * d)
-    hidden = hidden + attn @ lp["wo"]
+    hidden = hidden + qdot(attn, lp["wo"])
 
     x = rms_norm(hidden, lp["ln2"], eps)
-    gated = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
-    return hidden + gated @ lp["w_down"]
+    gated = F.silu(qdot(x, lp["w_gate"])) * qdot(x, lp["w_up"])
+    return hidden + qdot(gated, lp["w_down"])
 
 
 def decoder_forward(params: dict, cfg: DecoderConfig,
@@ -170,7 +204,8 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
     which then holds no host integer).
 
     Returns (final_hidden [B,T,H], cache)."""
-    if cache.k.dtype not in (inputs_embeds.dtype, torch.float8_e4m3fn):
+    if not cache.int4 and cache.k.dtype not in (inputs_embeds.dtype,
+                                                torch.float8_e4m3fn):
         raise ValueError(f"cache dtype {cache.k.dtype} is neither the "
                          f"working dtype {inputs_embeds.dtype} nor fp8")
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -182,12 +217,29 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, params["embed"])
+    """A quantized embedding gathers payload rows, widens them to f32,
+    multiplies the row scales and casts to the scales' dtype (the model's
+    compute dtype), as ``qwen3_asr_tpu/models/decoder.py:367-379``."""
+    w = params["embed"]
+    if not is_quantized(w):
+        return F.embedding(ids, w)
+    q = w["q"]
+    # fp8 has no index kernel everywhere: the same bytes through uint8
+    rows = (q.view(torch.uint8)[ids].view(q.dtype)
+            if q.dtype == torch.float8_e4m3fn else q[ids])
+    return (rows.float() * w["s"][ids].float()).to(w["s"].dtype)
 
 
 def lm_logits(params: dict, cfg: DecoderConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     """hidden: [..., H] → logits [..., V] in f32. In bf16 the product is
-    taken in bf16 (f32 accumulation) and widened; in f32 it is exact f32."""
-    w = params["embed"] if cfg.tie_word_embeddings else params["lm_head"].T
+    taken in bf16 (f32 accumulation) and widened; in f32 it is exact f32.
+    A quantized embedding or lm_head (both stored ``[V, H]``) takes
+    ``ops.quant.qlogits``: ``(h @ q.T) * s`` in f32, on the card through
+    the quantized GEMV."""
+    w = params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
+    if is_quantized(w):
+        return qlogits(hidden, w)
+    if not cfg.tie_word_embeddings:
+        w = w.T
     return F.linear(hidden, w).float()

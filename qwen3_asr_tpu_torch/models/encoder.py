@@ -8,7 +8,8 @@ pre-LN blocks whose self-attention is block-diagonal over windows (through
 ``ops.attention.attend``, i.e. the flash kernel on the card); finally
 ln_post → proj1 → GELU → proj2 into the decoder's hidden space. Only the
 last chunk can be partial, so valid tokens are a prefix: validity is one
-length per row (``valid_to``).
+length per row (``valid_to``). The layers' projections go through
+``ops.quant.qdot``, so int8/fp8 weights (``QUANTIZE``) work as in JAX.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend
+from ..ops.quant import layer_slice, qdot
 from .config import AudioEncoderConfig
 
 
@@ -128,7 +130,7 @@ def _conv_frontend(params: dict, cfg: AudioEncoderConfig,
 
 def _encoder_layer(cfg: AudioEncoderConfig, hidden: torch.Tensor, params: dict,
                    i: int, spec: AttnSpec) -> torch.Tensor:
-    lp = {k: w[i] for k, w in params["layers"].items()}
+    lp = layer_slice(params["layers"], i)
     b, t, d = hidden.shape
     nh, hd = cfg.encoder_attention_heads, cfg.head_dim
 
@@ -136,16 +138,16 @@ def _encoder_layer(cfg: AudioEncoderConfig, hidden: torch.Tensor, params: dict,
         return x.reshape(b, t, nh, hd).transpose(1, 2).contiguous()
 
     x = layer_norm(hidden, lp["ln1_w"], lp["ln1_b"])
-    q = heads(x @ lp["wq"] + lp["bq"])
-    k = heads(x @ lp["wk"] + lp["bk"])
-    v = heads(x @ lp["wv"] + lp["bv"])
+    q = heads(qdot(x, lp["wq"]) + lp["bq"])
+    k = heads(qdot(x, lp["wk"]) + lp["bk"])
+    v = heads(qdot(x, lp["wv"]) + lp["bv"])
     attn = attend(q, k, v, spec, scale=hd ** -0.5)
     attn = attn.transpose(1, 2).reshape(b, t, d)
-    hidden = hidden + attn @ lp["wo"] + lp["bo"]
+    hidden = hidden + qdot(attn, lp["wo"]) + lp["bo"]
 
     x = layer_norm(hidden, lp["ln2_w"], lp["ln2_b"])
-    x = F.gelu(x @ lp["fc1_w"] + lp["fc1_b"])
-    return hidden + (x @ lp["fc2_w"] + lp["fc2_b"])
+    x = F.gelu(qdot(x, lp["fc1_w"]) + lp["fc1_b"])
+    return hidden + (qdot(x, lp["fc2_w"]) + lp["fc2_b"])
 
 
 def encoder_forward(params: dict, cfg: AudioEncoderConfig, mel: torch.Tensor,

@@ -5,7 +5,8 @@ transpose rules of ``convert_*_state_dict`` and ``load_safetensors_dir``)
 with its own safetensors reader, so the port needs no ``safetensors``
 package. Parameters are plain dicts of tensors with the JAX package's keys
 and layouts (per-layer weights stacked on a leading ``[L, ...]`` axis,
-matrices as ``[in, out]``), so ``params_from_jax`` is a straight copy.
+matrices as ``[in, out]``), so ``params_from_jax`` is a straight copy
+(quantized payloads are transposed to ``[..., out, in]``, ``ops/quant.py``).
 """
 from __future__ import annotations
 
@@ -166,12 +167,49 @@ def to_torch(tree, device: torch.device, dtype: torch.dtype):
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
+def _exact_tensor(arr) -> torch.Tensor:
+    """A numpy array → a tensor of the same dtype and bits: int8 as it is,
+    ml_dtypes' float8_e4m3fn and bfloat16 through same-width integers."""
+    arr = np.ascontiguousarray(arr)
+    name = arr.dtype.name
+    if name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    if name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
+def _quantized_to_torch(leaf: dict, device: torch.device,
+                        transpose: bool) -> dict:
+    """A JAX ``{"q", "s"}`` leaf → the port's: the payload's bits kept
+    (never widened) and laid out ``[..., out, in]`` (the layer matrices
+    and an untied lm_head are transposed, the ``[V, H]`` embedding is
+    already so); the scales in their source dtype."""
+    q = _exact_tensor(leaf["q"])
+    if transpose:
+        q = q.transpose(-1, -2).contiguous()
+    return {"q": q.to(device), "s": _exact_tensor(leaf["s"]).to(device)}
+
+
 def params_from_jax(tree_of_numpy: dict, device,
                     dtype: torch.dtype = torch.float32) -> dict:
     """The JAX package's params (``jax.device_get`` of the pytree, i.e.
     nested dicts of numpy arrays) → the port's params. Same keys and
-    layouts; unquantized trees only."""
-    return to_torch(tree_of_numpy, torch.device(device), dtype)
+    layouts; float leaves in ``dtype``, quantized leaves (``ops.quant``)
+    bit for bit."""
+    from ..ops.quant import is_quantized
+    device = torch.device(device)
+
+    def walk(tree, key=""):
+        if is_quantized(tree):
+            return _quantized_to_torch(tree, device, key != "embed")
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return to_torch(tree, device, dtype)
+
+    return walk(tree_of_numpy)
 
 
 def load_asr_checkpoint(path: str, device,

@@ -32,6 +32,7 @@ from ..models.asr import AsrModel, normalize_language
 from ..models.decoder import embed_tokens
 from ..models.encoder import encoder_forward, encoder_output_length
 from ..ops.attention import decode_kernel
+from ..ops.quant import any_quantized, check_quantized_dtype, param_bytes
 from ..utils.device import resolve_device, working_dtype
 from .batcher import _pad_pow2
 from .generate import (GenerateResult, GreedyLoop, cache_length, run_loop,
@@ -42,7 +43,13 @@ TARGET_SR = 16000
 AUDIO_BUCKETS_S: Tuple[float, ...] = (1, 2, 4, 6, 10, 15, 20, 30)
 PREFIX_BUDGET = 64          # left-padded prompt prefix tokens
 MAX_SEGMENT_S = 30.0        # beyond this, silence-boundary chunking
-LONG_FORM_BATCH = 8         # most same-bucket segments per long-form run
+
+
+def long_form_batch() -> int:
+    """Most same-bucket segments per long-form run: ``ASR_LONG_FORM_BATCH``
+    (default 8) floored to a power of two, as the JAX engine reads it."""
+    cap = int(os.getenv("ASR_LONG_FORM_BATCH", "8"))
+    return 1 << (max(1, cap).bit_length() - 1)
 
 
 @dataclasses.dataclass
@@ -83,6 +90,12 @@ class BucketExecutable:
         self.front = Graph(self._front, dev, engine.graph_pool)
         self.chunk = Graph(self.loop.chunk, dev, engine.graph_pool)
 
+    def nbytes(self) -> int:
+        """Bytes of the key's persistent tensors: input buffers, loop state
+        and KV cache (the graphs' pool is not counted)."""
+        return (self.audio.nbytes + self.prefix.nbytes
+                + self.loop.nbytes())
+
     def _front(self) -> None:
         self.loop.prefill(self.engine.prompt_embeds(
             self.audio, self.prefix, self.bucket_frames))
@@ -109,15 +122,26 @@ class TranscriptionEngine:
                  cache_dtype: Optional[torch.dtype] = None):
         """``model.params`` must already be on ``device``. dtype defaults to
         bf16 on the card and f32 on the CPU. The KV cache is in
-        ``cache_dtype``: the working dtype by default, or fp8
-        (``torch.float8_e4m3fn``), which needs head_dim 128."""
+        ``cache_dtype``: the working dtype by default, fp8
+        (``torch.float8_e4m3fn``) or int4 (``torch.int4``: packed values
+        with per-(token, head) scales), both of which need head_dim 128;
+        int4 on the card needs bf16, and so do quantized weights."""
         self.model = model
+        self.model_id: Optional[str] = None     # set by load_engine
         self.device = resolve_device(device)
         self.dtype = dtype or working_dtype(self.device)
         self.cache_dtype = cache_dtype or self.dtype
-        if self.cache_dtype not in (self.dtype, torch.float8_e4m3fn):
+        if self.cache_dtype not in (self.dtype, torch.float8_e4m3fn,
+                                    torch.int4):
             raise ValueError(f"KV cache dtype {self.cache_dtype} is neither "
-                             f"the working dtype {self.dtype} nor fp8")
+                             f"the working dtype {self.dtype} nor fp8 nor "
+                             f"int4")
+        if (self.cache_dtype == torch.int4 and self.device.type == "cuda"
+                and self.dtype != torch.bfloat16):
+            raise ValueError("an int4 KV cache on the card needs the bf16 "
+                             "working dtype (kernel #3's int4 route)")
+        if any_quantized(model.params):
+            check_quantized_dtype(self.device, self.dtype)
         # raises now for a cache no decode kernel takes, not mid-request
         decode_kernel(1, model.cfg.decoder.head_dim, 128, self.cache_dtype)
         self.frontend = LogMelFrontend(n_mels=model.cfg.encoder.num_mel_bins,
@@ -134,6 +158,19 @@ class TranscriptionEngine:
                            if self.device.type == "cuda" else None)
         # shapes and counts of the last bucket run (for measurement scripts)
         self.last_run: dict = {}
+
+    @property
+    def executable_count(self) -> int:
+        """Keys built so far: serving a fixed set of shapes must hold it
+        constant (each key holds its KV cache and loop state)."""
+        return len(self.executables)
+
+    def held_bytes(self) -> int:
+        """Bytes of the tensors the engine holds: its weights and every
+        key's buffers, loop state and KV cache. Safe from another thread
+        (``/health``) while the device thread adds a key."""
+        return (param_bytes(self.model.params)
+                + sum(x.nbytes() for x in list(self.executables.values())))
 
     # -- bucketing ---------------------------------------------------------------
     def bucket_frames(self, n_samples: int) -> Tuple[int, float]:
@@ -324,9 +361,9 @@ class TranscriptionEngine:
 
     def _run_segments_batched(self, segments, language, context):
         """Long-form path: same-bucket segments share batches of up to
-        LONG_FORM_BATCH rows (padded to a power of two). Rows are
+        ``long_form_batch()`` rows (padded to a power of two). Rows are
         independent, so each segment's output matches the batch-1 path."""
-        cap = LONG_FORM_BATCH
+        cap = long_form_batch()
         by_bucket = {}
         for idx, (_, seg) in enumerate(segments):
             by_bucket.setdefault(self.bucket_frames(len(seg)), []).append(idx)

@@ -73,6 +73,13 @@ class GreedyLoop:
         self.active = torch.zeros((), dtype=torch.bool, device=device)
         self._columns = torch.arange(max_new, device=device)
 
+    def nbytes(self) -> int:
+        """Bytes of the loop's state and KV cache."""
+        held = [self.valid_from, self.tokens, self.last, self.done, self.i,
+                self.active, self._columns]
+        held += [x for x in self.cache if x is not None]
+        return sum(x.nbytes for x in held)
+
     def _is_active(self) -> torch.Tensor:
         return (self.i < self.max_new) & ~self.done.all()
 
@@ -151,7 +158,8 @@ def greedy_generate(params: dict, cfg: DecoderConfig,
     prompts: keys below valid_from are masked. Positions are absolute
     (0..prompt_len-1 for the prompt), whatever valid_from is. The KV cache
     is in ``cache_dtype``: the working dtype (inputs_embeds') by default,
-    or fp8. On a CUDA device the prefill and the chunk run as CUDA graphs
+    fp8, or ``torch.int4`` (packed values with scale planes). On a CUDA
+    device the prefill and the chunk run as CUDA graphs
     captured for this call (``runtime/graphs.py``; the engine keeps its
     graphs per bucket instead); on the CPU they run eagerly."""
     from .graphs import Graph

@@ -3,7 +3,10 @@
 Counterpart of ``qwen3_asr_tpu/runtime/lifecycle.py``: ``load_engine`` is
 its ``_load_engine_sync`` (``MODEL_ID`` is a local checkpoint directory or
 ``preset:NAME``, which builds that architecture with zero weights and a
-byte-level tokenizer; ``ASR_KV_CACHE_DTYPE`` picks the KV cache dtype), and
+byte-level tokenizer; ``QUANTIZE`` (``int8``, ``fp8``) quantizes the
+weights after load, on the engine's device; ``ASR_KV_CACHE_DTYPE`` picks
+the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
+``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs), and
 ``ModelManager`` holds the fields of its ``ModelManager`` that the batcher
 and the server use, and warms the engine's executables on start
 (``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it). Idle unload, the
@@ -22,6 +25,8 @@ from ..models.asr import AsrModel, PromptTemplate
 from ..models.config import preset
 from ..models.decoder import init_decoder_params
 from ..models.encoder import init_encoder_params
+from ..ops.quant import (check_mode, check_quantized_dtype, param_bytes,
+                         quantize_params)
 from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
 from .batcher import MicroBatcher
@@ -31,9 +36,10 @@ from .queue import PriorityInferQueue
 
 log = logging.getLogger(__name__)
 
-# ASR_KV_CACHE_DTYPE: "" keeps the working dtype.
+# ASR_KV_CACHE_DTYPE: "" keeps the working dtype; torch.int4 names the
+# packed int4 cache with per-(token, head) scales.
 KV_CACHE_DTYPES = {"": None, "bf16": torch.bfloat16,
-                   "fp8": torch.float8_e4m3fn}
+                   "fp8": torch.float8_e4m3fn, "int4": torch.int4}
 
 
 def preset_tokenizer(vocab_size: int) -> BpeTokenizer:
@@ -55,14 +61,9 @@ def _zeros_like_tree(tree):
 
 
 def kv_cache_dtype_from_env() -> Optional[torch.dtype]:
-    """``ASR_KV_CACHE_DTYPE``: "" (the working dtype), ``bf16`` or
-    ``fp8``. ``int4`` needs per-(token, head) scales, which are not ported
-    yet."""
+    """``ASR_KV_CACHE_DTYPE``: "" (the working dtype), ``bf16``, ``fp8`` or
+    ``int4``."""
     name = os.getenv("ASR_KV_CACHE_DTYPE", "").lower()
-    if name == "int4":
-        raise NotImplementedError(
-            "ASR_KV_CACHE_DTYPE=int4 is not ported: the int4 KV cache with "
-            "scales waits on ROADMAP §1 item 6")
     if name not in KV_CACHE_DTYPES:
         raise ValueError(f"ASR_KV_CACHE_DTYPE={name!r} is not one of "
                          f"{sorted(KV_CACHE_DTYPES)}")
@@ -107,14 +108,45 @@ def _warmup_buckets():
     return tuple(need) or AUDIO_BUCKETS_S[:2]
 
 
+def quantize_mode_from_env() -> str:
+    """``QUANTIZE``: "" (none), ``int8`` or ``fp8``; ``int4`` raises
+    NotImplementedError and anything else ValueError, both naming ROADMAP
+    item 6. (The JAX lifecycle ignores an unknown mode; its
+    ``config.validate_env`` rejects it.)"""
+    mode = os.getenv("QUANTIZE", "").lower()
+    if mode:
+        check_mode(mode)
+    return mode
+
+
+def quantize_model(model: AsrModel, mode: str) -> None:
+    """Quantize ``model.params`` in place of the full-precision tree, on
+    their device, logging the megabytes before and after as the JAX
+    lifecycle does; on the card the allocator releases the freed blocks
+    before any graph is captured."""
+    before = param_bytes(model.params) / 1024 ** 2
+    model.params = quantize_params(model.params, mode)
+    after = param_bytes(model.params) / 1024 ** 2
+    log.info("%s quantization applied — %dMB → %dMB (saved %dMB)",
+             mode.upper(), round(before), round(after),
+             round(before - after))
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def load_engine(model_id: str, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> TranscriptionEngine:
     """A ready engine for ``model_id`` on ``device`` (bf16 on the card and
-    f32 on the CPU unless ``dtype`` says otherwise), with its KV cache in
-    the dtype ``ASR_KV_CACHE_DTYPE`` names."""
+    f32 on the CPU unless ``dtype`` says otherwise), its weights quantized
+    as ``QUANTIZE`` says and its KV cache in the dtype
+    ``ASR_KV_CACHE_DTYPE`` names."""
     dev = resolve_device(device)
     dtype = dtype or working_dtype(dev)
     cache_dtype = kv_cache_dtype_from_env()
+    mode = quantize_mode_from_env()
+    if mode:
+        # refuse before loading: the engine would refuse after
+        check_quantized_dtype(dev, dtype)
     if os.path.isdir(model_id):
         cfg, params = load_asr_checkpoint(model_id, dev, dtype)
         tokenizer = BpeTokenizer.from_file(os.path.join(model_id,
@@ -134,8 +166,13 @@ def load_engine(model_id: str, device="cuda",
         raise FileNotFoundError(
             f"MODEL_ID '{model_id}' is neither a local checkpoint directory "
             "nor preset:NAME")
-    return TranscriptionEngine(model, device=dev, dtype=dtype,
-                               cache_dtype=cache_dtype)
+    del params
+    if mode:
+        quantize_model(model, mode)
+    engine = TranscriptionEngine(model, device=dev, dtype=dtype,
+                                 cache_dtype=cache_dtype)
+    engine.model_id = model_id
+    return engine
 
 
 class ModelManager:

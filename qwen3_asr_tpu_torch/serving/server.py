@@ -10,11 +10,15 @@ micro-batcher, which joins concurrent same-bucket uploads into one batched
 engine run on the queue's one device thread (that thread serializes all
 device work, so the handlers need no lock). The other routes are not
 ported yet; ``return_timestamps=true`` answers 501 until the aligner is.
+Every response carries ``X-Request-ID`` (the request's own, or a new
+one), and an upload may come with ``Content-Length`` or
+``Transfer-Encoding: chunked``.
 
 Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
 qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
 ``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights);
-``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``), ``ASR_MAX_BATCH`` (8),
+``QUANTIZE`` (``int8``, ``fp8``), ``ASR_KV_CACHE_DTYPE`` (``bf16``,
+``fp8``, ``int4``), ``ASR_INT8_ACT``, ``ASR_MAX_BATCH`` (8),
 ``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it.
 """
 from __future__ import annotations
@@ -24,10 +28,13 @@ import json
 import logging
 import os
 import time
+import uuid
 from email import policy
 from email.parser import BytesParser
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
+
+import torch
 
 from ..audio.codec import AudioDecodeError, decode_audio
 from ..runtime.lifecycle import ModelManager, load_engine
@@ -76,6 +83,44 @@ def parse_multipart(content_type: str, body: bytes
     return fields, file_bytes, filename
 
 
+class BodyTooLarge(Exception):
+    pass
+
+
+def read_chunked(rfile, limit: int) -> bytes:
+    """A ``Transfer-Encoding: chunked`` body, read whole (trailers
+    dropped). Raises BodyTooLarge past ``limit`` bytes and ValueError on a
+    malformed chunk."""
+    parts, size = [], 0
+    while True:
+        line = rfile.readline(65537)
+        n = int(line.split(b";", 1)[0].strip(), 16)   # ValueError if bad
+        if n == 0:
+            break
+        size += n
+        if size > limit:
+            raise BodyTooLarge
+        parts.append(rfile.read(n))
+        if rfile.readline(3) not in (b"\r\n", b"\n"):
+            raise ValueError("chunk not followed by CRLF")
+    while rfile.readline(65537) not in (b"\r\n", b"\n", b""):
+        pass                                  # trailer fields
+    return b"".join(parts)
+
+
+def health_memory(device: torch.device) -> dict:
+    """The card's memory in MB as JAX's ``/health`` reports it
+    (``hbm_used_mb`` in use by the allocator, ``hbm_limit_mb`` the card's
+    total), or nulls for an engine on the CPU."""
+    if device.type != "cuda":
+        return {"hbm_used_mb": None, "hbm_limit_mb": None}
+    used = torch.cuda.memory_stats(device).get(
+        "allocated_bytes.all.current", 0)
+    _, total = torch.cuda.mem_get_info(device)
+    return {"hbm_used_mb": round(used / 1024 ** 2),
+            "hbm_limit_mb": round(total / 1024 ** 2)}
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "AsrServer"
     protocol_version = "HTTP/1.1"
@@ -88,6 +133,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(status)
         self.send_header("Content-Type", "application/json; charset=utf-8")
         self.send_header("Content-Length", str(len(data)))
+        self.send_header("X-Request-ID", self.headers.get("X-Request-ID")
+                         or str(uuid.uuid4()))
         self.end_headers()
         self.wfile.write(data)
 
@@ -101,20 +148,36 @@ class _Handler(BaseHTTPRequestHandler):
         engine = self.server.manager.engine
         self._json(200, {"status": "ok",
                          "model_loaded": True,
+                         "model_id": engine.model_id,
                          "device": str(engine.device),
                          "dtype": str(engine.dtype).replace("torch.", ""),
                          "kv_cache_dtype": str(engine.cache_dtype).replace(
-                             "torch.", "")})
+                             "torch.", ""),
+                         **health_memory(engine.device),
+                         "device_arrays_mb": round(engine.held_bytes()
+                                                   / 1024 ** 2),
+                         "executable_count": engine.executable_count})
 
     def do_POST(self):
         if self.path.split("?", 1)[0] != "/v1/audio/transcriptions":
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
+        chunked = "chunked" in self.headers.get("Transfer-Encoding",
+                                                "").lower()
         length = int(self.headers.get("Content-Length") or 0)
-        if length > MAX_UPLOAD_BYTES:
+        try:
+            if length > MAX_UPLOAD_BYTES:
+                raise BodyTooLarge
+            body = (read_chunked(self.rfile, MAX_UPLOAD_BYTES) if chunked
+                    else self.rfile.read(length))
+        except BodyTooLarge:
+            self.close_connection = True
             self._error("PAYLOAD_TOO_LARGE", "upload exceeds 512 MiB", 413)
             return
-        body = self.rfile.read(length)
+        except ValueError:
+            self.close_connection = True
+            self._error("BAD_REQUEST", "malformed chunked body", 400)
+            return
         fields, file_bytes, _ = parse_multipart(
             self.headers.get("Content-Type", ""), body)
         if parse_bool(fields.get("return_timestamps")):

@@ -398,7 +398,9 @@ def test_warm_request_makes_no_eager_launch(dev):
     layers = SMALL.encoder.encoder_layers + SMALL.decoder.num_hidden_layers
     assert got == {"flash_attention": layers,
                    "decode_attention": 2 * run["steps_run"],
-                   "decode_attention_batch": 0}
+                   "decode_attention_batch": 0,
+                   "decode_attention_batch_int4": 0, "qgemv": 0,
+                   "kv_int4_write": 0}
 
 
 def test_failed_capture_raises_and_never_runs_eagerly(dev, monkeypatch):
@@ -444,3 +446,192 @@ def test_reused_key_and_tickets_after_replays(dev):
     assert torch.equal(reused.tokens, again.tokens)
     torch.cuda.synchronize()
     assert not decode_module._tickets[torch.device("cuda", 0)].any()
+
+
+# -- quantized weights and the int4 KV cache -------------------------------------
+
+from qwen3_asr_tpu_torch.ops import quant                      # noqa: E402
+from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write,    # noqa: E402
+                                             kv_int4_write_plain, pack)
+from qwen3_asr_tpu_torch.ops.qgemv import qgemv, qgemv_plain   # noqa: E402
+from qwen3_asr_tpu_torch.models.decoder import init_kv_cache   # noqa: E402
+
+# (K, N) of every preset:1.7b decoder projection, and the tied lm_head
+QGEMV_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 1024),
+                "gate_up": (2048, 6144), "down": (6144, 2048),
+                "encoder_fc1": (1280, 5120), "lm_head": (2048, 151936)}
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", list(QGEMV_SHAPES))
+def test_qgemv_matches_plain(dev, shape, mode):
+    """Kernel A against its plain version (the payload widened, an f32
+    product, the scale, one rounding) at M = 1..16. Both sum in f32 in
+    different orders: bf16 layer outputs within one bf16 ulp (rtol 8e-3),
+    f32 logits within 1e-4 of the largest |plain| value, and both within
+    that atol near zero."""
+    k, n = QGEMV_SHAPES[shape]
+    rng = np.random.default_rng(7)
+    w = _randn(rng, (k, n), torch.float32, dev) * 0.02
+    leaf = (quant.quantize_embed(w.t().bfloat16(), mode) if shape == "lm_head"
+            else quant.quantize_array(w.bfloat16(), mode))
+    s = quant.row_scales(leaf)
+    out_dtype = torch.float32 if shape == "lm_head" else torch.bfloat16
+    for m in range(1, 17):
+        x = _randn(rng, (m, k), torch.bfloat16, dev)
+        before = qgemv.launches
+        out = qgemv(x, leaf["q"], s, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert qgemv.launches == before + 1 and out.dtype == out_dtype
+        ref = qgemv_plain(x, leaf["q"], s, out_dtype=out_dtype)
+        rtol = 8e-3 if out_dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+def _int4_cache(dev, b, t, layers=3, s_len=256):
+    cfg = DecoderConfig(vocab_size=8, hidden_size=8, intermediate_size=8,
+                        num_hidden_layers=layers, num_attention_heads=16,
+                        num_key_value_heads=8, head_dim=128)
+    return cfg, [init_kv_cache(cfg, b, s_len, torch.int4, dev)
+                 for _ in range(2)]
+
+
+@pytest.mark.parametrize("where", ["host", "device"])
+@pytest.mark.parametrize("b,t", [(1, 1), (8, 1), (96, 1), (2, 453)])
+def test_kv_int4_write_matches_plain(dev, b, t, where):
+    """Kernel B: payload and scales byte-equal to the plain version's, at
+    a host position and at a 0-d device position (the decode step's)."""
+    _, (ours, ref) = _int4_cache(dev, b, t, s_len=512)
+    rng = np.random.default_rng(8)
+    k = _randn(rng, (b, 8, t, 128), torch.bfloat16, dev) * 3
+    v = _randn(rng, (b, 8, t, 128), torch.bfloat16, dev)
+    pos = 40 if where == "host" else torch.tensor(40, device=dev)
+    before = kv_int4_write.launches
+    kv_int4_write(ours, 2, k, v, pos)
+    torch.cuda.synchronize()
+    assert kv_int4_write.launches == before + 1
+    kv_int4_write_plain(ref, 2, k, v, pos)
+    for a, r in zip(ours, ref):
+        assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", list(BATCH_CASES))
+def test_int4_batched_decode_matches_plain(dev, name):
+    """#3's int4 route against its plain version (the same max per chunk,
+    p * vs rounded to bf16 at the same point), bf16 tolerance."""
+    n_layers, b, nq, nkv, s, layer, vf, vt = BATCH_CASES[name]
+    lead = ((n_layers,) if n_layers else ()) + (b, nkv, s)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, nq, 1, 128), generator=gen, device=dev).bfloat16()
+    kq, vq = (pack(torch.randint(-8, 8, lead + (128,), generator=gen,
+                                 device=dev, dtype=torch.int8))
+              for _ in range(2))
+    ks, vs = ((torch.rand(lead + (1,), generator=gen, device=dev) * 0.3
+               + 0.01).bfloat16() for _ in range(2))
+    vf = torch.tensor(vf, dtype=torch.int32, device=dev)
+    vt = torch.tensor(vt, dtype=torch.int32, device=dev)
+    before = decode_attention_batched.launches_int4
+    out = decode_attention_batched(q, kq, vq, layer_idx=layer,
+                                   kv_valid_from=vf, kv_valid_to=vt,
+                                   k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert decode_attention_batched.launches_int4 == before + 1
+    ref = decode_attention_batched_plain(q, kq, vq, vf, vt, layer_idx=layer,
+                                         sm_scale=128 ** -0.5, k_scale=ks,
+                                         v_scale=vs)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    dead = (torch.minimum(vt, torch.tensor(s, device=dev))
+            <= vf.clamp(min=0))
+    assert not out[dead].float().abs().any()
+    assert not decode_module._tickets[out.device].any()
+
+
+def test_quantized_wrappers_raise_rather_than_compute(dev):
+    """On a CUDA tensor a wrapper launches its kernel or raises: f32
+    activations for kernel A (and ``qdot``, which has no other route for
+    decode rows on the card; the engine refuses quantized weights at f32
+    there), head_dim 64 for kernel B, f32 q for the int4 route, a packed
+    cache without its scale planes."""
+    q8 = torch.zeros((64, 128), dtype=torch.int8, device=dev)
+    s = torch.ones(64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        qgemv(torch.zeros((2, 128), device=dev), q8, s,
+              out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        qgemv(torch.zeros((17, 128), device=dev, dtype=torch.bfloat16), q8,
+              s, out_dtype=torch.bfloat16)
+    leaf = quant.quantize_array(torch.ones((128, 64), device=dev), "int8")
+    with pytest.raises(ValueError, match="bf16"):
+        quant.qdot(torch.zeros((2, 128), device=dev), leaf)
+    model = _model(dev)
+    model.params = quant.quantize_params(model.params, "int8")
+    with pytest.raises(ValueError, match="bf16"):
+        TranscriptionEngine(model, device=dev, dtype=torch.float32)
+    cfg = DecoderConfig(vocab_size=8, hidden_size=8, intermediate_size=8,
+                        num_hidden_layers=1, num_attention_heads=2,
+                        num_key_value_heads=1, head_dim=64)
+    cache = init_kv_cache(cfg, 1, 128, torch.int4, dev)
+    x = torch.zeros((1, 1, 1, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        kv_int4_write(cache, 0, x, x, 0)
+    _, (c4, _) = _int4_cache(dev, 2, 1)
+    with pytest.raises(ValueError):
+        decode_attention_batched(torch.zeros((2, 16, 1, 128), device=dev),
+                                 c4.k, c4.v, layer_idx=0, k_scale=c4.k_scale,
+                                 v_scale=c4.v_scale)
+    with pytest.raises(ValueError):
+        decode_attention_batched(torch.zeros((2, 16, 1, 128), device=dev,
+                                             dtype=torch.bfloat16),
+                                 c4.k, c4.v, layer_idx=0)
+
+
+@pytest.mark.parametrize("batch", [1, 8], ids=["b1", "b8"])
+def test_int8_int4_graph_replay_equals_eager(dev, batch):
+    """An int8-weight, int4-cache key: the captured request gives the
+    eager run's tokens bit for bit, and a chunk records one GEMV per
+    projection and step (plus the logits), one int4 write and one #3-int4
+    launch per layer and step."""
+    model = _model(dev)
+    model.params = quant.quantize_params(model.params, "int8")
+    eng = TranscriptionEngine(model, device=dev, cache_dtype=torch.int4)
+    key, inputs = _request(eng, batch)
+    exe, _ = eng.executable(*key)
+    layers = SMALL.decoder.num_hidden_layers
+    rec = exe.chunk.recorded
+    assert rec["decode_attention_batch_int4"] == DECODE_CHUNK * layers
+    assert rec["kv_int4_write"] == DECODE_CHUNK * layers
+    assert rec["qgemv"] == DECODE_CHUNK * (7 * layers + 1)
+    assert rec["decode_attention"] == rec["decode_attention_batch"] == 0
+    graph = exe.run(*inputs)
+    eager = exe.run(*inputs, eager=True)
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert (graph.steps, graph.steps_run) == (eager.steps, eager.steps_run)
+    assert len(set(graph.tokens[0].tolist())) >= 3
+
+
+def test_int4_batched_decode_is_deterministic(dev):
+    """#3's int4 route at 128-key chunks (B=8, S=384): the same bits on
+    every call (the softmax reads V's scales: they must have landed)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    lead = (2, 8, 8, 384)
+    q = torch.randn((8, 16, 1, 128), generator=gen, device=dev).bfloat16()
+    kq, vq = (pack(torch.randint(-8, 8, lead + (128,), generator=gen,
+                                 device=dev, dtype=torch.int8))
+              for _ in range(2))
+    ks, vs = ((torch.rand(lead + (1,), generator=gen, device=dev) + 0.01
+               ).bfloat16() for _ in range(2))
+    vf = torch.zeros(8, dtype=torch.int32, device=dev)
+    vt = torch.full((8,), 300, dtype=torch.int32, device=dev)
+    outs = [decode_attention_batched(q, kq, vq, layer_idx=1,
+                                     kv_valid_from=vf, kv_valid_to=vt,
+                                     k_scale=ks, v_scale=vs)
+            for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    ref = decode_attention_batched_plain(q, kq, vq, vf, vt, layer_idx=1,
+                                         sm_scale=128 ** -0.5, k_scale=ks,
+                                         v_scale=vs)
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)

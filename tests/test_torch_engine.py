@@ -168,12 +168,12 @@ def test_fp8_cache_engine_matches_jax_batched_kernel(monkeypatch):
 
 @pytest.mark.parametrize("kv,error", [("fp8", ValueError),
                                       ("bf16", ValueError),
-                                      ("int4", NotImplementedError),
+                                      ("int4", ValueError),
                                       ("int8", ValueError)])
 def test_cache_dtypes_the_engine_refuses(monkeypatch, kv, error):
-    """On trained_ckpt (head_dim 48, f32 on the CPU): fp8 needs head_dim
-    128 and raises at construction; a bf16 cache is neither the working
-    dtype nor fp8; int4 is not ported; int8 is no cache dtype."""
+    """On trained_ckpt (head_dim 48, f32 on the CPU): fp8 and int4 need
+    head_dim 128 and raise at construction; a bf16 cache is neither the
+    working dtype nor fp8; int8 is no cache dtype."""
     monkeypatch.setenv("ASR_KV_CACHE_DTYPE", kv)
     with pytest.raises(error):
         load_engine(CKPT, device="cpu")
@@ -188,3 +188,28 @@ def test_kv_cache_dtype_from_env(monkeypatch):
         eng = TranscriptionEngine(model, device="cpu",
                                   cache_dtype=kv_cache_dtype_from_env())
         assert eng.cache_dtype == want
+
+
+@pytest.mark.parametrize("env,cap", [(None, 8), ("8", 8), ("6", 4), ("3", 2),
+                                     ("1", 1), ("0", 1), ("16", 16)])
+def test_long_form_batch_from_env(monkeypatch, env, cap):
+    """ASR_LONG_FORM_BATCH floored to a power of two, as the JAX engine
+    reads it (``qwen3_asr_tpu/runtime/engine.py:780-781``); the long-form
+    path runs batches of at most that many segments."""
+    from qwen3_asr_tpu_torch.runtime import engine as engine_mod
+    if env is None:
+        monkeypatch.delenv("ASR_LONG_FORM_BATCH", raising=False)
+    else:
+        monkeypatch.setenv("ASR_LONG_FORM_BATCH", env)
+    assert engine_mod.long_form_batch() == cap
+    eng = TranscriptionEngine.__new__(TranscriptionEngine)
+    sizes = []
+    monkeypatch.setattr(eng, "bucket_frames", lambda n: (3000, 30.0),
+                        raising=False)
+    monkeypatch.setattr(
+        eng, "_run_bucket", lambda clips, *a: (
+            sizes.append(len(clips)) or ([""] * len(clips),
+                                         [[]] * len(clips))), raising=False)
+    segments = [(0, np.zeros(10, np.int16))] * 11
+    eng._run_segments_batched(segments, None, "")
+    assert max(sizes) <= cap and sum(sizes) >= 11

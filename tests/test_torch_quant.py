@@ -1,0 +1,584 @@
+"""The port's quantization (``ops/quant.py``, ``ops/qgemv.py``,
+``ops/kv_int4.py``) against the JAX package's, in f32 on the CPU, every
+input made from a numpy seed: int8/fp8 payloads and scales and the int4 KV
+values byte for byte; ``qdot`` in its three routes, the quantized
+embedding and logits, the int4 route of the batched decode kernel's plain
+version and the decoder with int8 weights and an int4 cache to 1e-5 or
+1e-4; and token ids identical to the JAX engine with quantized weights,
+an int4 KV cache and W8A8 prefill."""
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from qwen3_asr_tpu.models import decoder as jdec
+from qwen3_asr_tpu.ops import quant as jq
+from qwen3_asr_tpu.ops.attention import AttnSpec as JaxSpec
+from qwen3_asr_tpu.ops.attention import attend_xla
+from qwen3_asr_tpu.runtime.engine import TranscriptionEngine as JaxEngine
+from qwen3_asr_tpu_torch.audio.codec import decode_audio
+from qwen3_asr_tpu_torch.models.config import DecoderConfig
+from qwen3_asr_tpu_torch.models.decoder import (KVCache, decoder_forward,
+                                                embed_tokens, init_kv_cache,
+                                                lm_logits)
+from qwen3_asr_tpu_torch.ops import quant
+from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+    decode_attention_batched)
+from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write, pack,
+                                             quantize_kv, unpack)
+from qwen3_asr_tpu_torch.runtime.checkpoint import params_from_jax
+from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+
+from tests.test_torch_engine import CKPT, CLIPS, hd128_models, jax_engine
+from tests.test_torch_model import _to_jax_cfg
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _few_threads(monkeypatch):
+    for name in ("ASR_INT8_ACT", "ASR_INT8_ACT_MIN_TOKENS", "QUANTIZE",
+                 "ASR_QUANTIZE_EMBED", "ASR_KV_CACHE_DTYPE"):
+        monkeypatch.delenv(name, raising=False)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _bits(x) -> np.ndarray:
+    """The bytes of a tensor or a JAX/numpy array, as uint8."""
+    if torch.is_tensor(x):
+        return x.contiguous().view(torch.uint8).numpy()
+    arr = np.ascontiguousarray(np.asarray(x))
+    return arr.view(np.uint8)
+
+
+def _weight(rng, shape, scale=0.05):
+    w = (rng.standard_normal(shape) * scale).astype(np.float32)
+    # one element a hair off a round multiple, so wf/scale lands at the top
+    w.flat[7] = 0.4 + 3e-8
+    return w
+
+
+# -- payloads and scales, byte for byte -------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantize_array_bytes_equal_jax(mode, dtype):
+    rng = np.random.default_rng(1)
+    w = _weight(rng, (2, 64, 96))
+    jw = jnp.asarray(w, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    tw = torch.from_numpy(w).to(torch.bfloat16 if dtype == "bf16"
+                                else torch.float32)
+    ref = jax.device_get(jq.quantize_array(jw, mode))
+    ours = quant.quantize_array(tw, mode)
+    assert ours["q"].shape == (2, 96, 64)          # [L, out, in]
+    assert ours["s"].dtype == tw.dtype and ours["s"].shape == (2, 1, 96)
+    np.testing.assert_array_equal(_bits(ours["q"].transpose(1, 2)),
+                                  _bits(ref["q"]))
+    np.testing.assert_array_equal(_bits(ours["s"]), _bits(ref["s"]))
+    np.testing.assert_array_equal(
+        quant.dequantize(ours, torch.float32).transpose(1, 2).numpy(),
+        np.asarray(jq.dequantize(jq.quantize_array(jw, mode), jnp.float32)))
+    if mode == "fp8":
+        # the column's absmax lands a hair above 448 at most: both give 448
+        col = np.abs(w[0, :, 7]).argmax()
+        assert int(_bits(ours["q"])[0, 7, col]) in (0x7e, 0xfe)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantize_embed_bytes_equal_jax(mode):
+    rng = np.random.default_rng(2)
+    e = _weight(rng, (300, 64))
+    ref = jax.device_get(jq.quantize_embed(jnp.asarray(e), mode))
+    ours = quant.quantize_embed(torch.from_numpy(e), mode)
+    np.testing.assert_array_equal(_bits(ours["q"]), _bits(ref["q"]))
+    np.testing.assert_array_equal(_bits(ours["s"]), _bits(ref["s"]))
+
+
+def test_kv_quantize_bytes_equal_jax():
+    """_kv_quantize's int4 values and bf16 scales, through the port's plain
+    quantize, pack and unpack, and through the cache write."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 4, 9, 128)) * 3).astype(np.float32)
+    x[0, 0, 0] = 0.0                              # the 1e-8 floor
+    x[1, 2, 3, 5] = 70.0                          # one large value
+    q_ref, s_ref = jax.device_get(jax.jit(
+        lambda a: (lambda q, s: (q.astype(jnp.int8), s))(
+            *jdec._kv_quantize(a)))(jnp.asarray(x)))
+    q, s = quantize_kv(torch.from_numpy(x))
+    np.testing.assert_array_equal(unpack(pack(q)).numpy(), q_ref)
+    np.testing.assert_array_equal(_bits(s.to(torch.bfloat16)), _bits(s_ref))
+
+    cfg = DecoderConfig(vocab_size=8, hidden_size=8, intermediate_size=8,
+                        num_hidden_layers=2, num_attention_heads=8,
+                        num_key_value_heads=4, head_dim=128)
+    for pos in (3, torch.tensor(3)):
+        cache = init_kv_cache(cfg, 2, 16, torch.int4, "cpu")
+        kv_int4_write(cache, 1, torch.from_numpy(x), torch.from_numpy(-x),
+                      pos)
+        np.testing.assert_array_equal(
+            unpack(cache.k[1, :, :, 3:12]).numpy(), q_ref)
+        np.testing.assert_array_equal(
+            unpack(cache.v[1, :, :, 3:12]).numpy(), -q_ref)
+        np.testing.assert_array_equal(_bits(cache.k_scale[1, :, :, 3:12]),
+                                      _bits(s_ref))
+        assert not cache.k[0].any() and not cache.k[1, :, :, 12:].any()
+
+
+# -- qdot's routes -----------------------------------------------------------------
+
+QDOT_CASES = {
+    # (mode, x shape, ASR_INT8_ACT, ASR_INT8_ACT_MIN_TOKENS, route)
+    "dequant_int8": ("int8", (2, 7, 64), None, None, "dequant"),
+    "dequant_fp8": ("fp8", (3, 64), None, None, "dequant"),
+    "w8a8_at_threshold": ("int8", (2, 8, 64), "true", "16", "w8a8"),
+    "act_below_threshold": ("int8", (15, 64), "true", "16", "dequant"),
+    "act_on_fp8": ("fp8", (2, 8, 64), "true", "1", "dequant"),
+    "act_default_threshold": ("int8", (4, 64), "true", None, "dequant"),
+}
+
+
+@pytest.mark.parametrize("name", list(QDOT_CASES))
+def test_qdot_routes_match_jax(monkeypatch, name):
+    mode, xshape, act, min_rows, route = QDOT_CASES[name]
+    if act:
+        monkeypatch.setenv("ASR_INT8_ACT", act)
+    if min_rows:
+        monkeypatch.setenv("ASR_INT8_ACT_MIN_TOKENS", min_rows)
+    rng = np.random.default_rng(4)
+    w = _weight(rng, (64, 96))
+    x = rng.standard_normal(xshape).astype(np.float32)
+    ref = np.asarray(jq.qdot(jnp.asarray(x),
+                             jq.quantize_array(jnp.asarray(w), mode)))
+    leaf = quant.quantize_array(torch.from_numpy(w), mode)
+    rows = int(np.prod(xshape[:-1]))
+    assert quant.qdot_route(rows, on_cuda=False, x_dtype=torch.float32,
+                            w_dtype=leaf["q"].dtype, w_ndim=2,
+                            min_rows=quant.int8_act_min_rows()) == route
+    ours = quant.qdot(torch.from_numpy(x), leaf).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=TOL, atol=1e-6)
+    if route == "w8a8":
+        # the int32 product and the scales in JAX's order: the same bits
+        np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("rows,cuda,dtype,w,ndim,min_rows,want", [
+    (1, True, torch.bfloat16, torch.int8, 2, 0, "gemv"),
+    (16, True, torch.bfloat16, torch.float8_e4m3fn, 2, 0, "gemv"),
+    (16, True, torch.bfloat16, torch.int8, 2, 8, "gemv"),
+    (17, True, torch.bfloat16, torch.int8, 2, 0, "dequant"),
+    (4, True, torch.float32, torch.int8, 2, 0, ValueError),
+    (4, True, torch.float32, torch.int8, 2, 1, ValueError),
+    (17, True, torch.float32, torch.int8, 2, 17, "w8a8"),
+    (4, False, torch.bfloat16, torch.int8, 2, 0, "dequant"),
+    (1024, True, torch.bfloat16, torch.int8, 2, 1024, "w8a8"),
+    (1023, True, torch.bfloat16, torch.int8, 2, 1024, "dequant"),
+    (2048, True, torch.bfloat16, torch.float8_e4m3fn, 2, 1024, "dequant"),
+    (2048, False, torch.float32, torch.int8, 3, 1024, "dequant"),
+])
+def test_qdot_route_rule(rows, cuda, dtype, w, ndim, min_rows, want):
+    route = functools.partial(quant.qdot_route, rows, on_cuda=cuda,
+                              x_dtype=dtype, w_dtype=w, w_ndim=ndim,
+                              min_rows=min_rows)
+    if want is ValueError:
+        # decode rows on the card have the GEMV or nothing: no fallback
+        with pytest.raises(ValueError, match="bf16"):
+            route()
+    else:
+        assert route() == want
+
+
+def test_plain_weights_pass_through():
+    x, w = torch.randn(3, 8), torch.randn(8, 5)
+    assert torch.equal(quant.qdot(x, w), x @ w)
+
+
+# -- embedding and logits ----------------------------------------------------------
+
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_embed_and_logits_match_jax(mode, tied):
+    rng = np.random.default_rng(5)
+    cfg = DecoderConfig(vocab_size=300, hidden_size=64, intermediate_size=64,
+                        num_hidden_layers=1, num_attention_heads=2,
+                        num_key_value_heads=1, head_dim=32,
+                        tie_word_embeddings=tied)
+    jc = _to_jax_cfg(cfg)
+    params = {"embed": _weight(rng, (300, 64)),
+              "layers": {"wq": _weight(rng, (1, 64, 64))}}
+    if not tied:
+        params["lm_head"] = _weight(rng, (64, 300))
+    jparams = jax.device_get(jq.quantize_decoder_params(
+        jax.tree.map(jnp.asarray, params), mode))
+    ours = quant.quantize_decoder_params(params_from_jax(params, "cpu"),
+                                         mode)
+    carried = params_from_jax(jparams, "cpu")     # the JAX bytes, carried
+    for name in ("embed", "lm_head") if not tied else ("embed",):
+        for part in ("q", "s"):
+            assert torch.equal(ours[name][part].view(torch.uint8),
+                               carried[name][part].view(torch.uint8))
+    ids = np.asarray([[1, 5, 299], [0, 7, 7]], np.int32)
+    np.testing.assert_allclose(
+        embed_tokens(ours, torch.from_numpy(ids).long()).numpy(),
+        np.asarray(jdec.embed_tokens(jparams, jc, jnp.asarray(ids))),
+        rtol=TOL, atol=0)
+    h = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        lm_logits(ours, cfg, torch.from_numpy(h)).numpy(),
+        np.asarray(jdec.lm_logits(jparams, jc, jnp.asarray(h))),
+        rtol=TOL, atol=1e-6)
+
+
+def test_quantize_embed_flag_keeps_full_precision(monkeypatch):
+    monkeypatch.setenv("ASR_QUANTIZE_EMBED", "false")
+    rng = np.random.default_rng(6)
+    tree = {"decoder": {"embed": torch.from_numpy(_weight(rng, (30, 16))),
+                        "layers": {"wq": torch.zeros(1, 16, 16),
+                                   "ln1": torch.ones(1, 16)}},
+            "encoder": {"layers": {"fc1_w": torch.zeros(1, 16, 32),
+                                   "fc1_b": torch.zeros(1, 32)},
+                        "conv_out_w": torch.zeros(16, 16)}}
+    out = quant.quantize_params(tree, "int8")
+    assert not quant.is_quantized(out["decoder"]["embed"])
+    assert out["decoder"]["layers"]["wq"]["q"].dtype == torch.int8
+    assert out["encoder"]["layers"]["fc1_w"]["q"].dtype == torch.int8
+    assert out["encoder"]["layers"]["fc1_b"] is tree["encoder"]["layers"][
+        "fc1_b"]
+    assert out["encoder"]["conv_out_w"] is tree["encoder"]["conv_out_w"]
+    assert quant.param_bytes(out["decoder"]["layers"]) < quant.param_bytes(
+        tree["decoder"]["layers"])
+
+
+@pytest.mark.parametrize("mode,error", [("int4", NotImplementedError),
+                                        ("int2", ValueError)])
+def test_quantize_refuses_modes_not_ported(mode, error):
+    with pytest.raises(error, match="ROADMAP §1 item 6"):
+        quant.quantize_array(torch.zeros(4, 4), mode)
+
+
+# -- the int4 route of the batched decode kernel -----------------------------------
+
+def test_int4_batched_plain_matches_jax_attend_xla():
+    """JAX's int4 decode step (``attend_xla`` with scores-side scales) on
+    the same values and scales, rows with different live ranges."""
+    rng = np.random.default_rng(7)
+    b, nq, nkv, s = 3, 8, 4, 256
+    q = rng.standard_normal((b, nq, 1, 128)).astype(np.float32)
+    kv = rng.integers(-8, 8, size=(2, b, nkv, s, 128)).astype(np.int8)
+    sc = (rng.random((2, b, nkv, s, 1)) * 0.3 + 0.01).astype(np.float32)
+    sc = np.array(jnp.asarray(sc, jnp.bfloat16).astype(jnp.float32))
+    vf = np.asarray([0, 37, 100], np.int32)
+    vt = np.asarray([256, 141, 101], np.int32)
+    mask = JaxSpec(valid_from=jnp.asarray(vf),
+                   valid_to=jnp.asarray(vt)).dense_mask(b, 1, s)
+    ref = attend_xla(jnp.asarray(q), jnp.asarray(kv[0], jnp.float32),
+                     jnp.asarray(kv[1], jnp.float32), mask=mask[:, None],
+                     scale=128 ** -0.5, k_scale=jnp.asarray(sc[0]),
+                     v_scale=jnp.asarray(sc[1]))
+    planes = torch.from_numpy(sc).to(torch.bfloat16)
+    ours = decode_attention_batched(
+        torch.from_numpy(q), pack(torch.from_numpy(kv[0]))[None],
+        pack(torch.from_numpy(kv[1]))[None], layer_idx=0,
+        kv_valid_from=torch.from_numpy(vf), kv_valid_to=torch.from_numpy(vt),
+        k_scale=planes[0][None], v_scale=planes[1][None])
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=TOL,
+                               atol=TOL)
+
+
+# -- the decoder with int8 weights and an int4 cache --------------------------------
+
+HD128 = DecoderConfig(vocab_size=300, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=128)
+
+
+def test_decoder_int8_weights_int4_cache_match_jax():
+    """Prefill, then three decode steps; rows at or after valid_from (see
+    tests/test_torch_model.py). JAX runs under jit: an eager int4 zero-fill
+    trips a JAX bug."""
+    jc = _to_jax_cfg(HD128)
+    rng = np.random.default_rng(8)
+    shapes = jax.eval_shape(lambda: jdec.init_decoder_params(
+        jc, jax.random.PRNGKey(0)))
+    tree = jax.tree.map(
+        lambda s: (rng.standard_normal(s.shape) * 0.05).astype(np.float32),
+        shapes)
+    for n in ("ln1", "ln2", "q_norm", "k_norm"):
+        tree["layers"][n] += 1.0
+    tree["final_norm"] += 1.0
+    jparams = jq.quantize_decoder_params(jax.tree.map(jnp.asarray, tree),
+                                         "int8")
+    params = quant.quantize_decoder_params(params_from_jax(tree, "cpu"),
+                                           "int8")
+    b, t, s = 2, 20, 128
+    vf = np.asarray([0, 5], np.int32)
+    embeds = rng.standard_normal((b, t + 3, 256)).astype(np.float32)
+
+    @functools.partial(jax.jit, static_argnums=(0,))
+    def jax_run(steps, embeds):
+        cache = jdec.init_kv_cache(jc, b, s, dtype=jnp.int4)
+        pos = jnp.broadcast_to(jnp.arange(t), (b, t))
+        h, cache = jdec.decoder_forward(
+            jparams, jc, embeds[:, :t], pos, cache, jnp.int32(0),
+            JaxSpec(causal=True, valid_from=jnp.asarray(vf)))
+        outs = [h]
+        for p in range(t, t + steps):
+            h, cache = jdec.decoder_forward(
+                jparams, jc, embeds[:, p:p + 1], jnp.full((b, 1), p),
+                cache, jnp.int32(p),
+                JaxSpec(valid_from=jnp.asarray(vf),
+                        valid_to=jnp.full((b,), p + 1, jnp.int32)))
+            outs.append(h)
+        return outs, cache.k.astype(jnp.int8), cache.k_scale
+
+    refs, ref_k, ref_ks = jax.device_get(jax_run(3, jnp.asarray(embeds)))
+    cache = init_kv_cache(HD128, b, s, torch.int4, "cpu")
+    pos = torch.arange(t).expand(b, t)
+    h, _ = decoder_forward(params, HD128, torch.from_numpy(embeds[:, :t]),
+                           pos, cache, 0,
+                           AttnSpec(causal=True, valid_from=torch.from_numpy(
+                               vf)))
+    for row in range(b):
+        np.testing.assert_allclose(h[row, vf[row]:].numpy(),
+                                   refs[0][row, vf[row]:], rtol=1e-4,
+                                   atol=1e-4)
+    for step in range(3):
+        p = t + step
+        h, _ = decoder_forward(
+            params, HD128, torch.from_numpy(embeds[:, p:p + 1]),
+            torch.full((b, 1), p), cache, torch.tensor(p),
+            AttnSpec(valid_from=torch.from_numpy(vf),
+                     valid_to=torch.full((b,), p + 1, dtype=torch.int32)))
+        np.testing.assert_allclose(h.numpy(), refs[step + 1], rtol=1e-4,
+                                   atol=1e-4)
+    # the cache: values written from the same K to within one int4 step
+    # (K differs by summation order), and the same scales to a bf16 ulp
+    for row in range(b):
+        keys = slice(vf[row], t + 3)     # pad keys differ past layer 0
+        live = unpack(cache.k[:, row, :, keys]).numpy().astype(int)
+        assert np.abs(live - ref_k[:, row, :, keys]).max() <= 1
+        np.testing.assert_allclose(
+            cache.k_scale[:, row, :, keys].float().numpy(),
+            ref_ks[:, row, :, keys].astype(np.float32), rtol=1e-2)
+
+
+# -- token ids against the JAX engine -----------------------------------------------
+
+def _clip(i, seconds=None):
+    with open(CLIPS[i], "rb") as f:
+        audio, sr = decode_audio(f.read())
+    return (audio if seconds is None else audio[:int(seconds * sr)]), sr
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_trained_ckpt_tokens_match_jax(monkeypatch, mode):
+    """QUANTIZE through load_engine against the JAX engine with its own
+    quantize_params (what its lifecycle applies), on trained_ckpt."""
+    ref_eng = jax_engine()
+    ref_eng.model.params = jq.quantize_params(ref_eng.model.params, mode)
+    monkeypatch.setenv("QUANTIZE", mode)
+    eng = load_engine(CKPT, device="cpu")
+    assert eng.model.params["decoder"]["layers"]["wq"]["q"].dtype == (
+        torch.int8 if mode == "int8" else torch.float8_e4m3fn)
+    for i in (0, 6):
+        audio, sr = _clip(i)
+        ref = ref_eng.transcribe(audio, sr)[0]
+        ours = eng.transcribe(audio, sr)[0]
+        assert ours.token_ids == ref.token_ids and ours.text == ref.text
+        assert len(set(ours.token_ids)) >= 3
+
+
+def _hd128(mode="int8"):
+    jax_model, model = hd128_models()
+    jax_model.params = jq.quantize_params(jax_model.params, mode)
+    model.params = quant.quantize_params(model.params, mode)
+    return jax_model, model
+
+
+def test_int8_int4_cache_engine_tokens_match_jax():
+    """int8 weights + an int4 KV cache (every decode step on the batched
+    kernel's int4 route: its plain version here; JAX's attend_xla with
+    scores-side scales), B=1, then B=2 in one run."""
+    jax_model, model = _hd128()
+    jax_eng = JaxEngine(jax_model, dtype=jnp.float32, cache_dtype=jnp.int4)
+    eng = TranscriptionEngine(model, device="cpu", cache_dtype=torch.int4)
+    clips = [_clip(i, 1.5) for i in (5, 11)]         # the 2 s bucket
+    ref = jax_eng.transcribe(*clips[0])[0]
+    ours = eng.transcribe(*clips[0])[0]
+    assert ours.token_ids == ref.token_ids
+    assert len(set(ours.token_ids)) >= 3
+    bucket = eng.bucket_frames(len(clips[0][0]))
+    audio = [a for a, _ in clips]
+    _, ref = jax_eng._run_bucket(audio, *bucket, None)
+    _, ours = eng._run_bucket(audio, *bucket, None)
+    assert eng.last_run["batch"] == 2 and ours == ref
+    exe = next(iter(eng.executables.values()))
+    assert exe.loop.cache.int4 and exe.loop.cache.k.dtype == torch.uint8
+
+
+def test_w8a8_prefill_engine_tokens_match_jax(monkeypatch):
+    """ASR_INT8_ACT=true with a threshold the prompt (and the encoder)
+    reach and a decode step does not: W8A8 products in both, tokens
+    identical."""
+    monkeypatch.setenv("ASR_INT8_ACT", "true")
+    monkeypatch.setenv("ASR_INT8_ACT_MIN_TOKENS", "64")
+    jax_model, model = _hd128()
+    jax_eng = JaxEngine(jax_model, dtype=jnp.float32)
+    eng = TranscriptionEngine(model, device="cpu")
+    audio, sr = _clip(2, 1.8)
+    ref = jax_eng.transcribe(audio, sr)[0]
+    ours = eng.transcribe(audio, sr)[0]
+    assert eng.last_run["prompt_len"] >= 64
+    assert ours.token_ids == ref.token_ids
+    assert len(set(ours.token_ids)) >= 3
+
+
+def test_params_from_jax_carries_quantized_leaves():
+    """A JAX-quantized tree crosses bit for bit (int8 as int8, fp8 through
+    bytes, bf16 scales as bf16) into the port's layout."""
+    rng = np.random.default_rng(9)
+    tree = {"embed": _weight(rng, (40, 32)),
+            "layers": {"wq": _weight(rng, (2, 32, 48)),
+                       "ln1": np.ones((2, 32), np.float32)},
+            "lm_head": _weight(rng, (32, 40))}
+    for mode in ("int8", "fp8"):
+        jtree = jax.device_get(jq.quantize_decoder_params(
+            jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), tree),
+            mode))
+        ours = params_from_jax(jtree, "cpu")
+        for name in ("embed", "lm_head"):
+            assert ours[name]["q"].shape == (40, 32)
+        wq = ours["layers"]["wq"]
+        assert wq["q"].shape == (2, 48, 32) and wq["s"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(wq["q"].transpose(1, 2)),
+                                      _bits(jtree["layers"]["wq"]["q"]))
+        np.testing.assert_array_equal(_bits(wq["s"]),
+                                      _bits(jtree["layers"]["wq"]["s"]))
+        assert ours["layers"]["ln1"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("env,error", [
+    ({"QUANTIZE": "int4"}, NotImplementedError),
+    ({"QUANTIZE": "nf4"}, ValueError),
+    ({"ASR_KV_CACHE_DTYPE": "int4"}, ValueError)])
+def test_lifecycle_refuses(monkeypatch, env, error):
+    """QUANTIZE=int4 is not ported and an unknown mode is refused, both
+    before any weight is read; an int4 cache needs head_dim 128
+    (trained_ckpt has 48)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(error):
+        load_engine(CKPT, device="cpu")
+
+
+def test_int4_cache_layout():
+    cache = init_kv_cache(HD128, 3, 256, torch.int4, "cpu")
+    assert isinstance(cache, KVCache) and cache.int4
+    assert cache.k.shape == (2, 3, 2, 256, 64)
+    assert cache.k.dtype == cache.v.dtype == torch.uint8
+    assert cache.k_scale.shape == (2, 3, 2, 256, 1)
+    assert cache.k_scale.dtype == torch.bfloat16
+    assert not init_kv_cache(HD128, 1, 128, torch.bfloat16, "cpu").int4
+
+
+@pytest.mark.parametrize("s_len,batch", [(768, 1), (768, 8), (512, 96),
+                                         (256, 2)])
+def test_int4_plan_counts_packed_bytes(s_len, batch):
+    """#3's plan for an int4 cache counts 64 payload bytes and a 2-byte
+    scale a row; its shared memory holds the payload (the scales sit in a
+    static array of their own)."""
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        INT4_PLAN_ITEMSIZE, INT4_SMEM_ITEMSIZE, batch_plan)
+    plan = batch_plan(s_len, batch, 8, INT4_PLAN_ITEMSIZE)
+    assert plan == batch_plan(s_len, batch, 8, 1)      # as fp8's here
+    assert plan.chunk * 66 <= 16384
+    assert plan.smem_bytes(INT4_SMEM_ITEMSIZE, 2) >= 2 * plan.chunk * 64
+
+
+def test_attend_routes_int4_steps_to_the_batched_kernel():
+    """At B=1 too (a bf16 cache there takes the single-token kernel), and
+    a prefill may not read the packed cache as it is."""
+    from qwen3_asr_tpu_torch.ops.attention import attend, decode_kernel
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        decode_attention_batched_plain)
+    assert decode_kernel(1, 128, 256, torch.int4) == "batched"
+    with pytest.raises(ValueError, match="head_dim 128"):
+        decode_kernel(1, 48, 256, torch.int4)
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn((1, 4, 1, 128), generator=gen)
+    k, v = (pack(torch.randint(-8, 8, (2, 1, 2, 256, 128), generator=gen,
+                               dtype=torch.int8)) for _ in range(2))
+    ks, vs = (torch.rand((2, 1, 2, 256, 1), generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    vf, vt = torch.tensor([3], dtype=torch.int32), torch.tensor(
+        [200], dtype=torch.int32)
+    out = attend(q, k, v, AttnSpec(valid_from=vf, valid_to=vt),
+                 scale=128 ** -0.5, layer_idx=1, k_scale=ks, v_scale=vs)
+    assert torch.equal(out, decode_attention_batched_plain(
+        q, k, v, vf, vt, layer_idx=1, sm_scale=128 ** -0.5, k_scale=ks,
+        v_scale=vs))
+    with pytest.raises(ValueError, match="decode step"):
+        attend(q.expand(1, 4, 2, 128), k, v, AttnSpec(causal=True),
+               k_scale=ks, v_scale=vs)
+
+
+def test_scale_planes_alone_mark_an_int4_cache():
+    """#3's wrapper reads a cache as int4 when, and only when, its scale
+    planes come with it: the packed payload alone, or one plane alone, is
+    refused, not read as a plain cache."""
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        decode_attention_batched)
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn((1, 4, 1, 128), generator=gen)
+    k, v = (pack(torch.randint(-8, 8, (1, 2, 128, 128), generator=gen,
+                               dtype=torch.int8)) for _ in range(2))
+    ks = torch.rand((1, 2, 128, 1), generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_batched(q, k, v)
+    with pytest.raises(ValueError, match="both"):
+        decode_attention_batched(q, k, v, k_scale=ks)
+    assert decode_attention_batched(q, k, v, k_scale=ks,
+                                    v_scale=ks).shape == q.shape
+
+
+def test_quantized_weights_on_the_card_need_bf16(monkeypatch):
+    """Decode rows on the card have the GEMV (bf16) or nothing, so the
+    lifecycle refuses quantized weights there at another working dtype
+    before it reads a weight; the CPU takes any dtype."""
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        quant.check_quantized_dtype(cuda, torch.float32)
+    quant.check_quantized_dtype(cuda, torch.bfloat16)
+    quant.check_quantized_dtype(torch.device("cpu"), torch.float32)
+    import qwen3_asr_tpu_torch.runtime.lifecycle as lifecycle
+    monkeypatch.setattr(lifecycle, "resolve_device", torch.device)
+    monkeypatch.setattr(lifecycle, "load_asr_checkpoint",
+                        lambda *a: pytest.fail("read weights first"))
+    monkeypatch.setenv("QUANTIZE", "int8")
+    with pytest.raises(ValueError, match="bf16"):
+        load_engine(CKPT, device="cuda", dtype=torch.float32)
+    leaf = quant.quantize_array(torch.ones(4, 2), "int8")
+    assert quant.any_quantized({"a": {"b": leaf}, "c": torch.ones(1)})
+    assert not quant.any_quantized({"a": {"b": torch.ones(1)}})
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (1, 2048, (1, 1)), (1, 151936, (1, 16)), (3, 1024, (4, 1)),
+    (8, 6144, (8, 2)), (16, 2048, (16, 1)), (9, 40000, (16, 16))])
+def test_gemv_plan(m, n, want):
+    """Kernel A's plan: rows the next power of two; output columns a warp
+    takes (1..16), so the grid keeps about two blocks of 8 warps on each
+    of the card's 132 SMs."""
+    from qwen3_asr_tpu_torch.ops.qgemv import plan
+    rows, cols = plan(m, n)
+    assert (rows, cols) == want
+    assert rows >= m and 1 <= cols <= 16
+    assert -(-n // (8 * cols)) >= 2 * 132 or cols == 1

@@ -213,3 +213,74 @@ def test_request_timeout_answers_504(engine):
     assert body["code"] == "TRANSCRIPTION_TIMEOUT"
     assert body["statusCode"] == 504
     assert body["context"]["elapsed"] >= 0.3
+
+
+def _get(url, path, headers=None):
+    req = urllib.request.Request(url + path, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.headers, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, json.loads(e.read())
+
+
+def test_every_response_carries_a_request_id(url):
+    """The request's own X-Request-ID comes back; without one, a fresh id
+    (as the JAX middleware does, ``qwen3_asr_tpu/serving/http.py:36-44``),
+    on routing errors too."""
+    status, headers, _ = _get(url, "/health", {"X-Request-ID": "req-42"})
+    assert status == 200 and headers["X-Request-ID"] == "req-42"
+    status, headers, _ = _get(url, "/health")
+    assert status == 200 and uuid.UUID(headers["X-Request-ID"])
+    status, headers, _ = _get(url, "/nowhere", {"X-Request-ID": "r-404"})
+    assert status == 404 and headers["X-Request-ID"] == "r-404"
+    req = urllib.request.Request(url + "/v1/audio/transcriptions", data=b"",
+                                 method="POST",
+                                 headers={"X-Request-ID": "r-422"})
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(req, timeout=30)
+    assert e.value.code == 422 and e.value.headers["X-Request-ID"] == "r-422"
+
+
+def test_health_reports_memory_and_keys(engine):
+    """/health carries the JAX package's memory-gate fields; serving one
+    shape again and again mints no new key."""
+    with open(os.path.join(ROOT, "real", "english_02.wav"), "rb") as f:
+        data = f.read()
+    with serving(ModelManager(engine)) as u:
+        counts = []
+        for _ in range(3):
+            assert _post(u, data)[0] == 200
+            _, _, body = _get(u, "/health")
+            counts.append(body["executable_count"])
+    assert body["model_id"] == CKPT
+    assert body["hbm_used_mb"] is None and body["hbm_limit_mb"] is None
+    params_mb = sum(x.numel() * x.element_size() for x in jax.tree.leaves(
+        engine.model.params)) / 1024 ** 2
+    assert body["device_arrays_mb"] >= round(params_mb)
+    assert counts[0] >= 1 and counts == [counts[0]] * 3
+    assert counts[0] == len(engine.executables)
+
+
+def test_chunked_upload_reads_whole(url):
+    """An upload sent with Transfer-Encoding: chunked gives the answer the
+    same bytes give with a Content-Length."""
+    import http.client
+    with open(os.path.join(ROOT, "real", "english_01.wav"), "rb") as f:
+        data = f.read()
+    bnd = uuid.uuid4().hex
+    body = (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"a.wav\"\r\n\r\n").encode() + data + \
+        f"\r\n--{bnd}--\r\n".encode()
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    conn.request("POST", "/v1/audio/transcriptions",
+                 body=(body[i:i + 4096] for i in range(0, len(body), 4096)),
+                 headers={"Content-Type":
+                          f"multipart/form-data; boundary={bnd}"},
+                 encode_chunked=True)
+    resp = conn.getresponse()
+    chunked = (resp.status, json.loads(resp.read()))
+    conn.close()
+    assert chunked == _post(url, data)
+    assert chunked[0] == 200 and chunked[1]["text"]
