@@ -13,9 +13,10 @@ without a CUDA device, and whenever any phase fails. Phases:
    batched decode step at S=768 for B=1 and B=8 with bf16 and fp8 caches,
    and at the JAX serving shape B=96, S=512 with fp8; the slab-read probe
    at its three shapes; and the default configuration's kernels: the
-   quantized GEMV (kernel A) at M = 1 and 8 for every preset:1.7b
-   projection and the tied lm_head, int8 and fp8 (library call: F.linear
-   on the bf16-widened weight); the int4 cache write (kernel B) at B = 1,
+   quantized GEMV (kernel A) at M = 1, 8 and 16 for every preset:1.7b
+   projection, the tied lm_head and the decoder's two grouped launches
+   (q/k/v, gate/up), int8 and fp8 (library call: one F.linear on the
+   bf16-widened weights); the int4 cache write (kernel B) at B = 1,
    8 and 96, payload and scales byte-equal to its plain version; and #3's
    int4 route at B=1, B=8 (S=768, 570 live) and B=96 (S=512, 257 live),
    SDPA on a dequantized bf16 copy as its yardstick;
@@ -355,15 +356,21 @@ def per_call_ms(fn, layers: int) -> float:
     return device_ms(lambda: [fn(i) for i in range(layers)]) / layers
 
 
-# Device ms of kernels #3 and #4 before their redesign, as PERF.md's kernel
-# table records them (its earlier-time column, from a run of this script on
-# an NVIDIA H100 80GB HBM3 at 700 W). Printed beside this run's in the log
-# only: they are not this run's, so no row of the kernel table holds them.
+# Device ms of kernels #3, #4 and A before their redesigns, as PERF.md's
+# kernel tables record them (their earlier-time columns, from runs of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W). Printed beside this run's in the log only: they are not
+# this run's, so no row of the kernel table holds them.
 EARLIER_MS = {
     "batched_b1_s768_bf16": 0.0134, "batched_b8_s768_bf16": 0.0212,
     "batched_b1_s768_fp8": 0.0118, "batched_b8_s768_fp8": 0.0191,
     "batched_b96_s512_fp8": 0.0728, "engine_b8_s768_bf16": 0.0115,
-    "engine_b8_s768_fp8": 0.0078, "jax_default_b96_s512_fp8": 0.0353}
+    "engine_b8_s768_fp8": 0.0078, "jax_default_b96_s512_fp8": 0.0353,
+    "lm_head_m1_int8": 0.1233, "lm_head_m8_int8": 0.3443,
+    "lm_head_m1_fp8": 0.1171, "gate_up_m1_int8": 0.0077,
+    "gate_up_m8_int8": 0.0173, "down_m1_int8": 0.0084,
+    "down_m8_int8": 0.0176, "wq_wo_m1_int8": 0.0043,
+    "wq_wo_m8_int8": 0.0079, "wk_wv_m1_int8": 0.0036,
+    "wk_wv_m8_int8": 0.0055}
 
 
 def one_kernel_per_call(name, fn, calls: int = 3) -> None:
@@ -497,10 +504,14 @@ def kernel_phases(sh, dev):
 
 # -- phases 2 and 3: the kernels of the default configuration ---------------------
 
-# (K, N) of the preset:1.7b decoder's projections and its tied lm_head
-QGEMV_SHAPES = (("wq_wo", 2048, 2048), ("wk_wv", 2048, 1024),
-                ("gate_up", 2048, 6144), ("down", 6144, 2048),
-                ("lm_head", 2048, 151936))
+# (K, N) of the preset:1.7b decoder's projections and its tied lm_head,
+# then the decoder's two grouped launches (one N a payload, one launch)
+QGEMV_SHAPES = (("wq_wo", 2048, (2048,)), ("wk_wv", 2048, (1024,)),
+                ("gate_up", 2048, (6144,)), ("down", 6144, (2048,)),
+                ("lm_head", 2048, (151936,)),
+                ("qkv_group", 2048, (2048, 1024, 1024)),
+                ("gate_up_group", 2048, (6144, 6144)))
+QGEMV_ROWS = (1, 8, 16)
 # Kernel A against its plain version, by output dtype: (rtol, atol as a
 # share of the largest |plain| value). Both sum in f32 in different orders;
 # bf16 outputs may then round one ulp apart (rtol covers one bf16 ulp), f32
@@ -509,61 +520,72 @@ QGEMV_TOL = {torch.bfloat16: (8e-3, 1e-4), torch.float32: (0.0, 1e-4)}
 F32_FLOPS = 67e12                  # f32 CUDA-core peak (no tensor cores)
 
 
-def qgemv_parity(label: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """Kernel A's output against its plain version's under ``QGEMV_TOL``:
+def qgemv_parity(label: str, outs, refs) -> float:
+    """Kernel A's outputs against its plain version's under ``QGEMV_TOL``:
     the largest error, or AssertionError."""
-    rtol, share = QGEMV_TOL[ref.dtype]
-    atol = share * float(ref.float().abs().max())
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    worst = float((diff - rtol * ref.float().abs()).max())
-    log(f"[parity] qgemv {label}: max_abs_err={err:.3e} (bound {atol:.3e} "
-        f"+ {rtol:g} x |plain|, {ref.dtype})")
-    if out.dtype != ref.dtype or not worst <= atol:
-        raise AssertionError(f"qgemv {label}: error {err} outside rtol "
-                             f"{rtol}, atol {atol}")
+    err = 0.0
+    for out, ref in zip(outs, refs):
+        rtol, share = QGEMV_TOL[ref.dtype]
+        atol = share * float(ref.float().abs().max())
+        diff = (out.float() - ref.float()).abs()
+        worst = float((diff - rtol * ref.float().abs()).max())
+        err = max(err, float(diff.max()))
+        if out.dtype != ref.dtype or not worst <= atol:
+            raise AssertionError(f"qgemv {label}: error {float(diff.max())} "
+                                 f"outside rtol {rtol}, atol {atol}")
+    log(f"[parity] qgemv {label}: max_abs_err={err:.3e} (bound "
+        f"{QGEMV_TOL[refs[0].dtype][1]:g} x max|plain| + "
+        f"{QGEMV_TOL[refs[0].dtype][0]:g} x |plain|, {refs[0].dtype})")
     return err
 
 
 def qgemv_cases(sh, dev):
-    """Kernel A at M = 1 and 8 for each projection shape (a stack of the
-    decoder's layers, each cold) and the tied lm_head, int8 and fp8: (label,
-    kernel call, plain call, library call, bytes, flops, layers). The
-    library call is ``F.linear`` on the payload widened to bf16."""
-    from qwen3_asr_tpu_torch.ops.qgemv import qgemv, qgemv_plain
+    """Kernel A at M = 1, 8 and 16 for each projection shape (a stack of
+    the decoder's layers, each cold), the tied lm_head and the two grouped
+    launches (one ``qgemv_group`` call), int8 and fp8: (label, kernel
+    call, plain call, library call, bytes, flops, layers). Calls return a
+    list of outputs. The library call is ONE ``F.linear`` on the payloads
+    widened to bf16 (concatenated for a group)."""
+    from qwen3_asr_tpu_torch.ops.qgemv import qgemv_group, qgemv_plain
     from qwen3_asr_tpu_torch.ops.quant import (quantize_array,
                                                quantize_embed, row_scales)
     for mode in ("int8", "fp8"):
-        for name, k, n in QGEMV_SHAPES:
-            gen = torch.Generator(device=dev).manual_seed(k + n)
+        for name, k, ns in QGEMV_SHAPES:
+            gen = torch.Generator(device=dev).manual_seed(k + sum(ns))
             head = name == "lm_head"
             layers = 1 if head else sh["layers"]
-            if head:
-                w = (torch.randn((n, k), generator=gen, device=dev)
-                     * 0.02).bfloat16()
-                leaf = quantize_embed(w, mode)
-                q, s = leaf["q"][None], row_scales(leaf)[None]
-            else:
-                w = (torch.randn((layers, k, n), generator=gen, device=dev)
-                     * 0.02).bfloat16()
-                leaf = quantize_array(w, mode)
-                q, s = leaf["q"], row_scales(leaf)
-            del w, leaf
-            wide = q.to(torch.bfloat16)
+            pays = []
+            for n in ns:
+                if head:
+                    w = (torch.randn((n, k), generator=gen, device=dev)
+                         * 0.02).bfloat16()
+                    leaf = quantize_embed(w, mode)
+                    pays.append((leaf["q"][None], row_scales(leaf)[None]))
+                else:
+                    w = (torch.randn((layers, k, n), generator=gen,
+                                     device=dev) * 0.02).bfloat16()
+                    leaf = quantize_array(w, mode)
+                    pays.append((leaf["q"], row_scales(leaf)))
+                del w, leaf
+            wide = torch.cat([q.to(torch.bfloat16) for q, _ in pays], dim=1)
             out_dtype = torch.float32 if head else torch.bfloat16
             out_size = 4 if head else 2
-            for m in (1, 8):
+            n_all = sum(ns)
+            for m in QGEMV_ROWS:
                 x = torch.randn((m, k), generator=gen,
                                 device=dev).bfloat16()
                 yield (f"{name}_m{m}_{mode}",
-                       lambda layer, x=x, q=q, s=s, o=out_dtype: qgemv(
-                           x, q[layer], s[layer], out_dtype=o),
-                       lambda layer, x=x, q=q, s=s, o=out_dtype: qgemv_plain(
-                           x, q[layer], s[layer], out_dtype=o),
+                       lambda layer, x=x, p=pays, o=out_dtype: qgemv_group(
+                           x, [(q[layer], s[layer]) for q, s in p],
+                           out_dtype=o),
+                       lambda layer, x=x, p=pays, o=out_dtype: [
+                           qgemv_plain(x, q[layer], s[layer], out_dtype=o)
+                           for q, s in p],
                        lambda layer, x=x, wide=wide: F.linear(x, wide[layer]),
-                       n * k + 2 * n + 2 * m * k + out_size * m * n,
-                       2 * m * n * k, layers)
-            del q, s, wide
+                       n_all * k + 2 * n_all + 2 * m * k
+                       + out_size * m * n_all,
+                       2 * m * n_all * k, layers)
+            del pays, wide
 
 
 def kv_write_cases(dev):
@@ -651,10 +673,13 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
     for label, run, plain, lib, nbytes, flops, layers in qgemv_cases(sh,
                                                                      dev):
         last = layers - 1
-        out, ref = run(last), plain(last)
+        outs, refs = run(last), plain(last)
         torch.cuda.synchronize()
-        err = qgemv_parity(label, out, ref)
-        if label == KERNELS["qgemv"][2]:
+        err = qgemv_parity(label, outs, refs)
+        # one device kernel a call: the headline, a split-K call (w_down
+        # at 16 rows: its combine is in the same launch) and a grouped call
+        if label in (KERNELS["qgemv"][2], "down_m16_int8",
+                     "qkv_group_m8_int8"):
             one_kernel_per_call(f"qgemv {label}", lambda: run(last))
         rows["qgemv"].append(time_row(label, "bfloat16", err, run, plain,
                                       lib, nbytes, flops, layers, card,
@@ -1327,7 +1352,9 @@ def default_config_phase(dev, bf16_engine, uploads):
         want = {"flash_attention": 2 * (layers + enc_layers),
                 "decode_attention_batch_int4": layers * steps,
                 "kv_int4_write": layers * (2 + steps),
-                "qgemv": 2 + (7 * layers + 1) * steps}
+                # q/k/v and gate/up one grouped launch each, wo, w_down,
+                # the logits; and each request's first token
+                "qgemv": 2 + (4 * layers + 1) * steps}
         log(f"[default] 30 s upload, B=1: {wall1:.3f} s wall, "
             f"{run1['generated']} tokens, {run1['steps_run']} steps "
             f"computed, {run1['replays']} replays | {card}")
@@ -1379,7 +1406,7 @@ def default_config_phase(dev, bf16_engine, uploads):
             f"{eager} | {card}")
         if (not isinstance(body.get("text"), str) or run["capture_s"]
                 or any(eager.values()) or got["qgemv"] != 1 + (
-                    7 * layers + 1) * run["steps_run"]
+                    4 * layers + 1) * run["steps_run"]
                 or not got["decode_attention_batch_int4"]):
             raise AssertionError(f"fp8 weights: {body}, {run}, {got}, "
                                  f"{eager}")

@@ -2,9 +2,10 @@
 
 Counterpart of ``qwen3_asr_tpu/models/decoder.py``. Weights are bf16/f32,
 or int8/fp8 leaves of ``ops.quant`` (every projection through ``qdot``,
-the embedding and lm_head per vocab row). The KV cache is in the working
-dtype, in fp8, or int4 with per-(token, head) scales (``torch.int4`` names
-it; ``ops/kv_int4.py`` holds its layout). Parameters are the JAX package's
+q/k/v and gate/up as one ``qdot_group`` each; the embedding and lm_head
+per vocab row). The KV cache is in the working dtype, in fp8, or int4
+with per-(token, head) scales (``torch.int4`` names it;
+``ops/kv_int4.py`` holds its layout). Parameters are the JAX package's
 stacked layout (``[L, ...]`` per-layer tensors, matrices as ``[in, out]``;
 quantized payloads ``[..., out, in]``); the layer loop is a Python loop.
 The KV cache is the stacked ``[L, B, n_kv, S, D]`` pair (plus the scale
@@ -21,7 +22,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend, is_decode_step
 from ..ops.kv_int4 import dequantize_layer, kv_int4_write
-from ..ops.quant import is_quantized, layer_slice, qdot, qlogits
+from ..ops.quant import (is_quantized, layer_slice, qdot, qdot_group,
+                         qlogits)
 from .config import DecoderConfig
 
 
@@ -152,9 +154,11 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
     eps = cfg.rms_norm_eps
 
     x = rms_norm(hidden, lp["ln1"], eps)
-    q = qdot(x, lp["wq"]).reshape(b, t, nq, d).transpose(1, 2)
-    k = qdot(x, lp["wk"]).reshape(b, t, nkv, d).transpose(1, 2)
-    v = qdot(x, lp["wv"]).reshape(b, t, nkv, d).transpose(1, 2)
+    # q, k and v read one x: one launch of the quantized GEMV on the card
+    q, k, v = qdot_group(x, [lp["wq"], lp["wk"], lp["wv"]])
+    q = q.reshape(b, t, nq, d).transpose(1, 2)
+    k = k.reshape(b, t, nkv, d).transpose(1, 2)
+    v = v.reshape(b, t, nkv, d).transpose(1, 2)
     q = apply_rope(rms_norm(q, lp["q_norm"], eps), cos, sin).contiguous()
     k = apply_rope(rms_norm(k, lp["k_norm"], eps), cos, sin)
 
@@ -190,7 +194,8 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
     hidden = hidden + qdot(attn, lp["wo"])
 
     x = rms_norm(hidden, lp["ln2"], eps)
-    gated = F.silu(qdot(x, lp["w_gate"])) * qdot(x, lp["w_up"])
+    gate, up = qdot_group(x, [lp["w_gate"], lp["w_up"]])
+    gated = F.silu(gate) * up
     return hidden + qdot(gated, lp["w_down"])
 
 

@@ -16,9 +16,11 @@ quantization, because that is the layout the decode GEMV
 ``qdot`` has three routes, chosen by ``qdot_route``:
 
 - decode rows (at most ``GEMV_MAX_ROWS``) of a CUDA tensor go to the
-  hand-written GEMV, which reads the low-precision payload; it takes bf16
-  activations, and other dtypes raise (the engine refuses quantized
-  weights on the card at any other working dtype);
+  hand-written GEMV (kernel A), which reads the low-precision payload; it
+  takes bf16 activations, and other dtypes raise (the engine refuses
+  quantized weights on the card at any other working dtype). ``qdot_group``
+  sends the products of one x by up to three weights (q, k and v; gate
+  and up) to one grouped launch;
 - with ``ASR_INT8_ACT=true``, products of at least
   ``ASR_INT8_ACT_MIN_TOKENS`` rows (default 1024) against a 2-D int8
   weight quantize the activations per row (absmax/127, round half to
@@ -27,7 +29,8 @@ quantization, because that is the layout the decode GEMV
   ``acc * xs * s``;
 - everything else widens the payload to the working dtype (exact for int8
   and e4m3 into bf16 or f32), takes the product with an f32 result, and
-  scales and rounds once, JAX's rounding points (``quant.py:180-182``).
+  scales and rounds once, JAX's rounding points (``quant.py:180-182``):
+  ``widened_product``.
 
 ``QUANTIZE=int4`` (grouped nibble weights) is not ported: ROADMAP §1
 item 6.2.
@@ -35,11 +38,11 @@ item 6.2.
 from __future__ import annotations
 
 import os
-from typing import Any, Union
+from typing import Any, List, Sequence, Union
 
 import torch
 
-from .qgemv import GEMV_MAX_ROWS, qgemv, qgemv_plain
+from .qgemv import GEMV_MAX_ROWS, qgemv, qgemv_group
 
 # Weights worth quantizing (large matmul operands). Norms/biases stay put.
 _DECODER_QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
@@ -175,21 +178,40 @@ def w8a8(x2: torch.Tensor, w: dict) -> torch.Tensor:
     return out.to(x2.dtype)
 
 
+def widened_product(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The dequant route: x2 [M, K] float, q [N, K], s [N] → [M, N] in
+    ``out_dtype``. The payload widened to x2's dtype (exact), the product
+    with an f32 result, then the scale, rounded once. A bf16 CUDA product
+    takes cuBLAS with an f32 output; elsewhere both operands widen to f32,
+    which is exact for bf16 values."""
+    w = q.to(x2.dtype)
+    if x2.is_cuda and x2.dtype == torch.bfloat16:
+        acc = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        acc = x2.float() @ w.float().t()
+    return (acc * s.reshape(1, -1).float()).to(out_dtype)
+
+
+def _route(x: torch.Tensor, w: dict, allow_w8a8: bool) -> str:
+    q = w["q"]
+    return qdot_route(x.numel() // q.shape[-1], on_cuda=x.is_cuda,
+                      x_dtype=x.dtype, w_dtype=q.dtype, w_ndim=q.dim(),
+                      min_rows=int8_act_min_rows() if allow_w8a8 else 0)
+
+
 def _product(x: torch.Tensor, w: dict, out_dtype: torch.dtype,
              allow_w8a8: bool) -> torch.Tensor:
     q = w["q"]
-    k = q.shape[-1]
-    x2 = x.reshape(-1, k)
-    route = qdot_route(x2.shape[0], on_cuda=x.is_cuda, x_dtype=x.dtype,
-                       w_dtype=q.dtype, w_ndim=q.dim(),
-                       min_rows=int8_act_min_rows() if allow_w8a8 else 0)
+    x2 = x.reshape(-1, q.shape[-1])
+    route = _route(x, w, allow_w8a8)
     s = row_scales(w)
     if route == "gemv":
         out = qgemv(x2.contiguous(), q, s, out_dtype=out_dtype)
     elif route == "w8a8":
         out = w8a8(x2, w)
     else:
-        out = qgemv_plain(x2, q, s, out_dtype=out_dtype)
+        out = widened_product(x2, q, s, out_dtype)
     return out.reshape(*x.shape[:-1], q.shape[-2])
 
 
@@ -199,6 +221,24 @@ def qdot(x: torch.Tensor, w: Union[torch.Tensor, dict]) -> torch.Tensor:
     if not is_quantized(w):
         return x @ w
     return _product(x, w, x.dtype, allow_w8a8=True)
+
+
+def qdot_group(x: torch.Tensor,
+               ws: Sequence[Union[torch.Tensor, dict]]) -> List[torch.Tensor]:
+    """``[qdot(x, w) for w in ws]`` for up to three weights of one K
+    (``qgemv.MAX_GROUP``). Where they are quantized leaves whose products
+    take the GEMV route, the products are ONE launch of kernel A
+    (``qgemv_group``: one payload and one scale dtype); otherwise (the CPU,
+    prefill rows, plain weights) one product per weight, bit for bit what
+    separate ``qdot`` calls give."""
+    if all(map(is_quantized, ws)) and _route(x, ws[0], True) == "gemv":
+        k = ws[0]["q"].shape[-1]
+        outs = qgemv_group(x.reshape(-1, k).contiguous(),
+                           [(w["q"], row_scales(w)) for w in ws],
+                           out_dtype=x.dtype)
+        return [o.reshape(*x.shape[:-1], w["q"].shape[-2])
+                for o, w in zip(outs, ws)]
+    return [qdot(x, w) for w in ws]
 
 
 def qlogits(hidden: torch.Tensor, w: dict) -> torch.Tensor:

@@ -453,40 +453,130 @@ def test_reused_key_and_tickets_after_replays(dev):
 from qwen3_asr_tpu_torch.ops import quant                      # noqa: E402
 from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write,    # noqa: E402
                                              kv_int4_write_plain, pack)
-from qwen3_asr_tpu_torch.ops.qgemv import qgemv, qgemv_plain   # noqa: E402
+from qwen3_asr_tpu_torch.ops.qgemv import (qgemv, qgemv_group,  # noqa: E402
+                                           qgemv_plain)
 from qwen3_asr_tpu_torch.models.decoder import init_kv_cache   # noqa: E402
 
-# (K, N) of every preset:1.7b decoder projection, and the tied lm_head
+# (K, N) of every preset:1.7b decoder projection, the tied lm_head, the
+# decoder's two grouped launches (q/k/v, gate/up: one N a payload), and a
+# K that splits at every row count
 QGEMV_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 1024),
                 "gate_up": (2048, 6144), "down": (6144, 2048),
-                "encoder_fc1": (1280, 5120), "lm_head": (2048, 151936)}
+                "encoder_fc1": (1280, 5120), "lm_head": (2048, 151936),
+                "long_k": (12288, 1024),
+                "qkv_group": (2048, (2048, 1024, 1024)),
+                "gate_up_group": (2048, (6144, 6144))}
+
+
+def _qgemv_leaves(rng, shape, mode, dev):
+    """The payload leaves of a QGEMV_SHAPES entry, and its output dtype."""
+    k, n = QGEMV_SHAPES[shape]
+    leaves = []
+    for width in (n if isinstance(n, tuple) else (n,)):
+        w = _randn(rng, (k, width), torch.float32, dev) * 0.02
+        leaves.append(quant.quantize_embed(w.t().bfloat16(), mode)
+                      if shape == "lm_head"
+                      else quant.quantize_array(w.bfloat16(), mode))
+    return leaves, torch.float32 if shape == "lm_head" else torch.bfloat16
+
+
+def _qgemv_call(x, leaves, out_dtype):
+    """One launch: ``qgemv`` for one leaf, ``qgemv_group`` for more."""
+    pairs = [(leaf["q"], quant.row_scales(leaf)) for leaf in leaves]
+    if len(pairs) == 1:
+        return [qgemv(x, *pairs[0], out_dtype=out_dtype)]
+    return qgemv_group(x, pairs, out_dtype=out_dtype)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 @pytest.mark.parametrize("shape", list(QGEMV_SHAPES))
 def test_qgemv_matches_plain(dev, shape, mode):
     """Kernel A against its plain version (the payload widened, an f32
-    product, the scale, one rounding) at M = 1..16. Both sum in f32 in
-    different orders: bf16 layer outputs within one bf16 ulp (rtol 8e-3),
-    f32 logits within 1e-4 of the largest |plain| value, and both within
-    that atol near zero."""
-    k, n = QGEMV_SHAPES[shape]
+    product, the scale, one rounding) at M = 1..16, one launch a call,
+    grouped payloads included. Both sum in f32 in different orders: bf16
+    layer outputs within one bf16 ulp (rtol 8e-3), f32 logits within 1e-4
+    of the largest |plain| value, and both within that atol near zero."""
     rng = np.random.default_rng(7)
-    w = _randn(rng, (k, n), torch.float32, dev) * 0.02
-    leaf = (quant.quantize_embed(w.t().bfloat16(), mode) if shape == "lm_head"
-            else quant.quantize_array(w.bfloat16(), mode))
-    s = quant.row_scales(leaf)
-    out_dtype = torch.float32 if shape == "lm_head" else torch.bfloat16
+    leaves, out_dtype = _qgemv_leaves(rng, shape, mode, dev)
+    k = QGEMV_SHAPES[shape][0]
     for m in range(1, 17):
         x = _randn(rng, (m, k), torch.bfloat16, dev)
         before = qgemv.launches
-        out = qgemv(x, leaf["q"], s, out_dtype=out_dtype)
+        outs = _qgemv_call(x, leaves, out_dtype)
         torch.cuda.synchronize()
-        assert qgemv.launches == before + 1 and out.dtype == out_dtype
-        ref = qgemv_plain(x, leaf["q"], s, out_dtype=out_dtype)
-        rtol = 8e-3 if out_dtype == torch.bfloat16 else 0.0
-        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
-                                   atol=1e-4 * float(ref.abs().max()))
+        assert qgemv.launches == before + 1
+        for out, leaf in zip(outs, leaves):
+            assert out.dtype == out_dtype
+            ref = qgemv_plain(x, leaf["q"], quant.row_scales(leaf),
+                              out_dtype=out_dtype)
+            rtol = 8e-3 if out_dtype == torch.bfloat16 else 0.0
+            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                       atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_qgemv_widens_every_payload_value_exactly(dev, mode):
+    """Every payload byte (all 256 int8 values; every e4m3 value but the
+    two NaNs, subnormals included) against a one-hot x at each k of a
+    stretch: the output is the widened value times its scale, exactly."""
+    if mode == "int8":
+        vals = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    else:
+        bits = torch.tensor([b for b in range(256) if b & 0x7F != 0x7F],
+                            dtype=torch.uint8)
+        vals = bits.view(torch.float8_e4m3fn)
+    n, k = vals.numel(), 64
+    # row r holds value r at every k: the product with a one-hot x is it
+    q = vals.reshape(n, 1).expand(n, k).contiguous().to(dev)
+    s = torch.full((n,), 1.0, dtype=torch.float32, device=dev)
+    want = vals.float().to(dev)
+    for hot in range(k):
+        x = torch.zeros((1, k), dtype=torch.bfloat16, device=dev)
+        x[0, hot] = 1.0
+        out = qgemv(x, q, s, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want), hot
+
+
+@pytest.mark.parametrize("shape", ["wk_wv", "down", "long_k",
+                                   "qkv_group", "lm_head"])
+def test_qgemv_is_deterministic(dev, shape):
+    """20 calls give the same bits (split K adds its splits in a fixed
+    order; no float atomics), at 1, 8 and 16 rows."""
+    rng = np.random.default_rng(11)
+    leaves, out_dtype = _qgemv_leaves(rng, shape, "int8", dev)
+    for m in (1, 8, 16):
+        x = _randn(rng, (m, QGEMV_SHAPES[shape][0]), torch.bfloat16, dev)
+        runs = [_qgemv_call(x, leaves, out_dtype) for _ in range(20)]
+        torch.cuda.synchronize()
+        for outs in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(outs, runs[0]))
+
+
+@pytest.mark.parametrize("shape,m,splits", [("down", 16, 3),
+                                             ("long_k", 1, 6),
+                                             ("long_k", 8, 6)])
+def test_qgemv_split_k_leaves_tickets_at_zero(dev, shape, m, splits):
+    """A call that splits K (w_down at 16 rows, K = 12288 at any) takes
+    one ticket per column group and leaves every ticket at zero, in a CUDA
+    graph's replays too."""
+    from qwen3_asr_tpu_torch.ops.qgemv import plan
+    rng = np.random.default_rng(12)
+    leaves, out_dtype = _qgemv_leaves(rng, shape, "fp8", dev)
+    k, n = QGEMV_SHAPES[shape]
+    x = _randn(rng, (m, k), torch.bfloat16, dev)
+    assert plan(m, n, k).splits == splits
+    eager = _qgemv_call(x, leaves, out_dtype)[0]
+    torch.cuda.synchronize()
+    tickets = decode_module._tickets[eager.device]
+    assert not tickets.any()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _qgemv_call(x, leaves, out_dtype)[0]
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert not tickets.any() and torch.equal(out, eager)
 
 
 def _int4_cache(dev, b, t, layers=3, s_len=256):
@@ -590,8 +680,9 @@ def test_quantized_wrappers_raise_rather_than_compute(dev):
 @pytest.mark.parametrize("batch", [1, 8], ids=["b1", "b8"])
 def test_int8_int4_graph_replay_equals_eager(dev, batch):
     """An int8-weight, int4-cache key: the captured request gives the
-    eager run's tokens bit for bit, and a chunk records one GEMV per
-    projection and step (plus the logits), one int4 write and one #3-int4
+    eager run's tokens bit for bit, and a chunk records four GEMV
+    launches per layer and step (q/k/v and gate/up grouped; plus the
+    logits), one int4 write and one #3-int4
     launch per layer and step."""
     model = _model(dev)
     model.params = quant.quantize_params(model.params, "int8")
@@ -602,7 +693,8 @@ def test_int8_int4_graph_replay_equals_eager(dev, batch):
     rec = exe.chunk.recorded
     assert rec["decode_attention_batch_int4"] == DECODE_CHUNK * layers
     assert rec["kv_int4_write"] == DECODE_CHUNK * layers
-    assert rec["qgemv"] == DECODE_CHUNK * (7 * layers + 1)
+    # q/k/v and gate/up one grouped launch each, wo, w_down, the logits
+    assert rec["qgemv"] == DECODE_CHUNK * (4 * layers + 1)
     assert rec["decode_attention"] == rec["decode_attention_batch"] == 0
     graph = exe.run(*inputs)
     eager = exe.run(*inputs, eager=True)

@@ -570,15 +570,210 @@ def test_quantized_weights_on_the_card_need_bf16(monkeypatch):
     assert not quant.any_quantized({"a": {"b": torch.ones(1)}})
 
 
-@pytest.mark.parametrize("m,n,want", [
-    (1, 2048, (1, 1)), (1, 151936, (1, 16)), (3, 1024, (4, 1)),
-    (8, 6144, (8, 2)), (16, 2048, (16, 1)), (9, 40000, (16, 16))])
-def test_gemv_plan(m, n, want):
-    """Kernel A's plan: rows the next power of two; output columns a warp
-    takes (1..16), so the grid keeps about two blocks of 8 warps on each
-    of the card's 132 SMs."""
+# -- kernel A's plan and the grouped product ---------------------------------------
+
+# (m, output widths, K): the decoder's shapes at preset:1.7b (the tied
+# lm_head, the two groups; w_down unsplit at 8 rows, three splits at 16),
+# K that no warp or split count divides (1280, 1040, 8192 + 16), and a
+# payload narrower than a tile
+PLAN_CASES = {
+    "wq_wo_m1": (1, [2048], 2048), "wk_wv_m8": (8, [1024], 2048),
+    "gate_up_m16": (16, [6144], 2048), "down_m8": (8, [2048], 6144),
+    "down_m16": (16, [2048], 6144),
+    "lm_head_m1": (1, [151936], 2048), "qkv_group_m8": (8, [2048, 1024,
+                                                            1024], 2048),
+    "gate_up_group_m1": (1, [6144, 6144], 2048),
+    "encoder_fc1_m3": (3, [5120], 1280), "k1040_m9": (9, [40, 24], 1040),
+    "k8208_m2": (2, [300], 8208), "narrow_m16": (16, [8, 100, 5], 64),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_gemv_plan_covers_every_tile_and_k_once(name):
+    """Kernel A's plan: every column tile of every payload in exactly one
+    column group, every 64-k stretch of K in exactly one (split, warp),
+    the splits contiguous and in order (the combine adds them so), a warp
+    never holding more stretches than its registers (``ks`` of 1, 2, 4, or
+    12 for up to 8 rows and one tile a block), the scratch and tickets the
+    kernel indexes, and one grid per call."""
     from qwen3_asr_tpu_torch.ops.qgemv import plan
-    rows, cols = plan(m, n)
-    assert (rows, cols) == want
-    assert rows >= m and 1 <= cols <= 16
-    assert -(-n // (8 * cols)) >= 2 * 132 or cols == 1
+    m, ns, k = PLAN_CASES[name]
+    p = plan(m, ns, k)
+    assert p.n_tiles == (1 if m <= 8 else 2)
+    assert p.tiles == sum(-(-n // 16) for n in ns)
+    assert p.stretches * 64 >= k > (p.stretches - 1) * 64
+    tiles = sorted(t for g in range(p.groups) for t in p.group_tiles(g))
+    assert tiles == list(range(p.tiles))
+    assert all(len(p.group_tiles(g)) for g in range(p.groups))
+    covered, prev_hi = [], 0
+    for split in range(p.splits):
+        lo, hi = p.split_range(split)
+        assert lo == prev_hi and lo < hi          # in order, none empty
+        prev_hi = hi
+        for warp in range(8):
+            w_lo, w_hi = p.warp_range(split, warp)
+            assert w_hi - w_lo <= p.kw <= p.ks and p.ks in (1, 2, 4, 12)
+            covered += range(w_lo, w_hi)
+    assert prev_hi == p.stretches
+    assert covered == list(range(p.stretches))
+    assert p.grid == p.groups * p.splits
+    if p.ks == 12:
+        assert m <= 8 and p.groups == p.tiles and p.splits == 1
+    if p.splits > 1:
+        # csrc/qgemv.cu: part[(split * m + row) * tiles * 16 + col]
+        assert p.scratch == p.splits * m * p.tiles * 16
+        assert p.tickets == p.groups <= 4096
+    else:
+        assert p.scratch == p.tickets == 0
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES)[:8])
+def test_gemv_plan_fills_the_card(name):
+    """At the decoder's shapes: one column tile a block (about two blocks
+    an SM at most) or, for the lm_head, one wave of evenly loaded blocks;
+    K split only where a warp's registers force it (w_down at 16 rows).
+    Splitting the small shapes to reach 132 blocks was measured slower
+    (PERF.md; ``tools_perf/qgemv_plans.py``): w_q/w_o (128 blocks) and
+    w_k/w_v (64) run unsplit."""
+    from qwen3_asr_tpu_torch.ops.qgemv import plan
+    m, ns, k = PLAN_CASES[name]
+    p = plan(m, ns, k)
+    assert p.splits == (3 if name == "down_m16" else 1)
+    if p.tiles * p.splits <= 2 * 264:
+        assert p.groups == p.tiles
+    else:
+        assert p.grid <= 264
+        sizes = {len(p.group_tiles(g)) for g in range(p.groups)}
+        assert max(sizes) - min(sizes) <= 1
+    assert p.grid >= 132 or p.tiles < 132
+
+
+@pytest.mark.parametrize("m,ns,k", [(0, [16], 64), (17, [16], 64),
+                                    (1, [16], 100), (1, [16] * 4, 64)])
+def test_gemv_plan_refuses(m, ns, k):
+    from qwen3_asr_tpu_torch.ops.qgemv import plan
+    with pytest.raises(ValueError):
+        plan(m, ns, k)
+
+
+def _leaves(rng, mode, widths, k=64):
+    return [torch.from_numpy(_weight(rng, (k, n))) if mode == "bf16"
+            else quant.quantize_array(torch.from_numpy(_weight(rng, (k, n))),
+                                      mode) for n in widths]
+
+
+@pytest.mark.parametrize("widths", [[96, 32, 32], [80, 80]],
+                         ids=["qkv", "gate_up"])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdot_group_equals_separate_qdots(mode, widths, dtype):
+    """On the CPU ``qdot_group`` is one product per weight: the bits of
+    separate ``qdot`` calls, for plain, int8 and fp8 leaves, decode rows
+    and prefill rows."""
+    rng = np.random.default_rng(13)
+    ws = _leaves(rng, mode, widths)
+    if mode == "bf16":
+        ws = [w.to(dtype) for w in ws]
+    for shape in ((2, 1, 64), (1, 37, 64)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+        outs = quant.qdot_group(x, ws)
+        assert len(outs) == len(ws)
+        for out, w in zip(outs, ws):
+            ref = quant.qdot(x, w)
+            assert out.dtype == ref.dtype and out.shape == ref.shape
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_qdot_group_takes_one_grouped_launch_on_the_gemv_route(
+        monkeypatch, mode):
+    """Where the route is the GEMV (decode rows on the card; forced here),
+    ``qdot_group`` makes ONE ``qgemv_group`` call for all weights, whose
+    plain version on the CPU gives the bits of separate dequant-route
+    ``qdot`` calls; plain weights take ``qdot``."""
+    rng = np.random.default_rng(14)
+    ws = _leaves(rng, mode, [96, 32, 32])
+    x = torch.from_numpy(rng.standard_normal((3, 1, 64)).astype(np.float32))
+    refs = [quant.qdot(x, w) for w in ws]
+    calls = []
+    real = quant.qgemv_group
+    monkeypatch.setattr(quant, "_route", lambda *a, **kw: "gemv")
+    monkeypatch.setattr(quant, "qgemv_group",
+                        lambda *a, **kw: calls.append(len(a[1]))
+                        or real(*a, **kw))
+    outs = quant.qdot_group(x, ws)
+    assert calls == [3]
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+    quant.qdot_group(x, ws[:2])
+    quant.qdot_group(x, _leaves(rng, "bf16", [96, 32]))
+    assert calls == [3, 2]
+
+
+def test_decoder_layer_through_qdot_group_matches_jax(monkeypatch):
+    """The decoder with fp8 weights and an f32 cache, whose layers take
+    q/k/v and gate/up through ``qdot_group`` (one call each a layer and
+    step), against JAX's decoder: prefill, then two decode steps, rows at
+    or after valid_from, to 1e-4 as the int8 + int4 test above."""
+    import qwen3_asr_tpu_torch.models.decoder as tdec
+    jc = _to_jax_cfg(HD128)
+    rng = np.random.default_rng(15)
+    shapes = jax.eval_shape(lambda: jdec.init_decoder_params(
+        jc, jax.random.PRNGKey(0)))
+    tree = jax.tree.map(
+        lambda s: (rng.standard_normal(s.shape) * 0.05).astype(np.float32),
+        shapes)
+    for n in ("ln1", "ln2", "q_norm", "k_norm"):
+        tree["layers"][n] += 1.0
+    tree["final_norm"] += 1.0
+    jparams = jq.quantize_decoder_params(jax.tree.map(jnp.asarray, tree),
+                                         "fp8")
+    params = quant.quantize_decoder_params(params_from_jax(tree, "cpu"),
+                                           "fp8")
+    groups = []
+    real = tdec.qdot_group
+    monkeypatch.setattr(tdec, "qdot_group",
+                        lambda x, ws: groups.append(len(ws)) or real(x, ws))
+    b, t, s = 2, 12, 64
+    vf = np.asarray([0, 3], np.int32)
+    embeds = rng.standard_normal((b, t + 2, 256)).astype(np.float32)
+
+    @functools.partial(jax.jit, static_argnums=(0,))
+    def jax_run(steps, embeds):
+        cache = jdec.init_kv_cache(jc, b, s, dtype=jnp.float32)
+        pos = jnp.broadcast_to(jnp.arange(t), (b, t))
+        h, cache = jdec.decoder_forward(
+            jparams, jc, embeds[:, :t], pos, cache, jnp.int32(0),
+            JaxSpec(causal=True, valid_from=jnp.asarray(vf)))
+        outs = [h]
+        for p in range(t, t + steps):
+            h, cache = jdec.decoder_forward(
+                jparams, jc, embeds[:, p:p + 1], jnp.full((b, 1), p),
+                cache, jnp.int32(p),
+                JaxSpec(valid_from=jnp.asarray(vf),
+                        valid_to=jnp.full((b,), p + 1, jnp.int32)))
+            outs.append(h)
+        return outs
+
+    refs = jax.device_get(jax_run(2, jnp.asarray(embeds)))
+    cache = init_kv_cache(HD128, b, s, torch.float32, "cpu")
+    h, _ = decoder_forward(params, HD128, torch.from_numpy(embeds[:, :t]),
+                           torch.arange(t).expand(b, t), cache, 0,
+                           AttnSpec(causal=True,
+                                    valid_from=torch.from_numpy(vf)))
+    for row in range(b):
+        np.testing.assert_allclose(h[row, vf[row]:].numpy(),
+                                   refs[0][row, vf[row]:], rtol=1e-4,
+                                   atol=1e-4)
+    for step in range(2):
+        p = t + step
+        h, _ = decoder_forward(
+            params, HD128, torch.from_numpy(embeds[:, p:p + 1]),
+            torch.full((b, 1), p), cache, torch.tensor(p),
+            AttnSpec(valid_from=torch.from_numpy(vf),
+                     valid_to=torch.full((b,), p + 1, dtype=torch.int32)))
+        np.testing.assert_allclose(h.numpy(), refs[step + 1], rtol=1e-4,
+                                   atol=1e-4)
+    layers = HD128.num_hidden_layers
+    assert groups == [3, 2] * layers * 3
