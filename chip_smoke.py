@@ -5,8 +5,8 @@ without a CUDA device, and whenever any phase fails. Phases:
 
 1. the card's name and power limit; build the CUDA kernels from
    ``qwen3_asr_tpu_torch/csrc`` (one nvcc per source, in parallel: the four
-   TPU kernels' counterparts, the quantized GEMV and the int4 cache write)
-   and print ptxas' registers, shared memory and spills;
+   TPU kernels' counterparts, the quantized GEMV and the QK-norm + RoPE +
+   KV-cache write) and print ptxas' registers, shared memory and spills;
 2. each kernel against its plain PyTorch version at the main path's shapes
    for preset:1.7b: flash attention (encoder 30 s, prefill 30 s) and the
    single-token decode step at B=1 and B=4 in f32 (TF32 off) and bf16; the
@@ -16,10 +16,13 @@ without a CUDA device, and whenever any phase fails. Phases:
    quantized GEMV (kernel A) at M = 1, 8 and 16 for every preset:1.7b
    projection, the tied lm_head and the decoder's two grouped launches
    (q/k/v, gate/up), int8 and fp8 (library call: one F.linear on the
-   bf16-widened weights); the int4 cache write (kernel B) at B = 1,
-   8 and 96, payload and scales byte-equal to its plain version; and #3's
-   int4 route at B=1, B=8 (S=768, 570 live) and B=96 (S=512, 257 live),
-   SDPA on a dequantized bf16 copy as its yardstick;
+   bf16-widened weights); the QK-norm + RoPE + KV-cache write (one launch
+   a layer) at a decode step (T=1) for B = 1, 8 (S=768) and 96 (S=512)
+   and at the 30 s prefill (B=1, T=453), into bf16, fp8 and int4 caches,
+   against its plain chain (q and K within one ulp, V's bytes equal, the
+   bit-equal share printed); and #3's int4 route at B=1, B=8 (S=768, 570
+   live) and B=96 (S=512, 257 live), SDPA on a dequantized bf16 copy as
+   its yardstick;
 3. device times (CUDA graph replays between CUDA events) of kernel, plain
    version and one SDPA call (yardstick only; on a bf16 copy of an fp8
    cache), beside the bound (bytes / 3.35 TB/s against FLOPs /
@@ -27,12 +30,15 @@ without a CUDA device, and whenever any phase fails. Phases:
    only, kernels #3 and #4's times before their redesign as PERF.md
    records them; decode steps step through all layers of the stacked
    cache, as the decode loop does, so each call finds its layer cold in
-   HBM. One call of kernels #3 and #4 under torch.profiler must run one
-   device kernel;
+   HBM. Each kernel's headline call, captured in a CUDA graph, must record
+   one kernel node and nothing else, and move its own launch counter only;
 4. real text: e2e/data/trained_ckpt on the card in f32 must give token ids
    identical to the same port on the CPU and the reference transcripts,
    one clip at a time, and then with the 12 clips sent at once through
    the port's server and its micro-batcher (fewer dispatches than clips);
+   every captured graph of phases 4, 5, 6 and 9 records the QK-norm +
+   RoPE + KV-cache write once a layer (prefill) and once a layer and step
+   (decode chunk);
 5. the main path at B=1: a preset:1.7b engine in bf16 with seeded random
    weights, its executables warmed on start for the smoke's buckets
    (``ASR_WARMUP_BUCKETS``: capture seconds per key and the memory the
@@ -60,10 +66,11 @@ without a CUDA device, and whenever any phase fails. Phases:
    ``QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true`` (weight
    bytes before and after), its keys warmed, the 30 s upload at B=1 and 8
    concurrent uploads at B=8 through the server from replays only (every
-   decode step through kernels A, B and #3's int4 route), each against its
-   eager run bit for bit; the front graph's ms and ms per decode step
-   beside the bf16 engine's;
-   the 30 s request under the profiler; one B=1 request with
+   decode step through kernel A, the QK-norm + RoPE + int4 write and #3's
+   int4 route), each against its eager run bit for bit; the front graph's
+   ms and ms per decode step at B=1 and B=8 beside the bf16 engines'
+   (phases 5 and 6); the 30 s request under the profiler, with the
+   kernels a decode step as in phase 7; one B=1 request with
    ``QUANTIZE=fp8``.
 
 Each phase prints its seconds. The line before the card line is the
@@ -356,7 +363,7 @@ def per_call_ms(fn, layers: int) -> float:
     return device_ms(lambda: [fn(i) for i in range(layers)]) / layers
 
 
-# Device ms of kernels #3, #4 and A before their redesigns, as PERF.md's
+# Device ms of kernels #3, #4, A and B before their redesigns, as PERF.md's
 # kernel tables record them (their earlier-time columns, from runs of this
 # script on an NVIDIA H100 80GB HBM3 at 700 W). Printed beside this run's in the log only: they are not
 # this run's, so no row of the kernel table holds them.
@@ -370,37 +377,57 @@ EARLIER_MS = {
     "gate_up_m8_int8": 0.0173, "down_m1_int8": 0.0084,
     "down_m8_int8": 0.0176, "wq_wo_m1_int8": 0.0043,
     "wq_wo_m8_int8": 0.0079, "wk_wv_m1_int8": 0.0036,
-    "wk_wv_m8_int8": 0.0055}
+    "wk_wv_m8_int8": 0.0055,
+    # kernel B, the int4 cache write alone (before its redesign)
+    "qk_b1_t1_int4": 0.0018, "qk_b8_t1_int4": 0.0019,
+    "qk_b96_t1_int4": 0.0022}
 
 
-def one_kernel_per_call(name, fn, calls: int = 3) -> None:
-    """``calls`` calls of ``fn`` under torch.profiler (CUDA activity only)
-    must run one device kernel each, all of one name. A spin kernel
-    opens the window (on the card a second profiler run in a process has
-    dropped its first kernel event) and is left out of the count."""
+def graph_node_types(graph: "torch.cuda.CUDAGraph") -> list:
+    """The CUgraphNodeType of every node of a captured, kept graph, read
+    through the CUDA driver (0 is a kernel node)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    return types
+
+
+def one_kernel_per_call(kernel: str, label: str, fn, calls: int = 3) -> None:
+    """``calls`` calls of ``fn`` captured into one CUDA graph must record
+    ``calls`` graph nodes, every one a kernel, and move ``kernel``'s launch
+    counter by ``calls`` and no other counter: one device kernel a call,
+    the wrapper's own. The graph is read through the CUDA driver, not
+    torch.profiler: on the card the profiler has dropped every kernel
+    record of a window of a few short calls, in three windows running."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda._sleep(10000)
-        torch.cuda.synchronize()
+    counter = PathLaunches()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    kernels = [(e.key[:60], e.count) for e in prof.key_averages()
-               if getattr(e, "device_time_total", 0) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA
-               and "spin" not in e.key]
-    log(f"[profile] {name}: {calls} calls ran {kernels}")
-    # one name, never more records than calls; the profiler may lose a
-    # record of a kernel of a few microseconds (one of kernel B's 3 in a
-    # run), which is reported, not counted against the kernel
-    if len(kernels) != 1 or not 0 < kernels[0][1] <= calls:
-        raise AssertionError(f"{name}: want one device kernel a call, got "
-                             f"{kernels}")
-    if kernels[0][1] < calls:
-        log(f"[profile] {name}: the profiler lost {calls - kernels[0][1]} "
-            f"of {calls} records")
+    types = graph_node_types(graph)
+    moved = {k: n for k, n in counter.read()[1].items() if n}
+    del graph
+    log(f"[graph] {kernel} {label}: {calls} calls captured {len(types)} "
+        f"nodes of types {types} (0: kernel); launch counters moved "
+        f"{moved}")
+    if types != [0] * calls or moved != {kernel: calls}:
+        raise AssertionError(f"{kernel} {label}: want {calls} kernel nodes "
+                             f"and {{{kernel!r}: {calls}}} launches, got "
+                             f"node types {types} and {moved}")
 
 
 def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
@@ -477,8 +504,7 @@ def kernel_phases(sh, dev):
         if not err <= tol:
             raise AssertionError(f"{kernel} {label}: error {err} above {tol}")
         if label == KERNELS[kernel][2]:
-            one_kernel_per_call(f"{kernel} {label}",
-                                lambda: run(layers - 1))
+            one_kernel_per_call(kernel, label, lambda: run(layers - 1))
         rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
                                      sdpa, nbytes, flops, layers, card,
                                      note))
@@ -493,7 +519,7 @@ def kernel_phases(sh, dev):
         log(f"[parity] {label}: max_abs_err={err:.3e} (bound 1e-5 + "
             f"1e-5 relative); plain {plain_ms:.4f} ms (device) | {card}")
         if label == KERNELS["slab_reader"][2]:
-            one_kernel_per_call(f"slab_reader {label}",
+            one_kernel_per_call("slab_reader", label,
                                 lambda: run(layers - 1))
         rows["slab_reader"].append({
             "shape": label, "max_abs_err": err, "plain_ms": plain_ms,
@@ -588,36 +614,105 @@ def qgemv_cases(sh, dev):
             del pays, wide
 
 
-def kv_write_cases(dev):
-    """Kernel B: one decode step's write (T=1) at B = 1, 8 and 96 into the
-    stacked int4 cache at a device position: (label, kernel call, plain
-    call, the two caches, bytes, operations, layers)."""
-    from qwen3_asr_tpu_torch.models.decoder import KVCache
-    from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write,
-                                                 kv_int4_write_plain)
-    from qwen3_asr_tpu_torch.tools_perf.attn_phase import LAYERS, NKV
-    for batch, s_len in ((1, 768), (8, 768), (96, 512)):
-        gen = torch.Generator(device=dev).manual_seed(batch)
+# The QK-norm + RoPE + KV-cache write against its plain chain: q and K
+# within one ulp of their dtype, V's stored bytes equal (it is stored as
+# it comes). The kernel sums the squares in the order of torch's own CUDA
+# reduction, so the share of bit-equal values is expected at 100%.
+QK_CACHES = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+             "int4": torch.int4}
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float8_e4m3fn: torch.int8}
 
-        def cache():
-            pay = (LAYERS, batch, NKV, s_len, 64)
-            sc = (LAYERS, batch, NKV, s_len, 1)
-            return KVCache(*(torch.zeros(pay, dtype=torch.uint8, device=dev)
-                             for _ in range(2)),
-                           *(torch.zeros(sc, dtype=torch.bfloat16, device=dev)
-                             for _ in range(2)))
-        ours, ref = cache(), cache()
-        k, v = (torch.randn((batch, NKV, 1, 128), generator=gen,
-                            device=dev).bfloat16() * 3 for _ in range(2))
-        pos = torch.tensor(s_len // 2, device=dev)
-        elems = 2 * batch * NKV * 128
-        yield (f"kv_write_b{batch}",
-               lambda layer, c=ours, k=k, v=v, p=pos: kv_int4_write(
-                   c, layer, k, v, p),
-               lambda layer, c=ref, k=k, v=v, p=pos: kv_int4_write_plain(
-                   c, layer, k, v, p),
-               ours, ref, 2 * elems + elems // 2 + 2 * 2 * batch * NKV + 8,
-               5 * elems, LAYERS)
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their dtype, from the bits."""
+    def key(x):
+        bits = x.contiguous().view(_INT_VIEW[x.dtype]).long()
+        mag = bits & ((1 << (8 * x.element_size() - 1)) - 1)
+        return torch.where(bits < 0, -mag, mag)
+    return (key(a) - key(b)).abs()
+
+
+def qk_rope_kv_cases(sh, dev):
+    """The QK-norm + RoPE + KV-cache write at the main path's shapes: a
+    decode step (T=1, device position mid-cache) at B = 1, 8 (S=768) and
+    96 (S=512), and the 30 s prefill (B=1, T=453 at host position 0),
+    each into a stacked bf16, fp8 and int4 cache of 28 layers: (label,
+    kernel call, plain call, the two caches, bytes, operations, layers).
+    The calls take the layer and return q."""
+    from qwen3_asr_tpu_torch.models.decoder import init_kv_cache, rope_cos_sin
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import (qk_rope_kv_write,
+                                                    qk_rope_kv_write_plain)
+    cfg = preset("1.7b").decoder
+    nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
+    for kv_name, kv in QK_CACHES.items():
+        for batch, t, s_len in ((1, 1, sh["cache"]), (8, 1, sh["cache"]),
+                                (96, 1, 512), (1, sh["prompt_len"],
+                                               sh["cache"])):
+            gen = torch.Generator(device=dev).manual_seed(batch + t)
+
+            def rnd(*shape, scale=2.0, shift=0.0):
+                return (torch.randn(shape, generator=gen, device=dev)
+                        * scale + shift).bfloat16()
+
+            q, k, v = (rnd(batch, t, n * d) for n in (nq, nkv, nkv))
+            q_norm, k_norm = (rnd(d, scale=0.2, shift=1.0) for _ in range(2))
+            cos, sin = rope_cos_sin(
+                torch.randint(0, 4000, (batch, t), generator=gen,
+                              device=dev), d, cfg.rope_theta)
+            ours, ref = (init_kv_cache(cfg, batch, s_len, kv, dev)
+                         for _ in range(2))
+            pos = torch.tensor(s_len // 2, device=dev) if t == 1 else 0
+            args = (q, k, v, q_norm, k_norm, cos, sin, cfg.rms_norm_eps)
+            rows = batch * t
+            stored = {"bf16": 2 * d, "fp8": d, "int4": d // 2 + 2}[kv_name]
+            nbytes = (2 * rows * (nq + 2 * nkv) * d          # q, k, v
+                      + 2 * 2 * d + 2 * 4 * rows * d          # norms, cos/sin
+                      + (8 if t == 1 else 0)                  # the position
+                      + 2 * rows * nq * d                     # q out
+                      + 2 * rows * nkv * stored)              # K and V
+            # per q/k element: square, add, two products for the norm, two
+            # and an add for RoPE; per int4 element a divide, round, clip
+            ops = (7 * rows * (nq + nkv) * d
+                   + (4 * 2 * rows * nkv * d if kv_name == "int4" else 0))
+            label = (f"qk_b{batch}_t{t}_{kv_name}" if t == 1
+                     else f"qk_prefill_30s_{kv_name}")
+            yield (label,
+                   lambda layer, a=args, c=ours, p=pos: qk_rope_kv_write(
+                       *a, c, layer, p),
+                   lambda layer, a=args, c=ref, p=pos:
+                       qk_rope_kv_write_plain(*a, c, layer, p),
+                   ours, ref, nbytes, ops, layers)
+            del ours, ref
+
+
+def qk_parity(label: str, q, q_ref, ours, ref) -> float:
+    """The kernel's q and cache against the plain chain's (rules above):
+    returns q's largest absolute error, or AssertionError."""
+    from qwen3_asr_tpu_torch.ops.kv_int4 import unpack
+    q_ulps = ulps(q, q_ref)
+    if ours.int4:
+        k_n, k_ref = unpack(ours.k).int(), unpack(ref.k).int()
+        k_ok = int((k_n - k_ref).abs().max()) <= 1 and int(
+            ulps(ours.k_scale, ref.k_scale).max()) <= 1
+        k_equal = float((k_n == k_ref).float().mean())
+        v_ok = (torch.equal(ours.v, ref.v) and torch.equal(
+            ours.v_scale.view(torch.int16), ref.v_scale.view(torch.int16)))
+    else:
+        k_ulps = ulps(ours.k, ref.k)
+        k_ok, k_equal = int(k_ulps.max()) <= 1, float(
+            (k_ulps == 0).float().mean())
+        v_ok = torch.equal(ours.v.view(torch.uint8), ref.v.view(torch.uint8))
+    err = float((q.float() - q_ref.float()).abs().max())
+    log(f"[parity] qk_rope_kv {label}: q max_abs_err={err:.3e}, "
+        f"{int(q_ulps.max())} ulp at most, bit-equal q "
+        f"{float((q_ulps == 0).float().mean()):.4%}, K {k_equal:.4%}; V "
+        f"{'byte-equal' if v_ok else 'DIFFERS'} (bound one ulp, nibbles "
+        f"within 1; V exact)")
+    if int(q_ulps.max()) > 1 or not k_ok or not v_ok:
+        raise AssertionError(f"qk_rope_kv {label}: outside the bound")
+    return err
 
 
 def int4_batched_cases(sh, dev):
@@ -668,8 +763,9 @@ def int4_batched_cases(sh, dev):
 
 
 def quant_kernel_rows(sh, dev, card, rows) -> None:
-    """Parity and timing of kernel A, kernel B and #3's int4 route, each
-    against its plain version; rows into ``rows``."""
+    """Parity and timing of kernel A, the QK-norm + RoPE + KV-cache write
+    and #3's int4 route, each against its plain version; rows into
+    ``rows``."""
     for label, run, plain, lib, nbytes, flops, layers in qgemv_cases(sh,
                                                                      dev):
         last = layers - 1
@@ -680,33 +776,33 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
         # at 16 rows: its combine is in the same launch) and a grouped call
         if label in (KERNELS["qgemv"][2], "down_m16_int8",
                      "qkv_group_m8_int8"):
-            one_kernel_per_call(f"qgemv {label}", lambda: run(last))
+            one_kernel_per_call("qgemv", label, lambda: run(last))
         rows["qgemv"].append(time_row(label, "bfloat16", err, run, plain,
                                       lib, nbytes, flops, layers, card,
                                       " (bf16-widened weight)", "F.linear"))
     for label, run, plain, ours, ref, nbytes, ops, layers in \
-            kv_write_cases(dev):
-        run(layers - 1)
-        plain(layers - 1)
+            qk_rope_kv_cases(sh, dev):
+        q, q_ref = run(layers - 1), plain(layers - 1)
         torch.cuda.synchronize()
-        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                   for a, b in zip(ours, ref))
-        log(f"[parity] kv_int4_write {label}: payload and scales "
-            f"{'byte-equal' if same else 'DIFFER'} to the plain version's")
-        if not same:
-            raise AssertionError(f"kv_int4_write {label}: bytes differ")
-        if label == KERNELS["kv_int4_write"][2]:
-            one_kernel_per_call(f"kv_int4_write {label}",
+        err = qk_parity(label, q, q_ref, ours, ref)
+        del q, q_ref
+        if label == KERNELS["qk_rope_kv"][2]:
+            one_kernel_per_call("qk_rope_kv", label,
                                 lambda: run(layers - 1))
         ms, plain_ms = per_call_ms(run, layers), per_call_ms(plain, layers)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"[timing] kv_int4_write {label} (device): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; bound {bound:.6f} ms; no library "
-            f"call | {card}")
-        rows["kv_int4_write"].append({
-            "shape": label, "dtype": "bfloat16", "max_abs_err": 0.0,
+        earlier = EARLIER_MS.get(label)
+        log(f"[timing] qk_rope_kv {label} (device): kernel {ms:.4f} ms, "
+            f"plain chain {plain_ms:.4f} ms (graph replays; kernel / plain "
+            f"{ms / plain_ms:.3f})"
+            + (f"; kernel B alone before the redesign, PERF.md: "
+               f"{earlier:.4f} ms" if earlier else "")
+            + f"; bound {bound:.6f} ms ({nbytes} bytes), share "
+            f"{bound / ms:.2%}; no library call | {card}")
+        rows["qk_rope_kv"].append({
+            "shape": label, "dtype": "bfloat16", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -726,7 +822,7 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
         if not err <= tol:
             raise AssertionError(f"int4 {label}: error {err} above {tol}")
         if label == KERNELS["decode_attention_batch_int4"][2]:
-            one_kernel_per_call(f"decode_attention_batch_int4 {label}",
+            one_kernel_per_call("decode_attention_batch_int4", label,
                                 lambda: run(layers - 1))
         rows["decode_attention_batch_int4"].append(time_row(
             label, "bfloat16", err, run, plain, sdpa, nbytes, flops, layers,
@@ -796,7 +892,8 @@ def real_text_phase(dev):
         f"token-identical to the CPU and equal to the transcripts; launches "
         f"{launches} ({eager} of them eager: the warm-up runs of "
         f"{len(gpu.executables)} keys built on first use)")
-    if not (launches["flash_attention"] and launches["decode_attention"]):
+    if not (launches["flash_attention"] and launches["decode_attention"]
+            and launches["qk_rope_kv"]):
         raise AssertionError("a kernel was not launched on the real-text run")
 
     # All 12 at once: through the server (texts), then straight through
@@ -823,6 +920,7 @@ def real_text_phase(dev):
     if max(by_http, direct) >= len(clips):
         raise AssertionError(f"{by_http}/{direct} dispatches for "
                              f"{len(clips)} clips: nothing batched")
+    check_records(gpu, "trained_ckpt f32")
 
 
 # -- phase 5 ---------------------------------------------------------------------
@@ -900,8 +998,8 @@ class PathLaunches:
         from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
             decode_attention_batched)
         from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
-        from qwen3_asr_tpu_torch.ops.kv_int4 import kv_int4_write
         from qwen3_asr_tpu_torch.ops.qgemv import qgemv
+        from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope_kv_write
         from qwen3_asr_tpu_torch.ops.slab_reader import slab_read
         # kernel -> (wrapper, the attribute that counts its launches)
         self.counters = {
@@ -911,7 +1009,7 @@ class PathLaunches:
             "decode_attention_batch_int4": (decode_attention_batched,
                                             "launches_int4"),
             "qgemv": (qgemv, "launches"),
-            "kv_int4_write": (kv_int4_write, "launches"),
+            "qk_rope_kv": (qk_rope_kv_write, "launches"),
             "slab_reader": (slab_read, "launches")}
         self.engines = engines
         for w, attr in self.counters.values():
@@ -934,6 +1032,57 @@ class PathLaunches:
                 for k, n in g.recorded.items():
                     eager[k] -= n
         return launches(self._graphs(), eager), eager
+
+
+def check_records(engine, name: str) -> None:
+    """Every captured graph of ``engine`` records the QK-norm + RoPE +
+    KV-cache write once a layer: the front (the prefill) ``layers`` times,
+    a decode chunk ``layers`` times a step."""
+    from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
+    layers = engine.model.cfg.decoder.num_hidden_layers
+    got = {key: (exe.front.recorded.get("qk_rope_kv"),
+                 exe.chunk.recorded.get("qk_rope_kv"))
+           for key, exe in engine.executables.items()}
+    log(f"[graphs] {name}: qk_rope_kv recorded (front, chunk) per key "
+        f"{list(got.values())} (want ({layers}, {DECODE_CHUNK * layers}))")
+    if not got or any(v != (layers, DECODE_CHUNK * layers)
+                      for v in got.values()):
+        raise AssertionError(f"{name}: qk_rope_kv records {got}")
+
+
+def step_kernels(exe, name: str, card: str) -> None:
+    """The CUDA kernels one decode step records (torch.profiler, CUDA
+    activity, over DECODE_CHUNK steps after the front's reset): a chunk
+    replay, the chunk's function run eagerly, and the same with the plain
+    chain (rms_norm, apply_rope, the cache's indexed write) in the
+    kernel's place, which is what the step ran before it."""
+    from qwen3_asr_tpu_torch.models import decoder
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope_kv_write_plain
+    from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
+
+    def count(fn):
+        exe.front()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.inference_mode():
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA
+                   ) / DECODE_CHUNK
+
+    graph, eager = count(exe.chunk), count(exe.chunk.fn)
+    kernel = decoder.qk_rope_kv_write
+    decoder.qk_rope_kv_write = qk_rope_kv_write_plain
+    try:
+        plain = count(exe.chunk.fn)
+    finally:
+        decoder.qk_rope_kv_write = kernel
+    log(f"[kernels] {name}: CUDA kernels a decode step: {graph:.1f} in a "
+        f"chunk replay, {eager:.1f} eager; {plain:.1f} eager with the plain "
+        f"chain in the kernel's place ({plain - eager:+.1f}) | {card}")
 
 
 def key_report(engine, name: str, card: str) -> None:
@@ -1016,7 +1165,7 @@ def main_path_phase(engine, uploads, dev):
     first = None
     layers = engine.model.cfg.decoder.num_hidden_layers
     per_request = layers + engine.model.cfg.encoder.encoder_layers
-    want_decode = 0
+    want_decode = want_qk = 0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
@@ -1050,6 +1199,7 @@ def main_path_phase(engine, uploads, dev):
             if run["capture_s"]:
                 raise AssertionError(f"{name}: its key was not warm")
             want_decode += layers * run["steps_run"]
+            want_qk += layers * (1 + run["steps_run"])
             first = first or (wall, run["generated"])
             log(f"[serve] preset:1.7b bf16 {name}: {wall:.3f} s wall, "
                 f"{run['generated']} tokens generated, {run['steps']} steps "
@@ -1060,13 +1210,17 @@ def main_path_phase(engine, uploads, dev):
         launches, eager = counter.read()
     log(f"[serve] launches on the main path: {launches}, eager {eager} "
         f"(want flash {per_request * len(uploads)}, decode {want_decode} = "
-        f"{layers} x steps_run, none eager)")
+        f"{layers} x steps_run, qk_rope_kv {want_qk} = {layers} x (1 + "
+        f"steps_run) a request, none eager)")
     if (launches["flash_attention"] != per_request * len(uploads)
             or launches["decode_attention"] != want_decode
+            or launches["qk_rope_kv"] != want_qk
             or any(eager.values())):
         raise AssertionError(f"launches {launches}, eager {eager}: want "
-                             f"flash {per_request * len(uploads)} and decode "
-                             f"{want_decode} from replays only")
+                             f"flash {per_request * len(uploads)}, decode "
+                             f"{want_decode} and qk_rope_kv {want_qk} from "
+                             f"replays only")
+    check_records(engine, "preset:1.7b bf16")
     graph_vs_eager(engine, [decode_audio(uploads[-1][1])[0]],
                    "30 s upload, B=1, bf16 (kernel #2)", card)
     return launches, first
@@ -1079,7 +1233,8 @@ def batch_phase(engine, dev, solo):
     with fp8, in turns (bf16, fp8, fp8, bf16) so that the two compare
     within one call, on one engine per cache dtype warmed at B=8: each run
     must come back from ONE dispatch at B=8, every decode step through the
-    batched kernel, from replays only. Returns its launches."""
+    batched kernel, from replays only. Returns its launches and the bf16
+    engine."""
     from qwen3_asr_tpu_torch.audio.codec import encode_wav
     from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
     from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
@@ -1120,7 +1275,9 @@ def batch_phase(engine, dev, solo):
         for body in replies:
             if not isinstance(body.get("text"), str) or "language" not in body:
                 raise AssertionError(f"{name}: bad response {body}")
-        want = eng.model.cfg.decoder.num_hidden_layers * run["steps_run"]
+        layers = eng.model.cfg.decoder.num_hidden_layers
+        want = layers * run["steps_run"]
+        want_qk = layers * (1 + run["steps_run"])
         log(f"[batch] preset:1.7b bf16, KV cache {name}: 8 uploads at once "
             f"-> {manager.batcher.dispatches} dispatch, batch {run['batch']},"
             f" {run['generated']} tokens in {batch_wall:.3f} s = "
@@ -1133,18 +1290,21 @@ def batch_phase(engine, dev, solo):
             f"{launches}, eager {eager} | {card}")
         if (manager.batcher.dispatches != 1 or run["batch"] != 8
                 or launches["decode_attention_batch"] != want
+                or launches["qk_rope_kv"] != want_qk
                 or launches["decode_attention"] or any(eager.values())
                 or not launches["flash_attention"]):
             raise AssertionError(f"{name}: {manager.batcher.dispatches} "
                                  f"dispatches, batch {run['batch']}, "
                                  f"launches {launches}, eager {eager}, want "
-                                 f"batched {want} from replays only")
+                                 f"batched {want} and qk_rope_kv {want_qk} "
+                                 f"from replays only")
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
     for kv, manager in managers.items():
+        check_records(manager.engine, f"KV {KV_NAMES[kv]}, B=8")
         graph_vs_eager(manager.engine, clips,
                        f"8 uploads, B=8, KV {KV_NAMES[kv]} (kernel #3)", card)
-    return total
+    return total, managers[bf16].engine
 
 
 # -- phase 7 ---------------------------------------------------------------------
@@ -1157,8 +1317,10 @@ def profile_phase(engine, wav: bytes, top: int = 12,
     CUDA kernel time) and its share of the wall, the kernels that took the
     most device time, and one single-token decode kernel per layer and
     computed decode step, counted from the capture (recorded x replays)
-    and, as far as the profiler keeps every record, from the profile:
-    graph replays make ~500k kernel records in ~1.5 s, and the profiler
+    and, as far as the profiler keeps every record, from the profile;
+    no ``index_copy_`` or int4-write kernel; then the kernels a decode step
+    records (``step_kernels``). Graph replays make ~500k kernel records
+    in ~1.5 s, and the profiler
     has lost some of them (8 and 112 of the decode kernel's 7168 in two
     runs), so a shortfall below 5% is reported as records lost, and the
     count is the capture's."""
@@ -1189,6 +1351,11 @@ def profile_phase(engine, wav: bytes, top: int = 12,
         log(f"[profile] {e.device_time_total / 1e3:10.3f} ms "
             f"{e.count:7d} calls  {e.key[:90]} "
             f"({e.device_time_total / 1e6 / busy:.1%} of busy)")
+    stale = [e.key[:60] for e in kernels
+             if "index_copy" in e.key or "kv_int4_write" in e.key]
+    if stale:
+        raise AssertionError(f"the request ran {stale}: the cache is written "
+                             f"by qk_rope_kv alone")
     decoded = [(e.key[:60], e.count) for e in kernels if kernel in e.key]
     want = engine.model.cfg.decoder.num_hidden_layers * run["steps_run"]
     log(f"[profile] decode kernels: {decoded} (want one name, {want} calls); "
@@ -1206,6 +1373,10 @@ def profile_phase(engine, wav: bytes, top: int = 12,
     elif decoded[0][1] < want:
         log(f"[profile] the profiler lost {want - decoded[0][1]} of the "
             f"decode kernel's {want} records: counted from the capture")
+    exe = next(x for (bf, _, b, _), x in engine.executables.items()
+               if bf == run["bucket_frames"] and b == run["batch"])
+    step_kernels(exe, f"{len(audio) / sr:.1f} s upload, B={run['batch']}, "
+                 f"{str(engine.cache_dtype).replace('torch.', '')} KV", card)
 
 
 # -- phase 8 ---------------------------------------------------------------------
@@ -1291,16 +1462,17 @@ def quantized_engine(dev, env: dict, card: str, name: str):
                                cache_dtype=kv_cache_dtype_from_env()), after
 
 
-def default_config_phase(dev, bf16_engine, uploads):
+def default_config_phase(dev, bf16_engine, bf16_b8_engine, uploads):
     """The JAX package's default serving configuration (QUANTIZE=int8,
     ASR_KV_CACHE_DTYPE=int4, ASR_INT8_ACT=true) at preset:1.7b, warmed
     (10 and 30 s buckets, B=1 and 8), served through the port's server:
     the 30 s upload at B=1, then 8 concurrent uploads at B=8 (one
     dispatch), each from replays only, with every decode step through the
     quantized GEMV, the int4 write and #3's int4 route; each against its
-    eager run bit for bit; the front graph's ms and ms per decode step
-    beside the bf16 engine's;
-    the 30 s request under the profiler; then one B=1 request with
+    eager run bit for bit; the front graph's ms, ms per decode step and
+    kernels a decode step at B=1 (30 s) and B=8 (10 s) beside the bf16
+    engines' (``bf16_engine`` from phase 5, ``bf16_b8_engine`` from phase
+    6); the 30 s request under the profiler; then one B=1 request with
     QUANTIZE=fp8. Returns the launches of the int8 run."""
     from qwen3_asr_tpu_torch.audio.codec import decode_audio, encode_wav
     from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
@@ -1351,7 +1523,7 @@ def default_config_phase(dev, bf16_engine, uploads):
         enc_layers = engine.model.cfg.encoder.encoder_layers
         want = {"flash_attention": 2 * (layers + enc_layers),
                 "decode_attention_batch_int4": layers * steps,
-                "kv_int4_write": layers * (2 + steps),
+                "qk_rope_kv": layers * (2 + steps),
                 # q/k/v and gate/up one grouped launch each, wo, w_down,
                 # the logits; and each request's first token
                 "qgemv": 2 + (4 * layers + 1) * steps}
@@ -1373,20 +1545,25 @@ def default_config_phase(dev, bf16_engine, uploads):
             raise AssertionError(f"default config: runs {run1} / {run8}, "
                                  f"launches {launches}, eager {eager}, want "
                                  f"{want}")
+        check_records(engine, "default config")
         graph_vs_eager(engine, [decode_audio(long_wav)[0]],
                        "default config, 30 s upload, B=1", card)
         graph_vs_eager(engine, clips, "default config, 8 uploads, B=8",
                        card)
         for eng, name in ((bf16_engine, "bf16 weights, bf16 KV"),
+                          (bf16_b8_engine, "bf16 weights, bf16 KV"),
                           (engine, "int8 weights, int4 KV")):
             for sec, batch in ((30, 1), (10, 8)):
                 bf, bs = eng.bucket_frames(16000 * sec)
                 key = (bf, max_new_tokens_for(bs), batch, eng.cache_dtype)
                 if key in eng.executables:
-                    front, step = front_and_step_ms(eng.executables[key])
+                    exe = eng.executables[key]
+                    front, step = front_and_step_ms(exe)
                     log(f"[default] {name}, {sec} s bucket, B={batch}: "
                         f"front graph {front:.4f} ms, {step:.4f} ms per "
                         f"decode step (device, graph replays) | {card}")
+                    step_kernels(exe, f"{name}, {sec} s bucket, B={batch}",
+                                 card)
         profile_phase(engine, long_wav, decode="decode_attention_batch_int4",
                       kernel="decode_batch_kernel")
 
@@ -1407,6 +1584,7 @@ def default_config_phase(dev, bf16_engine, uploads):
         if (not isinstance(body.get("text"), str) or run["capture_s"]
                 or any(eager.values()) or got["qgemv"] != 1 + (
                     4 * layers + 1) * run["steps_run"]
+                or got["qk_rope_kv"] != layers * (1 + run["steps_run"])
                 or not got["decode_attention_batch_int4"]):
             raise AssertionError(f"fp8 weights: {body}, {run}, {got}, "
                                  f"{eager}")
@@ -1441,11 +1619,14 @@ KERNELS = {
         "qwen3_asr_tpu/ops/attention.py:156", "int4_b8_s768"),
     "qgemv": ("qwen3_asr_tpu_torch/csrc/qgemv.cu",
               "qwen3_asr_tpu/ops/quant.py:134", "lm_head_m1_int8"),
-    "kv_int4_write": ("qwen3_asr_tpu_torch/csrc/kv_int4_write.cu",
-                      "qwen3_asr_tpu/models/decoder.py:132", "kv_write_b8"),
+    "qk_rope_kv": ("qwen3_asr_tpu_torch/csrc/qk_rope_kv.cu",
+                   "qwen3_asr_tpu/models/decoder.py:146,163,132,258",
+                   "qk_b8_t1_int4"),
 }
 NO_TPU_KERNEL = {"decode_attention_batch_int4": "XLA attend_xla, int4",
-                 "qgemv": "XLA qdot", "kv_int4_write": "XLA _kv_quantize"}
+                 "qgemv": "XLA qdot",
+                 "qk_rope_kv": "XLA rms_norm + apply_rope + _kv_quantize + "
+                               "dynamic_update_slice"}
 
 
 def main() -> int:
@@ -1478,7 +1659,7 @@ def main() -> int:
     engine, uploads = full_width_engine(dev), upload_bodies()
     launches, solo = main_path_phase(engine, uploads, dev)
     phase_done("phase 5 (main path at B=1)")
-    batched = batch_phase(engine, dev, solo)
+    batched, bf16_b8 = batch_phase(engine, dev, solo)
     launches["decode_attention_batch"] = batched["decode_attention_batch"]
     phase_done("phase 6 (main path at B=8)")
     profile_phase(engine, uploads[-1][1])
@@ -1490,9 +1671,15 @@ def main() -> int:
         head.update(ms=r["ms"], bound_ms=r["bound_ms"], bound_by="bytes",
                     gb_s=r["gb_s"])
     phase_done("phase 8 (probe)")
-    default = default_config_phase(dev, engine, uploads)
+    default = default_config_phase(dev, engine, bf16_b8, uploads)
+    # the new kernel runs on every path: phases 5, 6 and 9, each counted
+    # from 0 just before it
+    qk = {5: launches["qk_rope_kv"], 6: batched["qk_rope_kv"],
+          9: default["qk_rope_kv"]}
     for name in NO_TPU_KERNEL:
         launches[name] = default[name]
+    launches["qk_rope_kv"] = sum(qk.values())
+    log(f"[launches] qk_rope_kv by phase {qk}: {sum(qk.values())}")
     phase_done("phase 9 (the default configuration)")
 
     table = []

@@ -9,9 +9,11 @@ with per-(token, head) scales (``torch.int4`` names it;
 stacked layout (``[L, ...]`` per-layer tensors, matrices as ``[in, out]``;
 quantized payloads ``[..., out, in]``); the layer loop is a Python loop.
 The KV cache is the stacked ``[L, B, n_kv, S, D]`` pair (plus the scale
-planes); prefill attention goes through the flash kernel and each decode
-step through a decode kernel (``ops.attention.attend`` picks which), which
-reads the stacked cache at the layer index without a copy.
+planes), written a layer at a time with QK-norm and RoPE in one op
+(``ops/qk_rope_kv.py``); prefill attention goes through the flash kernel
+and each decode step through a decode kernel (``ops.attention.attend``
+picks which), which reads the stacked cache at the layer index without a
+copy.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend, is_decode_step
-from ..ops.kv_int4 import dequantize_layer, kv_int4_write
+from ..ops.kv_int4 import dequantize_layer
+from ..ops.qk_rope_kv import qk_rope_kv_write, rms_norm
 from ..ops.quant import (is_quantized, layer_slice, qdot, qdot_group,
                          qlogits)
 from .config import DecoderConfig
@@ -67,12 +70,6 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
-
-
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions: [B, T] integer → cos/sin [B, T, head_dim] (f32)."""
@@ -82,16 +79,6 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
     angles = positions[..., None].float() * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
-    """x: [B, N, T, D]; cos/sin: [B, T, D] (half-split rotation)."""
-    xf = x.float()
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
-    out = xf * cos[:, None] + rotated * sin[:, None]
-    return out.to(x.dtype)
 
 
 def init_decoder_params(cfg: DecoderConfig, generator: torch.Generator,
@@ -126,51 +113,26 @@ def init_decoder_params(cfg: DecoderConfig, generator: torch.Generator,
     return params
 
 
-def _write_kv(layer: torch.Tensor, new: torch.Tensor,
-              write_pos: Union[int, torch.Tensor]) -> None:
-    """layer [B, n_kv, S, D] <- new [B, n_kv, T, D] (cast to the cache
-    dtype) at keys ``write_pos .. write_pos + T - 1``, IN PLACE. A host int
-    slices; a 0-d int64 device tensor (the decode step, which a CUDA graph
-    replays at a new position each time) indexes on the device."""
-    new = new.to(layer.dtype)
-    if not torch.is_tensor(write_pos):
-        layer[:, :, write_pos:write_pos + new.shape[2]] = new
-        return
-    idx = write_pos.reshape(1) + torch.arange(new.shape[2],
-                                              device=layer.device)
-    if layer.dtype == torch.float8_e4m3fn:
-        # index_copy_ has no fp8 kernel: the same bytes through uint8 views
-        layer, new = layer.view(torch.uint8), new.view(torch.uint8)
-    layer.index_copy_(2, idx, new)
-
-
 def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
            cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
            write_pos: Union[int, torch.Tensor], spec: AttnSpec
            ) -> torch.Tensor:
     lp = layer_slice(params["layers"], i)
     b, t, _ = hidden.shape
-    nq, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    nq, d = cfg.num_attention_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
 
     x = rms_norm(hidden, lp["ln1"], eps)
     # q, k and v read one x: one launch of the quantized GEMV on the card
     q, k, v = qdot_group(x, [lp["wq"], lp["wk"], lp["wv"]])
-    q = q.reshape(b, t, nq, d).transpose(1, 2)
-    k = k.reshape(b, t, nkv, d).transpose(1, 2)
-    v = v.reshape(b, t, nkv, d).transpose(1, 2)
-    q = apply_rope(rms_norm(q, lp["q_norm"], eps), cos, sin).contiguous()
-    k = apply_rope(rms_norm(k, lp["k_norm"], eps), cos, sin)
-
-    # Written IN PLACE at (layer i, write_pos): only the T new tokens are
-    # stored. (The JAX package's dynamic_update_slice is functional and
-    # relies on XLA aliasing for the same effect.) An int4 cache quantizes
-    # them on the way (kernel B on the card, one launch for K and V).
-    if cache.int4:
-        kv_int4_write(cache, i, k, v, write_pos)
-    else:
-        _write_kv(cache.k[i], k, write_pos)
-        _write_kv(cache.v[i], v, write_pos)
+    # QK-norm and RoPE on q and k, and K and V written IN PLACE at (layer
+    # i, write_pos): only the T new tokens are stored, in the cache's
+    # format (an int4 cache quantizes them on the way). One launch on the
+    # card. (The JAX package's dynamic_update_slice is functional and
+    # relies on XLA aliasing for the same effect.) q comes back
+    # [B, nq, T, D], contiguous.
+    q = qk_rope_kv_write(q, k, v, lp["q_norm"], lp["k_norm"], cos, sin, eps,
+                         cache, i, write_pos)
 
     if is_decode_step(q, spec):
         attn = attend(q, cache.k, cache.v, spec, scale=d ** -0.5, layer_idx=i,

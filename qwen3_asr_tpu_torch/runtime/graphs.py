@@ -40,19 +40,19 @@ _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 def kernel_launches() -> Dict[str, int]:
     """The launch counters of the kernels a request runs (#1-#3, #3's
-    int4 route, the quantized GEMV and the int4 cache write)."""
+    int4 route, the quantized GEMV and the QK-norm + RoPE + cache write)."""
     from ..ops.decode_attention import decode_attention
     from ..ops.decode_attention_batch import decode_attention_batched
     from ..ops.flash_attention import flash_attention
-    from ..ops.kv_int4 import kv_int4_write
     from ..ops.qgemv import qgemv
+    from ..ops.qk_rope_kv import qk_rope_kv_write
     return {"flash_attention": flash_attention.launches,
             "decode_attention": decode_attention.launches,
             "decode_attention_batch": decode_attention_batched.launches,
             "decode_attention_batch_int4":
                 decode_attention_batched.launches_int4,
             "qgemv": qgemv.launches,
-            "kv_int4_write": kv_int4_write.launches}
+            "qk_rope_kv": qk_rope_kv_write.launches}
 
 
 class Graph:

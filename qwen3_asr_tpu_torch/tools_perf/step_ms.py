@@ -1,0 +1,174 @@
+"""Decode-step and front-graph device time, and CUDA kernels a decode step,
+of a checkout of the port on the card.
+
+preset:1.7b (seeded random weights, bf16) in two configurations: bf16
+weights with a bf16 KV cache, and the JAX package's default serving row
+(``QUANTIZE=int8``, ``ASR_KV_CACHE_DTYPE=int4``, ``ASR_INT8_ACT=true``);
+each at B=1 (the 30 s bucket, 29.5 s of the in-repo speech) and at B=8
+(the 10 s bucket, eight 9.5 s clips). For each it runs the request once
+through the key's CUDA graphs, then replays them between CUDA events:
+the front graph (frontend, encoder, prompt, prefill, first token), and
+one decode chunk over DECODE_CHUNK steps; and counts the CUDA kernels one
+chunk replay records under ``torch.profiler``.
+
+``--root DIR`` imports ``qwen3_asr_tpu_torch`` from DIR instead of this
+checkout, so the same script times another checkout, e.g. a parent commit
+unpacked beside this one; compare two in one machine's run, in turns
+(parent, change, change, parent):
+
+    python qwen3_asr_tpu_torch/tools_perf/step_ms.py --root _tree_check/parent
+    python qwen3_asr_tpu_torch/tools_perf/step_ms.py
+
+It prints the card's line, then one JSON object a configuration and
+batch.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CHECKOUT = os.path.dirname(os.path.dirname(HERE))
+DEFAULT_ENV = {"QUANTIZE": "int8", "ASR_KV_CACHE_DTYPE": "int4",
+               "ASR_INT8_ACT": "true"}
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def replay_ms(torch, graph, replays: int = 5) -> float:
+    """Device ms of one replay of ``graph``, between CUDA events."""
+    graph()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def kernels_a_chunk(torch, exe) -> int:
+    """CUDA kernel records of one chunk replay after the front's reset."""
+    exe.front()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        exe.chunk()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=CHECKOUT,
+                    help="the checkout whose qwen3_asr_tpu_torch to time")
+    ap.add_argument("--label", default="",
+                    help="a name for this checkout in the output")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("step_ms: no CUDA device is available", file=sys.stderr)
+        return 1
+    import qwen3_asr_tpu_torch
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.models.asr import AsrModel
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.decoder import init_decoder_params
+    from qwen3_asr_tpu_torch.models.encoder import init_encoder_params
+    from qwen3_asr_tpu_torch.ops import _build
+    from qwen3_asr_tpu_torch.runtime.engine import (TranscriptionEngine,
+                                                    max_new_tokens_for)
+    from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
+    from qwen3_asr_tpu_torch.runtime.lifecycle import (
+        kv_cache_dtype_from_env, preset_tokenizer, quantize_mode_from_env,
+        quantize_model)
+    pkg = os.path.dirname(os.path.abspath(qwen3_asr_tpu_torch.__file__))
+    if os.path.dirname(pkg) != root:
+        raise RuntimeError(f"imported {pkg}, not the package under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    label = args.label or os.path.relpath(root, CHECKOUT)
+    print(f"[step_ms] {label}: {pkg} | {card}", flush=True)
+    _build.build(sorted(os.path.basename(p)[:-3]
+                        for p in glob.glob(os.path.join(pkg, "csrc", "*.cu"))))
+
+    parts = []
+    for path in sorted(glob.glob(os.path.join(CHECKOUT, "e2e", "data",
+                                              "real", "*.wav"))):
+        with open(path, "rb") as f:
+            parts.append(decode_audio(f.read())[0])
+    speech = np.concatenate(parts)
+    seg = int(9.5 * 16000)
+    requests = ((1, [speech[:int(29.5 * 16000)]]),
+                (8, [speech[i * seg:(i + 1) * seg] for i in range(8)]))
+
+    cfg = preset("1.7b")
+
+    def model():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = {"encoder": init_encoder_params(cfg.encoder, gen, dev,
+                                                 torch.bfloat16),
+                  "decoder": init_decoder_params(cfg.decoder, gen, dev,
+                                                 torch.bfloat16)}
+        return AsrModel(cfg, params, preset_tokenizer(cfg.decoder.vocab_size))
+
+    for name, env in (("bf16 weights, bf16 KV", {}),
+                      ("int8 weights, int4 KV, W8A8", DEFAULT_ENV)):
+        saved = {k: os.environ.get(k) for k in DEFAULT_ENV}
+        for k in DEFAULT_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        try:
+            m = model()
+            if env:
+                quantize_model(m, quantize_mode_from_env())
+            engine = TranscriptionEngine(
+                m, device=dev, dtype=torch.bfloat16,
+                cache_dtype=kv_cache_dtype_from_env() if env else None)
+            for batch, clips in requests:
+                bf, bs = engine.bucket_frames(max(len(c) for c in clips))
+                exe, capture_s = engine.executable(bf, max_new_tokens_for(bs),
+                                                   batch)
+                res = exe.run(*engine.bucket_inputs(clips, bf, None))
+                front = replay_ms(torch, exe.front)
+                exe.front()
+                step = replay_ms(torch, exe.chunk) / DECODE_CHUNK
+                kernels = kernels_a_chunk(torch, exe) / DECODE_CHUNK
+                print(json.dumps({
+                    "checkout": label, "config": name, "batch": batch,
+                    "bucket_frames": bf, "front_ms": front, "step_ms": step,
+                    "kernels_a_step": kernels, "capture_s": capture_s,
+                    "steps": res.steps, "card": card}), flush=True)
+            del engine, m
+            torch.cuda.empty_cache()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -371,6 +371,10 @@ def test_graph_replay_equals_eager_steps(dev, batch, kv):
     assert capture_s > 0 and exe.chunk.graph is not None
     kernel = "decode_attention" if batch == 1 else "decode_attention_batch"
     assert exe.chunk.recorded[kernel] == DECODE_CHUNK * 2
+    # QK-norm + RoPE + the cache write: one launch a layer and step, and
+    # one a layer for the prefill
+    assert exe.chunk.recorded["qk_rope_kv"] == DECODE_CHUNK * 2
+    assert exe.front.recorded["qk_rope_kv"] == 2
     graph = exe.run(*inputs)
     eager = exe.run(*inputs, eager=True)
     assert torch.equal(graph.tokens, eager.tokens)
@@ -400,7 +404,7 @@ def test_warm_request_makes_no_eager_launch(dev):
                    "decode_attention": 2 * run["steps_run"],
                    "decode_attention_batch": 0,
                    "decode_attention_batch_int4": 0, "qgemv": 0,
-                   "kv_int4_write": 0}
+                   "qk_rope_kv": 2 * (1 + run["steps_run"])}
 
 
 def test_failed_capture_raises_and_never_runs_eagerly(dev, monkeypatch):
@@ -451,8 +455,7 @@ def test_reused_key_and_tickets_after_replays(dev):
 # -- quantized weights and the int4 KV cache -------------------------------------
 
 from qwen3_asr_tpu_torch.ops import quant                      # noqa: E402
-from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write,    # noqa: E402
-                                             kv_int4_write_plain, pack)
+from qwen3_asr_tpu_torch.ops.kv_int4 import pack, unpack       # noqa: E402
 from qwen3_asr_tpu_torch.ops.qgemv import (qgemv, qgemv_group,  # noqa: E402
                                            qgemv_plain)
 from qwen3_asr_tpu_torch.models.decoder import init_kv_cache   # noqa: E402
@@ -587,25 +590,6 @@ def _int4_cache(dev, b, t, layers=3, s_len=256):
                  for _ in range(2)]
 
 
-@pytest.mark.parametrize("where", ["host", "device"])
-@pytest.mark.parametrize("b,t", [(1, 1), (8, 1), (96, 1), (2, 453)])
-def test_kv_int4_write_matches_plain(dev, b, t, where):
-    """Kernel B: payload and scales byte-equal to the plain version's, at
-    a host position and at a 0-d device position (the decode step's)."""
-    _, (ours, ref) = _int4_cache(dev, b, t, s_len=512)
-    rng = np.random.default_rng(8)
-    k = _randn(rng, (b, 8, t, 128), torch.bfloat16, dev) * 3
-    v = _randn(rng, (b, 8, t, 128), torch.bfloat16, dev)
-    pos = 40 if where == "host" else torch.tensor(40, device=dev)
-    before = kv_int4_write.launches
-    kv_int4_write(ours, 2, k, v, pos)
-    torch.cuda.synchronize()
-    assert kv_int4_write.launches == before + 1
-    kv_int4_write_plain(ref, 2, k, v, pos)
-    for a, r in zip(ours, ref):
-        assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
-
-
 @pytest.mark.parametrize("name", list(BATCH_CASES))
 def test_int4_batched_decode_matches_plain(dev, name):
     """#3's int4 route against its plain version (the same max per chunk,
@@ -642,8 +626,8 @@ def test_quantized_wrappers_raise_rather_than_compute(dev):
     """On a CUDA tensor a wrapper launches its kernel or raises: f32
     activations for kernel A (and ``qdot``, which has no other route for
     decode rows on the card; the engine refuses quantized weights at f32
-    there), head_dim 64 for kernel B, f32 q for the int4 route, a packed
-    cache without its scale planes."""
+    there), head_dim 64 for the int4 cache write, f32 q for the int4
+    route, a packed cache without its scale planes."""
     q8 = torch.zeros((64, 128), dtype=torch.int8, device=dev)
     s = torch.ones(64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
@@ -663,9 +647,12 @@ def test_quantized_wrappers_raise_rather_than_compute(dev):
                         num_hidden_layers=1, num_attention_heads=2,
                         num_key_value_heads=1, head_dim=64)
     cache = init_kv_cache(cfg, 1, 128, torch.int4, dev)
-    x = torch.zeros((1, 1, 1, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        kv_int4_write(cache, 0, x, x, 0)
+    x = torch.zeros((1, 1, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.ones(64, device=dev, dtype=torch.bfloat16)
+    cs = torch.ones((1, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        qk_rope_kv_write(torch.cat([x, x], -1), x, x, w, w, cs, cs, 1e-6,
+                         cache, 0, 0)
     _, (c4, _) = _int4_cache(dev, 2, 1)
     with pytest.raises(ValueError):
         decode_attention_batched(torch.zeros((2, 16, 1, 128), device=dev),
@@ -692,7 +679,8 @@ def test_int8_int4_graph_replay_equals_eager(dev, batch):
     layers = SMALL.decoder.num_hidden_layers
     rec = exe.chunk.recorded
     assert rec["decode_attention_batch_int4"] == DECODE_CHUNK * layers
-    assert rec["kv_int4_write"] == DECODE_CHUNK * layers
+    assert rec["qk_rope_kv"] == DECODE_CHUNK * layers
+    assert exe.front.recorded["qk_rope_kv"] == layers
     # q/k/v and gate/up one grouped launch each, wo, w_down, the logits
     assert rec["qgemv"] == DECODE_CHUNK * (4 * layers + 1)
     assert rec["decode_attention"] == rec["decode_attention_batch"] == 0
@@ -727,3 +715,231 @@ def test_int4_batched_decode_is_deterministic(dev):
                                          v_scale=vs)
     torch.testing.assert_close(outs[0].float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+# -- QK-norm + RoPE + the KV-cache write -----------------------------------------
+
+from qwen3_asr_tpu_torch.models.decoder import rope_cos_sin   # noqa: E402
+from qwen3_asr_tpu_torch.ops.qk_rope_kv import (              # noqa: E402
+    qk_rope_kv_write, qk_rope_kv_write_plain)
+
+QK_SHAPES = {
+    # (b, t, nq, nkv, d, s_len, position, a device position?)
+    "1p7b_b1_step": (1, 1, 16, 8, 128, 768, 500, True),
+    "1p7b_b8_step": (8, 1, 16, 8, 128, 768, 500, True),
+    "1p7b_b96_step": (96, 1, 16, 8, 128, 512, 300, True),
+    "1p7b_prefill_30s": (1, 453, 16, 8, 128, 768, 0, False),
+    "small_b2_step": (2, 1, 4, 2, 128, 256, 17, True),
+    "small_prefill": (2, 70, 4, 2, 128, 256, 0, False),
+    "ckpt_d48_step": (2, 1, 4, 2, 48, 128, 40, True),
+    "ckpt_d48_prefill": (1, 90, 4, 2, 48, 128, 0, False),
+}
+# (rows dtype, cache dtype)
+QK_ROUTES = {"bf16": (torch.bfloat16, torch.bfloat16),
+             "bf16_fp8": (torch.bfloat16, torch.float8_e4m3fn),
+             "bf16_int4": (torch.bfloat16, torch.int4),
+             "f32": (torch.float32, torch.float32),
+             "f32_fp8": (torch.float32, torch.float8_e4m3fn),
+             "f32_int4": (torch.float32, torch.int4)}
+QK_CASES = [(shape, route) for shape in QK_SHAPES for route in QK_ROUTES
+            if QK_SHAPES[shape][4] == 128 or "int4" not in route]
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float8_e4m3fn: torch.int8}
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their dtype (f32, bf16 or fp8
+    e4m3fn), from the bit patterns: a difference of 1 is one ulp."""
+    def key(x):
+        bits = x.contiguous().view(_INT_VIEW[x.dtype]).long()
+        mag = bits & ((1 << (8 * x.element_size() - 1)) - 1)
+        return torch.where(bits < 0, -mag, mag)
+    return (key(a) - key(b)).abs()
+
+
+def _qk_inputs(dev, b, t, nq, nkv, d, rows, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=2.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(rows)
+
+    q, k, v = rnd(b, t, nq * d), rnd(b, t, nkv * d), rnd(b, t, nkv * d)
+    q_norm, k_norm = rnd(d, scale=0.2, shift=1.0), rnd(d, scale=0.2,
+                                                       shift=1.0)
+    positions = torch.randint(0, 4000, (b, t), generator=gen, device=dev)
+    cos, sin = rope_cos_sin(positions, d, 1e6)
+    return q, k, v, q_norm, k_norm, cos, sin
+
+
+def _qk_caches(dev, b, nkv, d, s_len, kv, n=2):
+    cfg = DecoderConfig(vocab_size=8, hidden_size=8, intermediate_size=8,
+                        num_hidden_layers=3, num_attention_heads=nkv,
+                        num_key_value_heads=nkv, head_dim=d)
+    return [init_kv_cache(cfg, b, s_len, kv, dev) for _ in range(n)]
+
+
+def _assert_cache_close(ours, ref, what=""):
+    """Working-dtype K/V within one ulp; fp8 V bytes equal and K within one
+    fp8 ulp; int4 V payload and scales equal, K's nibbles within 1 and its
+    scales within one bf16 ulp. Returns the share of K's values that is
+    bit-equal."""
+    if ours.int4:
+        k_n, k_ref = unpack(ours.k).int(), unpack(ref.k).int()
+        assert (k_n - k_ref).abs().max() <= 1, f"{what} K nibbles"
+        assert _ulps(ours.k_scale, ref.k_scale).max() <= 1, f"{what} K scale"
+        assert torch.equal(ours.v, ref.v), f"{what} V payload"
+        assert torch.equal(ours.v_scale.view(torch.int16),
+                           ref.v_scale.view(torch.int16)), f"{what} V scale"
+        return float((k_n == k_ref).float().mean())
+    assert _ulps(ours.k, ref.k).max() <= 1, f"{what} K"
+    if ours.v.dtype == torch.float8_e4m3fn:
+        assert torch.equal(ours.v.view(torch.uint8), ref.v.view(torch.uint8))
+    else:
+        assert _ulps(ours.v, ref.v).max() <= 1, f"{what} V"
+    return float((_ulps(ours.k, ref.k) == 0).float().mean())
+
+
+@pytest.mark.parametrize("shape,route", QK_CASES)
+def test_qk_rope_kv_matches_plain(dev, shape, route):
+    """One launch: q within one ulp of the plain chain's (rms_norm ->
+    apply_rope on the card), the cache as ``_assert_cache_close`` holds
+    it, the rest of the stacked cache untouched; the share of bit-equal
+    values is printed."""
+    b, t, nq, nkv, d, s_len, pos, on_device = QK_SHAPES[shape]
+    rows, kv = QK_ROUTES[route]
+    inputs = _qk_inputs(dev, b, t, nq, nkv, d, rows)
+    ours, ref = _qk_caches(dev, b, nkv, d, s_len, kv)
+    where = torch.tensor(pos, device=dev) if on_device else pos
+    before = qk_rope_kv_write.launches
+    q = qk_rope_kv_write(*inputs, 1e-6, ours, 2, where)
+    torch.cuda.synchronize()
+    assert qk_rope_kv_write.launches == before + 1
+    q_ref = qk_rope_kv_write_plain(*inputs, 1e-6, ref, 2, where)
+    assert q.shape == q_ref.shape and q.is_contiguous()
+    assert _ulps(q, q_ref).max() <= 1
+    k_share = _assert_cache_close(ours, ref)
+    q_share = float((_ulps(q, q_ref) == 0).float().mean())
+    print(f"qk_rope_kv {shape} {route}: bit-equal q {q_share:.4%}, "
+          f"K {k_share:.4%}")
+
+
+def test_qk_rope_kv_fp8_store_is_torchs_cast(dev):
+    """Every bf16 bit pattern, stored as V into an fp8 cache, gives the
+    byte of ``tensor.to(torch.float8_e4m3fn)`` on the card: rounding,
+    subnormals, saturation past +-448, infinities and NaNs."""
+    b, t, nq, nkv, d = 1, 64, 16, 8, 128
+    inputs = list(_qk_inputs(dev, b, t, nq, nkv, d, torch.bfloat16))
+    every = torch.arange(-32768, 32768, device=dev, dtype=torch.int32)
+    inputs[2] = every.to(torch.int16).view(torch.bfloat16).reshape(b, t,
+                                                                   nkv * d)
+    (cache,) = _qk_caches(dev, b, nkv, d, t, torch.float8_e4m3fn, n=1)
+    qk_rope_kv_write(*inputs, 1e-6, cache, 1, 0)
+    want = inputs[2].reshape(b, t, nkv, d).transpose(1, 2).to(
+        torch.float8_e4m3fn)
+    torch.cuda.synchronize()
+    assert torch.equal(cache.v[1].view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("route", ["bf16", "bf16_fp8", "bf16_int4"])
+def test_qk_rope_kv_is_deterministic(dev, route):
+    """20 calls give the same bits: q and the whole cache."""
+    rows, kv = QK_ROUTES[route]
+    inputs = _qk_inputs(dev, 8, 1, 16, 8, 128, rows)
+    (cache,) = _qk_caches(dev, 8, 8, 128, 256, kv, n=1)
+    pos = torch.tensor(100, device=dev)
+    first = qk_rope_kv_write(*inputs, 1e-6, cache, 0, pos)
+    planes = [p.clone() for p in cache if p is not None]
+    for _ in range(19):
+        q = qk_rope_kv_write(*inputs, 1e-6, cache, 0, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(q, first)
+        assert all(torch.equal(p.view(torch.uint8), c.view(torch.uint8))
+                   for p, c in zip(planes, (c for c in cache
+                                            if c is not None)))
+
+
+@pytest.mark.parametrize("route", ["bf16", "bf16_fp8", "bf16_int4"])
+def test_qk_rope_kv_replays_at_a_new_position(dev, route):
+    """A captured call, replayed after the device position changed,
+    writes there and nowhere else; its q and keys are the eager call's at
+    that position."""
+    rows, kv = QK_ROUTES[route]
+    inputs = _qk_inputs(dev, 2, 1, 16, 8, 128, rows)
+    ours, ref = _qk_caches(dev, 2, 8, 128, 256, kv)
+    pos = torch.tensor(10, device=dev)
+    qk_rope_kv_write(*inputs, 1e-6, ours, 1, pos)     # warm-up, then clear
+    for p in ours:
+        if p is not None:
+            p.zero_()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q = qk_rope_kv_write(*inputs, 1e-6, ours, 1, pos)
+    pos.fill_(77)
+    graph.replay()
+    torch.cuda.synchronize()
+    q_ref = qk_rope_kv_write(*inputs, 1e-6, ref, 1, 77)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref)
+    for a, r in zip(ours, ref):
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
+    assert (ours.k[1, :, :, 77].view(torch.uint8).any()
+            and not ours.k[1, :, :, 10].view(torch.uint8).any())
+
+
+def _first_tokens(inputs, n):
+    """``_qk_inputs`` cut to the first ``n`` tokens."""
+    q, k, v, q_norm, k_norm, cos, sin = inputs
+    return [x[:, :n].contiguous() for x in (q, k, v)] + [q_norm, k_norm] + [
+        x[:, :n].contiguous() for x in (cos, sin)]
+
+
+@pytest.mark.parametrize("route", ["bf16", "bf16_fp8", "bf16_int4"])
+def test_qk_rope_kv_writes_no_key_past_the_end(dev, route):
+    """Keys at or past S are not written (T = 5 two keys before the end:
+    the first two land; a step at S: none), and q comes back whole."""
+    rows, kv = QK_ROUTES[route]
+    s_len = 128
+    inputs = _qk_inputs(dev, 2, 5, 16, 8, 128, rows)
+    ours, ref = _qk_caches(dev, 2, 8, 128, s_len, kv)
+    q = qk_rope_kv_write(*inputs, 1e-6, ours, 0, s_len - 2)
+    head = _first_tokens(inputs, 2)
+    qk_rope_kv_write(*head, 1e-6, ref, 0, s_len - 2)
+    torch.cuda.synchronize()
+    for a, r in zip(ours, ref):
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
+    assert ours.k[0, :, :, s_len - 2:].view(torch.uint8).any()
+    assert torch.equal(q[:, :, :2], qk_rope_kv_write(*head, 1e-6, ref, 0,
+                                                     s_len - 2))
+    assert q.shape == (2, 16, 5, 128)
+    step = _first_tokens(inputs, 1)
+    (empty,) = _qk_caches(dev, 2, 8, 128, s_len, kv, n=1)
+    qk_rope_kv_write(*step, 1e-6, empty, 0, torch.tensor(s_len, device=dev))
+    torch.cuda.synchronize()
+    assert not any(p.view(torch.uint8).any() for p in empty
+                   if p is not None)
+
+
+def test_qk_rope_kv_refuses_what_it_does_not_take(dev):
+    """Raises, never computes: norms of another dtype than the rows, rows
+    whose last dimension is strided, a cache of another batch, a layer
+    past the stack."""
+    inputs = list(_qk_inputs(dev, 2, 1, 4, 2, 128, torch.bfloat16))
+    (cache,) = _qk_caches(dev, 2, 2, 128, 128, torch.bfloat16, n=1)
+    bad = list(inputs)
+    bad[3] = bad[3].float()
+    with pytest.raises(ValueError, match="one dtype"):
+        qk_rope_kv_write(*bad, 1e-6, cache, 0, 0)
+    bad = list(inputs)
+    bad[0] = torch.zeros((2, 1, 2 * 4 * 128), device=dev,
+                         dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        qk_rope_kv_write(*bad, 1e-6, cache, 0, 0)
+    (other,) = _qk_caches(dev, 3, 2, 128, 128, torch.bfloat16, n=1)
+    with pytest.raises(ValueError, match="cache"):
+        qk_rope_kv_write(*inputs, 1e-6, other, 0, 0)
+    with pytest.raises(ValueError, match="layer"):
+        qk_rope_kv_write(*inputs, 1e-6, cache, 3, 0)

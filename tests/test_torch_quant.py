@@ -29,7 +29,7 @@ from qwen3_asr_tpu_torch.ops import quant
 from qwen3_asr_tpu_torch.ops.attention import AttnSpec
 from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
     decode_attention_batched)
-from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write, pack,
+from qwen3_asr_tpu_torch.ops.kv_int4 import (kv_int4_write_plain, pack,
                                              quantize_kv, unpack)
 from qwen3_asr_tpu_torch.runtime.checkpoint import params_from_jax
 from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
@@ -122,8 +122,8 @@ def test_kv_quantize_bytes_equal_jax():
                         num_key_value_heads=4, head_dim=128)
     for pos in (3, torch.tensor(3)):
         cache = init_kv_cache(cfg, 2, 16, torch.int4, "cpu")
-        kv_int4_write(cache, 1, torch.from_numpy(x), torch.from_numpy(-x),
-                      pos)
+        kv_int4_write_plain(cache, 1, torch.from_numpy(x),
+                            torch.from_numpy(-x), pos)
         np.testing.assert_array_equal(
             unpack(cache.k[1, :, :, 3:12]).numpy(), q_ref)
         np.testing.assert_array_equal(
