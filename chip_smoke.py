@@ -5,20 +5,27 @@ without a CUDA device, and whenever any phase fails. Phases:
 
 1. the card's name and power limit; build the CUDA kernels from
    ``qwen3_asr_tpu_torch/csrc`` (one nvcc per source, in parallel: the four
-   TPU kernels' counterparts, the quantized GEMV and the QK-norm + RoPE +
-   KV-cache write) and print ptxas' registers, shared memory and spills;
+   TPU kernels' counterparts, the quantized GEMV and GEMM and the QK-norm +
+   RoPE + KV-cache write) and print ptxas' registers, shared memory and
+   spills;
 2. each kernel against its plain PyTorch version at the main path's shapes
    for preset:1.7b: flash attention (encoder 30 s, prefill 30 s) and the
    single-token decode step at B=1 and B=4 in f32 (TF32 off) and bf16; the
    batched decode step at S=768 for B=1 and B=8 with bf16 and fp8 caches,
    and at the JAX serving shape B=96, S=512 with fp8; the slab-read probe
-   at its three shapes; and the default configuration's kernels: the
+   at its three shapes; and the quantized configurations' kernels: the
    quantized GEMV (kernel A) at M = 1, 8 and 16 for every preset:1.7b
    projection, the tied lm_head and the decoder's two grouped launches
-   (q/k/v, gate/up), int8 and fp8 (library call: one F.linear on the
-   bf16-widened weights); the QK-norm + RoPE + KV-cache write (one launch
-   a layer) at a decode step (T=1) for B = 1, 8 (S=768) and 96 (S=512)
-   and at the 30 s prefill (B=1, T=453), into bf16, fp8 and int4 caches,
+   (q/k/v, gate/up), int8, fp8 and int4 (group scales; library call: one
+   F.linear on the bf16-widened weights; a repeat call's bits equal the
+   first's, for C too); the quantized GEMM (kernel C) at
+   every decoder, encoder and lm_head shape, at the front graph's rows at
+   B=1 (30 s) and B=8 (10 s) and 32 decode rows at the lm_head, int8, fp8
+   and int4 (library call as A's; the route it replaced,
+   ``widened_product``, timed beside); the QK-norm + RoPE + KV-cache
+   write (one launch a layer) at a decode step (T=1) for B = 1, 8
+   (S=768) and 96 (S=512) and at the 30 s prefill (B=1, T=453), into
+   bf16, fp8 and int4 caches,
    against its plain chain (q and K within one ulp, V's bytes equal, the
    bit-equal share printed); and #3's int4 route at B=1, B=8 (S=768, 570
    live) and B=96 (S=512, 257 live), SDPA on a dequantized bf16 copy as
@@ -67,11 +74,14 @@ without a CUDA device, and whenever any phase fails. Phases:
    bytes before and after), its keys warmed, the 30 s upload at B=1 and 8
    concurrent uploads at B=8 through the server from replays only (every
    decode step through kernel A, the QK-norm + RoPE + int4 write and #3's
-   int4 route), each against its eager run bit for bit; the front graph's
-   ms and ms per decode step at B=1 and B=8 beside the bf16 engines'
-   (phases 5 and 6); the 30 s request under the profiler, with the
-   kernels a decode step as in phase 7; one B=1 request with
-   ``QUANTIZE=fp8``.
+   int4 route; every prompt and encoder product through kernel C or
+   W8A8, none through ``widened_product``), each against its eager run
+   bit for bit; then the same with ``QUANTIZE=int4
+   ASR_KV_CACHE_DTYPE=int4`` (kernel A's int4 route, kernel C's); the
+   front graph's ms and ms per decode step at B=1 and B=8 of both beside
+   the bf16 engines' (phases 5 and 6); the default configuration's 30 s
+   request under the profiler, with the kernels a decode step as in phase
+   7; one B=1 request with ``QUANTIZE=fp8``.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -172,7 +182,15 @@ def main_path_shapes():
     prompt_len = PREFIX_BUDGET + t_enc + len(tok.encode(tmpl.suffix_text()))
     max_new = max_new_tokens_for(30.0)
     s = cache_length(prompt_len, max_new)
+    # rows of the quantized products of the front graph: the encoder's
+    # tokens (bucket-padded) and the prompt, at B=1 (30 s) and B=8 (10 s)
+    enc_tokens = {sec: (sec * 100 // chunk) * conv_tokens_per_chunk(chunk)
+                  for sec in (10, 30)}
+    prompt_10s = (PREFIX_BUDGET + int(encoder_output_length(1000, chunk))
+                  + len(tok.encode(tmpl.suffix_text())))
     return dict(
+        enc_rows_b1=enc_tokens[30], enc_rows_b8=8 * enc_tokens[10],
+        dec_rows_b8=8 * prompt_10s,
         enc_heads=enc.encoder_attention_heads, enc_d=enc.head_dim,
         t_enc=t_enc, window=window, nq=dec.num_attention_heads,
         nkv=dec.num_key_value_heads, d=dec.head_dim, layers=dec.num_hidden_layers,
@@ -532,23 +550,26 @@ def kernel_phases(sh, dev):
 
 # (K, N) of the preset:1.7b decoder's projections and its tied lm_head,
 # then the decoder's two grouped launches (one N a payload, one launch)
-QGEMV_SHAPES = (("wq_wo", 2048, (2048,)), ("wk_wv", 2048, (1024,)),
-                ("gate_up", 2048, (6144,)), ("down", 6144, (2048,)),
-                ("lm_head", 2048, (151936,)),
-                ("qkv_group", 2048, (2048, 1024, 1024)),
-                ("gate_up_group", 2048, (6144, 6144)))
+QGEMV_SHAPES = (("wq_wo", 2048, (2048,), "dec"),
+                ("wk_wv", 2048, (1024,), "dec"),
+                ("gate_up", 2048, (6144,), "dec"),
+                ("down", 6144, (2048,), "dec"),
+                ("lm_head", 2048, (151936,), "head"),
+                ("qkv_group", 2048, (2048, 1024, 1024), "dec"),
+                ("gate_up_group", 2048, (6144, 6144), "dec"))
 QGEMV_ROWS = (1, 8, 16)
-# Kernel A against its plain version, by output dtype: (rtol, atol as a
-# share of the largest |plain| value). Both sum in f32 in different orders;
+# Kernels A and C against their plain versions, by output dtype: (rtol,
+# atol as a share of the largest |plain| value). Both sum in f32 in
+# different orders (int4: each group's sum scaled, then added, in both);
 # bf16 outputs may then round one ulp apart (rtol covers one bf16 ulp), f32
 # logits differ only by the order of the sum.
 QGEMV_TOL = {torch.bfloat16: (8e-3, 1e-4), torch.float32: (0.0, 1e-4)}
 F32_FLOPS = 67e12                  # f32 CUDA-core peak (no tensor cores)
 
 
-def qgemv_parity(label: str, outs, refs) -> float:
-    """Kernel A's outputs against its plain version's under ``QGEMV_TOL``:
-    the largest error, or AssertionError."""
+def qgemv_parity(label: str, outs, refs, kernel: str = "qgemv") -> float:
+    """Kernel A's (or C's) outputs against its plain version's under
+    ``QGEMV_TOL``: the largest error, or AssertionError."""
     err = 0.0
     for out, ref in zip(outs, refs):
         rtol, share = QGEMV_TOL[ref.dtype]
@@ -557,61 +578,133 @@ def qgemv_parity(label: str, outs, refs) -> float:
         worst = float((diff - rtol * ref.float().abs()).max())
         err = max(err, float(diff.max()))
         if out.dtype != ref.dtype or not worst <= atol:
-            raise AssertionError(f"qgemv {label}: error {float(diff.max())} "
-                                 f"outside rtol {rtol}, atol {atol}")
-    log(f"[parity] qgemv {label}: max_abs_err={err:.3e} (bound "
+            raise AssertionError(f"{kernel} {label}: error "
+                                 f"{float(diff.max())} outside rtol {rtol}, "
+                                 f"atol {atol}")
+    log(f"[parity] {kernel} {label}: max_abs_err={err:.3e} (bound "
         f"{QGEMV_TOL[refs[0].dtype][1]:g} x max|plain| + "
         f"{QGEMV_TOL[refs[0].dtype][0]:g} x |plain|, {refs[0].dtype})")
     return err
 
 
-def qgemv_cases(sh, dev):
-    """Kernel A at M = 1, 8 and 16 for each projection shape (a stack of
-    the decoder's layers, each cold), the tied lm_head and the two grouped
-    launches (one ``qgemv_group`` call), int8 and fp8: (label, kernel
-    call, plain call, library call, bytes, flops, layers). Calls return a
-    list of outputs. The library call is ONE ``F.linear`` on the payloads
-    widened to bf16 (concatenated for a group)."""
-    from qwen3_asr_tpu_torch.ops.qgemv import qgemv_group, qgemv_plain
+def quant_payloads(w: torch.Tensor, mode: str, head: bool):
+    """(payload, row scales) of ``w`` (bf16, [..., in, out]; for the
+    lm_head [V, H], quantized per vocab row as the tied embedding is), and
+    the payload widened to bf16 without its scales (the library call's
+    weight, [..., out, in])."""
+    from qwen3_asr_tpu_torch.ops.qgemv import unpack_int4
     from qwen3_asr_tpu_torch.ops.quant import (quantize_array,
                                                quantize_embed, row_scales)
-    for mode in ("int8", "fp8"):
-        for name, k, ns in QGEMV_SHAPES:
-            gen = torch.Generator(device=dev).manual_seed(k + sum(ns))
-            head = name == "lm_head"
-            layers = 1 if head else sh["layers"]
-            pays = []
+    leaf = quantize_embed(w, mode) if head else quantize_array(w, mode)
+    q, s = leaf["q"], row_scales(leaf)
+    wide = (unpack_int4(q) if q.dtype == torch.uint8 else q).to(
+        torch.bfloat16)
+    return q, s, wide
+
+
+def payload_bytes(q: torch.Tensor, s: torch.Tensor) -> int:
+    """Bytes of one layer's payload and scales (int4: half a byte a
+    weight, and its group scales)."""
+    return (q[0].numel() * q.element_size()
+            + s[0].numel() * s.element_size())
+
+
+def per_payload(fn, x, pays, out_dtype):
+    """A call of ``fn(x, q, s, out_dtype=)`` on each payload of ``pays``
+    at a layer: one output a payload."""
+    return lambda layer: [fn(x, q[layer], s[layer], out_dtype=out_dtype)
+                          for q, s in pays]
+
+
+def quant_cases(dev, shapes, rows_of, layers, seed_mult, group, plain,
+                earlier=None):
+    """Cases of a quantized-product kernel (A or C) at each (name, K, Ns,
+    where) of ``shapes`` and each row count of ``rows_of(where)``, int8,
+    fp8 and int4 (the default group; G = 1 at the tied lm_head, where
+    "head"), the weights a stack of ``layers`` (one for the head), each
+    cold: (label, kernel call, plain call, library call, earlier call or
+    None, bytes, flops, layers). ``group(x, pairs, out_dtype=)`` is the
+    kernel's wrapper (one launch for all the payloads); ``plain`` and
+    ``earlier`` (taken for int8/fp8 only) take one payload. Calls return a
+    list of outputs. The library call is ONE ``F.linear`` on the payloads
+    widened to bf16 (concatenated for a group)."""
+    for mode in ("int8", "fp8", "int4"):
+        for name, k, ns, where in shapes:
+            gen = torch.Generator(device=dev).manual_seed(
+                k + seed_mult * sum(ns))
+            head = where == "head"
+            n_layers = 1 if head else layers
+            pays, wides = [], []
             for n in ns:
+                w = (torch.randn((n, k) if head else (n_layers, k, n),
+                                 generator=gen, device=dev) * 0.02).bfloat16()
+                q, sc, wide = quant_payloads(w, mode, head)
                 if head:
-                    w = (torch.randn((n, k), generator=gen, device=dev)
-                         * 0.02).bfloat16()
-                    leaf = quantize_embed(w, mode)
-                    pays.append((leaf["q"][None], row_scales(leaf)[None]))
-                else:
-                    w = (torch.randn((layers, k, n), generator=gen,
-                                     device=dev) * 0.02).bfloat16()
-                    leaf = quantize_array(w, mode)
-                    pays.append((leaf["q"], row_scales(leaf)))
-                del w, leaf
-            wide = torch.cat([q.to(torch.bfloat16) for q, _ in pays], dim=1)
+                    q, sc, wide = q[None], sc[None], wide[None]
+                pays.append((q, sc))
+                wides.append(wide)
+                del w
+            wide = torch.cat(wides, dim=1)
+            del wides
             out_dtype = torch.float32 if head else torch.bfloat16
             out_size = 4 if head else 2
             n_all = sum(ns)
-            for m in QGEMV_ROWS:
+            nbytes = sum(payload_bytes(q, sc) for q, sc in pays)
+            for m in rows_of(where):
                 x = torch.randn((m, k), generator=gen,
                                 device=dev).bfloat16()
                 yield (f"{name}_m{m}_{mode}",
-                       lambda layer, x=x, p=pays, o=out_dtype: qgemv_group(
+                       lambda layer, x=x, p=pays, o=out_dtype: group(
                            x, [(q[layer], s[layer]) for q, s in p],
                            out_dtype=o),
-                       lambda layer, x=x, p=pays, o=out_dtype: [
-                           qgemv_plain(x, q[layer], s[layer], out_dtype=o)
-                           for q, s in p],
+                       per_payload(plain, x, pays, out_dtype),
                        lambda layer, x=x, wide=wide: F.linear(x, wide[layer]),
-                       n_all * k + 2 * n_all + 2 * m * k
-                       + out_size * m * n_all,
-                       2 * m * n_all * k, layers)
+                       None if earlier is None or mode == "int4" else
+                       per_payload(earlier, x, pays, out_dtype),
+                       nbytes + 2 * m * k + out_size * m * n_all,
+                       2 * m * n_all * k, n_layers)
             del pays, wide
+
+
+def qgemv_cases(sh, dev):
+    """Kernel A at M = 1, 8 and 16 for each shape of ``QGEMV_SHAPES`` (a
+    stack of the decoder's layers): plain ``qgemv_plain``, no earlier
+    call."""
+    from qwen3_asr_tpu_torch.ops.qgemv import qgemv_group, qgemv_plain
+    return quant_cases(dev, QGEMV_SHAPES, lambda where: QGEMV_ROWS,
+                       sh["layers"], 1, qgemv_group, qgemv_plain)
+
+
+# (K, N) of kernel C's products at preset:1.7b, as the front graph
+# launches them: the decoder's wo and w_down and its q/k/v and gate/up
+# groups (one launch each), the encoder's wo, fc1, fc2 and q/k/v group,
+# and the tied lm_head (f32 logits); rows: the front graph's at B=1 (30 s)
+# and B=8 (10 s), and 32 decode rows at the lm_head
+QGEMM_SHAPES = (("wq_wo", 2048, (2048,), "dec"),
+                ("down", 6144, (2048,), "dec"),
+                ("qkv_group", 2048, (2048, 1024, 1024), "dec"),
+                ("gate_up_group", 2048, (6144, 6144), "dec"),
+                ("enc_attn", 1280, (1280,), "enc"),
+                ("enc_fc1", 1280, (5120,), "enc"),
+                ("enc_fc2", 5120, (1280,), "enc"),
+                ("enc_qkv_group", 1280, (1280, 1280, 1280), "enc"),
+                ("lm_head", 2048, (151936,), "head"))
+QGEMM_LAYERS = 4                   # stacked layers a timing steps through
+
+
+def qgemm_cases(sh, dev):
+    """Kernel C at every shape of ``QGEMM_SHAPES`` and its row counts:
+    plain ``qgemm_plain`` (``widened_product`` for int8/fp8, JAX's grouped
+    product restated for int4); earlier: the route kernel C replaced on
+    the card, one ``widened_product`` a weight (int8/fp8 only: it never
+    took int4)."""
+    from qwen3_asr_tpu_torch.ops.qgemm import (qgemm_group, qgemm_plain,
+                                               widened_product)
+    rows = {"dec": (sh["prompt_len"], sh["dec_rows_b8"]),
+            "enc": (sh["enc_rows_b1"], sh["enc_rows_b8"]),
+            "head": (32,)}
+    return quant_cases(dev, QGEMM_SHAPES, rows.__getitem__, QGEMM_LAYERS, 3,
+                       qgemm_group, qgemm_plain, widened_product)
 
 
 # The QK-norm + RoPE + KV-cache write against its plain chain: q and K
@@ -762,24 +855,48 @@ def int4_batched_cases(sh, dev):
         del k, v, ks, vs, kb, vb
 
 
+def same_bits(kernel: str, label: str, outs, again) -> None:
+    """A repeat call's outputs must be the first call's bits (A's split-K
+    combine and C add in a fixed order; neither has float atomics)."""
+    if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+        raise AssertionError(f"{kernel} {label}: a repeat call changed the "
+                             f"output bits")
+
+
 def quant_kernel_rows(sh, dev, card, rows) -> None:
-    """Parity and timing of kernel A, the QK-norm + RoPE + KV-cache write
-    and #3's int4 route, each against its plain version; rows into
-    ``rows``."""
-    for label, run, plain, lib, nbytes, flops, layers in qgemv_cases(sh,
-                                                                     dev):
-        last = layers - 1
-        outs, refs = run(last), plain(last)
-        torch.cuda.synchronize()
-        err = qgemv_parity(label, outs, refs)
-        # one device kernel a call: the headline, a split-K call (w_down
-        # at 16 rows: its combine is in the same launch) and a grouped call
-        if label in (KERNELS["qgemv"][2], "down_m16_int8",
-                     "qkv_group_m8_int8"):
-            one_kernel_per_call("qgemv", label, lambda: run(last))
-        rows["qgemv"].append(time_row(label, "bfloat16", err, run, plain,
-                                      lib, nbytes, flops, layers, card,
-                                      " (bf16-widened weight)", "F.linear"))
+    """Parity (and repeat bits) and timing of kernels A and C, the
+    QK-norm + RoPE + KV-cache write and #3's int4 route, each against its
+    plain version; rows into ``rows``."""
+    # one device kernel a call: each kernel's headline, a split-K call of
+    # A (w_down at 16 rows: its combine is in the same launch) and grouped
+    # calls, one-byte and int4 payloads
+    one_call = {"qgemv": (KERNELS["qgemv"][2], "down_m16_int8",
+                          "qkv_group_m8_int8", "lm_head_m1_int4",
+                          "down_m16_int4", "gate_up_group_m8_int4"),
+                "qgemm": (KERNELS["qgemm"][2], "gate_up_group_m453_int8",
+                          "enc_fc1_m375_fp8", "lm_head_m32_int4")}
+    for kernel, cases in (("qgemv", qgemv_cases(sh, dev)),
+                          ("qgemm", qgemm_cases(sh, dev))):
+        for label, run, plain, lib, earlier, nbytes, flops, layers in cases:
+            last = layers - 1
+            outs, refs = run(last), plain(last)
+            torch.cuda.synchronize()
+            err = qgemv_parity(label, outs, refs, kernel=kernel)
+            same_bits(kernel, label, outs, run(last))
+            del outs, refs
+            if label in one_call[kernel]:
+                one_kernel_per_call(kernel, label, lambda: run(last))
+            row = time_row(label, "bfloat16", err, run, plain, lib, nbytes,
+                           flops, layers, card, " (bf16-widened weight)",
+                           "F.linear")
+            row["earlier_ms"] = None
+            if earlier is not None:
+                row["earlier_ms"] = per_call_ms(earlier, layers)
+                log(f"[timing] {kernel} {label}: the route it replaced "
+                    f"(widened_product: the payload widened, then cuBLAS) "
+                    f"{row['earlier_ms']:.4f} ms; kernel / earlier "
+                    f"{row['ms'] / row['earlier_ms']:.3f} | {card}")
+            rows[kernel].append(row)
     for label, run, plain, ours, ref, nbytes, ops, layers in \
             qk_rope_kv_cases(sh, dev):
         q, q_ref = run(layers - 1), plain(layers - 1)
@@ -998,8 +1115,10 @@ class PathLaunches:
         from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
             decode_attention_batched)
         from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+        from qwen3_asr_tpu_torch.ops.qgemm import qgemm, widened_product
         from qwen3_asr_tpu_torch.ops.qgemv import qgemv
         from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope_kv_write
+        from qwen3_asr_tpu_torch.ops.quant import w8a8
         from qwen3_asr_tpu_torch.ops.slab_reader import slab_read
         # kernel -> (wrapper, the attribute that counts its launches)
         self.counters = {
@@ -1009,6 +1128,11 @@ class PathLaunches:
             "decode_attention_batch_int4": (decode_attention_batched,
                                             "launches_int4"),
             "qgemv": (qgemv, "launches"),
+            "qgemm": (qgemm, "launches"),
+            # not kernels of the port: the W8A8 products (torch._int_mm)
+            # and the widened route, which the card's path never calls
+            "w8a8": (w8a8, "calls"),
+            "widened_product": (widened_product, "cuda_calls"),
             "qk_rope_kv": (qk_rope_kv_write, "launches"),
             "slab_reader": (slab_read, "launches")}
         self.engines = engines
@@ -1416,6 +1540,8 @@ def probe_phase(batched_rows):
 
 DEFAULT_ENV = {"QUANTIZE": "int8", "ASR_KV_CACHE_DTYPE": "int4",
                "ASR_INT8_ACT": "true"}
+INT4_ENV = {"QUANTIZE": "int4", "ASR_KV_CACHE_DTYPE": "int4",
+            "ASR_INT8_ACT": ""}
 
 
 def replay_ms(graph, replays: int = 5) -> float:
@@ -1462,21 +1588,130 @@ def quantized_engine(dev, env: dict, card: str, name: str):
                                cache_dtype=kv_cache_dtype_from_env()), after
 
 
-def default_config_phase(dev, bf16_engine, bf16_b8_engine, uploads):
-    """The JAX package's default serving configuration (QUANTIZE=int8,
-    ASR_KV_CACHE_DTYPE=int4, ASR_INT8_ACT=true) at preset:1.7b, warmed
-    (10 and 30 s buckets, B=1 and 8), served through the port's server:
-    the 30 s upload at B=1, then 8 concurrent uploads at B=8 (one
-    dispatch), each from replays only, with every decode step through the
-    quantized GEMV, the int4 write and #3's int4 route; each against its
-    eager run bit for bit; the front graph's ms, ms per decode step and
-    kernels a decode step at B=1 (30 s) and B=8 (10 s) beside the bf16
-    engines' (``bf16_engine`` from phase 5, ``bf16_b8_engine`` from phase
-    6); the 30 s request under the profiler; then one B=1 request with
-    QUANTIZE=fp8. Returns the launches of the int8 run."""
-    from qwen3_asr_tpu_torch.audio.codec import decode_audio, encode_wav
+def front_products(engine, front_rows, min_rows: int) -> dict:
+    """The launches of the quantized products front graphs of
+    ``front_rows`` (the rows of the prompt and of the encoder, one pair a
+    front) make on the card: W8A8 where int8 rows reach ``min_rows`` (0:
+    off), one a product; else kernel C, four launches a layer (q/k/v as
+    one, wo, gate/up as one or fc1, w_down or fc2)."""
+    dec = engine.model.cfg.decoder.num_hidden_layers
+    enc = engine.model.cfg.encoder.encoder_layers
+    want = {"qgemm": 0, "w8a8": 0}
+    int8 = engine.model.params["decoder"]["layers"]["wq"]["q"].dtype \
+        == torch.int8
+    for dec_rows, enc_rows in front_rows:
+        for rows, layers, products in ((dec_rows, dec, 7),
+                                       (enc_rows, enc, 6)):
+            if int8 and min_rows and rows >= min_rows:
+                want["w8a8"] += products * layers
+            else:
+                want["qgemm"] += 4 * layers
+    return want
+
+
+def serve_quantized(engine, name, sh, long_wav, clips, bodies, card):
+    """The quantized ``engine`` warmed (10 and 30 s buckets, B=1 and 8) and
+    served through the port's server: the 30 s upload at B=1, then the 8
+    uploads at once (one dispatch at B=8), each from replays only, with
+    every decode product through kernel A, the QK-norm + RoPE + int4 write
+    and #3's int4 route, and every front-graph product through kernel C
+    (or W8A8); then each against its eager run bit for bit. Returns the
+    launches."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.ops.quant import int8_act_min_rows
     from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    os.environ.update(ASR_WARMUP_BUCKETS="10,30", ASR_WARMUP_BATCH_SHAPES="8")
+    manager = ModelManager(engine)
+    t0 = time.perf_counter()
+    with serving(manager) as url:
+        log(f"[default] {name}: warmup {len(engine.executables)} keys in "
+            f"{time.perf_counter() - t0:.1f} s")
+        key_report(engine, name, card)
+        counter = PathLaunches(engine)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        body = post(url, long_wav)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        run1 = dict(engine.last_run)
+        # the 8 uploads wait for each other (the solo one above took the
+        # default window)
+        manager.batcher = MicroBatcher(manager, window_ms=1000, max_batch=8)
+        t0 = time.perf_counter()
+        replies, walls = post_all(url, bodies)
+        torch.cuda.synchronize()
+        wall8 = time.perf_counter() - t0
+        run8 = dict(engine.last_run)
+        launches, eager = counter.read()
+    for b in [body] + replies:
+        if not isinstance(b.get("text"), str) or "language" not in b:
+            raise AssertionError(f"{name}: bad response {b}")
+    layers = engine.model.cfg.decoder.num_hidden_layers
+    steps = run1["steps_run"] + run8["steps_run"]
+    enc_layers = engine.model.cfg.encoder.encoder_layers
+    want = {"flash_attention": 2 * (layers + enc_layers),
+            "decode_attention_batch_int4": layers * steps,
+            "qk_rope_kv": layers * (2 + steps),
+            # q/k/v and gate/up one grouped launch each, wo, w_down, the
+            # logits; and each request's first token
+            "qgemv": 2 + (4 * layers + 1) * steps,
+            # the prompt's and the encoder's products: kernel C, or W8A8
+            **front_products(engine, ((sh["prompt_len"], sh["enc_rows_b1"]),
+                                      (sh["dec_rows_b8"], sh["enc_rows_b8"])),
+                             int8_act_min_rows()),
+            "widened_product": 0, "decode_attention": 0,
+            "decode_attention_batch": 0}
+    log(f"[default] {name}, 30 s upload, B=1: {wall1:.3f} s wall, "
+        f"{run1['generated']} tokens, {run1['steps_run']} steps computed, "
+        f"{run1['replays']} replays | {card}")
+    log(f"[default] {name}, 8 uploads at once -> batch {run8['batch']}: "
+        f"{run8['generated']} tokens in {wall8:.3f} s = "
+        f"{run8['generated'] / wall8:.1f} tokens/s, {run8['replays']} "
+        f"replays; request walls {', '.join(f'{w:.3f}' for w in walls)} s "
+        f"| {card}")
+    log(f"[default] {name}: launches {launches}, eager {eager} (want "
+        f"{want}, none eager)")
+    if (run1["batch"] != 1 or run8["batch"] != 8 or run1["capture_s"]
+            or run8["capture_s"] or any(eager.values())
+            or any(launches[k] != n for k, n in want.items())):
+        raise AssertionError(f"{name}: runs {run1} / {run8}, launches "
+                             f"{launches}, eager {eager}, want {want}")
+    check_records(engine, name)
+    graph_vs_eager(engine, [decode_audio(long_wav)[0]],
+                   f"{name}, 30 s upload, B=1", card)
+    graph_vs_eager(engine, clips, f"{name}, 8 uploads, B=8", card)
+    return launches
+
+
+def front_step_report(engines, card: str) -> None:
+    """The front graph's ms, ms per decode step and CUDA kernels a step of
+    each (engine, name)'s 30 s B=1 and 10 s B=8 keys it has built."""
     from qwen3_asr_tpu_torch.runtime.engine import max_new_tokens_for
+    for eng, name in engines:
+        for sec, batch in ((30, 1), (10, 8)):
+            bf, bs = eng.bucket_frames(16000 * sec)
+            key = (bf, max_new_tokens_for(bs), batch, eng.cache_dtype)
+            if key in eng.executables:
+                exe = eng.executables[key]
+                front, step = front_and_step_ms(exe)
+                log(f"[default] {name}, {sec} s bucket, B={batch}: front "
+                    f"graph {front:.4f} ms, {step:.4f} ms per decode step "
+                    f"(device, graph replays) | {card}")
+                step_kernels(exe, f"{name}, {sec} s bucket, B={batch}", card)
+
+
+def default_config_phase(dev, sh, bf16_engine, bf16_b8_engine, uploads):
+    """The JAX package's default serving configuration (QUANTIZE=int8,
+    ASR_KV_CACHE_DTYPE=int4, ASR_INT8_ACT=true), then QUANTIZE=int4 with
+    an int4 KV cache, at preset:1.7b, each served by ``serve_quantized``;
+    the front graph's ms, ms per decode step and kernels a decode step at
+    B=1 (30 s) and B=8 (10 s) of both beside the bf16 engines'
+    (``bf16_engine`` from phase 5, ``bf16_b8_engine`` from phase 6); the
+    default configuration's 30 s request under the profiler; then one B=1
+    request with QUANTIZE=fp8. Returns each kernel's launches over the
+    phase's three served configurations."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
     from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
     card = card_line()
     saved = {k: os.environ.get(k) for k in (*DEFAULT_ENV,
@@ -1486,86 +1721,26 @@ def default_config_phase(dev, bf16_engine, bf16_b8_engine, uploads):
     seg = int(9.5 * 16000)
     clips = [audio[i * seg:(i + 1) * seg] for i in range(8)]
     bodies = [encode_wav(c, 16000) for c in clips]
-    long_name, long_wav = uploads[-1]
+    long_wav = uploads[-1][1]
     try:
         engine, _ = quantized_engine(dev, DEFAULT_ENV, card,
                                      "int8 + int4 KV + W8A8")
-        os.environ.update(ASR_WARMUP_BUCKETS="10,30",
-                          ASR_WARMUP_BATCH_SHAPES="8")
-        manager = ModelManager(engine)
-        t0 = time.perf_counter()
-        with serving(manager) as url:
-            log(f"[default] warmup: {len(engine.executables)} keys in "
-                f"{time.perf_counter() - t0:.1f} s")
-            key_report(engine, "default config", card)
-            counter = PathLaunches(engine)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            body = post(url, long_wav)
-            torch.cuda.synchronize()
-            wall1 = time.perf_counter() - t0
-            run1 = dict(engine.last_run)
-            # the 8 uploads wait for each other (the solo one above took the
-            # default window)
-            manager.batcher = MicroBatcher(manager, window_ms=1000,
-                                           max_batch=8)
-            t0 = time.perf_counter()
-            replies, walls = post_all(url, bodies)
-            torch.cuda.synchronize()
-            wall8 = time.perf_counter() - t0
-            run8 = dict(engine.last_run)
-            launches, eager = counter.read()
-        for b in [body] + replies:
-            if not isinstance(b.get("text"), str) or "language" not in b:
-                raise AssertionError(f"default config: bad response {b}")
-        layers = engine.model.cfg.decoder.num_hidden_layers
-        steps = run1["steps_run"] + run8["steps_run"]
-        enc_layers = engine.model.cfg.encoder.encoder_layers
-        want = {"flash_attention": 2 * (layers + enc_layers),
-                "decode_attention_batch_int4": layers * steps,
-                "qk_rope_kv": layers * (2 + steps),
-                # q/k/v and gate/up one grouped launch each, wo, w_down,
-                # the logits; and each request's first token
-                "qgemv": 2 + (4 * layers + 1) * steps}
-        log(f"[default] 30 s upload, B=1: {wall1:.3f} s wall, "
-            f"{run1['generated']} tokens, {run1['steps_run']} steps "
-            f"computed, {run1['replays']} replays | {card}")
-        log(f"[default] 8 uploads at once -> batch {run8['batch']}: "
-            f"{run8['generated']} tokens in {wall8:.3f} s = "
-            f"{run8['generated'] / wall8:.1f} tokens/s, {run8['replays']} "
-            f"replays; request walls {', '.join(f'{w:.3f}' for w in walls)} "
-            f"s | {card}")
-        log(f"[default] launches {launches}, eager {eager} (want {want}, "
-            f"none eager, no #2 and no bf16/fp8 #3)")
-        if (run1["batch"] != 1 or run8["batch"] != 8 or run1["capture_s"]
-                or run8["capture_s"] or any(eager.values())
-                or any(launches[k] != n for k, n in want.items())
-                or launches["decode_attention"]
-                or launches["decode_attention_batch"]):
-            raise AssertionError(f"default config: runs {run1} / {run8}, "
-                                 f"launches {launches}, eager {eager}, want "
-                                 f"{want}")
-        check_records(engine, "default config")
-        graph_vs_eager(engine, [decode_audio(long_wav)[0]],
-                       "default config, 30 s upload, B=1", card)
-        graph_vs_eager(engine, clips, "default config, 8 uploads, B=8",
-                       card)
-        for eng, name in ((bf16_engine, "bf16 weights, bf16 KV"),
-                          (bf16_b8_engine, "bf16 weights, bf16 KV"),
-                          (engine, "int8 weights, int4 KV")):
-            for sec, batch in ((30, 1), (10, 8)):
-                bf, bs = eng.bucket_frames(16000 * sec)
-                key = (bf, max_new_tokens_for(bs), batch, eng.cache_dtype)
-                if key in eng.executables:
-                    exe = eng.executables[key]
-                    front, step = front_and_step_ms(exe)
-                    log(f"[default] {name}, {sec} s bucket, B={batch}: "
-                        f"front graph {front:.4f} ms, {step:.4f} ms per "
-                        f"decode step (device, graph replays) | {card}")
-                    step_kernels(exe, f"{name}, {sec} s bucket, B={batch}",
-                                 card)
+        total = serve_quantized(engine, "default config", sh, long_wav,
+                                clips, bodies, card)
+        int4, _ = quantized_engine(dev, INT4_ENV, card, "int4 + int4 KV")
+        got = serve_quantized(int4, "int4 weights", sh, long_wav, clips,
+                              bodies, card)
+        total = {k: total[k] + got[k] for k in total}
+        front_step_report(((bf16_engine, "bf16 weights, bf16 KV"),
+                           (bf16_b8_engine, "bf16 weights, bf16 KV"),
+                           (engine, "int8 weights, int4 KV"),
+                           (int4, "int4 weights, int4 KV")), card)
+        del int4
+        torch.cuda.empty_cache()
         profile_phase(engine, long_wav, decode="decode_attention_batch_int4",
                       kernel="decode_batch_kernel")
+        del engine
+        torch.cuda.empty_cache()
 
         fp8, _ = quantized_engine(dev, dict(DEFAULT_ENV, QUANTIZE="fp8"),
                                   card, "fp8 + int4 KV")
@@ -1578,6 +1753,8 @@ def default_config_phase(dev, bf16_engine, bf16_b8_engine, uploads):
             wall = time.perf_counter() - t0
             run = fp8.last_run
             got, eager = counter.read()
+        layers = fp8.model.cfg.decoder.num_hidden_layers
+        enc_layers = fp8.model.cfg.encoder.encoder_layers
         log(f"[default] fp8 weights, {uploads[0][0]} at B=1: {wall:.3f} s "
             f"wall, {run['generated']} tokens, launches {got}, eager "
             f"{eager} | {card}")
@@ -1585,10 +1762,12 @@ def default_config_phase(dev, bf16_engine, bf16_b8_engine, uploads):
                 or any(eager.values()) or got["qgemv"] != 1 + (
                     4 * layers + 1) * run["steps_run"]
                 or got["qk_rope_kv"] != layers * (1 + run["steps_run"])
+                or got["qgemm"] != 4 * (layers + enc_layers)
+                or got["widened_product"] or got["w8a8"]
                 or not got["decode_attention_batch_int4"]):
             raise AssertionError(f"fp8 weights: {body}, {run}, {got}, "
                                  f"{eager}")
-        return launches
+        return {k: total[k] + got[k] for k in total}
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1619,12 +1798,15 @@ KERNELS = {
         "qwen3_asr_tpu/ops/attention.py:156", "int4_b8_s768"),
     "qgemv": ("qwen3_asr_tpu_torch/csrc/qgemv.cu",
               "qwen3_asr_tpu/ops/quant.py:134", "lm_head_m1_int8"),
+    "qgemm": ("qwen3_asr_tpu_torch/csrc/qgemm.cu",
+              "qwen3_asr_tpu/ops/quant.py:134", "gate_up_group_m453_int4"),
     "qk_rope_kv": ("qwen3_asr_tpu_torch/csrc/qk_rope_kv.cu",
                    "qwen3_asr_tpu/models/decoder.py:146,163,132,258",
                    "qk_b8_t1_int4"),
 }
 NO_TPU_KERNEL = {"decode_attention_batch_int4": "XLA attend_xla, int4",
                  "qgemv": "XLA qdot",
+                 "qgemm": "XLA qdot",
                  "qk_rope_kv": "XLA rms_norm + apply_rope + _kv_quantize + "
                                "dynamic_update_slice"}
 
@@ -1671,7 +1853,7 @@ def main() -> int:
         head.update(ms=r["ms"], bound_ms=r["bound_ms"], bound_by="bytes",
                     gb_s=r["gb_s"])
     phase_done("phase 8 (probe)")
-    default = default_config_phase(dev, engine, bf16_b8, uploads)
+    default = default_config_phase(dev, sh, engine, bf16_b8, uploads)
     # the new kernel runs on every path: phases 5, 6 and 9, each counted
     # from 0 just before it
     qk = {5: launches["qk_rope_kv"], 6: batched["qk_rope_kv"],

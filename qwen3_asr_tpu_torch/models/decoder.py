@@ -1,9 +1,9 @@
 """Qwen3 text decoder in PyTorch: GQA + QK-norm + RoPE + SwiGLU.
 
 Counterpart of ``qwen3_asr_tpu/models/decoder.py``. Weights are bf16/f32,
-or int8/fp8 leaves of ``ops.quant`` (every projection through ``qdot``,
-q/k/v and gate/up as one ``qdot_group`` each; the embedding and lm_head
-per vocab row). The KV cache is in the working dtype, in fp8, or int4
+or int8/fp8/int4 leaves of ``ops.quant`` (every projection through
+``qdot``, q/k/v and gate/up as one ``qdot_group`` each; the embedding and
+lm_head per vocab row, int4 packed along H). The KV cache is in the working dtype, in fp8, or int4
 with per-(token, head) scales (``torch.int4`` names it;
 ``ops/kv_int4.py`` holds its layout). Parameters are the JAX package's
 stacked layout (``[L, ...]`` per-layer tensors, matrices as ``[in, out]``;
@@ -25,8 +25,8 @@ import torch.nn.functional as F
 from ..ops.attention import AttnSpec, attend, is_decode_step
 from ..ops.kv_int4 import dequantize_layer
 from ..ops.qk_rope_kv import qk_rope_kv_write, rms_norm
-from ..ops.quant import (is_quantized, layer_slice, qdot, qdot_group,
-                         qlogits)
+from ..ops.quant import (is_packed_int4, is_quantized, layer_slice, qdot,
+                         qdot_group, qlogits, unpack_int4)
 from .config import DecoderConfig
 
 
@@ -184,9 +184,10 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    """A quantized embedding gathers payload rows, widens them to f32,
-    multiplies the row scales and casts to the scales' dtype (the model's
-    compute dtype), as ``qwen3_asr_tpu/models/decoder.py:367-379``."""
+    """A quantized embedding gathers payload rows (int4: unpacked along H,
+    the low nibbles then the high ones), widens them to f32, multiplies the
+    row scales and casts to the scales' dtype (the model's compute dtype),
+    as ``qwen3_asr_tpu/models/decoder.py:367-379``."""
     w = params["embed"]
     if not is_quantized(w):
         return F.embedding(ids, w)
@@ -194,6 +195,8 @@ def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
     # fp8 has no index kernel everywhere: the same bytes through uint8
     rows = (q.view(torch.uint8)[ids].view(q.dtype)
             if q.dtype == torch.float8_e4m3fn else q[ids])
+    if is_packed_int4(w):
+        rows = unpack_int4(rows)
     return (rows.float() * w["s"][ids].float()).to(w["s"].dtype)
 
 
@@ -201,9 +204,10 @@ def lm_logits(params: dict, cfg: DecoderConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     """hidden: [..., H] → logits [..., V] in f32. In bf16 the product is
     taken in bf16 (f32 accumulation) and widened; in f32 it is exact f32.
-    A quantized embedding or lm_head (both stored ``[V, H]``) takes
-    ``ops.quant.qlogits``: ``(h @ q.T) * s`` in f32, on the card through
-    the quantized GEMV."""
+    A quantized embedding or lm_head (both stored ``[V, H]``, int4
+    ``[V, H/2]`` with row or group scales) takes ``ops.quant.qlogits``:
+    ``(h @ q.T) * s`` in f32 (int4 groups: each group's sum scaled, then
+    added), on the card through the quantized GEMV or GEMM."""
     w = params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
     if is_quantized(w):
         return qlogits(hidden, w)

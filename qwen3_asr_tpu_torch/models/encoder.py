@@ -9,7 +9,8 @@ pre-LN blocks whose self-attention is block-diagonal over windows (through
 ln_post → proj1 → GELU → proj2 into the decoder's hidden space. Only the
 last chunk can be partial, so valid tokens are a prefix: validity is one
 length per row (``valid_to``). The layers' projections go through
-``ops.quant.qdot``, so int8/fp8 weights (``QUANTIZE``) work as in JAX.
+``ops.quant.qdot`` (q, k and v as one ``qdot_group``), so int8, fp8 and
+int4 weights (``QUANTIZE``) work as in JAX.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend
-from ..ops.quant import layer_slice, qdot
+from ..ops.quant import layer_slice, qdot, qdot_group
 from .config import AudioEncoderConfig
 
 
@@ -138,9 +139,9 @@ def _encoder_layer(cfg: AudioEncoderConfig, hidden: torch.Tensor, params: dict,
         return x.reshape(b, t, nh, hd).transpose(1, 2).contiguous()
 
     x = layer_norm(hidden, lp["ln1_w"], lp["ln1_b"])
-    q = heads(qdot(x, lp["wq"]) + lp["bq"])
-    k = heads(qdot(x, lp["wk"]) + lp["bk"])
-    v = heads(qdot(x, lp["wv"]) + lp["bv"])
+    # q, k and v read one x: one launch of the quantized GEMM on the card
+    q, k, v = (heads(y + lp[b]) for y, b in zip(
+        qdot_group(x, [lp["wq"], lp["wk"], lp["wv"]]), ("bq", "bk", "bv")))
     attn = attend(q, k, v, spec, scale=hd ** -0.5)
     attn = attn.transpose(1, 2).reshape(b, t, d)
     hidden = hidden + qdot(attn, lp["wo"]) + lp["bo"]

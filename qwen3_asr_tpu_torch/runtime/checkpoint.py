@@ -186,11 +186,18 @@ def _quantized_to_torch(leaf: dict, device: torch.device,
     """A JAX ``{"q", "s"}`` leaf → the port's: the payload's bits kept
     (never widened) and laid out ``[..., out, in]`` (the layer matrices
     and an untied lm_head are transposed, the ``[V, H]`` embedding is
-    already so); the scales in their source dtype."""
+    already so); the scales in their source dtype, an int4 leaf's
+    ``[..., G, out]`` group scales transposed with its payload."""
     q = _exact_tensor(leaf["q"])
+    s = _exact_tensor(leaf["s"])
     if transpose:
+        if q.dtype == torch.uint8:
+            # a clone: with one group the transposed scales count as
+            # contiguous but keep their strides
+            s = s.transpose(-1, -2).clone(
+                memory_format=torch.contiguous_format)
         q = q.transpose(-1, -2).contiguous()
-    return {"q": q.to(device), "s": _exact_tensor(leaf["s"]).to(device)}
+    return {"q": q.to(device), "s": s.to(device)}
 
 
 def params_from_jax(tree_of_numpy: dict, device,

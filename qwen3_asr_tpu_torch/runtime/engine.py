@@ -32,7 +32,8 @@ from ..models.asr import AsrModel, normalize_language
 from ..models.decoder import embed_tokens
 from ..models.encoder import encoder_forward, encoder_output_length
 from ..ops.attention import decode_kernel
-from ..ops.quant import any_quantized, check_quantized_dtype, param_bytes
+from ..ops.quant import (any_quantized, check_int4_layouts,
+                         check_quantized_dtype, param_bytes)
 from ..utils.device import resolve_device, working_dtype
 from .batcher import _pad_pow2
 from .generate import (GenerateResult, GreedyLoop, cache_length, run_loop,
@@ -125,7 +126,8 @@ class TranscriptionEngine:
         ``cache_dtype``: the working dtype by default, fp8
         (``torch.float8_e4m3fn``) or int4 (``torch.int4``: packed values
         with per-(token, head) scales), both of which need head_dim 128;
-        int4 on the card needs bf16, and so do quantized weights."""
+        int4 on the card needs bf16, and so do quantized weights, whose
+        int4 group layouts the card's kernels must take."""
         self.model = model
         self.model_id: Optional[str] = None     # set by load_engine
         self.device = resolve_device(device)
@@ -142,6 +144,7 @@ class TranscriptionEngine:
                              "working dtype (kernel #3's int4 route)")
         if any_quantized(model.params):
             check_quantized_dtype(self.device, self.dtype)
+            check_int4_layouts(model.params, self.device)
         # raises now for a cache no decode kernel takes, not mid-request
         decode_kernel(1, model.cfg.decoder.head_dim, 128, self.cache_dtype)
         self.frontend = LogMelFrontend(n_mels=model.cfg.encoder.num_mel_bins,

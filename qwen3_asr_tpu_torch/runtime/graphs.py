@@ -40,18 +40,26 @@ _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 def kernel_launches() -> Dict[str, int]:
     """The launch counters of the kernels a request runs (#1-#3, #3's
-    int4 route, the quantized GEMV and the QK-norm + RoPE + cache write)."""
+    int4 route, the quantized GEMV and GEMM and the QK-norm + RoPE + cache
+    write), the W8A8 products (``torch._int_mm``), and the calls of
+    ``widened_product`` on the card, which the path never makes (its
+    cuBLAS route widened a whole layer)."""
     from ..ops.decode_attention import decode_attention
     from ..ops.decode_attention_batch import decode_attention_batched
     from ..ops.flash_attention import flash_attention
+    from ..ops.qgemm import qgemm, widened_product
     from ..ops.qgemv import qgemv
     from ..ops.qk_rope_kv import qk_rope_kv_write
+    from ..ops.quant import w8a8
     return {"flash_attention": flash_attention.launches,
             "decode_attention": decode_attention.launches,
             "decode_attention_batch": decode_attention_batched.launches,
             "decode_attention_batch_int4":
                 decode_attention_batched.launches_int4,
             "qgemv": qgemv.launches,
+            "qgemm": qgemm.launches,
+            "widened_product": widened_product.cuda_calls,
+            "w8a8": w8a8.calls,
             "qk_rope_kv": qk_rope_kv_write.launches}
 
 

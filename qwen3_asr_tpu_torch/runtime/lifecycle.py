@@ -3,8 +3,9 @@
 Counterpart of ``qwen3_asr_tpu/runtime/lifecycle.py``: ``load_engine`` is
 its ``_load_engine_sync`` (``MODEL_ID`` is a local checkpoint directory or
 ``preset:NAME``, which builds that architecture with zero weights and a
-byte-level tokenizer; ``QUANTIZE`` (``int8``, ``fp8``) quantizes the
-weights after load, on the engine's device; ``ASR_KV_CACHE_DTYPE`` picks
+byte-level tokenizer; ``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with
+``ASR_INT4_GROUP``) quantizes the weights after load, on the engine's
+device; ``ASR_KV_CACHE_DTYPE`` picks
 the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
 ``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs), and
 ``ModelManager`` holds the fields of its ``ModelManager`` that the batcher
@@ -109,9 +110,8 @@ def _warmup_buckets():
 
 
 def quantize_mode_from_env() -> str:
-    """``QUANTIZE``: "" (none), ``int8`` or ``fp8``; ``int4`` raises
-    NotImplementedError and anything else ValueError, both naming ROADMAP
-    item 6. (The JAX lifecycle ignores an unknown mode; its
+    """``QUANTIZE``: "" (none), ``int8``, ``fp8`` or ``int4``; anything
+    else raises ValueError. (The JAX lifecycle ignores an unknown mode; its
     ``config.validate_env`` rejects it.)"""
     mode = os.getenv("QUANTIZE", "").lower()
     if mode:
@@ -139,7 +139,10 @@ def load_engine(model_id: str, device="cuda",
     """A ready engine for ``model_id`` on ``device`` (bf16 on the card and
     f32 on the CPU unless ``dtype`` says otherwise), its weights quantized
     as ``QUANTIZE`` says and its KV cache in the dtype
-    ``ASR_KV_CACHE_DTYPE`` names."""
+    ``ASR_KV_CACHE_DTYPE`` names. On the card, quantized weights need bf16
+    (refused before a weight is read) and an int4 group layout that
+    kernels A and C take (refused when the engine is built, before any
+    request)."""
     dev = resolve_device(device)
     dtype = dtype or working_dtype(dev)
     cache_dtype = kv_cache_dtype_from_env()

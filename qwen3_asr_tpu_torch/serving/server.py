@@ -17,8 +17,9 @@ one), and an upload may come with ``Content-Length`` or
 Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
 qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
 ``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights);
-``QUANTIZE`` (``int8``, ``fp8``), ``ASR_KV_CACHE_DTYPE`` (``bf16``,
-``fp8``, ``int4``), ``ASR_INT8_ACT``, ``ASR_MAX_BATCH`` (8),
+``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with ``ASR_INT4_GROUP``),
+``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``, ``int4``), ``ASR_INT8_ACT``,
+``ASR_MAX_BATCH`` (8),
 ``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it.
 """
 from __future__ import annotations

@@ -44,8 +44,13 @@ SHAPES = (("wq_wo", 2048, (2048,)), ("wk_wv", 2048, (1024,)),
           ("lm_head", 2048, (151936,)))
 
 
+# the int8 payload's limits: the stretches a warp holds with two fragment
+# sets, and with one
+MAX_KS, LONG_KS = mod._MAX_KS[False], mod._LONG_KS[False]
+
+
 def _split_to_fill(p: mod.Plan) -> Optional[mod.Plan]:
-    least = -(-p.stretches // (mod._WARPS * mod._MAX_KS))
+    least = -(-p.stretches // (mod._WARPS * MAX_KS))
     splits = least
     while (p.tiles * splits < mod._SMS
            and -(-p.stretches // (splits + 1)) >= mod._WARPS):
@@ -59,9 +64,9 @@ def _split_to_fill(p: mod.Plan) -> Optional[mod.Plan]:
 
 
 def _split_4(p: mod.Plan) -> Optional[mod.Plan]:
-    if p.ks != mod._LONG_KS:
+    if p.ks != LONG_KS:
         return None
-    splits = -(-p.stretches // (mod._WARPS * mod._MAX_KS))
+    splits = -(-p.stretches // (mod._WARPS * MAX_KS))
     per_split = -(-p.stretches // splits)
     return dataclasses.replace(p, splits=splits, per_split=per_split,
                                kw=-(-per_split // mod._WARPS), ks=4)

@@ -1,9 +1,12 @@
 """Decode-step and front-graph device time, and CUDA kernels a decode step,
 of a checkout of the port on the card.
 
-preset:1.7b (seeded random weights, bf16) in two configurations: bf16
-weights with a bf16 KV cache, and the JAX package's default serving row
-(``QUANTIZE=int8``, ``ASR_KV_CACHE_DTYPE=int4``, ``ASR_INT8_ACT=true``);
+preset:1.7b (seeded random weights, bf16) in three configurations: bf16
+weights with a bf16 KV cache (``bf16``), the JAX package's default serving
+row (``int8``: ``QUANTIZE=int8``, ``ASR_KV_CACHE_DTYPE=int4``,
+``ASR_INT8_ACT=true``), and int4 weights with an int4 KV cache (``int4``:
+``QUANTIZE=int4``, ``ASR_KV_CACHE_DTYPE=int4``); ``--configs`` picks
+some (a checkout that cannot load int4 weights takes ``bf16,int8``);
 each at B=1 (the 30 s bucket, 29.5 s of the in-repo speech) and at B=8
 (the 10 s bucket, eight 9.5 s clips). For each it runs the request once
 through the key's CUDA graphs, then replays them between CUDA events:
@@ -16,7 +19,8 @@ checkout, so the same script times another checkout, e.g. a parent commit
 unpacked beside this one; compare two in one machine's run, in turns
 (parent, change, change, parent):
 
-    python qwen3_asr_tpu_torch/tools_perf/step_ms.py --root _tree_check/parent
+    python qwen3_asr_tpu_torch/tools_perf/step_ms.py \
+        --root _tree_check/parent --configs bf16,int8
     python qwen3_asr_tpu_torch/tools_perf/step_ms.py
 
 It prints the card's line, then one JSON object a configuration and
@@ -33,8 +37,14 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHECKOUT = os.path.dirname(os.path.dirname(HERE))
-DEFAULT_ENV = {"QUANTIZE": "int8", "ASR_KV_CACHE_DTYPE": "int4",
-               "ASR_INT8_ACT": "true"}
+CONFIGS = {
+    "bf16": ("bf16 weights, bf16 KV", {}),
+    "int8": ("int8 weights, int4 KV, W8A8",
+             {"QUANTIZE": "int8", "ASR_KV_CACHE_DTYPE": "int4",
+              "ASR_INT8_ACT": "true"}),
+    "int4": ("int4 weights, int4 KV",
+             {"QUANTIZE": "int4", "ASR_KV_CACHE_DTYPE": "int4"})}
+ENV_NAMES = ("QUANTIZE", "ASR_KV_CACHE_DTYPE", "ASR_INT8_ACT")
 
 
 def card_line() -> str:
@@ -77,7 +87,12 @@ def main() -> int:
                     help="the checkout whose qwen3_asr_tpu_torch to time")
     ap.add_argument("--label", default="",
                     help="a name for this checkout in the output")
+    ap.add_argument("--configs", default=",".join(CONFIGS),
+                    help="comma-separated, of " + ", ".join(CONFIGS))
     args = ap.parse_args()
+    configs = args.configs.split(",")
+    if not configs or set(configs) - set(CONFIGS):
+        ap.error(f"--configs takes names of {list(CONFIGS)}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
@@ -132,10 +147,9 @@ def main() -> int:
                                                  torch.bfloat16)}
         return AsrModel(cfg, params, preset_tokenizer(cfg.decoder.vocab_size))
 
-    for name, env in (("bf16 weights, bf16 KV", {}),
-                      ("int8 weights, int4 KV, W8A8", DEFAULT_ENV)):
-        saved = {k: os.environ.get(k) for k in DEFAULT_ENV}
-        for k in DEFAULT_ENV:
+    for name, env in (CONFIGS[c] for c in configs):
+        saved = {k: os.environ.get(k) for k in ENV_NAMES}
+        for k in ENV_NAMES:
             os.environ.pop(k, None)
         os.environ.update(env)
         try:

@@ -404,6 +404,7 @@ def test_warm_request_makes_no_eager_launch(dev):
                    "decode_attention": 2 * run["steps_run"],
                    "decode_attention_batch": 0,
                    "decode_attention_batch_int4": 0, "qgemv": 0,
+                   "qgemm": 0, "widened_product": 0, "w8a8": 0,
                    "qk_rope_kv": 2 * (1 + run["steps_run"])}
 
 
@@ -456,6 +457,8 @@ def test_reused_key_and_tickets_after_replays(dev):
 
 from qwen3_asr_tpu_torch.ops import quant                      # noqa: E402
 from qwen3_asr_tpu_torch.ops.kv_int4 import pack, unpack       # noqa: E402
+from qwen3_asr_tpu_torch.ops.qgemm import (qgemm, qgemm_group,  # noqa: E402
+                                           qgemm_plain)
 from qwen3_asr_tpu_torch.ops.qgemv import (qgemv, qgemv_group,  # noqa: E402
                                            qgemv_plain)
 from qwen3_asr_tpu_torch.models.decoder import init_kv_cache   # noqa: E402
@@ -472,7 +475,8 @@ QGEMV_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 1024),
 
 
 def _qgemv_leaves(rng, shape, mode, dev):
-    """The payload leaves of a QGEMV_SHAPES entry, and its output dtype."""
+    """The payload leaves of a QGEMV_SHAPES entry, and its output dtype
+    (int4: the default group of 128, G = 1 at the tied lm_head)."""
     k, n = QGEMV_SHAPES[shape]
     leaves = []
     for width in (n if isinstance(n, tuple) else (n,)):
@@ -491,7 +495,7 @@ def _qgemv_call(x, leaves, out_dtype):
     return qgemv_group(x, pairs, out_dtype=out_dtype)
 
 
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
 @pytest.mark.parametrize("shape", list(QGEMV_SHAPES))
 def test_qgemv_matches_plain(dev, shape, mode):
     """Kernel A against its plain version (the payload widened, an f32
@@ -517,11 +521,29 @@ def test_qgemv_matches_plain(dev, shape, mode):
                                        atol=1e-4 * float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
 def test_qgemv_widens_every_payload_value_exactly(dev, mode):
     """Every payload byte (all 256 int8 values; every e4m3 value but the
-    two NaNs, subnormals included) against a one-hot x at each k of a
-    stretch: the output is the widened value times its scale, exactly."""
+    two NaNs, subnormals included; all 16 int4 values in either nibble)
+    against a one-hot x at each k of a stretch: the output is the widened
+    value times its scale, exactly. int4: row r holds r - 8 in both
+    nibbles, and k runs over both halves of the row (128 k, one
+    stretch)."""
+    if mode == "int4":
+        n, k = 16, 128
+        byte = torch.arange(16, dtype=torch.uint8) * 17      # r | r << 4
+        q = byte.reshape(n, 1).expand(n, k // 2).contiguous().to(dev)
+        s = torch.ones((n, 1), dtype=torch.float32, device=dev)
+        want = (torch.arange(16) - 8).float().to(dev)
+        for hot in range(k):
+            x = torch.zeros((1, k), dtype=torch.bfloat16, device=dev)
+            x[0, hot] = 1.0
+            for fn in (qgemv, qgemm):
+                out = fn(x.expand(17 if fn is qgemm else 1, k).contiguous(),
+                         q, s, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                assert torch.equal(out[0], want), (fn.__name__, hot)
+        return
     if mode == "int8":
         vals = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
     else:
@@ -580,6 +602,123 @@ def test_qgemv_split_k_leaves_tickets_at_zero(dev, shape, m, splits):
         graph.replay()
     torch.cuda.synchronize()
     assert not tickets.any() and torch.equal(out, eager)
+
+
+# Kernel C, the quantized GEMM: (K, N) of every preset:1.7b decoder and
+# encoder product and the tied lm_head (f32 logits), at the rows it takes
+QGEMM_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 1024),
+                "gate_up": (2048, 6144), "down": (6144, 2048),
+                "enc_attn": (1280, 1280), "enc_fc1": (1280, 5120),
+                "enc_fc2": (5120, 1280), "lm_head": (2048, 151936),
+                "qkv_group": (2048, (2048, 1024, 1024)),
+                "gate_up_group": (2048, (6144, 6144)),
+                "enc_qkv_group": (1280, (1280, 1280, 1280))}
+QGEMM_ROWS = (17, 64, 453, 1000)
+
+
+def _qgemm_leaf(rng, shape, mode, dev):
+    """The leaf of a single QGEMM_SHAPES entry, and its output dtype."""
+    leaves, out_dtype = _qgemm_leaves(rng, shape, mode, dev)
+    return leaves[0], out_dtype
+
+
+def _qgemm_leaves(rng, shape, mode, dev):
+    k, n = QGEMM_SHAPES[shape]
+    leaves = []
+    for width in (n if isinstance(n, tuple) else (n,)):
+        w = _randn(rng, (k, width), torch.float32, dev) * 0.02
+        leaves.append(quant.quantize_embed(w.t().bfloat16(), mode)
+                      if shape == "lm_head"
+                      else quant.quantize_array(w.bfloat16(), mode))
+    return leaves, torch.float32 if shape == "lm_head" else torch.bfloat16
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("shape", list(QGEMM_SHAPES))
+def test_qgemm_matches_plain(dev, shape, mode):
+    """Kernel C against its plain version (``widened_product``; for int4
+    JAX's grouped product restated in f32) at 17, 64, 453 (the 30 s
+    prefill) and 1000 rows, one launch a call (q/k/v and gate/up as one
+    grouped launch). Both sum in f32 in different orders: kernel A's
+    bound, bf16 outputs within one bf16 ulp (rtol 8e-3), f32 logits within
+    1e-4 of the largest |plain| value, and both within that atol near
+    zero."""
+    rng = np.random.default_rng(17)
+    leaves, out_dtype = _qgemm_leaves(rng, shape, mode, dev)
+    pairs = [(leaf["q"], quant.row_scales(leaf)) for leaf in leaves]
+    k = QGEMM_SHAPES[shape][0]
+    for m in QGEMM_ROWS:
+        if shape == "lm_head" and m > 64:
+            continue
+        x = _randn(rng, (m, k), torch.bfloat16, dev)
+        before = qgemm.launches
+        outs = (qgemm_group(x, pairs, out_dtype=out_dtype) if len(pairs) > 1
+                else [qgemm(x, *pairs[0], out_dtype=out_dtype)])
+        torch.cuda.synchronize()
+        assert qgemm.launches == before + 1
+        for out, (q, s) in zip(outs, pairs):
+            assert out.dtype == out_dtype
+            ref = qgemm_plain(x, q, s, out_dtype=out_dtype)
+            rtol = 8e-3 if out_dtype == torch.bfloat16 else 0.0
+            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                       atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_kernels_are_deterministic(dev, mode):
+    """Kernels A and C give the same bits on 20 calls and under CUDA-graph
+    replay: A at 1, 8 and 16 rows over K = 12288 (split K: the tickets
+    back at 0), C at 453 rows; int4 with group scales."""
+    rng = np.random.default_rng(19)
+    leaves, _ = _qgemv_leaves(rng, "long_k", mode, dev)
+    pair = (leaves[0]["q"], quant.row_scales(leaves[0]))
+    cleaf, _ = _qgemm_leaf(rng, "down", mode, dev)
+    cpair = (cleaf["q"], quant.row_scales(cleaf))
+    calls = [(qgemv, _randn(rng, (m, 12288), torch.bfloat16, dev), pair)
+             for m in (1, 8, 16)]
+    calls.append((qgemm, _randn(rng, (453, 6144), torch.bfloat16, dev),
+                  cpair))
+    for fn, x, (q, s) in calls:
+        runs = [fn(x, q, s, out_dtype=torch.bfloat16) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(r, runs[0]) for r in runs[1:])
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(x, q, s, out_dtype=torch.bfloat16)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, runs[0])
+        assert not decode_module._tickets[x.device].any()
+
+
+def test_quantized_kernels_refuse_what_they_do_not_take(dev):
+    """Kernels A and C raise, never compute, for an f32 x, a non-contiguous
+    payload, an int4 group layout they do not take (groups of 32: half a
+    stretch), int4 scales that do not match the payload, and x of another
+    K; kernel A also past 16 rows."""
+    rng = np.random.default_rng(20)
+    leaf = quant.quantize_array(
+        (_randn(rng, (256, 64), torch.float32, dev) * 0.02).bfloat16(),
+        "int4")
+    q, s = leaf["q"], quant.row_scales(leaf)
+    assert s.shape == (64, 2)
+    xb = torch.zeros((20, 256), device=dev, dtype=torch.bfloat16)
+    for fn, rows in ((qgemv, 4), (qgemm, 20)):
+        x = xb[:rows]
+        with pytest.raises(ValueError, match="bf16"):
+            fn(x.float(), q, s, out_dtype=torch.bfloat16)
+        wide = torch.zeros((64, 256), dtype=torch.uint8, device=dev)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x, wide[:, ::2], s, out_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            fn(x, q, torch.ones((64, 8), device=dev), out_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="do not match"):
+            fn(x, q, torch.ones((63, 2), device=dev), out_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="do not match"):
+            fn(xb[:rows, :128].contiguous(), q, s, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rows"):
+        qgemv(xb[:17].contiguous(), q, s, out_dtype=torch.bfloat16)
 
 
 def _int4_cache(dev, b, t, layers=3, s_len=256):
@@ -689,6 +828,47 @@ def test_int8_int4_graph_replay_equals_eager(dev, batch):
     assert torch.equal(graph.tokens, eager.tokens)
     assert (graph.steps, graph.steps_run) == (eager.steps, eager.steps_run)
     assert len(set(graph.tokens[0].tolist())) >= 3
+
+
+@pytest.mark.parametrize("batch", [1, 8], ids=["b1", "b8"])
+def test_int4_weights_graph_replay_equals_eager(dev, batch):
+    """An int4-weight, int4-cache key (QUANTIZE=int4, the default group):
+    the captured request gives the eager run's tokens bit for bit; a chunk
+    records kernel A's int4 route on every decode product and the logits
+    (4 launches a layer and step, plus one) and no GEMM; the front records
+    kernel C on every prompt and encoder product (4 launches a layer: q/k/v
+    grouped, wo, gate/up grouped or fc1, w_down or fc2); no graph calls
+    ``widened_product``."""
+    model = _model(dev)
+    model.params = quant.quantize_params(model.params, "int4")
+    assert quant.is_packed_int4(model.params["decoder"]["layers"]["wq"])
+    eng = TranscriptionEngine(model, device=dev, cache_dtype=torch.int4)
+    key, inputs = _request(eng, batch)
+    exe, _ = eng.executable(*key)
+    layers = SMALL.decoder.num_hidden_layers
+    rec, front = exe.chunk.recorded, exe.front.recorded
+    assert rec["qgemv"] == DECODE_CHUNK * (4 * layers + 1)
+    enc_layers = SMALL.encoder.encoder_layers
+    assert rec["qgemm"] == 0
+    assert front["qgemm"] == 4 * (layers + enc_layers)
+    assert rec["widened_product"] == front["widened_product"] == 0
+    assert rec["decode_attention_batch_int4"] == DECODE_CHUNK * layers
+    graph = exe.run(*inputs)
+    eager = exe.run(*inputs, eager=True)
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert (graph.steps, graph.steps_run) == (eager.steps, eager.steps_run)
+    assert len(set(graph.tokens[0].tolist())) >= 3
+
+
+def test_int4_layout_the_kernels_refuse_is_refused_at_load(dev,
+                                                           monkeypatch):
+    """An int4 group the kernels do not take (32: half a stretch) is
+    refused when the engine is built on the card, not at a request."""
+    monkeypatch.setenv("ASR_INT4_GROUP", "32")
+    model = _model(dev)
+    model.params = quant.quantize_params(model.params, "int4")
+    with pytest.raises(ValueError, match="ASR_INT4_GROUP"):
+        TranscriptionEngine(model, device=dev)
 
 
 def test_int4_batched_decode_is_deterministic(dev):

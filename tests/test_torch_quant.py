@@ -1,11 +1,12 @@
 """The port's quantization (``ops/quant.py``, ``ops/qgemv.py``,
-``ops/kv_int4.py``) against the JAX package's, in f32 on the CPU, every
-input made from a numpy seed: int8/fp8 payloads and scales and the int4 KV
-values byte for byte; ``qdot`` in its three routes, the quantized
-embedding and logits, the int4 route of the batched decode kernel's plain
-version and the decoder with int8 weights and an int4 cache to 1e-5 or
-1e-4; and token ids identical to the JAX engine with quantized weights,
-an int4 KV cache and W8A8 prefill."""
+``ops/qgemm.py``, ``ops/kv_int4.py``) against the JAX package's, in f32 on
+the CPU, every input made from a numpy seed: int8/fp8/int4 payloads and
+scales and the int4 KV values byte for byte; ``qdot`` in its routes, the
+plain versions of kernels A and C, the quantized embedding and logits, the
+int4 route of the batched decode kernel's plain version and the decoder
+with int8 weights and an int4 cache to 1e-5 or 1e-4; and token ids
+identical to the JAX engine with quantized weights (int4 included), an
+int4 KV cache and W8A8 prefill."""
 import functools
 
 import numpy as np
@@ -44,7 +45,7 @@ TOL = 1e-5
 @pytest.fixture(autouse=True)
 def _few_threads(monkeypatch):
     for name in ("ASR_INT8_ACT", "ASR_INT8_ACT_MIN_TOKENS", "QUANTIZE",
-                 "ASR_QUANTIZE_EMBED", "ASR_KV_CACHE_DTYPE"):
+                 "ASR_QUANTIZE_EMBED", "ASR_KV_CACHE_DTYPE", "ASR_INT4_GROUP"):
         monkeypatch.delenv(name, raising=False)
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -93,7 +94,7 @@ def test_quantize_array_bytes_equal_jax(mode, dtype):
         assert int(_bits(ours["q"])[0, 7, col]) in (0x7e, 0xfe)
 
 
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
 def test_quantize_embed_bytes_equal_jax(mode):
     rng = np.random.default_rng(2)
     e = _weight(rng, (300, 64))
@@ -101,6 +102,43 @@ def test_quantize_embed_bytes_equal_jax(mode):
     ours = quant.quantize_embed(torch.from_numpy(e), mode)
     np.testing.assert_array_equal(_bits(ours["q"]), _bits(ref["q"]))
     np.testing.assert_array_equal(_bits(ours["s"]), _bits(ref["s"]))
+
+
+# ASR_INT4_GROUP, K: JAX's default group, another, and K = 192 (the
+# trained_ckpt decoder's hidden size), which JAX lowers the 128 group to 96
+INT4_GROUPS = {"g128": ("128", 256), "g64": ("64", 256),
+               "g128_lowered_to_96": ("128", 192)}
+
+
+@pytest.mark.parametrize("group", list(INT4_GROUPS))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_array_int4_bytes_equal_jax(monkeypatch, dtype, group):
+    """int4 payloads (byte j: k = j low, k = j + K/2 high, biased by 8)
+    and group scales byte for byte, in the port's layout (JAX's
+    transposed); the bf16 source's scales computed and applied in f32, then
+    stored in bf16, as JAX does; ``dequantize`` equal to JAX's."""
+    env, k = INT4_GROUPS[group]
+    monkeypatch.setenv("ASR_INT4_GROUP", env)
+    rng = np.random.default_rng(21)
+    w = _weight(rng, (2, k, 96))
+    w[1, :, 5] = 0.0                              # the 1e-10 floor
+    jw = jnp.asarray(w, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    tw = torch.from_numpy(w).to(torch.bfloat16 if dtype == "bf16"
+                                else torch.float32)
+    ref = jax.device_get(jq.quantize_array(jw, "int4"))
+    ours = quant.quantize_array(tw, "int4")
+    groups = k // (96 if k == 192 else int(env))
+    assert quant.is_packed_int4(ours)
+    assert ours["q"].shape == (2, 96, k // 2)      # [L, out, in/2]
+    assert ours["s"].dtype == tw.dtype and ours["s"].shape == (2, 96, groups)
+    np.testing.assert_array_equal(_bits(ours["q"].transpose(1, 2)),
+                                  _bits(ref["q"]))
+    np.testing.assert_array_equal(
+        _bits(ours["s"].transpose(1, 2).contiguous()), _bits(ref["s"]))
+    np.testing.assert_array_equal(
+        quant.dequantize(ours, torch.float32).transpose(1, 2).numpy(),
+        np.asarray(jq.dequantize(jq.quantize_array(jw, "int4"),
+                                 jnp.float32)))
 
 
 def test_kv_quantize_bytes_equal_jax():
@@ -143,7 +181,13 @@ QDOT_CASES = {
     "act_below_threshold": ("int8", (15, 64), "true", "16", "dequant"),
     "act_on_fp8": ("fp8", (2, 8, 64), "true", "1", "dequant"),
     "act_default_threshold": ("int8", (4, 64), "true", None, "dequant"),
+    # int4: one group (K = 64 under the default 128), four (a 16 group),
+    # and W8A8 on at a threshold it reaches: never for int4
+    "dequant_int4_one_group": ("int4", (2, 7, 64), None, None, "dequant"),
+    "dequant_int4_groups": ("int4", (3, 64), None, None, "dequant"),
+    "act_on_int4": ("int4", (2, 8, 64), "true", "1", "dequant"),
 }
+QDOT_INT4_GROUP = {"dequant_int4_groups": "16", "act_on_int4": "32"}
 
 
 @pytest.mark.parametrize("name", list(QDOT_CASES))
@@ -153,6 +197,8 @@ def test_qdot_routes_match_jax(monkeypatch, name):
         monkeypatch.setenv("ASR_INT8_ACT", act)
     if min_rows:
         monkeypatch.setenv("ASR_INT8_ACT_MIN_TOKENS", min_rows)
+    if name in QDOT_INT4_GROUP:
+        monkeypatch.setenv("ASR_INT4_GROUP", QDOT_INT4_GROUP[name])
     rng = np.random.default_rng(4)
     w = _weight(rng, (64, 96))
     x = rng.standard_normal(xshape).astype(np.float32)
@@ -163,6 +209,9 @@ def test_qdot_routes_match_jax(monkeypatch, name):
     assert quant.qdot_route(rows, on_cuda=False, x_dtype=torch.float32,
                             w_dtype=leaf["q"].dtype, w_ndim=2,
                             min_rows=quant.int8_act_min_rows()) == route
+    if mode == "int4":
+        want = {"dequant_int4_groups": 4, "act_on_int4": 2}.get(name, 1)
+        assert leaf["s"].shape == (96, want)
     ours = quant.qdot(torch.from_numpy(x), leaf).numpy()
     np.testing.assert_allclose(ours, ref, rtol=TOL, atol=1e-6)
     if route == "w8a8":
@@ -174,22 +223,30 @@ def test_qdot_routes_match_jax(monkeypatch, name):
     (1, True, torch.bfloat16, torch.int8, 2, 0, "gemv"),
     (16, True, torch.bfloat16, torch.float8_e4m3fn, 2, 0, "gemv"),
     (16, True, torch.bfloat16, torch.int8, 2, 8, "gemv"),
-    (17, True, torch.bfloat16, torch.int8, 2, 0, "dequant"),
+    (17, True, torch.bfloat16, torch.int8, 2, 0, "gemm"),
     (4, True, torch.float32, torch.int8, 2, 0, ValueError),
     (4, True, torch.float32, torch.int8, 2, 1, ValueError),
     (17, True, torch.float32, torch.int8, 2, 17, "w8a8"),
     (4, False, torch.bfloat16, torch.int8, 2, 0, "dequant"),
     (1024, True, torch.bfloat16, torch.int8, 2, 1024, "w8a8"),
-    (1023, True, torch.bfloat16, torch.int8, 2, 1024, "dequant"),
-    (2048, True, torch.bfloat16, torch.float8_e4m3fn, 2, 1024, "dequant"),
+    (1023, True, torch.bfloat16, torch.int8, 2, 1024, "gemm"),
+    (2048, True, torch.bfloat16, torch.float8_e4m3fn, 2, 1024, "gemm"),
     (2048, False, torch.float32, torch.int8, 3, 1024, "dequant"),
+    # int4 (uint8 pairs): the GEMV, then the GEMM, never W8A8
+    (16, True, torch.bfloat16, torch.uint8, 2, 1, "gemv"),
+    (17, True, torch.bfloat16, torch.uint8, 2, 0, "gemm"),
+    (2048, True, torch.bfloat16, torch.uint8, 2, 1024, "gemm"),
+    (2048, False, torch.float32, torch.uint8, 2, 1, "dequant"),
+    (17, True, torch.float32, torch.uint8, 2, 17, ValueError),
+    (17, True, torch.float32, torch.int8, 2, 0, ValueError),
 ])
 def test_qdot_route_rule(rows, cuda, dtype, w, ndim, min_rows, want):
     route = functools.partial(quant.qdot_route, rows, on_cuda=cuda,
                               x_dtype=dtype, w_dtype=w, w_ndim=ndim,
                               min_rows=min_rows)
     if want is ValueError:
-        # decode rows on the card have the GEMV or nothing: no fallback
+        # rows on the card have the GEMV, W8A8 or the GEMM, or nothing: no
+        # fallback
         with pytest.raises(ValueError, match="bf16"):
             route()
     else:
@@ -204,8 +261,15 @@ def test_plain_weights_pass_through():
 # -- embedding and logits ----------------------------------------------------------
 
 @pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
-def test_embed_and_logits_match_jax(mode, tied):
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4", "int4_g16"])
+def test_embed_and_logits_match_jax(monkeypatch, mode, tied):
+    """int4: the embedding packed along H with row scales (tied logits:
+    one group), the untied lm_head with one group of H (64 under the
+    default 128) or four (``int4_g16``): each group's sum scaled, then
+    added, in f32."""
+    if mode == "int4_g16":
+        monkeypatch.setenv("ASR_INT4_GROUP", "16")
+        mode = "int4"
     rng = np.random.default_rng(5)
     cfg = DecoderConfig(vocab_size=300, hidden_size=64, intermediate_size=64,
                         num_hidden_layers=1, num_attention_heads=2,
@@ -257,10 +321,17 @@ def test_quantize_embed_flag_keeps_full_precision(monkeypatch):
         tree["decoder"]["layers"])
 
 
-@pytest.mark.parametrize("mode,error", [("int4", NotImplementedError),
+@pytest.mark.parametrize("mode,error", [("int4", None),
                                         ("int2", ValueError)])
 def test_quantize_refuses_modes_not_ported(mode, error):
-    with pytest.raises(error, match="ROADMAP §1 item 6"):
+    """An unknown mode raises; int4, ported now, quantizes (a [4, 4]
+    weight: one group, two bytes a row)."""
+    if error is None:
+        leaf = quant.quantize_array(torch.zeros(4, 4), mode)
+        assert quant.is_packed_int4(leaf)
+        assert leaf["q"].shape == (4, 2) and leaf["s"].shape == (4, 1)
+        return
+    with pytest.raises(error, match="unknown quantization mode"):
         quant.quantize_array(torch.zeros(4, 4), mode)
 
 
@@ -466,15 +537,22 @@ def test_params_from_jax_carries_quantized_leaves():
 
 
 @pytest.mark.parametrize("env,error", [
-    ({"QUANTIZE": "int4"}, NotImplementedError),
+    ({"QUANTIZE": "int4"}, None),
     ({"QUANTIZE": "nf4"}, ValueError),
     ({"ASR_KV_CACHE_DTYPE": "int4"}, ValueError)])
 def test_lifecycle_refuses(monkeypatch, env, error):
-    """QUANTIZE=int4 is not ported and an unknown mode is refused, both
-    before any weight is read; an int4 cache needs head_dim 128
-    (trained_ckpt has 48)."""
+    """An unknown mode is refused before any weight is read; an int4
+    cache needs head_dim 128 (trained_ckpt has 48). QUANTIZE=int4, ported
+    now, loads: every layer and the tied embedding as uint8 pairs."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if error is None:
+        dec = load_engine(CKPT, device="cpu").model.params["decoder"]
+        assert all(dec["layers"][k]["q"].dtype == torch.uint8
+                   for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                             "w_down"))
+        assert quant.is_packed_int4(dec["embed"])
+        return
     with pytest.raises(error):
         load_engine(CKPT, device="cpu")
 
@@ -664,12 +742,12 @@ def _leaves(rng, mode, widths, k=64):
 
 @pytest.mark.parametrize("widths", [[96, 32, 32], [80, 80]],
                          ids=["qkv", "gate_up"])
-@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qdot_group_equals_separate_qdots(mode, widths, dtype):
     """On the CPU ``qdot_group`` is one product per weight: the bits of
-    separate ``qdot`` calls, for plain, int8 and fp8 leaves, decode rows
-    and prefill rows."""
+    separate ``qdot`` calls, for plain, int8, fp8 and int4 leaves, decode
+    rows and prefill rows."""
     rng = np.random.default_rng(13)
     ws = _leaves(rng, mode, widths)
     if mode == "bf16":
@@ -685,7 +763,31 @@ def test_qdot_group_equals_separate_qdots(mode, widths, dtype):
             assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
+def test_qdot_group_takes_one_grouped_launch_on_the_gemm_route(
+        monkeypatch, mode):
+    """Where the route is the GEMM (more than 16 rows on the card; forced
+    here), ``qdot_group`` makes ONE ``qgemm_group`` call for all weights,
+    whose plain version on the CPU gives the bits of separate ``qdot``
+    calls."""
+    rng = np.random.default_rng(24)
+    ws = _leaves(rng, mode, [96, 32, 32])
+    x = torch.from_numpy(rng.standard_normal((2, 20, 64)).astype(
+        np.float32))
+    refs = [quant.qdot(x, w) for w in ws]
+    calls = []
+    real = quant.qgemm_group
+    monkeypatch.setattr(quant, "_route", lambda *a, **kw: "gemm")
+    monkeypatch.setattr(quant, "qgemm_group",
+                        lambda *a, **kw: calls.append(len(a[1]))
+                        or real(*a, **kw))
+    outs = quant.qdot_group(x, ws)
+    assert calls == [3]
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int4"])
 def test_qdot_group_takes_one_grouped_launch_on_the_gemv_route(
         monkeypatch, mode):
     """Where the route is the GEMV (decode rows on the card; forced here),
@@ -777,3 +879,188 @@ def test_decoder_layer_through_qdot_group_matches_jax(monkeypatch):
                                    atol=1e-4)
     layers = HD128.num_hidden_layers
     assert groups == [3, 2] * layers * 3
+
+
+# -- int4 weights (QUANTIZE=int4) ---------------------------------------------------
+
+@pytest.mark.parametrize("group", ["128", "16"])
+def test_params_from_jax_carries_int4_leaves(monkeypatch, group):
+    """A JAX int4 tree (bf16 source) crosses bit for bit: layer and untied
+    lm_head payloads and their [G, N] scales transposed, the packed
+    embedding as it is; the result equals the port's own quantization of
+    the same weights, byte for byte."""
+    monkeypatch.setenv("ASR_INT4_GROUP", group)
+    rng = np.random.default_rng(22)
+    tree = {"embed": _weight(rng, (40, 64)),
+            "layers": {"wq": _weight(rng, (2, 64, 48)),
+                       "w_down": _weight(rng, (2, 96, 64)),
+                       "ln1": np.ones((2, 64), np.float32)},
+            "lm_head": _weight(rng, (64, 40))}
+    jtree = jax.device_get(jq.quantize_decoder_params(
+        jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), tree), "int4"))
+    carried = params_from_jax(jtree, "cpu")
+    ours = quant.quantize_decoder_params(
+        params_from_jax(tree, "cpu", torch.bfloat16), "int4")
+
+    def groups(k):                       # JAX's rule: the group divides K
+        return k // next(d for d in range(min(int(group), k), 0, -1)
+                         if k % d == 0)
+
+    want = {"embed": ((40, 32), (40, 1)), "lm_head": ((40, 32),
+                                                      (40, groups(64))),
+            "wq": ((2, 48, 32), (2, 48, groups(64))),
+            "w_down": ((2, 64, 48), (2, 64, groups(96)))}
+    for name, leaf in (("embed", carried["embed"]),
+                       ("lm_head", carried["lm_head"]),
+                       ("wq", carried["layers"]["wq"]),
+                       ("w_down", carried["layers"]["w_down"])):
+        mine = ours[name] if name in ours else ours["layers"][name]
+        assert quant.is_packed_int4(leaf) and quant.is_packed_int4(mine)
+        assert (tuple(leaf["q"].shape), tuple(leaf["s"].shape)) == want[name]
+        assert leaf["s"].dtype == torch.bfloat16
+        for part in ("q", "s"):
+            np.testing.assert_array_equal(_bits(leaf[part]),
+                                          _bits(mine[part]))
+    np.testing.assert_array_equal(
+        _bits(carried["layers"]["wq"]["q"].transpose(1, 2)),
+        _bits(jtree["layers"]["wq"]["q"]))
+
+
+@pytest.mark.parametrize("group", ["64", "16"], ids=["one_group",
+                                                     "four_groups"])
+def test_int4_kernel_plain_versions_match_jax_qdot(monkeypatch, group):
+    """The plain versions of kernel A (``qgemv_plain``, decode rows) and
+    kernel C (``qgemm_plain``, prefill rows) on int4 pairs, and ``qdot``'s
+    CPU route, against JAX's int4 ``qdot`` in f32 (one sum times s for one
+    group; each group's sum times its scale, added, for more): rtol 1e-5,
+    atol 1e-6 (orders of f32 summation)."""
+    from qwen3_asr_tpu_torch.ops.qgemm import qgemm, qgemm_plain
+    from qwen3_asr_tpu_torch.ops.qgemv import qgemv, qgemv_plain
+    monkeypatch.setenv("ASR_INT4_GROUP", group)
+    rng = np.random.default_rng(23)
+    w = _weight(rng, (64, 80))
+    jleaf = jq.quantize_array(jnp.asarray(w), "int4")
+    leaf = quant.quantize_array(torch.from_numpy(w), "int4")
+    assert leaf["s"].shape == (80, 64 // int(group))
+    for rows, fns in ((3, (qgemv_plain, qgemv)), (37, (qgemm_plain, qgemm))):
+        x = rng.standard_normal((rows, 64)).astype(np.float32)
+        ref = np.asarray(jq.qdot(jnp.asarray(x), jleaf))
+        for fn in fns:
+            out = fn(torch.from_numpy(x), leaf["q"], quant.row_scales(leaf),
+                     out_dtype=torch.float32)
+            np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
+                                       atol=1e-6)
+        np.testing.assert_allclose(
+            quant.qdot(torch.from_numpy(x), leaf).numpy(), ref, rtol=1e-5,
+            atol=1e-6)
+
+
+# (m, output widths, K) of int4 products at preset:1.7b and the tied
+# lm_head: a warp holds 128 k a stretch, half as many stretches as int8's
+INT4_PLAN_CASES = {"wq_m1": (1, [2048], 2048), "down_m8": (8, [2048], 6144),
+                   "down_m16": (16, [2048], 6144),
+                   "lm_head_m1": (1, [151936], 2048),
+                   "qkv_m8": (8, [2048, 1024, 1024], 2048),
+                   "k12288_m4": (4, [1024], 12288)}
+
+
+@pytest.mark.parametrize("name", list(INT4_PLAN_CASES))
+def test_int4_gemv_plan_holds_the_same_k_a_warp(name):
+    """Kernel A's plan for int4 pairs: stretches of 64 bytes (128 k), a
+    warp holding at most 2 (or 6 with one 8-row tile), so a warp's k and
+    the splits are those of the int8 plan of the same shape, and every
+    stretch of K/2 bytes is in exactly one (split, warp)."""
+    from qwen3_asr_tpu_torch.ops.qgemv import plan
+    m, ns, k = INT4_PLAN_CASES[name]
+    p4, p8 = plan(m, ns, k, packed=True), plan(m, ns, k)
+    assert p4.stretches * 64 >= k // 2 > (p4.stretches - 1) * 64
+    assert p4.ks in (1, 2, 6) and p4.ks * 2 == p8.ks or p8.ks == 1
+    assert (p4.splits, p4.groups, p4.n_tiles) == (p8.splits, p8.groups,
+                                                  p8.n_tiles)
+    covered = [s for split in range(p4.splits) for warp in range(8)
+               for s in range(*p4.warp_range(split, warp))]
+    assert covered == list(range(p4.stretches))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        plan(m, ns, 48, packed=True)
+
+
+def test_int4_layouts_the_card_refuses():
+    """Kernels A and C apply a group's scale to each half-stretch of 64 k,
+    so on the card an int4 layout needs K/2 and the group size multiples
+    of 64 (or one group): preset:1.7b's (K 1280, 2048, 5120, 6144 at the
+    default 128) pass; trained_ckpt's 192 = 2 x 96 does not. The check
+    reads shapes only, and names every leaf it refuses; the CPU takes any
+    layout."""
+    from qwen3_asr_tpu_torch.ops.qgemv import int4_layout_error
+    for k in (1280, 2048, 5120, 6144):
+        assert int4_layout_error(k, k // 128) is None
+    assert int4_layout_error(2048, 1) is None           # the tied lm_head
+    assert "multiples of 64" in int4_layout_error(192, 2)
+    assert "multiples of 64" in int4_layout_error(2048, 64)    # groups of 32
+    assert "multiple of 32" in int4_layout_error(200, 1)
+    good = quant.quantize_array(torch.zeros(256, 8), "int4")
+    bad = {"q": torch.zeros((8, 96), dtype=torch.uint8),
+           "s": torch.ones((8, 2))}
+    tree = {"decoder": {"layers": {"wq": good, "wo": bad}}}
+    quant.check_int4_layouts(tree, torch.device("cpu"))
+    quant.check_int4_layouts({"wq": good}, torch.device("cuda"))
+    with pytest.raises(ValueError, match="decoder/layers/wo"):
+        quant.check_int4_layouts(tree, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("group", [None, "32"], ids=["default", "g32"])
+def test_int4_trained_ckpt_tokens_match_jax(monkeypatch, group):
+    """QUANTIZE=int4 through load_engine (f32, f32 cache: trained_ckpt's
+    head_dim 48 refuses an int4 cache) against the JAX engine with its own
+    quantize_params, token ids identical. The default group lowers to 96
+    at K = 192 and 128 at 512; 32 makes 6 and 16 groups."""
+    if group:
+        monkeypatch.setenv("ASR_INT4_GROUP", group)
+    ref_eng = jax_engine()
+    ref_eng.model.params = jq.quantize_params(ref_eng.model.params, "int4")
+    monkeypatch.setenv("QUANTIZE", "int4")
+    eng = load_engine(CKPT, device="cpu")
+    wq = eng.model.params["decoder"]["layers"]["wq"]
+    assert wq["q"].dtype == torch.uint8
+    assert wq["s"].shape[-1] == (2 if group is None else 6)
+    for i in (0, 6):
+        audio, sr = _clip(i)
+        ref = ref_eng.transcribe(audio, sr)[0]
+        ours = eng.transcribe(audio, sr)[0]
+        assert ours.token_ids == ref.token_ids and ours.text == ref.text
+        assert len(set(ours.token_ids)) >= 3
+
+
+def test_int4_weights_int4_cache_engine_tokens_match_jax():
+    """int4 weights + an int4 KV cache (the card's int4 configuration) on
+    the head_dim-128 decoder, B=1, then B=2 in one run: tokens identical
+    to the JAX engine."""
+    jax_model, model = _hd128("int4")
+    jax_eng = JaxEngine(jax_model, dtype=jnp.float32, cache_dtype=jnp.int4)
+    eng = TranscriptionEngine(model, device="cpu", cache_dtype=torch.int4)
+    clips = [_clip(i, 1.5) for i in (5, 11)]
+    ref = jax_eng.transcribe(*clips[0])[0]
+    ours = eng.transcribe(*clips[0])[0]
+    assert ours.token_ids == ref.token_ids
+    assert len(set(ours.token_ids)) >= 3
+    bucket = eng.bucket_frames(len(clips[0][0]))
+    audio = [a for a, _ in clips]
+    _, ref = jax_eng._run_bucket(audio, *bucket, None)
+    _, ours = eng._run_bucket(audio, *bucket, None)
+    assert eng.last_run["batch"] == 2 and ours == ref
+
+
+def test_int4_served_through_the_manager_and_server(monkeypatch):
+    """QUANTIZE=int4 loads through load_engine and serves through the
+    manager and the HTTP server: the response's text is the engine's."""
+    from tests.test_torch_server import _post, serving
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    monkeypatch.setenv("QUANTIZE", "int4")
+    monkeypatch.setenv("SKIP_WARMUP", "true")
+    eng = load_engine(CKPT, device="cpu")
+    audio, sr = _clip(3)
+    want = eng.transcribe(audio, sr)[0]
+    with serving(ModelManager(eng)) as url:
+        status, body = _post(url, encode_wav(audio, sr))
+    assert status == 200 and body["text"] == want.text
