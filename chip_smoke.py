@@ -7,6 +7,8 @@ without a CUDA device, and whenever any phase fails. Phases:
    ``qwen3_asr_tpu_torch/csrc`` (one nvcc per source, in parallel: the four
    TPU kernels' counterparts, the quantized GEMV and GEMM and the QK-norm +
    RoPE + KV-cache write) and print ptxas' registers, shared memory and
+   spills, and every line that reports a kernel's wgmmas serialized
+   (C7508-C7520); the phase fails if one names kernel C or kernel C
    spills;
 2. each kernel against its plain PyTorch version at the main path's shapes
    for preset:1.7b: flash attention (encoder 30 s, prefill 30 s) and the
@@ -22,7 +24,8 @@ without a CUDA device, and whenever any phase fails. Phases:
    every decoder, encoder and lm_head shape, at the front graph's rows at
    B=1 (30 s) and B=8 (10 s) and 32 decode rows at the lm_head, int8, fp8
    and int4 (library call as A's; the route it replaced,
-   ``widened_product``, timed beside); the QK-norm + RoPE + KV-cache
+   ``widened_product``, timed beside; each row's log line and JSON carry
+   the launch plan: x width, K splits, blocks); the QK-norm + RoPE + KV-cache
    write (one launch a layer) at a decode step (T=1) for B = 1, 8
    (S=768) and 96 (S=512) and at the 30 s prefill (B=1, T=453), into
    bf16, fp8 and int4 caches,
@@ -143,20 +146,45 @@ def eager_ms(fn, iters: int) -> float:
 
 # -- phase 1 ---------------------------------------------------------------------
 
-def build_kernels() -> None:
-    from qwen3_asr_tpu_torch.ops import _build
-    t0 = time.time()
-    reports = _build.build(sorted({os.path.basename(src)[:-3]
-                                   for src, _, _ in KERNELS.values()}))
-    log(f"[build] {len(reports)} kernels ready in {time.time() - t0:.1f} s")
+# ptxas' report that a kernel's wgmmas run one at a time (C7508-C7520:
+# "wgmma.mma_async instructions are serialized due to ...")
+SERIALIZED = re.compile(r"C75[0-2]\d|serializ", re.IGNORECASE)
+
+
+def ptxas_faults(reports) -> list:
+    """Print every kernel's ptxas registers, spills and serialized-wgmma
+    lines; return those of kernel C (``qgemm``) that name a serialized
+    wgmma or a spill, which fail the phase."""
+    faults = []
     for name, text in reports.items():
         entry = None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = re.sub(r"_ZN\w*?_cu_\w{8}\d+", "", m.group(1))[:48]
+            elif SERIALIZED.search(line):
+                log(f"[ptxas] {name}: {line.strip()}")
+                if name == "qgemm":
+                    faults.append(line.strip())
             elif "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}<{entry}>: {line.strip()}")
+                if name == "qgemm" and re.search(r"[1-9]\d* bytes spill",
+                                                 line):
+                    faults.append(f"{entry}: {line.strip()}")
+    return faults
+
+
+def build_kernels() -> None:
+    from qwen3_asr_tpu_torch.ops import _build
+    t0 = time.time()
+    reports = _build.build(sorted({os.path.basename(src)[:-3]
+                                   for src, _, _ in KERNELS.values()}))
+    log(f"[build] {len(reports)} kernels ready in {time.time() - t0:.1f} s")
+    faults = ptxas_faults(reports)
+    log(f"[ptxas] qgemm: {len(faults)} serialized-wgmma or spill lines")
+    if faults:
+        raise AssertionError("kernel C's wgmmas are serialized or it "
+                             "spills:\n" + "\n".join(faults))
 
 
 # -- phases 2 and 3 ---------------------------------------------------------------
@@ -449,7 +477,7 @@ def one_kernel_per_call(kernel: str, label: str, fn, calls: int = 3) -> None:
 
 
 def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
-             card, sdpa_note="", lib_name="sdpa"):
+             card, sdpa_note="", lib_name="sdpa", note=""):
     """Phase 3 for one case in bf16: the row of the kernel table."""
     ms = per_call_ms(run, layers)
     plain_ms = per_call_ms(plain, layers)
@@ -470,7 +498,7 @@ def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
         + f", plain {plain_ms:.4f} ms, {lib_name}{sdpa_note} {lib_ms:.4f} "
         f"ms (kernel / {lib_name} {ms / lib_ms:.3f}); one eager call "
         f"{call_ms:.4f} ms; bound {bound:.5f} ms ({row['bound_by']}), "
-        f"share {bound / ms:.3%} | {card}")
+        f"share {bound / ms:.3%}{note} | {card}")
     return row
 
 
@@ -675,36 +703,38 @@ def qgemv_cases(sh, dev):
                        sh["layers"], 1, qgemv_group, qgemv_plain)
 
 
-# (K, N) of kernel C's products at preset:1.7b, as the front graph
-# launches them: the decoder's wo and w_down and its q/k/v and gate/up
-# groups (one launch each), the encoder's wo, fc1, fc2 and q/k/v group,
-# and the tied lm_head (f32 logits); rows: the front graph's at B=1 (30 s)
-# and B=8 (10 s), and 32 decode rows at the lm_head
-QGEMM_SHAPES = (("wq_wo", 2048, (2048,), "dec"),
-                ("down", 6144, (2048,), "dec"),
-                ("qkv_group", 2048, (2048, 1024, 1024), "dec"),
-                ("gate_up_group", 2048, (6144, 6144), "dec"),
-                ("enc_attn", 1280, (1280,), "enc"),
-                ("enc_fc1", 1280, (5120,), "enc"),
-                ("enc_fc2", 5120, (1280,), "enc"),
-                ("enc_qkv_group", 1280, (1280, 1280, 1280), "enc"),
-                ("lm_head", 2048, (151936,), "head"))
-QGEMM_LAYERS = 4                   # stacked layers a timing steps through
-
-
 def qgemm_cases(sh, dev):
-    """Kernel C at every shape of ``QGEMM_SHAPES`` and its row counts:
-    plain ``qgemm_plain`` (``widened_product`` for int8/fp8, JAX's grouped
-    product restated for int4); earlier: the route kernel C replaced on
-    the card, one ``widened_product`` a weight (int8/fp8 only: it never
-    took int4)."""
+    """Kernel C at every shape of ``QGEMM_SHAPES`` (``tools_perf/
+    step_ms.py``: kernel C's launches at preset:1.7b) and its row counts,
+    the front graph's at B=1 (30 s) and B=8 (10 s), which must be
+    ``QGEMM_ROWS``' (the rows step_ms.py times), and 32 decode rows at the
+    lm_head: plain ``qgemm_plain`` (``widened_product`` for int8/fp8,
+    JAX's grouped product restated for int4); earlier: the route kernel C
+    replaced on the card, one ``widened_product`` a weight (int8/fp8 only:
+    it never took int4)."""
     from qwen3_asr_tpu_torch.ops.qgemm import (qgemm_group, qgemm_plain,
                                                widened_product)
+    from qwen3_asr_tpu_torch.tools_perf.step_ms import (QGEMM_LAYERS,
+                                                        QGEMM_ROWS,
+                                                        QGEMM_SHAPES)
     rows = {"dec": (sh["prompt_len"], sh["dec_rows_b8"]),
             "enc": (sh["enc_rows_b1"], sh["enc_rows_b8"]),
             "head": (32,)}
+    if rows != QGEMM_ROWS:
+        raise AssertionError(f"the front graph's rows {rows} are not "
+                             f"step_ms.py's {QGEMM_ROWS}")
     return quant_cases(dev, QGEMM_SHAPES, rows.__getitem__, QGEMM_LAYERS, 3,
                        qgemm_group, qgemm_plain, widened_product)
+
+
+def plan_note(kernel: str) -> dict:
+    """Kernel C's plan of its last launch (x width, K splits, blocks), for
+    the row and its log line; {} for other kernels."""
+    if kernel != "qgemm":
+        return {}
+    from qwen3_asr_tpu_torch.ops.qgemm import qgemm
+    p = qgemm.last_plan
+    return {"plan": {"bm": p.bm, "splits": p.splits, "blocks": p.blocks}}
 
 
 # The QK-norm + RoPE + KV-cache write against its plain chain: q and K
@@ -881,6 +911,7 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
             last = layers - 1
             outs, refs = run(last), plain(last)
             torch.cuda.synchronize()
+            note = plan_note(kernel)
             err = qgemv_parity(label, outs, refs, kernel=kernel)
             same_bits(kernel, label, outs, run(last))
             del outs, refs
@@ -888,7 +919,9 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
                 one_kernel_per_call(kernel, label, lambda: run(last))
             row = time_row(label, "bfloat16", err, run, plain, lib, nbytes,
                            flops, layers, card, " (bf16-widened weight)",
-                           "F.linear")
+                           "F.linear",
+                           f"; plan {note['plan']}" if note else "")
+            row.update(note)
             row["earlier_ms"] = None
             if earlier is not None:
                 row["earlier_ms"] = per_call_ms(earlier, layers)

@@ -30,7 +30,8 @@
 // (so Q K^T starts before V lands) and one that frees the stage. Head dims
 // below the template's D (64 or 128) are zero-filled by TMA past the last
 // column. The tensor maps are built on the host per call, through
-// cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint (no -lcuda).
+// cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint (no -lcuda;
+// sm90.cuh).
 // Warpgroup w takes the key tiles w, w + 2, ... of the block's rows with
 // its own running m, l and O, so one group's softmax overlaps the other's
 // matrix products and a long causal row walks half as many tiles in
@@ -52,7 +53,6 @@
 // block's output stores; the ring keeps later tiles' loads in flight while
 // a tile computes.
 
-#include <cuda.h>           // CUtensorMap and its enums (header only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -608,37 +608,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's encoder, through the runtime: the library needs no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // K or V [heads, S, d] bf16, read in boxes of 64 rows x 64 columns with
 // 128-byte swizzle; rows past S and columns past d read as zero.
 bool kv_map(CUtensorMap* map, const void* base, int heads, int s_len, int d) {
-  const EncodeTiled encode = encoder();
+  const sm90::EncodeTiled encode = sm90::tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s_len,
                               (cuuint64_t)heads};

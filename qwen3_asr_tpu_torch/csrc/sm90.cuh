@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the kernels under csrc/: the
 // shared-memory barrier (mbarrier) that asynchronous copies complete on,
-// the one-dimensional bulk copy from device to shared memory, an
-// acquire-release atomic, and the shared-memory opt-in of a launch. Raw
-// PTX, no CUTLASS headers, so a source that includes this still builds in
-// seconds.
+// the one-dimensional bulk copy and the two-dimensional tensor (TMA) copy
+// from device to shared memory with the host's tensor-map encoder, named
+// barriers, the register handover of warp-specialised kernels
+// (setmaxnreg), an acquire-release atomic, and the shared-memory opt-in of
+// a launch. Raw PTX, no CUTLASS headers, so a source that includes this
+// still builds in seconds.
 #pragma once
 
+#include <cuda.h>           // CUtensorMap and its enums (header only)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,10 +82,75 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Box (c0, c1) of a two-dimensional tensor map (c0 the contiguous
+// coordinate, in elements) into shared memory; completes on `bar`. `map`
+// is a __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Fetch a __grid_constant__ tensor map into the TMA unit's cache before
+// its first load.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Barrier `id` (1..15) among `threads` threads (a multiple of 32).
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Warp specialisation: a warpgroup gives up registers (the producer) or
+// takes them (the consumers); every warp of the warpgroup executes it.
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
 // Order this thread's earlier shared-memory accesses before a later
 // asynchronous copy into the same bytes.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, through the runtime, so a library needs
+// no -lcuda; nullptr where the driver has none. Host side.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 constexpr int kMaxDevices = 64;

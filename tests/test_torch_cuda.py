@@ -458,7 +458,7 @@ def test_reused_key_and_tickets_after_replays(dev):
 from qwen3_asr_tpu_torch.ops import quant                      # noqa: E402
 from qwen3_asr_tpu_torch.ops.kv_int4 import pack, unpack       # noqa: E402
 from qwen3_asr_tpu_torch.ops.qgemm import (qgemm, qgemm_group,  # noqa: E402
-                                           qgemm_plain)
+                                           qgemm_plain, qgemm_plan)
 from qwen3_asr_tpu_torch.ops.qgemv import (qgemv, qgemv_group,  # noqa: E402
                                            qgemv_plain)
 from qwen3_asr_tpu_torch.models.decoder import init_kv_cache   # noqa: E402
@@ -613,7 +613,9 @@ QGEMM_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 1024),
                 "qkv_group": (2048, (2048, 1024, 1024)),
                 "gate_up_group": (2048, (6144, 6144)),
                 "enc_qkv_group": (1280, (1280, 1280, 1280))}
-QGEMM_ROWS = (17, 64, 453, 1000)
+# the front graph's rows (375 and 1000: the encoder at B=1 and B=8; 453 and
+# 1624: the prompt), and two below them
+QGEMM_ROWS = (17, 64, 375, 453, 1000, 1624)
 
 
 def _qgemm_leaf(rng, shape, mode, dev):
@@ -637,16 +639,21 @@ def _qgemm_leaves(rng, shape, mode, dev):
 @pytest.mark.parametrize("shape", list(QGEMM_SHAPES))
 def test_qgemm_matches_plain(dev, shape, mode):
     """Kernel C against its plain version (``widened_product``; for int4
-    JAX's grouped product restated in f32) at 17, 64, 453 (the 30 s
-    prefill) and 1000 rows, one launch a call (q/k/v and gate/up as one
-    grouped launch). Both sum in f32 in different orders: kernel A's
-    bound, bf16 outputs within one bf16 ulp (rtol 8e-3), f32 logits within
-    1e-4 of the largest |plain| value, and both within that atol near
-    zero."""
+    JAX's grouped product restated in f32) at 17, 64, 375, 453, 1000 and
+    1624 rows (the lm_head at 17 and 64), one launch a call (q/k/v and
+    gate/up as one grouped launch), whatever x width and K split the plan
+    takes (enc fc2 at 375 rows: four splits). Both sum in f32 in
+    different orders: kernel A's bound, bf16 outputs within one bf16 ulp
+    (rtol 8e-3), f32 logits within 1e-4 of the largest |plain| value, and
+    both within that atol near zero."""
     rng = np.random.default_rng(17)
     leaves, out_dtype = _qgemm_leaves(rng, shape, mode, dev)
     pairs = [(leaf["q"], quant.row_scales(leaf)) for leaf in leaves]
     k = QGEMM_SHAPES[shape][0]
+    ns = [q.shape[0] for q, _ in pairs]
+    ngroups = pairs[0][1].numel() // ns[0]
+    if shape == "enc_fc2":
+        assert qgemm_plan(375, ns, k, pairs[0][0].dtype, ngroups).splits > 1
     for m in QGEMM_ROWS:
         if shape == "lm_head" and m > 64:
             continue
@@ -667,17 +674,26 @@ def test_qgemm_matches_plain(dev, shape, mode):
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_quantized_kernels_are_deterministic(dev, mode):
     """Kernels A and C give the same bits on 20 calls and under CUDA-graph
-    replay: A at 1, 8 and 16 rows over K = 12288 (split K: the tickets
-    back at 0), C at 453 rows; int4 with group scales."""
+    replay, and leave every ticket at 0: A at 1, 8 and 16 rows over
+    K = 12288 (split K), C at 453 rows of w_down and 375 rows of enc fc2
+    (both split K, one launch a call: the last block of a tile adds the
+    splits in order) and 1000 rows of enc fc1 (not split); int4 with group
+    scales."""
     rng = np.random.default_rng(19)
     leaves, _ = _qgemv_leaves(rng, "long_k", mode, dev)
     pair = (leaves[0]["q"], quant.row_scales(leaves[0]))
-    cleaf, _ = _qgemm_leaf(rng, "down", mode, dev)
-    cpair = (cleaf["q"], quant.row_scales(cleaf))
     calls = [(qgemv, _randn(rng, (m, 12288), torch.bfloat16, dev), pair)
              for m in (1, 8, 16)]
-    calls.append((qgemm, _randn(rng, (453, 6144), torch.bfloat16, dev),
-                  cpair))
+    for shape, m, split in (("down", 453, True), ("enc_fc2", 375, True),
+                            ("enc_fc1", 1000, False)):
+        cleaf, _ = _qgemm_leaf(rng, shape, mode, dev)
+        cpair = (cleaf["q"], quant.row_scales(cleaf))
+        k, n = QGEMM_SHAPES[shape]
+        plan = qgemm_plan(m, [n], k, cpair[0].dtype,
+                          cpair[1].numel() // n)
+        assert (plan.splits > 1) == split, (shape, plan)
+        calls.append((qgemm, _randn(rng, (m, k), torch.bfloat16, dev),
+                      cpair))
     for fn, x, (q, s) in calls:
         runs = [fn(x, q, s, out_dtype=torch.bfloat16) for _ in range(20)]
         torch.cuda.synchronize()
