@@ -84,7 +84,29 @@ without a CUDA device, and whenever any phase fails. Phases:
    front graph's ms and ms per decode step at B=1 and B=8 of both beside
    the bf16 engines' (phases 5 and 6); the default configuration's 30 s
    request under the profiler, with the kernels a decode step as in phase
-   7; one B=1 request with ``QUANTIZE=fp8``.
+   7; one B=1 request with ``QUANTIZE=fp8``;
+10. real-time transcription over ``WS /ws/transcribe`` through the port's
+   server and its stdlib client (``serving/ws.py``), with the tick
+   batches of 3 or 4 sessions (``ASR_WS_TICK_MIN_SESSIONS=3``,
+   ``ASR_WS_TICK_MAX_BATCH=4``): the VAD on the card against the CPU on
+   10 real clips (both backends; ``is_speech`` equal); (a) trained_ckpt in
+   f32 streams a real clip in 450 ms messages with the server VAD on, then
+   a flush: every partial's token ids equal a plain run of its window, the
+   final is the clip's transcript, draft tokens accepted and decode steps
+   per tick against plain greedy's; (b) preset:1.7b bf16, its WS keys
+   warmed (capture seconds, memory held), 4 streaming sessions beside 2
+   idle ones, all in mode ``tick``: fewer dispatches than ticks, every
+   tick's tokens equal its window's solo resume run, replays only, kernel
+   B's per-row route and #3 launched; per-tick wall p50/p90, one tick's
+   device busy share under the profiler; (c) the same with ``QUANTIZE=int8
+   ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true`` (kernel C on the verify
+   rows, B's int4 per-row route, #3-int4) and the share of a tick that
+   widening the int4 cache layers for T > 1 takes. Phases 2 and 3 also
+   hold the real-time path's kernel shapes: flash at the verify windows
+   (T = 24, 32 and 64 at the 1 s and 6 s prompts, B = 1 and 4, f32 and
+   bf16), kernel B with a ``[B]`` write position (T=1 at B = 8 and 96,
+   T=64 at B=4; bf16, fp8 and int4 caches; bit-equal shares, repeat
+   bits) and #3 with per-row ``valid_to`` (B = 4 and 8, bf16 and int4).
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -450,11 +472,13 @@ def graph_node_types(graph: "torch.cuda.CUDAGraph") -> list:
     return types
 
 
-def one_kernel_per_call(kernel: str, label: str, fn, calls: int = 3) -> None:
+def one_kernel_per_call(kernel: str, label: str, fn, calls: int = 3,
+                        also: tuple = ()) -> None:
     """``calls`` calls of ``fn`` captured into one CUDA graph must record
     ``calls`` graph nodes, every one a kernel, and move ``kernel``'s launch
-    counter by ``calls`` and no other counter: one device kernel a call,
-    the wrapper's own. The graph is read through the CUDA driver, not
+    counter by ``calls`` and no other counter (but ``also``, counters of a
+    route of the same kernel): one device kernel a call, the wrapper's
+    own. The graph is read through the CUDA driver, not
     torch.profiler: on the card the profiler has dropped every kernel
     record of a window of a few short calls, in three windows running."""
     fn()
@@ -470,10 +494,11 @@ def one_kernel_per_call(kernel: str, label: str, fn, calls: int = 3) -> None:
     log(f"[graph] {kernel} {label}: {calls} calls captured {len(types)} "
         f"nodes of types {types} (0: kernel); launch counters moved "
         f"{moved}")
-    if types != [0] * calls or moved != {kernel: calls}:
+    want = {name: calls for name in (kernel,) + also}
+    if types != [0] * calls or moved != want:
         raise AssertionError(f"{kernel} {label}: want {calls} kernel nodes "
-                             f"and {{{kernel!r}: {calls}}} launches, got "
-                             f"node types {types} and {moved}")
+                             f"and {want} launches, got node types {types} "
+                             f"and {moved}")
 
 
 def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
@@ -571,6 +596,7 @@ def kernel_phases(sh, dev):
             "shape": label, "max_abs_err": err, "plain_ms": plain_ms,
             "library_ms": None, "bytes": nbytes})
     quant_kernel_rows(sh, dev, card, rows)
+    ws_kernel_rows(sh, dev, card, rows)
     return rows
 
 
@@ -979,6 +1005,266 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
             card, " on a dequantized bf16 copy"))
 
 
+# -- phases 2 and 3: the real-time path's shapes (resume) ---------------------------
+
+def ws_bucket_shapes():
+    """(prompt length, max_new, cache length) of preset:1.7b's 1 s and 6 s
+    buckets: a WS tick's shortest and longest windows at the 6 s cap."""
+    from qwen3_asr_tpu_torch.models.asr import PromptTemplate
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.encoder import encoder_output_length
+    from qwen3_asr_tpu_torch.runtime.engine import (PREFIX_BUDGET,
+                                                    max_new_tokens_for)
+    from qwen3_asr_tpu_torch.runtime.generate import cache_length
+    from qwen3_asr_tpu_torch.runtime.lifecycle import preset_tokenizer
+    cfg = preset("1.7b")
+    tok = preset_tokenizer(cfg.decoder.vocab_size)
+    suffix = len(tok.encode(PromptTemplate().suffix_text()))
+    chunk = cfg.encoder.n_window * 2
+    out = {}
+    for sec in (1, 6):
+        frames = -(-sec * 100 // chunk) * chunk
+        plen = (PREFIX_BUDGET + int(encoder_output_length(frames, chunk))
+                + suffix)
+        max_new = max_new_tokens_for(frames / 100)
+        out[sec] = (plen, max_new, cache_length(plen, max_new))
+    return out
+
+
+def verify_flash_cases(sh, ws, dtype, dev):
+    """Flash at resume's verify windows: T queries at q_offset = the
+    prompt's length, causal over the whole cache, some rows left-padded
+    further: T = 24 (a partial tile) and 32 (the 1 s bucket's max_new) at
+    the 1 s prompt, 64 at the 6 s prompt; B = 1 and 4. make_cases' tuple."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    nq, nkv, d = sh["nq"], sh["nkv"], sh["d"]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    vf0 = sh["valid_from"]
+    for t, sec in ((24, 1), (ws[1][1], 1), (ws[6][1], 6)):
+        plen, _, s = ws[sec]
+        for batch in (1, 4):
+            gen = torch.Generator(device=dev).manual_seed(t + batch)
+            q = torch.randn((batch, nq, t, d), generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn((batch, nkv, s, d), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            vfs = [vf0, vf0 + 28, 0, vf0][:batch]
+            vf = torch.tensor(vfs, dtype=torch.int32, device=dev)
+            vt = torch.full((batch,), s, dtype=torch.int32, device=dev)
+            qo = torch.full((batch,), plen, dtype=torch.int32, device=dev)
+            mask = AttnSpec(causal=True, q_offset=qo, valid_from=vf
+                            ).dense_mask(batch, t, s, dev)
+            keys = sum(plen + t - x for x in vfs)
+            yield (f"verify_t{t}_{sec}s_b{batch}", "flash_attention",
+                   lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo:
+                       flash_attention(q, k, v, causal=True, q_offset=qo,
+                                       kv_valid_from=vf, kv_valid_to=vt,
+                                       return_residuals=True),
+                   lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo:
+                       flash_attention_plain(q, k, v, vf, vt, qo, causal=True,
+                                             window_block=0,
+                                             sm_scale=d ** -0.5),
+                   lambda q=q, k=k, v=v, mask=mask:
+                       F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask[:, None],
+                           enable_gqa=True),
+                   (2 * batch * nq * t * d + 2 * nkv * keys * d) * esize
+                   + 2 * 4 * batch * nq * t + 3 * 4 * batch,
+                   4 * d * nq * int(mask.sum()), 0)
+
+
+def qk_row_cases(sh, dev):
+    """Kernel B with one write position a row (the resume loop's
+    continuation and a verify window): T=1 at B=8 (S=256, one row at S,
+    which writes nothing) and B=96 (S=512), T=64 at B=4 (S=256), into
+    bf16, fp8 and int4 caches of 28 layers: qk_rope_kv_cases' tuple."""
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.decoder import init_kv_cache, rope_cos_sin
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import (qk_rope_kv_write,
+                                                    qk_rope_kv_write_plain)
+    cfg = preset("1.7b").decoder
+    nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
+    shapes = ((8, 1, 256, [153, 160, 200, 17, 254, 255, 100, 256]),
+              (96, 1, 512, [(37 * i) % 512 for i in range(96)]),
+              (4, 64, 256, [153, 100, 192, 12]))
+    for kv_name, kv in QK_CACHES.items():
+        for batch, t, s_len, pos in shapes:
+            gen = torch.Generator(device=dev).manual_seed(batch + t + 7)
+
+            def rnd(*shape, scale=2.0, shift=0.0):
+                return (torch.randn(shape, generator=gen, device=dev)
+                        * scale + shift).bfloat16()
+
+            q, k, v = (rnd(batch, t, n * d) for n in (nq, nkv, nkv))
+            q_norm, k_norm = (rnd(d, scale=0.2, shift=1.0) for _ in range(2))
+            where = torch.tensor(pos, dtype=torch.int64, device=dev)
+            cos, sin = rope_cos_sin(
+                where[:, None] + torch.arange(t, device=dev), d,
+                cfg.rope_theta)
+            ours, ref = (init_kv_cache(cfg, batch, s_len, kv, dev)
+                         for _ in range(2))
+            args = (q, k, v, q_norm, k_norm, cos, sin, cfg.rms_norm_eps)
+            rows = batch * t
+            stored = {"bf16": 2 * d, "fp8": d, "int4": d // 2 + 2}[kv_name]
+            nbytes = (2 * rows * (nq + 2 * nkv) * d + 2 * 2 * d
+                      + 2 * 4 * rows * d + 8 * batch + 2 * rows * nq * d
+                      + 2 * rows * nkv * stored)
+            ops = (7 * rows * (nq + nkv) * d
+                   + (4 * 2 * rows * nkv * d if kv_name == "int4" else 0))
+            yield (f"qk_rows_b{batch}_t{t}_{kv_name}",
+                   lambda layer, a=args, c=ours, p=where: qk_rope_kv_write(
+                       *a, c, layer, p),
+                   lambda layer, a=args, c=ref, p=where:
+                       qk_rope_kv_write_plain(*a, c, layer, p),
+                   ours, ref, nbytes, ops, layers)
+            del ours, ref
+
+
+def row_valid_to_cases(sh, ws, dev):
+    """#3 at a tick's continuation: B = 4 and 8 rows of the 6 s bucket's
+    cache (S=256), each at its own frontier (valid_to per row), bf16 and
+    int4 caches: (kernel, label, run, plain, SDPA, bytes, flops, layers,
+    note)."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        decode_attention_batched, decode_attention_batched_plain)
+    from qwen3_asr_tpu_torch.ops.kv_int4 import dequantize_layer, pack
+    nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
+    plen, _, s = ws[6]
+    for batch in (4, 8):
+        for kv in ("bf16", "int4"):
+            gen = torch.Generator(device=dev).manual_seed(batch + 11)
+            q = torch.randn((batch, nq, 1, d), generator=gen,
+                            device=dev).bfloat16()
+            lead = (layers, batch, nkv, s)
+            vf0 = [sh["valid_from"], 0, 40, sh["valid_from"]] * 2
+            vt0 = [plen + x for x in (1, 9, 30, 64, 5, 17, 48, 2)]
+            vf = torch.tensor(vf0[:batch], dtype=torch.int32, device=dev)
+            vt = torch.tensor(vt0[:batch], dtype=torch.int32, device=dev)
+            live = sum(b - a for a, b in zip(vf0[:batch], vt0[:batch]))
+            if kv == "int4":
+                k, v = (pack(torch.randint(-8, 8, lead + (d,), generator=gen,
+                                           device=dev, dtype=torch.int8))
+                        for _ in range(2))
+                ks, vs = ((torch.rand(lead + (1,), generator=gen,
+                                      device=dev) * 0.3 + 0.01).bfloat16()
+                          for _ in range(2))
+                kb = dequantize_layer(k, ks, torch.bfloat16)
+                vb = dequantize_layer(v, vs, torch.bfloat16)
+                per_key = d // 2 + 2
+            else:
+                k, v = (torch.randn(lead + (d,), generator=gen,
+                                    device=dev).bfloat16()
+                        for _ in range(2))
+                ks = vs = None
+                kb, vb = k, v
+                per_key = 2 * d
+            mask = AttnSpec(valid_from=vf, valid_to=vt).dense_mask(
+                batch, 1, s, dev)
+            kernel = ("decode_attention_batch_int4" if kv == "int4"
+                      else "decode_attention_batch")
+            yield (kernel, f"rows_b{batch}_s{s}_{kv}",
+                   lambda layer, q=q, k=k, v=v, ks=ks, vs=vs, vf=vf, vt=vt: (
+                       decode_attention_batched(
+                           q, k, v, layer_idx=layer, kv_valid_from=vf,
+                           kv_valid_to=vt, k_scale=ks, v_scale=vs),),
+                   lambda layer, q=q, k=k, v=v, ks=ks, vs=vs, vf=vf, vt=vt: (
+                       decode_attention_batched_plain(
+                           q, k, v, vf, vt, layer_idx=layer,
+                           sm_scale=d ** -0.5, k_scale=ks, v_scale=vs),),
+                   lambda layer, q=q, kb=kb, vb=vb, mask=mask:
+                       F.scaled_dot_product_attention(
+                           q, kb[layer], vb[layer], attn_mask=mask[:, None],
+                           enable_gqa=True),
+                   2 * batch * nq * d * 2 + 2 * nkv * live * per_key
+                   + 8 * batch, 4 * d * nq * live, layers,
+                   " on a dequantized bf16 copy" if kv == "int4" else "")
+            del k, v, kb, vb
+
+
+def ws_kernel_rows(sh, dev, card, rows) -> None:
+    """Parity (phase 2) and timing (phase 3) of the kernels at the shapes
+    the real-time path gives them: flash at the verify windows (f32 and
+    bf16; bf16 timed), kernel B with a [B] write position (bit-equal share
+    printed; a repeat call's bits), and #3 with per-row valid_to."""
+    ws = ws_bucket_shapes()
+    log(f"[shapes] WS buckets (prompt, max_new, cache): {ws}")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[dtype]
+        dt = str(dtype).replace("torch.", "")
+        for label, kernel, run, plain, sdpa, nbytes, flops, layers in \
+                verify_flash_cases(sh, ws, dtype, dev):
+            outs, refs = run(), plain()
+            torch.cuda.synchronize()
+            err = float((outs[0].float() - refs[0].float()).abs().max())
+            for a, b in zip(outs[1:], refs[1:]):
+                torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+            same_bits(kernel, label, outs, run())
+            log(f"[parity] {label} {dt}: max_abs_err={err:.3e} (bound "
+                f"{tol:g}); m and l within it; a repeat call's bits equal")
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {label} {dt}: error {err} "
+                                     f"above {tol}")
+            if dtype == torch.bfloat16:
+                if label == "verify_t64_6s_b4":
+                    one_kernel_per_call(kernel, label, run)
+                rows[kernel].append(time_row(label, dt, err, run, plain,
+                                             sdpa, nbytes, flops, layers,
+                                             card))
+    for label, run, plain, ours, ref, nbytes, ops, layers in \
+            qk_row_cases(sh, dev):
+        q, q_ref = run(layers - 1), plain(layers - 1)
+        torch.cuda.synchronize()
+        err = qk_parity(label, q, q_ref, ours, ref)
+        planes = [p.clone() for p in ours if p is not None]
+        same_bits("qk_rope_kv", label, [q], [run(layers - 1)])
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(planes, (p for p in ours
+                                            if p is not None))):
+            raise AssertionError(f"qk_rope_kv {label}: a repeat call "
+                                 f"changed the cache's bits")
+        del q, q_ref, planes
+        if label == "qk_rows_b8_t1_int4":
+            one_kernel_per_call("qk_rope_kv", label,
+                                lambda: run(layers - 1),
+                                also=("qk_rope_kv_per_row",))
+        ms, plain_ms = per_call_ms(run, layers), per_call_ms(plain, layers)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"[timing] qk_rope_kv {label} (device, one position a row): "
+            f"kernel {ms:.4f} ms, plain chain {plain_ms:.4f} ms (kernel / "
+            f"plain {ms / plain_ms:.3f}); bound {bound:.6f} ms ({nbytes} "
+            f"bytes), share {bound / ms:.2%}; no library call | {card}")
+        rows["qk_rope_kv"].append({
+            "shape": label, "dtype": "bfloat16", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes})
+        del ours, ref
+    tol = TOL[torch.bfloat16]
+    for kernel, label, run, plain, sdpa, nbytes, flops, layers, note in \
+            row_valid_to_cases(sh, ws_bucket_shapes(), dev):
+        errs = []
+        for layer in (0, layers - 1):
+            out, ref = run(layer)[0], plain(layer)[0]
+            torch.cuda.synchronize()
+            errs.append(float((out.float() - ref.float()).abs().max()))
+        err = max(errs)
+        same_bits(kernel, label, run(layers - 1), run(layers - 1))
+        log(f"[parity] {kernel} {label} (per-row valid_to, layers 0 and "
+            f"{layers - 1}): max_abs_err={err:.3e} (bound {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {label}: error {err} above "
+                                 f"{tol}")
+        rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
+                                     sdpa, nbytes, flops, layers, card,
+                                     note))
+
+
 # -- phase 4 ---------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1167,6 +1453,7 @@ class PathLaunches:
             "w8a8": (w8a8, "calls"),
             "widened_product": (widened_product, "cuda_calls"),
             "qk_rope_kv": (qk_rope_kv_write, "launches"),
+            "qk_rope_kv_per_row": (qk_rope_kv_write, "launches_per_row"),
             "slab_reader": (slab_read, "launches")}
         self.engines = engines
         for w, attr in self.counters.values():
@@ -1200,10 +1487,13 @@ def check_records(engine, name: str) -> None:
     got = {key: (exe.front.recorded.get("qk_rope_kv"),
                  exe.chunk.recorded.get("qk_rope_kv"))
            for key, exe in engine.executables.items()}
+    # a resume key's front writes twice a layer: the prompt, the verify
+    want = {key: ((2 if exe.resume else 1) * layers, DECODE_CHUNK * layers)
+            for key, exe in engine.executables.items()}
     log(f"[graphs] {name}: qk_rope_kv recorded (front, chunk) per key "
-        f"{list(got.values())} (want ({layers}, {DECODE_CHUNK * layers}))")
-    if not got or any(v != (layers, DECODE_CHUNK * layers)
-                      for v in got.values()):
+        f"{list(got.values())} (want ({layers} or {2 * layers} with "
+        f"resume, {DECODE_CHUNK * layers}))")
+    if not got or got != want:
         raise AssertionError(f"{name}: qk_rope_kv records {got}")
 
 
@@ -1246,9 +1536,10 @@ def key_report(engine, name: str, card: str) -> None:
     """Capture seconds of each of ``engine``'s keys (the warm-up run and
     the capture of both graphs)."""
     for key, exe in engine.executables.items():
-        bf, max_new, batch, kv = key
+        bf, max_new, batch, kv = key[:4]
         log(f"[graphs] {name} key (bucket {bf} frames, max_new {max_new}, "
-            f"B={batch}, {str(kv).replace('torch.', '')}): built in "
+            f"B={batch}, {str(kv).replace('torch.', '')}"
+            f"{', resume' if exe.resume else ''}): built in "
             f"{exe.front.capture_s + exe.chunk.capture_s:.3f} s (front "
             f"{exe.front.capture_s:.3f}, chunk {exe.chunk.capture_s:.3f}); "
             f"recorded front {exe.front.recorded}, chunk "
@@ -1530,8 +1821,9 @@ def profile_phase(engine, wav: bytes, top: int = 12,
     elif decoded[0][1] < want:
         log(f"[profile] the profiler lost {want - decoded[0][1]} of the "
             f"decode kernel's {want} records: counted from the capture")
-    exe = next(x for (bf, _, b, _), x in engine.executables.items()
-               if bf == run["bucket_frames"] and b == run["batch"])
+    exe = next(x for key, x in engine.executables.items()
+               if key[0] == run["bucket_frames"] and key[2] == run["batch"]
+               and not x.resume)
     step_kernels(exe, f"{len(audio) / sr:.1f} s upload, B={run['batch']}, "
                  f"{str(engine.cache_dtype).replace('torch.', '')} KV", card)
 
@@ -1809,6 +2101,489 @@ def default_config_phase(dev, sh, bf16_engine, bf16_b8_engine, uploads):
                 os.environ[k] = v
 
 
+# -- phase 10 --------------------------------------------------------------------
+
+# the tick batches phase 10 serves: a group of 3 or 4 sessions pads to 4
+WS_ENV = {"ASR_WS_TICK_MIN_SESSIONS": "3", "ASR_WS_TICK_MAX_BATCH": "4",
+          "ASR_WARMUP_BUCKETS": "", "ASR_WARMUP_BATCH_SHAPES": ""}
+VAD_TOL = 1e-4
+
+
+def vad_phase(dev, card: str) -> None:
+    """The VAD on the card against its plain version on the CPU (the same
+    torch code, on CPU tensors), both backends, on 10 real clips: the
+    probabilities within VAD_TOL and ``is_speech`` equal on every clip."""
+    from qwen3_asr_tpu_torch.audio import vad, vad_model
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))[:10]
+    worst = {"learned": 0.0, "spectral": 0.0}
+    walls = {"learned": [], "spectral": []}
+    fns = {"learned": vad_model.speech_probability,
+           "spectral": vad.spectral_probability}
+    for path in clips:
+        with open(path, "rb") as f:
+            x = decode_audio(f.read())[0].astype(np.float32)
+        x = x[-int(6.6 * 16000):]        # a flush window's length at most
+        for name, fn in fns.items():
+            fn(x, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_card = fn(x, dev)
+            walls[name].append(time.perf_counter() - t0)
+            p_cpu = fn(x, "cpu")
+            worst[name] = max(worst[name], abs(p_card - p_cpu))
+            if (p_card >= 0.5) != (p_cpu >= 0.5) or \
+                    abs(p_card - p_cpu) > VAD_TOL:
+                raise AssertionError(f"VAD {name} {os.path.basename(path)}: "
+                                     f"card {p_card} vs CPU {p_cpu}")
+    log(f"[vad] {len(clips)} real clips (their last 6.6 s), card vs CPU: "
+        f"learned max |dp| {worst['learned']:.2e}, spectral "
+        f"{worst['spectral']:.2e} (bound {VAD_TOL:g}); is_speech equal on "
+        f"every clip; active backend {vad.active_backend()}, flush debounce "
+        f"{vad.default_flush_ticks()} tick(s); one call on the card "
+        f"{np.median(walls['learned']) * 1e3:.2f} ms learned, "
+        f"{np.median(walls['spectral']) * 1e3:.2f} ms spectral (host wall, "
+        f"median) | {card}")
+
+
+@contextlib.contextmanager
+def ws_serving(manager):
+    """The port's server for ``manager``; yields its ws:// base URL. The
+    session's ``_transcribe_with_context`` is wrapped to record each call
+    (a partial or a flush, its wall and its text) in ``manager.ws_calls``."""
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    from qwen3_asr_tpu_torch.serving.server import build_server
+    orig = ws_mod._transcribe_with_context
+    manager.ws_calls = []
+
+    def recorded(mgr, audio_bytes, pad_silence, *a, **k):
+        t0 = time.perf_counter()
+        out = orig(mgr, audio_bytes, pad_silence, *a, **k)
+        manager.ws_calls.append(("flush" if pad_silence else "partial",
+                                 time.perf_counter() - t0, out[0]))
+        return out
+
+    ws_mod._transcribe_with_context = recorded
+    manager.start()
+    server = build_server(manager, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"ws://127.0.0.1:{server.server_address[1]}/ws/transcribe"
+    finally:
+        ws_mod._transcribe_with_context = orig
+        server.shutdown()
+        server.server_close()
+        manager.stop()
+        thread.join(timeout=30)
+
+
+def ws_stream(url: str, pcm: bytes, query: str = "") -> list:
+    """One session: the PCM in 450 ms binary messages, a flush, then a
+    reset whose answer ends it; returns every message received."""
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    ws = ws_mod.connect(url + query, timeout=600)
+    msgs = [ws.receive_json(timeout=600)]
+    if msgs[0].get("status") != "connected":
+        raise AssertionError(f"WS greeting {msgs[0]}")
+    tick = ws_mod.WS_BUFFER_SIZE
+    for i in range(0, len(pcm), tick):
+        ws.send_bytes(pcm[i:i + tick])
+    ws.send_json({"action": "flush"})
+    ws.send_json({"action": "reset"})
+    while msgs[-1] != {"status": "buffer_reset"}:
+        msgs.append(ws.receive_json(timeout=600))
+    ws.close()
+    return msgs
+
+
+def real_pcm(name: str) -> bytes:
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    with open(os.path.join(DATA, "real", name), "rb") as f:
+        audio = decode_audio(f.read())[0]
+    return np.round(audio * 32768.0).astype("<i2").tobytes()
+
+
+def percentiles(walls) -> str:
+    return (f"p50 {np.percentile(walls, 50) * 1e3:.1f} ms, p90 "
+            f"{np.percentile(walls, 90) * 1e3:.1f} ms over {len(walls)}")
+
+
+def solo_ws_phase(dev, card: str) -> dict:
+    """(a) trained_ckpt in f32 on the card through the server: one real
+    clip in 450 ms messages, server VAD on, then a flush. Every partial's
+    token ids equal a plain run of its window on the same engine, and the
+    final is the clip's transcript. Returns the launches."""
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager, load_engine
+    name = "english_02"
+    engine = load_engine(os.path.join(DATA, "trained_ckpt"), device=dev,
+                         dtype=torch.float32)
+    manager = ModelManager(engine)
+    calls = []
+    orig_sync = manager.transcribe_sync
+
+    def sync(audio, sr, lang, ts=False, use_fast=False, context="",
+             resume_tokens=None):
+        out = orig_sync(audio, sr, lang, ts, use_fast, context,
+                        resume_tokens)
+        calls.append((audio, lang, resume_tokens, out[0].token_ids,
+                      dict(engine.last_run)))
+        return out
+
+    manager.transcribe_sync = sync
+    with ws_serving(manager) as url:
+        counter = PathLaunches(engine)
+        msgs = ws_stream(url, real_pcm(name + ".wav"))
+        launches, eager = counter.read()
+    with open(os.path.join(DATA, "real", name + ".txt"),
+              encoding="utf-8") as f:
+        want = f.read().strip()
+    finals = [m["text"] for m in msgs if m.get("is_final")]
+    partials = [m["text"] for m in msgs if m.get("is_partial")]
+    rows = []
+    for audio, lang, draft, ids, run in calls:
+        plain = engine.transcribe(audio, 16000, lang)[0]
+        prun = engine.last_run
+        if plain.token_ids != ids:
+            raise AssertionError(f"a tick's tokens {ids} differ from the "
+                                 f"plain run's {plain.token_ids}")
+        rows.append((len(audio) / 16000, run["resume"],
+                     run.get("accepted", [0])[0], run["steps"], prun["steps"]))
+    ticks = [r for r in rows if r[1]]
+    log(f"[ws] (a) trained_ckpt f32, {name} in 450 ms messages, VAD on: "
+        f"{len(partials)} partials, {len(finals)} final(s); {len(calls)} "
+        f"transcriptions, every one's token ids equal to a plain run of its "
+        f"window | {card}")
+    for sec, resume, acc, steps, plain_steps in rows:
+        log(f"[ws]   window {sec:.2f} s: "
+            + (f"resume, {acc} draft tokens accepted, {steps[0]} decode "
+               f"steps past them" if resume else "plain (no draft)")
+            + f"; plain greedy: {plain_steps} steps")
+    if ticks:
+        log(f"[ws] (a) per resumed tick: accepted "
+            f"{np.mean([t[2] for t in ticks]):.2f} draft tokens and "
+            f"{np.mean([t[3][0] for t in ticks]):.2f} decode steps on "
+            f"average, against {np.mean([t[4] for t in ticks]):.2f} steps "
+            f"of plain greedy on the same windows")
+    log(f"[ws] (a) final {finals[-1]!r}; launches {launches}, eager {eager}")
+    if not finals or finals[-1] != want or not ticks or not partials:
+        raise AssertionError(f"(a): final {finals} vs {want!r}; "
+                             f"{len(ticks)} resumed ticks")
+    if not (launches["flash_attention"] and launches["decode_attention"]
+            and launches["qk_rope_kv"]) or any(eager.values()):
+        raise AssertionError(f"(a): launches {launches}, eager {eager}")
+    del engine, manager
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tick_sessions(engine, manager, card: str, name: str, clips) -> tuple:
+    """Two idle sessions, then one streaming session a clip, all at once,
+    server VAD off, through ``manager``'s server: the streaming sessions
+    are admitted at 3 or more live sessions, so in mode ``tick``. Checks
+    that ticks coalesce (dispatches < ticks), that each tick's tokens are
+    its window's solo resume run's, and that the run replayed graphs
+    only. Returns (launches, partial walls, the recorded ticks)."""
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    batcher = manager.tick_batcher
+    ticks = []
+    orig = batcher.transcribe_tick
+
+    def record(audio, language, resume_tokens, use_fast):
+        fut = orig(audio, language, resume_tokens, use_fast)
+        ticks.append((audio, language, resume_tokens, fut))
+        return fut
+
+    batcher.transcribe_tick = record
+    with ws_serving(manager) as url:
+        holders = [ws_mod.connect(url, timeout=600) for _ in range(2)]
+        for h in holders:
+            h.receive_json(timeout=600)
+        counter = PathLaunches(engine)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(clips)) as pool:
+            out = list(pool.map(
+                lambda c: ws_stream(url, real_pcm(c),
+                                    "?use_server_vad=false"), clips))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, eager = counter.read()
+        for h in holders:
+            h.close()
+        calls = list(manager.ws_calls)
+    dispatches = batcher.dispatches
+    groups = dict(batcher.groups)
+    partial_walls = [w for kind, w, _ in calls if kind == "partial"]
+    flush_walls = [w for kind, w, _ in calls if kind == "flush"]
+    # every tick against its window's solo resume run (B=1) and its plain
+    # greedy run: in f32 the three are equal (phase 10 (a), the CPU
+    # tests); in bf16 a row of a batch and a verify window round apart
+    # from a B=1 decode step, so a near-tie can flip a token. Counted,
+    # with the share of each tick's tokens before the first difference.
+    # (every fourth tick against the plain run)
+    vocab = engine.model.cfg.decoder.vocab_size
+    same = {"solo resume": 0, "plain": 0}
+    prefix = {"solo resume": [], "plain": []}
+    for i, (audio, lang, draft, fut) in enumerate(ticks):
+        _, ids = fut.result()
+        if any(not 0 <= t < vocab for t in ids):
+            raise AssertionError(f"{name}: token ids {ids} outside the "
+                                 f"vocabulary")
+        refs = [("solo resume", dict(resume_tokens=draft))]
+        if i % 4 == 0:
+            refs.append(("plain", {}))
+        for kind, kw in refs:
+            ref = engine.transcribe(audio, 16000, lang, **kw)[0].token_ids
+            same[kind] += ref == ids
+            n = next((i for i, (a, b) in enumerate(zip(ids, ref))
+                      if a != b), min(len(ids), len(ref)))
+            prefix[kind].append(n / max(len(ids), len(ref), 1))
+    errors = [t for _, _, t in calls
+              if t == "[timeout]" or t.startswith("[error: ")]
+    log(f"[ws] {name}: {len(clips)} sessions (+2 idle) in mode tick, "
+        f"{len(ticks)} ticks in {dispatches} dispatches (groups by size "
+        f"{groups}), {len(flush_walls)} finals; {wall:.2f} s wall; partial "
+        f"ticks {percentiles(partial_walls)}, finals "
+        f"{percentiles(flush_walls)} (server wall a call) | {card}")
+    for kind in same:
+        log(f"[ws] {name}: ticks whose tokens equal their window's {kind} "
+            f"run at B=1: {same[kind]}/{len(prefix[kind])}; tokens before "
+            f"the first difference {np.mean(prefix[kind]):.1%} on average")
+    log(f"[ws] {name}: launches {launches}, eager {eager}")
+    if (errors or not ticks or dispatches >= len(ticks)
+            or any(eager.values()) or not launches["qk_rope_kv_per_row"]
+            or any(len(m) < 3 for m in out)):
+        raise AssertionError(f"{name}: errors {errors[:3]}, {dispatches} "
+                             f"dispatches for {len(ticks)} ticks, eager "
+                             f"{eager}, launches {launches}")
+    return launches, partial_walls, ticks
+
+
+def warm_ws(engine, card: str, name: str):
+    """The engine's keys for the WS path (``ws_warmup_profile``: each
+    bucket's plain and resume keys, the tick batches' resume keys, the
+    flush bucket's batches), warmed by the manager's start; logs their
+    capture seconds and the memory they hold."""
+    from qwen3_asr_tpu_torch.config import ws_warmup_profile
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    manager = ModelManager(engine)
+    t0 = time.perf_counter()
+    manager.start()
+    manager.stop()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    capture = sum(x.front.capture_s + x.chunk.capture_s
+                  for x in engine.executables.values())
+    resume = sum(x.resume for x in engine.executables.values())
+    log(f"[ws] {name}: modes {[m.name for m in ws_warmup_profile()]}, "
+        f"{len(engine.executables)} keys ({resume} resume) warmed in "
+        f"{warm_s:.1f} s, {capture:.1f} s of it capture; they hold "
+        f"{(torch.cuda.memory_reserved() - held[1]) / 2**30:.3f} GiB, "
+        f"{(torch.cuda.memory_allocated() - held[0]) / 2**30:.3f} GiB of "
+        f"it KV caches and state | {card}")
+    manager.warmed = True
+    return manager
+
+
+def tick_busy_share(engine, ticks, card: str, name: str) -> dict:
+    """One tick batch of the run's last four windows (6 s bucket, B=4,
+    their drafts) under torch.profiler: wall, device busy time and share;
+    and the device ms of the key's front and chunk graphs."""
+    windows = ticks[-4:]
+    clips = [a for a, _, _, _ in windows]
+    rows = [d for _, _, d, _ in windows]
+    langs = [lang for _, lang, _, _ in windows]
+    bf, bs = engine.bucket_frames(max(len(c) for c in clips))
+    engine._run_bucket(clips, bf, bs, None, resume_rows=rows,
+                       language_rows=langs)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine._run_bucket(clips, bf, bs, None, resume_rows=rows,
+                           language_rows=langs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    run = dict(engine.last_run)
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    key = next(k for k, x in engine.executables.items()
+               if x.resume and k[0] == bf and k[2] == len(clips))
+    exe = engine.executables[key]
+    # the tick's graphs against the same functions run eagerly: bit for bit
+    audio, _, _ = engine.bucket_inputs(clips, bf, None)
+    prefix, valid_from = engine.padded_prefix_rows(langs)
+    prev = np.full((len(clips), run["max_new"]), engine.model.pad_id,
+                   np.int32)
+    prev_len = np.zeros(len(clips), np.int32)
+    for i, r in enumerate(rows):
+        usable = list(r or [])[:run["max_new"]]
+        prev[i, :len(usable)], prev_len[i] = usable, len(usable)
+    outs = [exe.run(audio, prefix, valid_from, eager=e, prev=prev,
+                    prev_len=prev_len) for e in (False, True, False)]
+    if not all(torch.equal(o.tokens, outs[0].tokens)
+               and torch.equal(o.steps, outs[0].steps) for o in outs):
+        raise AssertionError(f"{name}: the tick's graphs and its eager run "
+                             f"differ")
+    front = replay_ms(exe.front)
+    exe.front()
+    chunk = replay_ms(exe.chunk)
+    log(f"[ws] {name}: one tick at B={len(clips)} (bucket {bf} frames, "
+        f"max_new {run['max_new']}) under torch.profiler: {wall * 1e3:.2f} "
+        f"ms wall, device busy {busy * 1e3:.2f} ms = {busy / wall:.1%}; "
+        f"accepted {run['accepted']}, steps {run['steps']}, "
+        f"{run['steps_run']} computed; graph = eager bit for bit; front "
+        f"graph {front:.3f} ms, a chunk {chunk:.3f} ms (device, replays) | "
+        f"{card}")
+    return {"exe": exe, "front_ms": front, "chunk_ms": chunk, "run": run}
+
+
+def f32_tick_check(dev, bf16_model, ticks, card: str) -> None:
+    """The same tick batch at full width in f32 (the bf16 weights
+    widened): each row's tokens must equal its window's plain greedy run
+    at B=1, as in the CPU tests and phase 10 (a). In bf16 they may not:
+    a verify window's products and a row of a batch round apart from a
+    B=1 decode step's, and the random weights' logits are flat enough
+    that such a rounding flips a token."""
+    import copy
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    model = copy.copy(bf16_model)
+    model.params = cast_tree(bf16_model.params, torch.float32)
+    engine = TranscriptionEngine(model, device=dev, dtype=torch.float32)
+    windows = ticks[-4:]
+    clips = [a for a, _, _, _ in windows]
+    rows = [d for _, _, d, _ in windows]
+    langs = [lang for _, lang, _, _ in windows]
+    bf, bs = engine.bucket_frames(max(len(c) for c in clips))
+    _, ids = engine._run_bucket(clips, bf, bs, None, resume_rows=rows,
+                                language_rows=langs)
+    run = dict(engine.last_run)
+    plain = [engine.transcribe(c, 16000, lang)[0].token_ids
+             for c, lang in zip(clips, langs)]
+    log(f"[ws] preset:1.7b f32, one tick at B={len(clips)} (bucket {bf} "
+        f"frames, the bf16 run's last windows and drafts): accepted "
+        f"{run['accepted']}, steps {run['steps']}; rows equal to their "
+        f"plain greedy run at B=1: {sum(a == b for a, b in zip(ids, plain))}"
+        f"/{len(clips)} | {card}")
+    if ids != plain:
+        raise AssertionError(f"f32 tick rows {ids} differ from plain "
+                             f"{plain}")
+
+
+def cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def widened_share(engine, tick: dict, card: str, name: str) -> None:
+    """With an int4 or fp8 cache a T > 1 forward widens each cache layer
+    before flash: twice a layer a tick (the prompt and the verify window).
+    Device ms of those widenings alone on the tick's key (a captured graph
+    of them), against the tick's device ms (front + its chunks)."""
+    from qwen3_asr_tpu_torch.ops.kv_int4 import dequantize_layer
+    cache = tick["exe"].loop.cache
+    layers = engine.model.cfg.decoder.num_hidden_layers
+
+    def widen():
+        for _ in range(2):
+            for i in range(layers):
+                if cache.int4:
+                    dequantize_layer(cache.k[i], cache.k_scale[i],
+                                     torch.bfloat16)
+                    dequantize_layer(cache.v[i], cache.v_scale[i],
+                                     torch.bfloat16)
+                else:
+                    cache.k[i].to(torch.bfloat16)
+                    cache.v[i].to(torch.bfloat16)
+
+    from qwen3_asr_tpu_torch.runtime.graphs import Graph
+    graph = Graph(widen, torch.device("cuda"))
+    ms = replay_ms(graph)
+    run = tick["run"]
+    from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
+    tick_ms = tick["front_ms"] + tick["chunk_ms"] * run["steps_run"] \
+        / DECODE_CHUNK
+    log(f"[ws] {name}: widening the cache layers for T > 1 (2 x "
+        f"{layers} layers, K and V) takes {ms:.3f} ms of a tick's "
+        f"{tick_ms:.3f} ms device time ({ms / tick_ms:.1%}) | {card}")
+
+
+def realtime_phase(dev, bf16_model) -> dict:
+    """Phase 10: real-time transcription over WS /ws/transcribe (resume
+    decoding, tick batching, the server VAD). Returns the kernels' launches
+    over its runs."""
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    card = card_line()
+    saved = {k: os.environ.get(k) for k in (*WS_ENV, *DEFAULT_ENV)}
+    clips = ["english_01.wav", "chinese_01.wav", "japanese_01.wav",
+             "hindi_01.wav"]
+    total = {}
+
+    def add(got):
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+
+    try:
+        os.environ.update(WS_ENV)
+        vad_phase(dev, card)
+        add(solo_ws_phase(dev, card))
+        # (b) preset:1.7b bf16, tick mode
+        engine = TranscriptionEngine(bf16_model, device=dev,
+                                     dtype=torch.bfloat16)
+        manager = warm_ws(engine, card, "(b) preset:1.7b bf16")
+        launches, _, ticks = tick_sessions(engine, manager, card,
+                                           "(b) preset:1.7b bf16", clips)
+        if not launches["decode_attention_batch"]:
+            raise AssertionError("(b): #3 was not launched")
+        add(launches)
+        tick_busy_share(engine, ticks, card, "(b) preset:1.7b bf16")
+        del engine, manager
+        torch.cuda.empty_cache()
+        f32_tick_check(dev, bf16_model, ticks, card)
+        del ticks
+        torch.cuda.empty_cache()
+        # (c) the JAX package's default serving row
+        engine, _ = quantized_engine(dev, DEFAULT_ENV, card,
+                                     "(c) int8 + int4 KV + W8A8")
+        manager = warm_ws(engine, card, "(c) int8 + int4 KV + W8A8")
+        verify = {}
+        for key, exe in engine.executables.items():
+            if exe.resume:
+                plain = engine.executables.get(key[:4])
+                if plain is not None:
+                    verify[key[:3]] = (exe.front.recorded["qgemm"]
+                                       - plain.front.recorded["qgemm"])
+        log(f"[ws] (c): kernel C launches the verify window adds to a "
+            f"front graph, by (bucket, max_new, B): {verify}")
+        launches, _, ticks = tick_sessions(engine, manager, card,
+                                           "(c) int8 + int4 KV + W8A8",
+                                           clips)
+        if not (launches["decode_attention_batch_int4"]
+                and launches["qgemm"] and launches["qgemv"]) or \
+                launches["widened_product"] or not any(verify.values()):
+            raise AssertionError(f"(c): launches {launches}, verify "
+                                 f"products {verify}")
+        add(launches)
+        tick = tick_busy_share(engine, ticks, card,
+                               "(c) int8 + int4 KV + W8A8")
+        widened_share(engine, tick, card, "(c) int8 + int4 KV + W8A8")
+        del engine, manager, ticks, tick
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[ws] phase 10 launches: {total}")
+    return total
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -1896,12 +2671,25 @@ def main() -> int:
     launches["qk_rope_kv"] = sum(qk.values())
     log(f"[launches] qk_rope_kv by phase {qk}: {sum(qk.values())}")
     phase_done("phase 9 (the default configuration)")
+    ws = realtime_phase(dev, engine.model)
+    # this slice's path, counted from 0 just before it: every kernel it
+    # runs must have launched there
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch", "decode_attention_batch_int4",
+                 "qgemv", "qgemm", "qk_rope_kv"):
+        if not ws.get(name):
+            raise AssertionError(f"phase 10 launched no {name}")
+        launches[name] += ws[name]
+    launches_per_row = ws["qk_rope_kv_per_row"]
+    phase_done("phase 10 (real time over WS)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():
         head = next(r for r in rows[name] if r["shape"] == headline)
         extra = ({"replaces_kind": NO_TPU_KERNEL[name]}
                  if name in NO_TPU_KERNEL else {})
+        if name == "qk_rope_kv":
+            extra["launches_per_row"] = launches_per_row
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, **extra,
                       "launches": launches[name],

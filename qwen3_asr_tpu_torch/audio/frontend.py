@@ -1,7 +1,9 @@
-"""Audio frontend in PyTorch: PCM → STFT → Whisper-style log-mel.
+"""Audio frontend in PyTorch: PCM → STFT → Whisper-style log-mel, and the
+host DSP of a WS tick (s16 → f32, the telephony bandpass).
 
 Counterpart of ``qwen3_asr_tpu/audio/frontend.py`` (``hann_window``,
-``_log_mel_impl``): n_fft=400, hop=160, periodic Hann, slaney mel, log10,
+``fir_bandpass_kernel``, ``_log_mel_impl``) and of the numpy paths of
+``audio/native.py`` (``pcm16_to_f32``, ``fir_same``). Log-mel: n_fft=400, hop=160, periodic Hann, slaney mel, log10,
 the max-8 clamp with its max taken over ``max_frames``, (x+4)/4, and padded
 frames forced to the floor value.
 """
@@ -22,6 +24,46 @@ SAMPLE_RATE = 16000
 def hann_window(n: int = N_FFT) -> np.ndarray:
     """Periodic Hann window (matches torch.hann_window / np.hanning(n+1)[:-1])."""
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+def fir_bandpass_kernel(low_hz: float = 300.0, high_hz: float = 3400.0,
+                        sr: int = 16000, numtaps: int = 201) -> np.ndarray:
+    """Linear-phase windowed-sinc bandpass FIR (Hamming window), the WS
+    tick's 300-3400 Hz telephony filter (``qwen3_asr_tpu/audio/
+    frontend.py:41-55``)."""
+    if numtaps % 2 != 1:
+        raise ValueError(f"numtaps must be odd, got {numtaps}")
+    m = np.arange(numtaps) - (numtaps - 1) / 2.0
+
+    def sinc_lp(fc):
+        x = 2.0 * fc / sr
+        return x * np.sinc(x * m)
+    h = sinc_lp(high_hz) - sinc_lp(low_hz)
+    h *= np.hamming(numtaps)
+    # Normalize passband gain to 1.0 at the geometric center frequency.
+    fc = np.sqrt(low_hz * high_hz)
+    gain = np.abs(np.sum(h * np.exp(-2j * np.pi * fc / sr
+                                    * np.arange(numtaps))))
+    return (h / gain).astype(np.float32)
+
+
+def pcm16_to_f32(pcm) -> np.ndarray:
+    """s16le bytes (or int16 samples) → float32 / 32768: the numpy
+    reference path of ``qwen3_asr_tpu/audio/native.py``."""
+    x = (np.frombuffer(pcm, dtype=np.int16)
+         if isinstance(pcm, (bytes, bytearray))
+         else np.ascontiguousarray(pcm, dtype=np.int16))
+    return x.astype(np.float32) / 32768.0
+
+
+def fir_same(x: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """``x`` filtered by the odd-length FIR ``h``, output aligned with the
+    input ("same"): the numpy reference path of ``audio/native.py``."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    h = np.ascontiguousarray(h, dtype=np.float32)
+    pad = (len(h) - 1) // 2
+    return np.convolve(np.pad(x, (pad, pad)), h, mode="valid").astype(
+        np.float32)
 
 
 def log_mel(audio: torch.Tensor, n_valid: Union[int, torch.Tensor],

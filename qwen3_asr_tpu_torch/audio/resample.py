@@ -1,9 +1,10 @@
 """Polyphase FIR resampling on the host (numpy).
 
-Counterpart of ``qwen3_asr_tpu/audio/resample.py`` ``resample`` and the
-vectorized path of ``audio/native.resample_poly``: a Kaiser-windowed sinc
-low-pass evaluated as a true polyphase filter, O(n_out · taps/up), never
-materializing the zero-stuffed signal.
+Counterpart of ``qwen3_asr_tpu/audio/resample.py`` (``resample``,
+``StreamingResampler``) and the vectorized path of
+``audio/native.resample_poly``: a Kaiser-windowed sinc low-pass evaluated
+as a true polyphase filter, O(n_out · taps/up), never materializing the
+zero-stuffed signal.
 """
 from __future__ import annotations
 
@@ -59,3 +60,52 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     up, down = target_sr // g, orig_sr // g
     return resample_poly(np.asarray(audio, dtype=np.float32), up, down,
                          _kaiser_lowpass(up, down))
+
+
+class StreamingResampler:
+    """Stateful integer-factor upsampler for a stream of frames (a WS
+    client at 8 kHz). It keeps enough input history across calls that
+    every output sample is computed from real neighbouring samples, as
+    resampling the whole stream at once would, with no seam at a message
+    boundary. Takes target_sr = L × orig_sr."""
+
+    def __init__(self, orig_sr: int, target_sr: int):
+        if target_sr % orig_sr:
+            raise ValueError(f"integer upsampling factors only, got "
+                             f"{orig_sr} -> {target_sr}")
+        self.up = target_sr // orig_sr
+        self.h = _kaiser_lowpass(self.up, 1)
+        self.pad = (len(self.h) - 1) // 2           # high-rate group delay
+        # history so consecutive exact regions overlap (K >= 2P/L)
+        self.keep = 2 * (-(-self.pad // self.up))
+        self._tail = np.zeros(0, np.float32)
+        self._in_count = 0                           # inputs consumed
+        self._out_emitted = 0                        # outputs emitted
+        self._byte_carry = b""                       # odd-length PCM frames
+
+    def process(self, samples: np.ndarray) -> np.ndarray:
+        """Feed a block of float32 samples; returns the finalized output."""
+        samples = np.asarray(samples, dtype=np.float32)
+        if len(samples) == 0:
+            return np.zeros(0, np.float32)
+        x = np.concatenate([self._tail, samples])
+        g0 = (self._in_count - len(self._tail)) * self.up
+        out_full = resample_poly(x, self.up, 1, self.h)
+        exact_end = len(x) * self.up - self.pad      # outputs final so far
+        lo = self._out_emitted - g0
+        out = out_full[max(lo, 0):max(exact_end, 0)]
+        self._out_emitted = max(self._out_emitted, g0 + exact_end)
+        self._in_count += len(samples)
+        self._tail = x[-self.keep:] if len(x) >= self.keep else x
+        return out
+
+    def process_pcm(self, pcm_bytes: bytes) -> bytes:
+        """s16le bytes in, s16le bytes out; a frame of odd length carries
+        its dangling byte into the next."""
+        data = self._byte_carry + pcm_bytes
+        usable = len(data) - (len(data) % 2)
+        self._byte_carry = data[usable:]
+        samples = np.frombuffer(data[:usable], dtype=np.int16).astype(
+            np.float32)
+        out = self.process(samples)
+        return np.clip(out, -32768, 32767).astype(np.int16).tobytes()

@@ -49,8 +49,10 @@
 // B * T * (nq + 2 nkv) rows: one launch does the layer, prefill and
 // decode step alike. The position is `*pos + pos_add` when `pos` is a
 // device pointer (a CUDA graph replays the decode step at a new position
-// with no host integer) and `pos_add` alone otherwise; a key at or past S
-// is not written.
+// with no host integer), `pos[b] + pos_add` for row b when `pos_per_row`
+// is set (the resume loop's rows sit at their own frontiers: JAX scatters
+// them, qwen3_asr_tpu/models/decoder.py:249-257), and `pos_add` alone
+// otherwise; a key at or past S is not written.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -122,8 +124,9 @@ struct Args {
   void* vc;                   //   [L, B, nkv, S, D / 2] uint8 (int4)
   __nv_bfloat16* ks;          // [L, B, nkv, S] int4 scales, else null
   __nv_bfloat16* vs;
-  const long long* pos;       // device int64 or null
+  const long long* pos;       // device int64 ([B] if pos_per_row) or null
   long long pos_add;
+  int pos_per_row;
   float eps, inv_d;
   int layer, batch, t, nq, nkv, s_len, d;
   int width;                  // W: torch's threads a row below D = 128
@@ -214,7 +217,8 @@ __global__ void __launch_bounds__(kThreads) qk_rope_kv_kernel(Args a) {
       if (elem(lane, k) >= 0) dst[elem(lane, k)] = from_f32<X>(z[k]);
     return;                                     // no shuffle follows
   }
-  const long long p = (a.pos != nullptr ? *a.pos : 0) + a.pos_add + tok;
+  const long long p =
+      (a.pos != nullptr ? a.pos[a.pos_per_row ? b : 0] : 0) + a.pos_add + tok;
   if (p < 0 || p >= a.s_len) return;            // the whole warp
   const long long key =
       (((long long)a.layer * a.batch + b) * a.nkv + h) * a.s_len + p;
@@ -269,17 +273,19 @@ int launch(int store, const Args& a, cudaStream_t st) {
 // working-dtype cache). store: 0 = the working dtype, 1 = fp8 e4m3fn, 2 =
 // int4 (kc / vc the packed payload planes, ks / vs the bf16 scale planes).
 // d: even, at most 128 (int4: 128). pos: a device int64 scalar added to
-// pos_add, or null. Returns the launch's cudaError_t.
+// pos_add (pos_per_row 0), one int64 a row (pos_per_row 1), or null.
+// Returns the launch's cudaError_t.
 extern "C" int qk_rope_kv_fwd(
     int x_dtype, int store, const void* q, const void* k, const void* v,
     long long q_ts, long long k_ts, long long v_ts, const void* q_norm,
     const void* k_norm, const void* cos, const void* sin, void* q_out,
     void* kc, void* vc, void* ks, void* vs, const void* pos,
-    long long pos_add, float eps, int layer, int batch, int t, int nq,
-    int nkv, int s_len, int d, void* stream) {
+    long long pos_add, int pos_per_row, float eps, int layer, int batch,
+    int t, int nq, int nkv, int s_len, int d, void* stream) {
   if ((x_dtype != 0 && x_dtype != 1) || store < kSame || store > kInt4 ||
       d <= 0 || d % 2 != 0 || d > 32 * kSlots || batch <= 0 || t <= 0 ||
       nq <= 0 || nkv <= 0 || s_len <= 0 || layer < 0 ||
+      (pos_per_row && pos == nullptr) ||
       (store == kInt4 && (d != 32 * kSlots || ks == nullptr ||
                           vs == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -289,8 +295,8 @@ extern "C" int qk_rope_kv_fwd(
          static_cast<const float*>(cos), static_cast<const float*>(sin),
          q_out, kc, vc, static_cast<__nv_bfloat16*>(ks),
          static_cast<__nv_bfloat16*>(vs),
-         static_cast<const long long*>(pos), pos_add, eps, 1.0f / (float)d,
-         layer, batch, t, nq, nkv, s_len, d, width};
+         static_cast<const long long*>(pos), pos_add, pos_per_row ? 1 : 0,
+         eps, 1.0f / (float)d, layer, batch, t, nq, nkv, s_len, d, width};
   auto st = static_cast<cudaStream_t>(stream);
   return x_dtype == 0 ? launch<float>(store, a, st)
                       : launch<__nv_bfloat16>(store, a, st);

@@ -167,8 +167,10 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
                     spec: AttnSpec) -> Tuple[torch.Tensor, KVCache]:
     """Run all layers. inputs_embeds: [B,T,H]; positions: [B,T]; cache:
     the stacked cache, updated in place at ``write_pos``: a host int (the
-    prefill), or a 0-d int64 tensor on the cache's device (a decode step,
-    which then holds no host integer).
+    prefill), a 0-d int64 tensor on the cache's device (a decode step,
+    which then holds no host integer), or a ``[B]`` int64 tensor there,
+    row b writing its T keys from ``write_pos[b]`` (the resume loop's rows,
+    each at its own frontier).
 
     Returns (final_hidden [B,T,H], cache)."""
     if not cache.int4 and cache.k.dtype not in (inputs_embeds.dtype,

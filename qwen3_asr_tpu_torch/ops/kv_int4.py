@@ -60,8 +60,15 @@ def write_kv(layer: torch.Tensor, new: torch.Tensor,
     """layer [B, n_kv, S, ...] <- new [B, n_kv, T, ...] (cast to the
     layer's dtype) at keys ``write_pos .. write_pos + T - 1``, IN PLACE: the
     plain write of every cache plane. A host int slices; a 0-d int64 tensor
-    indexes on the tensor's device."""
+    indexes on the tensor's device; a ``[B]`` int64 tensor gives row b its
+    own keys ``write_pos[b] ..``, JAX's per-row scatter
+    (``qwen3_asr_tpu/models/decoder.py:249-257``), whose keys at or past S
+    are dropped."""
     new = new.to(layer.dtype)
+    if torch.is_tensor(write_pos) and write_pos.dim() == 1 \
+            and write_pos.numel() == new.shape[0] > 1:
+        _write_rows(layer, new, write_pos)
+        return
     if not torch.is_tensor(write_pos):
         layer[:, :, write_pos:write_pos + new.shape[2]] = new
         return
@@ -71,6 +78,30 @@ def write_kv(layer: torch.Tensor, new: torch.Tensor,
         # index_copy_ has no fp8 kernel: the same bytes through uint8 views
         layer, new = layer.view(torch.uint8), new.view(torch.uint8)
     layer.index_copy_(2, idx, new)
+
+
+def _write_rows(layer: torch.Tensor, new: torch.Tensor,
+                write_pos: torch.Tensor) -> None:
+    """Row b's T keys at ``write_pos[b] + t``, keys at or past S dropped,
+    with no host read (a CUDA graph may capture it): a dropped key is sent
+    to S - 1 carrying what S - 1 gets anyway (the row's key there, or its
+    old value), so every write to one slot writes the same bytes."""
+    b, t, s_len = new.shape[0], new.shape[2], layer.shape[2]
+    if layer.dtype == torch.float8_e4m3fn:
+        # index_put_ has no fp8 kernel: the same bytes through uint8 views
+        layer, new = layer.view(torch.uint8), new.view(torch.uint8)
+    rows = torch.arange(b, device=layer.device)[:, None]
+    want = write_pos[:, None] + torch.arange(t, device=layer.device)
+    idx = want.clamp(0, s_len - 1)                           # [B, T]
+    # the token that lands on S - 1 (if any) supplies the dropped keys
+    src = torch.minimum(torch.arange(t, device=layer.device)[None, :],
+                        (s_len - 1 - write_pos)[:, None]).clamp(min=0)
+    live = (write_pos[:, None] + src) < s_len
+    moved = new.transpose(1, 2)                              # [B, T, n_kv, ...]
+    picked = moved[rows, src]
+    old = layer[rows, :, idx]                                # [B, T, n_kv, ...]
+    mask = live.reshape(live.shape + (1,) * (old.dim() - 2))
+    layer[rows, :, idx] = torch.where(mask, picked, old)
 
 
 def kv_int4_write_plain(cache, layer: int, k_new: torch.Tensor,

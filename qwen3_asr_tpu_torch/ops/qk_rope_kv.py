@@ -21,9 +21,11 @@ time is launch and latency; the plain chain runs ~38 small kernels a
 layer. The kernel is ONE launch a layer, prefill and decode step alike,
 a warp a row, every row in registers, the sum of squares in the order of
 torch's own CUDA reduction (``csrc/qk_rope_kv.cu`` describes the design).
-The position is a host int (the prefill) or a 0-d int64 device tensor (a
-decode step, which a CUDA graph replays at a new position); on the card a
-key at or past the cache's end is not written.
+The position is a host int (the prefill), a 0-d int64 device tensor (a
+decode step, which a CUDA graph replays at a new position), or a ``[B]``
+int64 device tensor, one position a row (the resume loop's continuation,
+each row at its own frontier; still one launch a layer); a key at or past
+the cache's end is not written.
 """
 from __future__ import annotations
 
@@ -108,7 +110,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [i, i, p, p, p, ll, ll, ll, p, p, p, p, p, p, p, p, p,
-                       p, ll, ctypes.c_float, i, i, i, i, i, i, i, p]
+                       p, ll, i, ctypes.c_float, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -175,11 +177,18 @@ def _launch(q, k, v, q_norm, k_norm, cos, sin, eps, cache, layer,
                          "planes and norms contiguous")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} outside [0, {n_layers})")
+    per_row = 0
     if torch.is_tensor(write_pos):
-        if (write_pos.dtype != torch.int64 or write_pos.numel() != 1
-                or write_pos.device != dev):
-            raise ValueError("a device write position is one int64 on q's "
-                             "device")
+        per_row = int(write_pos.dim() == 1 and write_pos.numel() == b
+                      and b > 1)
+        if (write_pos.dtype != torch.int64 or write_pos.device != dev
+                or not write_pos.is_contiguous()
+                or (write_pos.numel() != 1 and not per_row)):
+            raise ValueError(f"a device write position is one int64, or "
+                             f"one a row ([{b}]), contiguous on q's device; "
+                             f"got {write_pos.dtype} "
+                             f"{tuple(write_pos.shape)} on "
+                             f"{write_pos.device}")
         pos_ptr, pos_add = write_pos.data_ptr(), 0
     else:
         pos_ptr, pos_add = None, int(write_pos)
@@ -191,12 +200,13 @@ def _launch(q, k, v, q_norm, k_norm, cos, sin, eps, cache, layer,
         q_out.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
         cache.k_scale.data_ptr() if int4 else None,
         cache.v_scale.data_ptr() if int4 else None, pos_ptr, pos_add,
-        float(eps), layer, b, t, nq, nkv, s_len, d,
+        per_row, float(eps), layer, b, t, nq, nkv, s_len, d,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"qk_rope_kv kernel launch failed: CUDA error "
                            f"{err}")
     qk_rope_kv_write.launches += 1
+    qk_rope_kv_write.launches_per_row += per_row
     return q_out
 
 
@@ -207,7 +217,9 @@ def qk_rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      write_pos: Union[int, torch.Tensor]) -> torch.Tensor:
     """QK-norm and RoPE on q and k ``[B, T, heads * D]``, K and V written
     into layer ``layer`` of ``cache`` (a ``models.decoder.KVCache``) at
-    ``write_pos``, IN PLACE; returns q ``[B, nq, T, D]``. A CUDA tensor
+    ``write_pos`` (a host int, a 0-d int64 tensor, or ``[B]`` int64: row
+    b's keys ``write_pos[b] ..  + T - 1``), IN PLACE; returns q
+    ``[B, nq, T, D]``. A CUDA tensor
     launches the kernel or raises; only a CPU tensor takes the plain
     version."""
     if q.device.type == "cpu":
@@ -218,3 +230,4 @@ def qk_rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 qk_rope_kv_write.launches = 0
+qk_rope_kv_write.launches_per_row = 0   # of them, with a [B] position

@@ -8,9 +8,11 @@ padding, and future settling that survives any failure. Device dispatch
 always happens OUTSIDE the lock: a batched call can take seconds and must
 not stall the admission of other requests. The port's server runs a thread
 per request, so the lock is a ``threading.Lock``, the timer a
-``threading.Timer`` and each reply a ``concurrent.futures.Future``. The WS
-tick batchers (``TickBatcher``, ``GroupTickBatcher``) wait for resume and
-streaming (ROADMAP §1 items 8 and 10).
+``threading.Timer`` and each reply a ``concurrent.futures.Future``.
+``TickBatcher`` (``qwen3_asr_tpu/runtime/batcher.py:153-261``) coalesces
+concurrent WS sessions' partial ticks into one batched resume run;
+``GroupTickBatcher`` waits for the prefix-cached stream modes (ROADMAP §1
+item 10).
 """
 from __future__ import annotations
 
@@ -22,9 +24,19 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from .queue import STANDARD, settle
+from .queue import EXPRESS, STANDARD, settle
 
 log = logging.getLogger(__name__)
+
+
+class _PendingTick:
+    __slots__ = ("audio", "resume", "language", "future")
+
+    def __init__(self, audio, resume, language, future):
+        self.audio = audio
+        self.resume = resume
+        self.language = language
+        self.future = future
 
 
 class _Pending:
@@ -43,14 +55,17 @@ def _pow2_floor(n: int) -> int:
     return 1 << (max(1, n).bit_length() - 1)
 
 
-def _pad_pow2(clips: list, dtype=np.float32) -> None:
-    """Pad in place to a power-of-two batch with 0.1 s silent clips, so
-    only batches of {1, 2, 4, 8, ...} ever run."""
+def _pad_pow2(clips: list, rows: Optional[list] = None,
+              dtype=np.float32) -> None:
+    """Pad in place to a power-of-two batch with 0.1 s silent clips (and
+    ``rows`` with None), so only batches of {1, 2, 4, 8, ...} ever run."""
     n = 1
     while n < len(clips):
         n *= 2
     while len(clips) < n:
         clips.append(np.zeros(1600, dtype=dtype))
+        if rows is not None:
+            rows.append(None)
 
 
 class _Collector:
@@ -72,13 +87,17 @@ class _Collector:
         self._groups: dict = {}
         self._lock = threading.Lock()
 
-    def _enqueue(self, key, pending: _Pending) -> None:
-        """Admit one item. The lock guards ONLY the group map — dispatch
-        happens outside it."""
+    def _enqueue(self, key, pending, solo: bool = False) -> None:
+        """Admit one item. ``solo`` dispatches it at once as its own group
+        when none is collecting under its key (nothing to coalesce with).
+        The lock guards ONLY the group map — dispatch happens outside
+        it."""
         to_submit = None
         with self._lock:
             group = self._groups.get(key)
-            if group is None:
+            if group is None and (solo or self.max_batch <= 1):
+                to_submit = [pending]
+            elif group is None:
                 group = [pending]
                 self._groups[key] = group
                 timer = threading.Timer(self.window_s, self._flush_later,
@@ -106,7 +125,7 @@ class _Collector:
         with self._lock:
             self.dispatches += 1
 
-    def _dispatch(self, group: List[_Pending], job: Callable,
+    def _dispatch(self, group: list, job: Callable,
                   priority: int) -> None:
         """Run ``job`` on the inference queue and settle every member's
         future, whatever happens: a refused submit, a failing job or a
@@ -194,3 +213,73 @@ class MicroBatcher(_Collector):
                 for p, text, ids in zip(group, texts, id_lists)]
 
         self._dispatch(group, run, priority=min(p.priority for p in group))
+
+
+class TickBatcher(_Collector):
+    """Cross-session WS tick batching: partial ticks of concurrent
+    streaming sessions that land in the same bucket within
+    ``ASR_WS_TICK_WINDOW_MS`` (6) run as ONE batched resume run
+    (``engine._run_bucket(resume_rows=..., language_rows=...)``), up to
+    ``ASR_WS_TICK_MAX_BATCH`` (8) rows, padded to a power of two. Each row
+    keeps its own window, draft, language and frontier, so its tokens are
+    its solo resume run's. A group of one takes the batch-1 resume key,
+    and a lone live session (``manager.ws_sessions <= 1``) skips the
+    window. Dispatched on the express lane."""
+
+    def __init__(self, manager, window_ms: Optional[float] = None,
+                 max_batch: Optional[int] = None):
+        super().__init__(
+            manager,
+            (window_ms if window_ms is not None else
+             float(os.getenv("ASR_WS_TICK_WINDOW_MS", "6"))) / 1000,
+            max_batch or int(os.getenv("ASR_WS_TICK_MAX_BATCH", "8")))
+        # dispatched groups by size, and the ticks they carried (the JAX
+        # server's asr_tick_batch_{groups,ticks}_total)
+        self.groups: dict = {}
+        self.ticks = 0
+
+    def transcribe_tick(self, audio: np.ndarray, language: Optional[str],
+                        resume_tokens, use_fast: bool
+                        ) -> concurrent.futures.Future:
+        """One session's partial tick → a future of (text, token_ids).
+        ``use_fast`` would take the fast engine, which the port does not
+        have yet: the main engine serves (ROADMAP §1 item 7.2)."""
+        from ..models.asr import normalize_language
+        mgr = self.manager
+        engine = mgr.engine
+        language, _ = normalize_language(language)
+        # the key is the bucket: language is per ROW, so sessions of
+        # different languages still share one dispatch
+        future: concurrent.futures.Future = concurrent.futures.Future()
+        self._enqueue(engine.bucket_frames(len(audio)),
+                      _PendingTick(audio, resume_tokens, language, future),
+                      solo=getattr(mgr, "ws_sessions", 0) <= 1)
+        return future
+
+    def _submit(self, key, group: List[_PendingTick]) -> None:
+        bucket_frames, bucket_s = key
+        engine = self.manager.engine
+        if len(group) > 1:
+            log.debug("tick batch: %d sessions in bucket %ss", len(group),
+                      bucket_s)
+        with self._lock:
+            self.groups[len(group)] = self.groups.get(len(group), 0) + 1
+            self.ticks += len(group)
+
+        def run():
+            clips = [p.audio for p in group]
+            rows = [p.resume for p in group]
+            langs = [p.language for p in group]
+            if len(group) == 1:
+                texts, ids = engine._run_bucket(
+                    clips, bucket_frames, bucket_s, langs[0],
+                    resume_tokens=list(rows[0] or []))
+            else:
+                _pad_pow2(clips, rows)
+                langs.extend([None] * (len(clips) - len(langs)))
+                texts, ids = engine._run_bucket(
+                    clips, bucket_frames, bucket_s, None, resume_rows=rows,
+                    language_rows=langs)
+            return list(zip(texts[:len(group)], ids[:len(group)]))
+
+        self._dispatch(group, run, priority=EXPRESS)

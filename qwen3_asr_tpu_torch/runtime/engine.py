@@ -13,8 +13,16 @@ Each (bucket_frames, max_new, batch, cache dtype) owns a
 per bucket (``_fused_fn``): persistent input buffers, the greedy loop's
 state and its KV cache, and on the card two CUDA graphs (everything up to
 the first token; a chunk of decode steps), so a warm request is a copy in,
-a few replays and a copy out. ``warmup`` builds them at load. AOT caches,
-meshes, draft models, resume and streaming are not ported yet.
+a few replays and a copy out. ``warmup`` builds them at load.
+
+Resume decoding (``runtime/resume.py``) has keys of its own, (bucket_frames,
+max_new, batch, cache dtype, "resume"): the front graph adds the verify
+window and the accept arithmetic, the chunk graph is the per-row
+continuation, and the previous tokens are input buffers. A streaming
+session's tick takes it with ``transcribe(..., resume_tokens=...)`` and a
+cross-session tick batch with ``_run_bucket(..., resume_rows=...)``. AOT
+caches, meshes, draft models and the prefix-cached stream modes are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -36,9 +44,9 @@ from ..ops.quant import (any_quantized, check_int4_layouts,
                          check_quantized_dtype, param_bytes)
 from ..utils.device import resolve_device, working_dtype
 from .batcher import _pad_pow2
-from .generate import (GenerateResult, GreedyLoop, cache_length, run_loop,
-                       strip_generation)
+from .generate import GreedyLoop, cache_length, run_loop, strip_generation
 from .graphs import Graph
+from .resume import ResumeLoop
 
 TARGET_SR = 16000
 AUDIO_BUCKETS_S: Tuple[float, ...] = (1, 2, 4, 6, 10, 15, 20, 30)
@@ -73,17 +81,23 @@ class BucketExecutable:
     ``GreedyLoop`` (state and KV cache, allocated here and reused by every
     request of the key), and two ``Graph``s: ``front`` (frontend, encoder,
     prompt, prefill, the first token; kernel #1) and ``chunk`` (decode
-    steps; kernels #2 and #3). Build it under inference mode."""
+    steps; kernels #2 and #3). With ``resume`` the loop is a
+    ``ResumeLoop``: the front adds the verify window (flash at T =
+    max_new) and the accept arithmetic, the chunk is the per-row
+    continuation (kernel B's per-row write, #2 or #3 with a per-row
+    ``valid_to``), and ``prev_tokens``/``prev_len`` are inputs too. Build
+    it under inference mode."""
 
     def __init__(self, engine: "TranscriptionEngine", bucket_frames: int,
-                 max_new: int, batch: int):
+                 max_new: int, batch: int, resume: bool = False):
         cfg, dev = engine.model.cfg, engine.device
         self.engine, self.bucket_frames = engine, bucket_frames
+        self.resume = resume
         self.audio = torch.zeros((batch, bucket_frames * HOP_LENGTH),
                                  dtype=torch.float32, device=dev)
         self.prefix = torch.zeros((batch, PREFIX_BUDGET), dtype=torch.int32,
                                   device=dev)
-        self.loop = GreedyLoop(
+        self.loop = (ResumeLoop if resume else GreedyLoop)(
             engine.model.params["decoder"], cfg.decoder, batch,
             engine.prompt_length(bucket_frames), max_new,
             eos_id=engine.model.eos_id, pad_id=engine.model.pad_id,
@@ -103,13 +117,21 @@ class BucketExecutable:
 
     @torch.inference_mode()
     def run(self, audio: np.ndarray, prefix: np.ndarray,
-            valid_from: np.ndarray, eager: bool = False) -> GenerateResult:
-        """Copy the inputs in, replay ``front`` and then ``chunk`` until no
-        row is active. ``eager`` runs the same functions without the graphs
-        (on the card only to hold the graphs against them)."""
+            valid_from: np.ndarray, eager: bool = False,
+            prev: Optional[np.ndarray] = None,
+            prev_len: Optional[np.ndarray] = None):
+        """Copy the inputs in (a resume key's draft too: ``prev``
+        [B, max_new] int32, ``prev_len`` [B]), replay ``front`` and then
+        ``chunk`` until no row is active. ``eager`` runs the same functions
+        without the graphs (on the card only to hold the graphs against
+        them). Returns a ``GenerateResult``, or a resume key's
+        ``ResumeResult``."""
         self.audio.copy_(torch.from_numpy(audio))
         self.prefix.copy_(torch.from_numpy(prefix))
         self.loop.valid_from.copy_(torch.from_numpy(valid_from))
+        if self.resume:
+            self.loop.prev_tokens.copy_(torch.from_numpy(prev))
+            self.loop.prev_len.copy_(torch.from_numpy(prev_len))
         if eager:
             chunks = run_loop(self._front, self.loop.chunk, self.loop.active)
         else:
@@ -190,6 +212,16 @@ class TranscriptionEngine:
         frames = -(-int(AUDIO_BUCKETS_S[-1] * 100) // chunk) * chunk
         return frames, frames / 100.0
 
+    def padded_prefix_rows(self, languages: Sequence[Optional[str]],
+                           context: str = ""
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """One language hint per row, in ``padded_prefix``'s shapes: the
+        budget is fixed, so a tick batch of mixed languages shares one key
+        (JAX ``engine.py:300``)."""
+        rows = [self.padded_prefix(lang, context, 1) for lang in languages]
+        return (np.concatenate([p for p, _ in rows], axis=0),
+                np.concatenate([v for _, v in rows], axis=0))
+
     def padded_prefix(self, language: Optional[str], context: str = "",
                       batch: int = 1) -> Tuple[np.ndarray, np.ndarray]:
         """PREFIX_BUDGET-left-padded prompt prefix ids and valid_from."""
@@ -226,17 +258,21 @@ class TranscriptionEngine:
                           suf.to(self.dtype)], dim=1)
 
     # -- executables ------------------------------------------------------------
-    def executable(self, bucket_frames: int, max_new: int,
-                   batch: int) -> Tuple[BucketExecutable, float]:
+    def executable(self, bucket_frames: int, max_new: int, batch: int,
+                   resume: bool = False) -> Tuple[BucketExecutable, float]:
         """The key's executable, built (its graphs captured, on the card)
-        on first use; and the seconds this call spent building it."""
+        on first use; and the seconds this call spent building it. A resume
+        key is the plain key with "resume" appended."""
         key = (bucket_frames, max_new, batch, self.cache_dtype)
+        if resume:
+            key += ("resume",)
         exe = self.executables.get(key)
         if exe is not None:
             return exe, 0.0
         t0 = time.perf_counter()
         with torch.inference_mode():
-            exe = BucketExecutable(self, bucket_frames, max_new, batch)
+            exe = BucketExecutable(self, bucket_frames, max_new, batch,
+                                   resume)
         self.executables[key] = exe
         return exe, time.perf_counter() - t0
 
@@ -247,18 +283,52 @@ class TranscriptionEngine:
         ``ASR_WARMUP_BATCH_SHAPES`` ("2,4,8"), on 0.01-scale noise, as the
         JAX engine's ``warmup`` does; on the card the first run of a key
         captures its graphs and the warm-up request replays them once.
-        (The JAX engine also warms its resume and WS paths, which the port
-        does not have yet.)"""
+
+        Each bucket's resume key at B=1 too (a WS session's solo ticks and
+        flushes decode with resume); then what the WS modes that
+        ``config.ws_warmup_profile`` names can reach: under ``tick``, the
+        batched resume keys at 2, 4, .. ``ASR_WS_TICK_MAX_BATCH`` for the
+        buckets at or below ``WS_WINDOW_MAX_S``; and, for any WS mode, the
+        plain keys of the flush bucket (the cap plus
+        ``WS_FLUSH_SILENCE_MS``) at those batches, which concurrent finals
+        reach through the micro-batcher. (JAX nests the last under
+        ``tick``: ``ADVICE.md``'s first finding.) A WS mode the port
+        refuses raises (``config.check_ws_modes``)."""
+        from ..config import _safe_float, _safe_int, check_ws_modes
+        modes = {m.name for m in check_ws_modes()}
         buckets = buckets or AUDIO_BUCKETS_S[:2]
         batch_shapes = [int(x) for x in
                         os.getenv("ASR_WARMUP_BATCH_SHAPES", "").split(",")
                         if x.strip()]
         rng = np.random.default_rng(42)
+
+        def noise(sec):
+            return (rng.standard_normal(int(TARGET_SR * sec))
+                    .astype(np.float32) * 0.01)
+
         for sec in buckets:
-            dummy = (rng.standard_normal(int(TARGET_SR * sec))
-                     .astype(np.float32) * 0.01)
+            dummy = noise(sec)
             bf, bs = self.bucket_frames(len(dummy))
-            for batch in [1] + batch_shapes:
+            self._run_bucket([dummy], bf, bs, language)
+            self._run_bucket([dummy], bf, bs, language, resume_tokens=[])
+            for batch in batch_shapes:
+                self._run_bucket([dummy] * batch, bf, bs, language)
+        cap = _safe_float("WS_WINDOW_MAX_S", "6.0")
+        max_b = _safe_int("ASR_WS_TICK_MAX_BATCH", "8")
+        shapes = [1 << i for i in range(1, max(1, max_b).bit_length())]
+        if "tick" in modes:
+            for sec in [s for s in buckets if s <= cap] or buckets[:1]:
+                dummy = noise(sec)
+                bf, bs = self.bucket_frames(len(dummy))
+                for batch in shapes:
+                    self._run_bucket([dummy] * batch, bf, bs, language,
+                                     resume_rows=[None] * batch)
+        if modes:
+            flush_s = cap + _safe_int("WS_FLUSH_SILENCE_MS",
+                                      "600") / 1000.0
+            dummy = noise(flush_s)
+            bf, bs = self.bucket_frames(len(dummy))
+            for batch in shapes:
                 self._run_bucket([dummy] * batch, bf, bs, language)
 
     # -- core batched path --------------------------------------------------------
@@ -279,27 +349,66 @@ class TranscriptionEngine:
 
     def _run_bucket(self, clips: Sequence[np.ndarray], bucket_frames: int,
                     bucket_s: float, language: Optional[str],
-                    context: str = "") -> Tuple[List[str], List[List[int]]]:
-        """All clips already ≤ bucket. Returns (texts, token_id_lists)."""
+                    context: str = "",
+                    resume_tokens: Optional[Sequence[int]] = None,
+                    resume_rows: Optional[Sequence[
+                        Optional[Sequence[int]]]] = None,
+                    language_rows: Optional[Sequence[Optional[str]]] = None
+                    ) -> Tuple[List[str], List[List[int]]]:
+        """All clips already ≤ bucket. Returns (texts, token_id_lists).
+
+        ``resume_tokens``: one stream's previous tokens (batch 1, a resume
+        key). ``resume_rows``: each row's previous tokens (None: no draft)
+        for a cross-session tick batch. ``language_rows``: one language per
+        row, in place of ``language``."""
         batch = len(clips)
         max_new = max_new_tokens_for(bucket_s)
-        exe, capture_s = self.executable(bucket_frames, max_new, batch)
+        if resume_rows is None and resume_tokens is not None and batch == 1:
+            resume_rows = [resume_tokens]
+        if resume_rows is not None and len(resume_rows) != batch:
+            raise ValueError(f"{len(resume_rows)} resume rows for {batch} "
+                             f"clips")
+        resume = resume_rows is not None
+        exe, capture_s = self.executable(bucket_frames, max_new, batch,
+                                         resume)
         audio, prefix, valid_from = self.bucket_inputs(clips, bucket_frames,
                                                        language, context)
+        if language_rows is not None:
+            if len(language_rows) != batch:
+                raise ValueError(f"{len(language_rows)} languages for "
+                                 f"{batch} clips")
+            prefix, valid_from = self.padded_prefix_rows(language_rows,
+                                                         context)
+        prev = prev_len = None
+        if resume:
+            prev = np.full((batch, max_new), self.model.pad_id, np.int32)
+            prev_len = np.zeros(batch, np.int32)
+            for i, row in enumerate(resume_rows):
+                usable = list(row or [])[:max_new]
+                prev[i, :len(usable)] = usable
+                prev_len[i] = len(usable)
         replays = exe.front.replays + exe.chunk.replays
-        result = exe.run(audio, prefix, valid_from)
+        result = exe.run(audio, prefix, valid_from, prev=prev,
+                         prev_len=prev_len)
         tokens = result.tokens.cpu().numpy()
         lengths = result.lengths.cpu().numpy()
         prompt_len = exe.loop.prompt_len
         self.last_run = {"batch": batch, "bucket_frames": bucket_frames,
                          "prompt_len": prompt_len,
                          "cache_len": cache_length(prompt_len, max_new),
-                         "max_new": max_new, "steps": result.steps,
+                         "max_new": max_new, "resume": resume,
                          "steps_run": result.steps_run,
                          "replays": (exe.front.replays + exe.chunk.replays
                                      - replays),
                          "capture_s": capture_s,
                          "generated": int(lengths.sum())}
+        if resume:
+            # per row: the draft tokens the verify pass accepted, and the
+            # decode steps past them
+            self.last_run.update(accepted=result.accepted.tolist(),
+                                 steps=result.steps.tolist())
+        else:
+            self.last_run["steps"] = result.steps
         texts, id_lists = [], []
         for i in range(batch):
             ids = strip_generation(tokens[i], int(lengths[i]),
@@ -336,8 +445,14 @@ class TranscriptionEngine:
     # -- public API -------------------------------------------------------------------
     def transcribe(self, audio: np.ndarray, sr: int,
                    language: Optional[str] = None,
-                   context: str = "") -> List[TranscriptionResult]:
-        """One clip of any length → one result per segment."""
+                   context: str = "",
+                   resume_tokens: Optional[Sequence[int]] = None
+                   ) -> List[TranscriptionResult]:
+        """One clip of any length → one result per segment.
+
+        ``resume_tokens``: the previous streaming tick's token ids, which a
+        resume key verifies as a self-draft (single-segment audio only; the
+        first ``max_new`` are used). The tokens equal a plain run's."""
         audio = _prep_audio(audio, sr)
         if len(audio) == 0:
             return []
@@ -348,7 +463,8 @@ class TranscriptionEngine:
             seg = segments[0][1]
             bucket_frames, bucket_s = self.bucket_frames(len(seg))
             texts, id_lists = self._run_bucket([seg], bucket_frames, bucket_s,
-                                               language, context)
+                                               language, context,
+                                               resume_tokens=resume_tokens)
         else:
             texts, id_lists = self._run_segments_batched(segments, language,
                                                          context)

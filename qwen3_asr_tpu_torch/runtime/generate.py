@@ -57,13 +57,13 @@ class GreedyLoop:
 
     def __init__(self, params: dict, cfg: DecoderConfig, batch: int,
                  prompt_len: int, max_new: int, *, eos_id: int, pad_id: int,
-                 cache_dtype: torch.dtype, device):
+                 cache_dtype: torch.dtype, device, cache=None):
         self.params, self.cfg, self.batch = params, cfg, batch
         self.prompt_len, self.max_new = prompt_len, max_new
         self.eos_id, self.pad_id = eos_id, pad_id
-        self.cache = init_kv_cache(cfg, batch, cache_length(prompt_len,
-                                                            max_new),
-                                   cache_dtype, device)
+        self.cache = cache if cache is not None else init_kv_cache(
+            cfg, batch, cache_length(prompt_len, max_new), cache_dtype,
+            device)
         self.valid_from = torch.zeros(batch, dtype=torch.int32, device=device)
         self.tokens = torch.full((batch, max_new), pad_id, dtype=torch.int32,
                                  device=device)
@@ -87,16 +87,21 @@ class GreedyLoop:
         return lm_logits(self.params, self.cfg,
                          hidden[:, -1]).argmax(-1).to(torch.int32)
 
-    def prefill(self, inputs_embeds: torch.Tensor) -> None:
+    def prompt(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
         """The prompt [B, prompt_len, H] (left-padded: keys below
         ``valid_from`` are masked; positions are absolute) → the cache's
-        prompt span, the first token, ``done``, ``i = 1`` and ``active``."""
+        prompt span; returns the first token [B] int32."""
         b, t = self.batch, self.prompt_len
         positions = torch.arange(t, device=inputs_embeds.device).expand(b, t)
         spec = AttnSpec(causal=True, q_offset=0, valid_from=self.valid_from)
         hidden, _ = decoder_forward(self.params, self.cfg, inputs_embeds,
                                     positions, self.cache, 0, spec)
-        first = self._emit(hidden)
+        return self._emit(hidden)
+
+    def prefill(self, inputs_embeds: torch.Tensor) -> None:
+        """``prompt``, then the first token, ``done``, ``i = 1`` and
+        ``active``."""
+        first = self.prompt(inputs_embeds)
         self.tokens.fill_(self.pad_id)
         self.tokens[:, 0] = first
         self.last.copy_(first)

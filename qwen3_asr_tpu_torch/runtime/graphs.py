@@ -41,7 +41,8 @@ _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
 def kernel_launches() -> Dict[str, int]:
     """The launch counters of the kernels a request runs (#1-#3, #3's
     int4 route, the quantized GEMV and GEMM and the QK-norm + RoPE + cache
-    write), the W8A8 products (``torch._int_mm``), and the calls of
+    write, and of its launches those with one write position a row), the
+    W8A8 products (``torch._int_mm``), and the calls of
     ``widened_product`` on the card, which the path never makes (its
     cuBLAS route widened a whole layer)."""
     from ..ops.decode_attention import decode_attention
@@ -60,7 +61,8 @@ def kernel_launches() -> Dict[str, int]:
             "qgemm": qgemm.launches,
             "widened_product": widened_product.cuda_calls,
             "w8a8": w8a8.calls,
-            "qk_rope_kv": qk_rope_kv_write.launches}
+            "qk_rope_kv": qk_rope_kv_write.launches,
+            "qk_rope_kv_per_row": qk_rope_kv_write.launches_per_row}
 
 
 class Graph:

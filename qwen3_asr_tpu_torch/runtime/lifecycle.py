@@ -8,16 +8,19 @@ byte-level tokenizer; ``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with
 device; ``ASR_KV_CACHE_DTYPE`` picks
 the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
 ``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs), and
-``ModelManager`` holds the fields of its ``ModelManager`` that the batcher
-and the server use, and warms the engine's executables on start
-(``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it). Idle unload, the
-watchdog, the fast engine and the pool are not ported yet (ROADMAP §1
-item 7).
+``ModelManager`` holds the fields of its ``ModelManager`` that the batchers
+and the server use (the micro-batcher, the tick batcher, the live WS
+session count, ``transcribe_sync``), and warms the engine's executables on
+start (``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it), refusing first
+a WS mode the port does not serve (``config.check_ws_modes``). Idle
+unload, the watchdog, the fast engine and the pool are not ported yet
+(ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
 import logging
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -30,7 +33,8 @@ from ..ops.quant import (check_mode, check_quantized_dtype, param_bytes,
                          quantize_params)
 from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
-from .batcher import MicroBatcher
+from ..config import check_ws_modes
+from .batcher import MicroBatcher, TickBatcher
 from .checkpoint import load_asr_checkpoint
 from .engine import AUDIO_BUCKETS_S, TranscriptionEngine
 from .queue import PriorityInferQueue
@@ -191,10 +195,32 @@ class ModelManager:
         self.engine = engine
         self.queue = PriorityInferQueue()
         self.batcher = MicroBatcher(self)
+        self.tick_batcher = TickBatcher(self)
+        # live WS sessions (kept by the server): the tick batcher skips its
+        # window when there is nothing to coalesce with, and the mode policy
+        # reads it
+        self.ws_sessions = 0
+        self.ws_lock = threading.Lock()
         self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
         self.warmed = False
 
+    def transcribe_sync(self, audio, sr: int, lang_code: Optional[str],
+                        return_timestamps: bool = False,
+                        use_fast: bool = False, context: str = "",
+                        resume_tokens=None):
+        """One transcription, run ON the device thread (a queue job).
+        ``resume_tokens`` takes the resume key (a WS tick's self-draft).
+        ``use_fast`` asks for the fast engine, which the port does not have
+        yet (ROADMAP §1 item 7.2): the main engine serves, as JAX's does
+        without one (``lifecycle.py:412-414``). ``return_timestamps`` is
+        refused by the server before it gets here."""
+        if return_timestamps:
+            raise NotImplementedError("return_timestamps is not ported yet")
+        return self.engine.transcribe(audio, sr, lang_code, context,
+                                      resume_tokens=resume_tokens)
+
     def start(self) -> None:
+        check_ws_modes()
         if not self.warmed and os.getenv("SKIP_WARMUP",
                                          "").lower() != "true":
             self.engine.warmup(_warmup_buckets())

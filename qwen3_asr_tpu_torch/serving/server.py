@@ -1,15 +1,17 @@
 """HTTP server for the port, on the standard library.
 
-Counterpart of the batch-transcription part of
-``qwen3_asr_tpu/serving/server.py``: ``GET /health`` and
-``POST /v1/audio/transcriptions`` (multipart upload with ``file`` and an
-optional ``language``), answering ``{"text", "language"}`` or the same
-error bodies (422 AUDIO_DECODE_FAILED, 504 TRANSCRIPTION_TIMEOUT). Each
-request runs on its own thread and goes through the manager's
-micro-batcher, which joins concurrent same-bucket uploads into one batched
-engine run on the queue's one device thread (that thread serializes all
-device work, so the handlers need no lock). The other routes are not
-ported yet; ``return_timestamps=true`` answers 501 until the aligner is.
+Counterpart of ``qwen3_asr_tpu/serving/server.py``'s batch and real-time
+routes: ``GET /health``, ``POST /v1/audio/transcriptions`` (multipart
+upload with ``file`` and an optional ``language``), answering ``{"text",
+"language"}`` or the same error bodies (422 AUDIO_DECODE_FAILED, 504
+TRANSCRIPTION_TIMEOUT), and ``WS /ws/transcribe`` (``serving/ws.py``: the
+upgrade, the frame codec and the streaming session). Each request runs on
+its own thread and goes through the manager's micro-batcher, which joins
+concurrent same-bucket uploads into one batched engine run on the queue's
+one device thread (that thread serializes all device work, so the
+handlers need no lock); a WS connection holds its thread for its
+lifetime. The other routes are not ported yet; ``return_timestamps=true``
+on decodable audio answers 501 until the aligner is.
 Every response carries ``X-Request-ID`` (the request's own, or a new
 one), and an upload may come with ``Content-Length`` or
 ``Transfer-Encoding: chunked``.
@@ -20,7 +22,8 @@ qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
 ``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with ``ASR_INT4_GROUP``),
 ``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``, ``int4``), ``ASR_INT8_ACT``,
 ``ASR_MAX_BATCH`` (8),
-``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it.
+``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it;
+the WS session's knobs are listed in ``serving/ws.py``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from ..audio.codec import AudioDecodeError, decode_audio
 from ..runtime.lifecycle import ModelManager, load_engine
 from ..text.repetition import detect_and_fix_repetitions
 from ..utils.errors import error_body
+from . import ws
 
 log = logging.getLogger(__name__)
 
@@ -143,7 +147,11 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(status, error_body(code, message, status, **context))
 
     def do_GET(self):
-        if self.path.split("?", 1)[0] != "/health":
+        route = self.path.split("?", 1)[0]
+        if route == "/ws/transcribe":
+            ws.websocket_transcribe(self)
+            return
+        if route != "/health":
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
         engine = self.server.manager.engine
@@ -157,7 +165,9 @@ class _Handler(BaseHTTPRequestHandler):
                          **health_memory(engine.device),
                          "device_arrays_mb": round(engine.held_bytes()
                                                    / 1024 ** 2),
-                         "executable_count": engine.executable_count})
+                         "executable_count": engine.executable_count,
+                         "active_ws_sessions":
+                             self.server.manager.ws_sessions})
 
     def do_POST(self):
         if self.path.split("?", 1)[0] != "/v1/audio/transcriptions":
@@ -181,10 +191,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         fields, file_bytes, _ = parse_multipart(
             self.headers.get("Content-Type", ""), body)
-        if parse_bool(fields.get("return_timestamps")):
-            self._error("NOT_IMPLEMENTED",
-                        "return_timestamps is not supported yet", 501)
-            return
+        # decode first, as the JAX server does: an empty or undecodable
+        # upload is a 422 whatever else it asks for
         if not file_bytes:
             self._error("AUDIO_DECODE_FAILED",
                         "Could not decode audio: empty file", 422, fileSize=0)
@@ -194,6 +202,10 @@ class _Handler(BaseHTTPRequestHandler):
         except AudioDecodeError as e:
             self._error("AUDIO_DECODE_FAILED", f"Could not decode audio: {e}",
                         422, fileSize=len(file_bytes))
+            return
+        if parse_bool(fields.get("return_timestamps")):
+            self._error("NOT_IMPLEMENTED",
+                        "return_timestamps is not supported yet", 501)
             return
         language = fields.get("language", "auto")
         lang_code = None if language == "auto" else language

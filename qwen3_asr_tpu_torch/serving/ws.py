@@ -1,0 +1,573 @@
+"""Real-time transcription over ``WS /ws/transcribe``, on the standard
+library.
+
+Two parts:
+
+1. **RFC 6455** (the card's machine has neither ``aiohttp`` nor
+   ``websockets``): the opening handshake (``Sec-WebSocket-Accept``), the
+   frame codec (text, binary, continuation, ping/pong, close; client
+   frames masked, server frames not; no extension, so no per-message
+   deflate), ``upgrade`` for a request that reached the port's
+   ``ThreadingHTTPServer`` handler, and ``connect``, a client for tests
+   and smoke runs.
+2. **The session**, counterpart of ``qwen3_asr_tpu/serving/server.py:
+   473-963`` (``_transcribe_with_context``, ``_trim_exact``,
+   ``websocket_transcribe``) in its default configuration: the client
+   streams s16le PCM; every ``WS_BUFFER_SIZE`` bytes (450 ms) the server
+   re-transcribes its window (up to ``WS_WINDOW_MAX_S``, 6 s, trimmed from
+   the front) and sends a partial; a ``flush`` action, or a VAD
+   speech→silence edge debounced over ``ASR_VAD_FLUSH_TICKS`` silent
+   ticks, sends a final and clears the window. Each tick decodes with
+   resume (the previous partial's tokens as a self-draft), alone (mode
+   ``solo``) or, in mode ``tick``, coalesced with other sessions' ticks by
+   the manager's ``TickBatcher``; at ``ASR_WS_TICK_MIN_SESSIONS`` (3) or
+   more sessions concurrent finals go through the micro-batcher. All of it
+   on the express lane. The host DSP of a tick (s16 → f32, the 300-3400 Hz
+   bandpass) is numpy; the VAD runs on the engine's device.
+
+The messages and their order are the JAX server's: the greeting
+``{"status": "connected", "sample_rate", "format", "buffer_size",
+"window_max_s", "use_server_vad"}``; partials ``{"text", "is_partial":
+true, "is_final": false}`` (only when the text is not empty); finals
+(``is_final``: true); ``{"status": "buffer_reset"}``; ``{"status":
+"configured", "language", "use_server_vad"}``; the structured errors
+``INVALID_JSON``, ``UNKNOWN_ACTION``, ``UNSUPPORTED_SAMPLE_RATE``,
+``SESSION_LIMIT_REACHED`` (then a close with 1013, past
+``ASR_MAX_SESSIONS``) and ``WEBSOCKET_ERROR``; ``[timeout]`` and
+``[error: ...]`` as a tick's text when its transcription fails.
+
+The modes with cached encoder blocks (``prefix``, ``grouped``) are not
+ported: the manager refuses a configuration that reaches them at start
+(``config.check_ws_modes``).
+"""
+from __future__ import annotations
+
+import base64
+import concurrent.futures
+import hashlib
+import json
+import logging
+import os
+import socket
+import struct
+import time
+import uuid
+from typing import NamedTuple, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
+
+import numpy as np
+
+from ..audio.frontend import fir_bandpass_kernel, fir_same, pcm16_to_f32
+from ..audio.vad import default_flush_ticks as _vad_default_flush_ticks
+from ..audio.vad import is_speech
+from ..config import _safe_int, resolve_ws_mode
+from ..runtime.queue import EXPRESS
+from ..text.repetition import detect_and_fix_repetitions
+
+log = logging.getLogger(__name__)
+
+TARGET_SR = 16000
+WS_BUFFER_SIZE = int(os.getenv("WS_BUFFER_SIZE",
+                               str(int(TARGET_SR * 2 * 0.45))))
+WS_FLUSH_SILENCE_MS = int(os.getenv("WS_FLUSH_SILENCE_MS", "600"))
+WS_WINDOW_MAX_S = float(os.getenv("WS_WINDOW_MAX_S", "6.0"))
+WS_WINDOW_MAX_BYTES = int(WS_WINDOW_MAX_S * TARGET_SR * 2)
+ASR_USE_SERVER_VAD = os.getenv("ASR_USE_SERVER_VAD",
+                               "true").lower() == "true"
+# consecutive silent ticks before a VAD flush: 1 with the learned VAD, 2
+# with the spectral one (audio/vad.py default_flush_ticks)
+ASR_VAD_FLUSH_TICKS = max(1, _safe_int(
+    "ASR_VAD_FLUSH_TICKS", str(_vad_default_flush_ticks())))
+
+# -- RFC 6455 ------------------------------------------------------------------
+
+_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+OP_CONT, OP_TEXT, OP_BINARY = 0x0, 0x1, 0x2
+OP_CLOSE, OP_PING, OP_PONG = 0x8, 0x9, 0xA
+CLOSE_NORMAL, CLOSE_PROTOCOL, CLOSE_TOO_BIG = 1000, 1002, 1009
+CLOSE_TRY_AGAIN_LATER = 1013
+MAX_MESSAGE = 16 * 1024 ** 2
+
+
+def accept_key(key: str) -> str:
+    """``Sec-WebSocket-Accept`` for a client's ``Sec-WebSocket-Key``."""
+    digest = hashlib.sha1((key + _GUID).encode("ascii")).digest()
+    return base64.b64encode(digest).decode("ascii")
+
+
+class Message(NamedTuple):
+    kind: str           # "text" | "binary" | "close"
+    data: object        # str, bytes, or the close code (int or None)
+
+    def json(self):
+        return json.loads(self.data)
+
+
+class ProtocolError(Exception):
+    def __init__(self, msg: str, code: int = CLOSE_PROTOCOL):
+        super().__init__(msg)
+        self.code = code
+
+
+class WebSocket:
+    """One end of a WebSocket connection over a socket's buffered reader
+    and its writer. ``client`` ends mask their frames and expect none
+    masked; a server end the reverse. One thread reads and writes it."""
+
+    def __init__(self, rfile, wfile, client: bool,
+                 sock: Optional[socket.socket] = None):
+        self.rfile, self.wfile, self.client, self.sock = (rfile, wfile,
+                                                          client, sock)
+        self.closed = False        # a close frame was sent
+
+    # frames
+    def _read_exact(self, n: int) -> bytes:
+        data = self.rfile.read(n)
+        if data is None or len(data) < n:
+            raise ConnectionError("connection closed mid-frame")
+        return data
+
+    def _read_frame(self) -> Tuple[bool, int, bytes]:
+        b1, b2 = self._read_exact(2)
+        fin, op = bool(b1 & 0x80), b1 & 0x0F
+        if b1 & 0x70:
+            raise ProtocolError("reserved bits set (no extension agreed)")
+        masked, n = bool(b2 & 0x80), b2 & 0x7F
+        if masked == self.client:
+            raise ProtocolError("client frames must be masked and server "
+                                "frames not")
+        if n == 126:
+            n = struct.unpack(">H", self._read_exact(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", self._read_exact(8))[0]
+        if op >= 0x8 and (n > 125 or not fin):
+            raise ProtocolError("a control frame is short and whole")
+        if n > MAX_MESSAGE:
+            raise ProtocolError("message too big", CLOSE_TOO_BIG)
+        mask = self._read_exact(4) if masked else None
+        data = self._read_exact(n)
+        if mask is not None:
+            data = _apply_mask(data, mask)
+        return fin, op, data
+
+    def _write_frame(self, op: int, data: bytes) -> None:
+        head = bytearray([0x80 | op])
+        n = len(data)
+        bit = 0x80 if self.client else 0
+        if n < 126:
+            head.append(bit | n)
+        elif n < 1 << 16:
+            head.append(bit | 126)
+            head += struct.pack(">H", n)
+        else:
+            head.append(bit | 127)
+            head += struct.pack(">Q", n)
+        if self.client:
+            mask = os.urandom(4)
+            head += mask
+            data = _apply_mask(data, mask)
+        self.wfile.write(bytes(head) + data)
+        self.wfile.flush()
+
+    # messages
+    def send_text(self, text: str) -> None:
+        self._write_frame(OP_TEXT, text.encode("utf-8"))
+
+    def send_json(self, obj) -> None:
+        self.send_text(json.dumps(obj))
+
+    def send_bytes(self, data: bytes) -> None:
+        self._write_frame(OP_BINARY, bytes(data))
+
+    def close(self, code: int = CLOSE_NORMAL, reason: str = "") -> None:
+        """Send a close frame (once)."""
+        if self.closed:
+            return
+        self.closed = True
+        try:
+            self._write_frame(OP_CLOSE, struct.pack(">H", code)
+                              + reason.encode("utf-8")[:120])
+        except OSError:
+            pass
+
+    def receive(self, timeout: Optional[float] = None) -> Message:
+        """The next data message, assembled from its fragments; pings are
+        answered on the way. A close frame is answered and returned as
+        ``Message("close", code)``; a connection that ends returns one
+        with code None."""
+        if self.sock is not None:
+            self.sock.settimeout(timeout)
+        kind, parts = None, []
+        try:
+            while True:
+                fin, op, data = self._read_frame()
+                if op == OP_PING:
+                    self._write_frame(OP_PONG, data)
+                    continue
+                if op == OP_PONG:
+                    continue
+                if op == OP_CLOSE:
+                    code = (struct.unpack(">H", data[:2])[0]
+                            if len(data) >= 2 else None)
+                    self.close(code or CLOSE_NORMAL)
+                    return Message("close", code)
+                if op == OP_CONT:
+                    if kind is None:
+                        raise ProtocolError("continuation of nothing")
+                elif op in (OP_TEXT, OP_BINARY):
+                    if kind is not None:
+                        raise ProtocolError("a new message inside another")
+                    kind = "text" if op == OP_TEXT else "binary"
+                else:
+                    raise ProtocolError(f"unknown opcode {op}")
+                parts.append(data)
+                if sum(map(len, parts)) > MAX_MESSAGE:
+                    raise ProtocolError("message too big", CLOSE_TOO_BIG)
+                if fin:
+                    body = b"".join(parts)
+                    if kind == "text":
+                        return Message("text", body.decode("utf-8"))
+                    return Message("binary", body)
+        except ProtocolError as e:
+            self.close(e.code, str(e))
+            return Message("close", e.code)
+        except (ConnectionError, OSError, UnicodeDecodeError):
+            self.closed = True
+            return Message("close", None)
+
+    def receive_json(self, timeout: Optional[float] = None):
+        msg = self.receive(timeout)
+        if msg.kind != "text":
+            raise ConnectionError(f"expected a text message, got "
+                                  f"{msg.kind} {msg.data!r}")
+        return msg.json()
+
+
+def _apply_mask(data: bytes, mask: bytes) -> bytes:
+    if not data:
+        return data
+    m = np.frombuffer((mask * (len(data) // 4 + 1))[:len(data)], np.uint8)
+    return (np.frombuffer(data, np.uint8) ^ m).tobytes()
+
+
+def upgrade(handler) -> Optional[WebSocket]:
+    """Answer a ``BaseHTTPRequestHandler``'s WebSocket opening handshake
+    with 101 and return the server end, or answer 400 and return None."""
+    h = handler.headers
+    key = h.get("Sec-WebSocket-Key", "")
+    if ("websocket" not in h.get("Upgrade", "").lower()
+            or "upgrade" not in h.get("Connection", "").lower()
+            or h.get("Sec-WebSocket-Version") != "13" or not key):
+        body = json.dumps({"code": "BAD_REQUEST", "statusCode": 400,
+                           "message": "expected a WebSocket upgrade "
+                                      "(version 13)"}).encode("utf-8")
+        handler.send_response(400)
+        handler.send_header("Content-Type", "application/json")
+        handler.send_header("Content-Length", str(len(body)))
+        handler.send_header("Sec-WebSocket-Version", "13")
+        handler.end_headers()
+        handler.wfile.write(body)
+        return None
+    handler.send_response(101, "Switching Protocols")
+    handler.send_header("Upgrade", "websocket")
+    handler.send_header("Connection", "Upgrade")
+    handler.send_header("Sec-WebSocket-Accept", accept_key(key))
+    handler.end_headers()
+    handler.wfile.flush()
+    handler.close_connection = True
+    return WebSocket(handler.rfile, handler.wfile, client=False,
+                     sock=handler.connection)
+
+
+def connect(url: str, timeout: float = 30.0) -> WebSocket:
+    """A client end for ``ws://host:port/path?query``."""
+    parts = urlsplit(url)
+    if parts.scheme != "ws":
+        raise ValueError(f"only ws:// URLs, got {url}")
+    sock = socket.create_connection((parts.hostname, parts.port or 80),
+                                    timeout=timeout)
+    key = base64.b64encode(os.urandom(16)).decode("ascii")
+    path = parts.path or "/"
+    if parts.query:
+        path += "?" + parts.query
+    sock.sendall((f"GET {path} HTTP/1.1\r\nHost: {parts.netloc}\r\n"
+                  f"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                  f"Sec-WebSocket-Key: {key}\r\n"
+                  f"Sec-WebSocket-Version: 13\r\n\r\n").encode("ascii"))
+    rfile = sock.makefile("rb")
+    status = rfile.readline().decode("latin-1")
+    headers = {}
+    while True:
+        line = rfile.readline().decode("latin-1").strip()
+        if not line:
+            break
+        name, _, value = line.partition(":")
+        headers[name.strip().lower()] = value.strip()
+    if " 101 " not in status + " " or \
+            headers.get("sec-websocket-accept") != accept_key(key):
+        sock.close()
+        raise ConnectionError(f"handshake refused: {status.strip()}")
+    return WebSocket(rfile, sock.makefile("wb"), client=True, sock=sock)
+
+
+# -- the session ----------------------------------------------------------------
+
+_bandpass = None
+
+
+def _bandpass_kernel() -> np.ndarray:
+    global _bandpass
+    if _bandpass is None:
+        _bandpass = fir_bandpass_kernel()          # 300-3400 Hz
+    return _bandpass
+
+
+def _trim_exact(window: bytearray) -> None:
+    """Sample-exact trim to the window cap, from the front."""
+    if len(window) > WS_WINDOW_MAX_BYTES:
+        del window[:((len(window) - WS_WINDOW_MAX_BYTES) // 2) * 2]
+
+
+def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
+                             lang_code, use_vad: bool, resume_tokens=None,
+                             tick_batch=None):
+    """Bandpass, VAD gate and an express-lane transcription of a window's
+    bytes → (text, token_ids). ``resume_tokens`` (the previous partial's)
+    make it a resume run. A flush (``pad_silence``) appends
+    ``WS_FLUSH_SILENCE_MS`` of silence; at ``ASR_WS_TICK_MIN_SESSIONS`` or
+    more live sessions it goes through the micro-batcher with other
+    sessions' finals. A partial in mode ``tick`` goes through the tick
+    batcher. A failure becomes ``[timeout]`` or ``[error: ...]``."""
+    t0 = time.time()
+    future = None
+    try:
+        full = bytearray(audio_bytes)
+        if pad_silence:
+            full.extend(bytes(int((WS_FLUSH_SILENCE_MS / 1000)
+                                  * TARGET_SR * 2)))
+        if not full:
+            return "", None
+        audio = fir_same(pcm16_to_f32(bytes(full)), _bandpass_kernel())
+        if use_vad and not is_speech(audio, device=mgr.engine.device):
+            log.info("[WS] VAD: silence, skipping inference")
+            return "", resume_tokens
+        if tick_batch is None:
+            tick_batch = os.getenv("ASR_WS_TICK_BATCH",
+                                   "").lower() == "true"
+        if not pad_silence and tick_batch:
+            future = mgr.tick_batcher.transcribe_tick(
+                audio, lang_code, resume_tokens, use_fast=True)
+            raw, token_ids = future.result(timeout=mgr.request_timeout)
+            return detect_and_fix_repetitions(raw), token_ids
+        batch_flush = (
+            pad_silence
+            and os.getenv("ASR_WS_BATCH_FLUSH", "true").lower() == "true"
+            and mgr.ws_sessions >= int(
+                os.getenv("ASR_WS_TICK_MIN_SESSIONS", "3") or 3))
+        if batch_flush:
+            # concurrent finals coalesce into one batched dispatch; their
+            # results keep their token ids
+            future = mgr.batcher.transcribe(audio, TARGET_SR, lang_code,
+                                            priority=EXPRESS)
+        else:
+            future = mgr.queue.submit(
+                lambda: mgr.transcribe_sync(audio, TARGET_SR, lang_code,
+                                            False, use_fast=not pad_silence,
+                                            resume_tokens=resume_tokens),
+                priority=EXPRESS)
+        results = future.result(timeout=mgr.request_timeout)
+        if results:
+            text = detect_and_fix_repetitions(results[0].text)
+            log.info("[WS] done in %.2fs, text_len=%d", time.time() - t0,
+                     len(text))
+            return text, results[0].token_ids
+        return "", None
+    except concurrent.futures.TimeoutError:
+        if future is not None:
+            future.cancel()
+        log.warning("[WS] timed out after %.2fs (audio %.2fs)",
+                    time.time() - t0, len(audio_bytes) / 2 / TARGET_SR)
+        return "[timeout]", None
+    except Exception as e:
+        log.error("[WS] error after %.2fs: %s", time.time() - t0, e)
+        return f"[error: {e}]", None
+
+
+def websocket_transcribe(handler) -> None:
+    """Serve one ``/ws/transcribe`` connection on ``handler``'s thread,
+    from the upgrade to the close."""
+    mgr = handler.server.manager
+    query = {k: v[0] for k, v in
+             parse_qs(urlsplit(handler.path).query).items()}
+    ws = upgrade(handler)
+    if ws is None:
+        return
+    req_id = query.get("request_id") or str(uuid.uuid4())
+    log.info("[WS] client connected (%s)", req_id)
+    audio_buffer, audio_window = bytearray(), bytearray()
+    lang_code = "English"        # until a config action says otherwise
+    use_vad = ASR_USE_SERVER_VAD
+    if query.get("use_server_vad") is not None:
+        use_vad = query["use_server_vad"].lower() in ("true", "1", "yes")
+    sr_raw = query.get("sample_rate", str(TARGET_SR))
+    try:
+        client_sr = int(sr_raw)
+    except ValueError:
+        client_sr = -1
+    resampler = None
+    if client_sr == 8000:
+        from ..audio.resample import StreamingResampler
+        resampler = StreamingResampler(client_sr, TARGET_SR)
+    chunk_count = 0
+    prev_had_speech = False
+    silent_ticks = 0             # consecutive silent ticks (VAD debounce)
+    prev_tokens = None           # the last partial's ids (resume decoding)
+    admitted = False
+    try:
+        if client_sr not in (8000, 16000):
+            ws.send_json({"code": "UNSUPPORTED_SAMPLE_RATE",
+                          "message": f"sample_rate must be 8000 or 16000, "
+                                     f"got {sr_raw}",
+                          "statusCode": 400})
+            return
+        max_sessions = int(os.getenv("ASR_MAX_SESSIONS", "0") or 0)
+        with mgr.ws_lock:
+            if max_sessions <= 0 or mgr.ws_sessions < max_sessions:
+                mgr.ws_sessions += 1
+                admitted = True
+            sessions = mgr.ws_sessions
+        if not admitted:
+            log.warning("[WS] session limit reached (%d), rejecting",
+                        max_sessions)
+            ws.send_json({"code": "SESSION_LIMIT_REACHED",
+                          "message": (f"server at capacity ({max_sessions} "
+                                      "concurrent streaming sessions); "
+                                      "retry later or add workers"),
+                          "statusCode": 503})
+            ws.close(CLOSE_TRY_AGAIN_LATER)
+            return
+        # fixed for the connection's lifetime
+        ws_mode = resolve_ws_mode(WS_WINDOW_MAX_S, sessions)
+        log.info("[WS] streaming mode: %s (cap=%ss, sessions=%d)",
+                 ws_mode.name, WS_WINDOW_MAX_S, sessions)
+        ws.send_json({"status": "connected", "sample_rate": client_sr,
+                      "format": "pcm_s16le", "buffer_size": WS_BUFFER_SIZE,
+                      "window_max_s": WS_WINDOW_MAX_S,
+                      "use_server_vad": use_vad})
+        while True:
+            msg = ws.receive()
+            if msg.kind == "close":
+                break
+            if msg.kind == "text":
+                try:
+                    cmd = json.loads(msg.data)
+                    if not isinstance(cmd, dict):
+                        raise ValueError("not an object")
+                except ValueError:
+                    log.warning("[WS] invalid JSON command: %r",
+                                msg.data[:80])
+                    ws.send_json({"code": "INVALID_JSON",
+                                  "message": "Invalid JSON command",
+                                  "statusCode": 400})
+                    continue
+                action = cmd.get("action", "")
+                if action == "flush":
+                    if audio_buffer:
+                        audio_window.extend(audio_buffer)
+                        audio_buffer.clear()
+                    text = ""
+                    if audio_window:
+                        text, _ = _transcribe_with_context(
+                            mgr, bytes(audio_window), True, lang_code,
+                            use_vad, resume_tokens=prev_tokens)
+                        chunk_count += 1
+                    ws.send_json({"text": text, "is_partial": False,
+                                  "is_final": True})
+                    audio_window.clear()
+                    prev_tokens = None
+                elif action == "reset":
+                    audio_buffer.clear()
+                    audio_window.clear()
+                    prev_tokens = None
+                    ws.send_json({"status": "buffer_reset"})
+                elif action == "config":
+                    new_lang = cmd.get("language")
+                    if new_lang == "auto":
+                        lang_code = None
+                    elif new_lang:
+                        lang_code = new_lang
+                    if "use_server_vad" in cmd:
+                        use_vad = bool(cmd["use_server_vad"])
+                    ws.send_json({"status": "configured",
+                                  "language": lang_code or "auto",
+                                  "use_server_vad": use_vad})
+                else:
+                    log.warning("[WS] unknown action: %r", action)
+                    ws.send_json({"code": "UNKNOWN_ACTION",
+                                  "message": f"Unknown action: {action!r}",
+                                  "statusCode": 400})
+                continue
+            incoming = msg.data
+            if resampler is not None:
+                incoming = resampler.process_pcm(incoming)
+            audio_buffer.extend(incoming)
+            if len(audio_buffer) < WS_BUFFER_SIZE:
+                continue
+            audio_window.extend(audio_buffer)
+            audio_buffer.clear()
+            _trim_exact(audio_window)
+            vad_flushed = False
+            if use_vad:
+                tail = bytes(audio_window[-WS_BUFFER_SIZE:])
+                has_speech = is_speech(pcm16_to_f32(tail),
+                                       device=mgr.engine.device)
+                if has_speech:
+                    prev_had_speech, silent_ticks = True, 0
+                else:
+                    silent_ticks += 1
+                if (not has_speech and prev_had_speech
+                        and silent_ticks >= ASR_VAD_FLUSH_TICKS):
+                    # a debounced speech→silence edge: a final
+                    prev_had_speech, silent_ticks = False, 0
+                    vad_flushed = True
+                    text, _ = _transcribe_with_context(
+                        mgr, bytes(audio_window), True, lang_code, use_vad,
+                        resume_tokens=prev_tokens)
+                    chunk_count += 1
+                    if text:
+                        ws.send_json({"text": text, "is_partial": False,
+                                      "is_final": True})
+                    audio_window.clear()
+                    prev_tokens = None
+            if not vad_flushed:
+                text, prev_tokens = _transcribe_with_context(
+                    mgr, bytes(audio_window), False, lang_code, use_vad,
+                    resume_tokens=prev_tokens, tick_batch=ws_mode.tick)
+                chunk_count += 1
+                if text:
+                    ws.send_json({"text": text, "is_partial": True,
+                                  "is_final": False})
+        # disconnect: transcribe what is left, as the JAX server does
+        if audio_buffer:
+            audio_window.extend(audio_buffer)
+        if audio_window:
+            text, _ = _transcribe_with_context(
+                mgr, bytes(audio_window), True, lang_code, use_vad,
+                resume_tokens=prev_tokens)
+            chunk_count += 1
+            if text:
+                log.info("[WS] final transcription on disconnect: %s", text)
+        log.info("[WS] client disconnected, chunks processed: %d",
+                 chunk_count)
+    except Exception as e:
+        log.error("WebSocket error: %s", e)
+        try:
+            ws.send_json({"code": "WEBSOCKET_ERROR", "message": str(e),
+                          "statusCode": 500})
+        except OSError:
+            pass
+    finally:
+        if admitted:
+            with mgr.ws_lock:
+                mgr.ws_sessions -= 1
+        ws.close()

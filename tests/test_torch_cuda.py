@@ -71,6 +71,20 @@ FLASH_CASES = {
     "group3_d48_q_offset": (2, 6, 2, 50, 120, 48, True, 0, [7, 0],
                             [120, 90], [40, 70]),
     "group8_d96": (1, 16, 2, 29, 200, 96, True, 0, [3], [200], [171]),
+    # resume's verify windows at preset:1.7b: T = max_new queries at
+    # q_offset = the prompt's length, causal over the whole cache, rows
+    # left-padded from valid_from (1 s bucket: prompt 103, T 32; 6 s:
+    # prompt 153, T 64; S = 256), and a partial tile of 24 rows
+    "verify_1s_t32_b1": (1, 16, 8, 32, 256, 128, True, 0, [12], [256],
+                         [103]),
+    "verify_1s_t24_b4": (4, 16, 8, 24, 256, 128, True, 0, [12, 15, 0, 12],
+                         [256] * 4, [103] * 4),
+    "verify_6s_t64_b1": (1, 16, 8, 64, 256, 128, True, 0, [12], [256],
+                         [153]),
+    "verify_6s_t64_b4": (4, 16, 8, 64, 256, 128, True, 0, [12, 40, 0, 12],
+                         [256] * 4, [153] * 4),
+    "verify_trained_ckpt_t40": (2, 4, 2, 40, 256, 48, True, 0, [20, 30],
+                                [256, 256], [110, 110]),
 }
 
 
@@ -405,7 +419,69 @@ def test_warm_request_makes_no_eager_launch(dev):
                    "decode_attention_batch": 0,
                    "decode_attention_batch_int4": 0, "qgemv": 0,
                    "qgemm": 0, "widened_product": 0, "w8a8": 0,
-                   "qk_rope_kv": 2 * (1 + run["steps_run"])}
+                   "qk_rope_kv": 2 * (1 + run["steps_run"]),
+                   "qk_rope_kv_per_row": 0}
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+# (working dtype, cache dtype, batch)
+RESUME_KEYS = {"f32_b1": (torch.float32, torch.float32, 1),
+               "f32_b4": (torch.float32, torch.float32, 4),
+               "f32_fp8_b4": (torch.float32, torch.float8_e4m3fn, 4),
+               "bf16_b1": (torch.bfloat16, torch.bfloat16, 1),
+               "bf16_b4": (torch.bfloat16, torch.bfloat16, 4),
+               "bf16_fp8_b4": (torch.bfloat16, torch.float8_e4m3fn, 4),
+               "bf16_int4_b4": (torch.bfloat16, torch.int4, 4)}
+
+
+@pytest.mark.parametrize("name", list(RESUME_KEYS))
+def test_resume_key_replays_equal_eager(dev, name):
+    """A resume key (the front adds the verify window and the accept
+    arithmetic, the chunk the per-row continuation) gives the same bits
+    captured and eager, and its chunk writes through kernel B's per-row
+    route at B > 1. In f32 each row's tokens are also a plain run's of its
+    clip (resume is exact there, as the CPU tests hold it against JAX); in
+    bf16 the verify window's products round apart from a decode step's, so
+    a near-tie may flip a token, and the share that agrees is printed."""
+    dtype, kv, batch = RESUME_KEYS[name]
+    model = _model(dev)
+    model.params = _cast_tree(model.params, dtype)
+    eng = TranscriptionEngine(model, device=dev, dtype=dtype,
+                              cache_dtype=kv)
+    key, (audio, _, _) = _request(eng, batch, seed=5)
+    clips = list(audio[:, :24000])
+    plain = [eng._run_bucket([c], key[0], key[0] / 100, None)[1][0]
+             for c in clips]
+    # drafts: a row's own output, nothing, garbage, a truncated own output
+    rows = [plain[0], None, [5, 9, 2, 7], plain[-1][:3]][:batch]
+    _, ids = eng._run_bucket(clips, key[0], key[0] / 100, None,
+                             resume_rows=rows)
+    if dtype == torch.float32:
+        assert ids == plain
+    print(f"resume {name}: rows equal to the plain run "
+          f"{sum(a == b for a, b in zip(ids, plain))}/{batch}")
+    exe = eng.executables[key[:2] + (batch, kv, "resume")]
+    assert exe.chunk.recorded["qk_rope_kv_per_row"] == (
+        DECODE_CHUNK * 2 if batch > 1 else 0)
+    assert exe.front.recorded["qk_rope_kv"] == 2 * 2    # prompt, verify
+    inputs = eng.bucket_inputs(clips, key[0], None)
+    prev = np.full((batch, key[1]), eng.model.pad_id, np.int32)
+    prev_len = np.zeros(batch, np.int32)
+    for i, r in enumerate(rows):
+        prev[i, :len(r or [])] = r or []
+        prev_len[i] = len(r or [])
+    graph = exe.run(*inputs, prev=prev, prev_len=prev_len)
+    eager = exe.run(*inputs, eager=True, prev=prev, prev_len=prev_len)
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert torch.equal(graph.steps, eager.steps)
+    assert torch.equal(graph.accepted, eager.accepted)
+    again = exe.run(*inputs, prev=prev, prev_len=prev_len)
+    assert torch.equal(graph.tokens, again.tokens)
 
 
 def test_failed_capture_raises_and_never_runs_eagerly(dev, monkeypatch):
@@ -1018,6 +1094,102 @@ def test_qk_rope_kv_matches_plain(dev, shape, route):
     q_share = float((_ulps(q, q_ref) == 0).float().mean())
     print(f"qk_rope_kv {shape} {route}: bit-equal q {q_share:.4%}, "
           f"K {k_share:.4%}")
+
+
+# one write position a row (the resume loop's continuation and verify):
+# (b, t, s_len, positions), distinct per row; a row at S writes nothing
+QK_ROW_SHAPES = {
+    "1p7b_b8_t1": (8, 1, 256, [153, 160, 200, 17, 254, 255, 12, 256]),
+    "1p7b_b96_t1": (96, 1, 512, [(37 * i) % 520 for i in range(96)]),
+    "1p7b_b4_t64": (4, 64, 256, [153, 100, 192, 0]),
+    "d48_b3_t3": (3, 3, 128, [5, 126, 60]),
+}
+QK_ROW_CASES = [(shape, route) for shape in QK_ROW_SHAPES
+                for route in QK_ROUTES
+                if shape != "d48_b3_t3" or "int4" not in route]
+
+
+@pytest.mark.parametrize("shape,route", QK_ROW_CASES)
+def test_qk_rope_kv_per_row_positions_match_plain(dev, shape, route):
+    """A ``[B]`` write position: one launch, row b's keys at its own
+    position (keys at or past S dropped), as ``_assert_cache_close`` holds
+    the cache against the plain per-row write."""
+    b, t, s_len, pos = QK_ROW_SHAPES[shape]
+    rows, kv = QK_ROUTES[route]
+    d = 48 if shape.startswith("d48") else 128
+    nq, nkv = (4, 2) if d == 48 else (16, 8)
+    inputs = _qk_inputs(dev, b, t, nq, nkv, d, rows, seed=3)
+    ours, ref = _qk_caches(dev, b, nkv, d, s_len, kv)
+    where = torch.tensor(pos, dtype=torch.int64, device=dev)
+    before = (qk_rope_kv_write.launches, qk_rope_kv_write.launches_per_row)
+    q = qk_rope_kv_write(*inputs, 1e-6, ours, 2, where)
+    torch.cuda.synchronize()
+    assert (qk_rope_kv_write.launches,
+            qk_rope_kv_write.launches_per_row) == (before[0] + 1,
+                                                   before[1] + 1)
+    q_ref = qk_rope_kv_write_plain(*inputs, 1e-6, ref, 2, where)
+    assert _ulps(q, q_ref).max() <= 1
+    k_share = _assert_cache_close(ours, ref, shape)
+    # a row's keys land at its own position and nowhere else
+    plane = ours.k_scale if ours.int4 else ours.k
+    written = plane[2].float().abs().sum(dim=(1, 3)) > 0      # [B, S]
+    for r, p in enumerate(pos):
+        want = torch.zeros(s_len, dtype=torch.bool, device=dev)
+        want[min(p, s_len):min(p + t, s_len)] = True
+        assert torch.equal(written[r], want), (shape, r)
+    print(f"qk_rope_kv per-row {shape} {route}: K bit-equal {k_share:.4%}")
+
+
+@pytest.mark.parametrize("route", ["bf16", "bf16_fp8", "bf16_int4"])
+def test_qk_rope_kv_per_row_repeats_and_replays(dev, route):
+    """Repeat calls give the same bits, and a captured per-row call
+    replayed after every row's position moved writes the eager call's
+    bytes at the new positions."""
+    rows, kv = QK_ROUTES[route]
+    inputs = _qk_inputs(dev, 4, 1, 16, 8, 128, rows, seed=4)
+    ours, ref, again = _qk_caches(dev, 4, 8, 128, 256, kv, n=3)
+    pos = torch.tensor([10, 50, 90, 130], device=dev)
+    first = qk_rope_kv_write(*inputs, 1e-6, again, 0, pos)
+    for _ in range(5):
+        q = qk_rope_kv_write(*inputs, 1e-6, again, 0, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(q, first)
+    qk_rope_kv_write(*inputs, 1e-6, ours, 1, pos)    # warm-up, then clear
+    for p in ours:
+        if p is not None:
+            p.zero_()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        qk_rope_kv_write(*inputs, 1e-6, ours, 1, pos)
+    pos.copy_(torch.tensor([200, 3, 77, 255], device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    qk_rope_kv_write(*inputs, 1e-6, ref, 1, pos.clone())
+    torch.cuda.synchronize()
+    for a, b in zip((p for p in ours if p is not None),
+                    (p for p in ref if p is not None)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", [n for n in FLASH_CASES
+                                  if n.startswith("verify")])
+def test_flash_verify_windows_repeat_bits(dev, name):
+    """The verify windows in bf16: a repeat call gives the first call's
+    bits (out, m and l)."""
+    b, nq, nkv, t, s, d, causal, window, vf, vt, qo = FLASH_CASES[name]
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (b, nq, t, d), torch.bfloat16, dev)
+    k = _randn(rng, (b, nkv, s, d), torch.bfloat16, dev)
+    v = _randn(rng, (b, nkv, s, d), torch.bfloat16, dev)
+    vf, vt, qo = (torch.tensor(x, dtype=torch.int32, device=dev)
+                  for x in (vf, vt, qo))
+    outs = [flash_attention(q, k, v, causal=causal, q_offset=qo,
+                            kv_valid_from=vf, kv_valid_to=vt,
+                            return_residuals=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], again))
 
 
 def test_qk_rope_kv_fp8_store_is_torchs_cast(dev):

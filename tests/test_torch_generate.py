@@ -232,7 +232,9 @@ def test_one_key_reused_gives_two_fresh_runs(engine):
 def _clean_env(monkeypatch):
     for var in ("USE_CUDA_GRAPHS", "ASR_WARMUP_BUCKETS", "WS_WINDOW_MAX_S",
                 "WS_FLUSH_SILENCE_MS", "ASR_WARMUP_BATCH_SHAPES",
-                "SKIP_WARMUP"):
+                "SKIP_WARMUP", "ASR_WS_TICK_MAX_BATCH", "ASR_WS_STREAM_MODE",
+                "ASR_WS_PREFIX_CACHE", "ASR_WS_TICK_BATCH",
+                "ASR_WS_GROUP_MIN_CAP_S", "ASR_WS_TICK_MIN_SESSIONS"):
         monkeypatch.delenv(var, raising=False)
     return monkeypatch
 
@@ -271,6 +273,21 @@ def test_warmup_buckets(_clean_env, case):
     assert _warmup_buckets() == want
 
 
+def _ws_keys(eng, buckets, ticks=(2, 4, 8)):
+    """The keys the WS part of the warmup adds at the default cap (6 s,
+    modes solo and tick): each bucket's resume key at B=1, the batched
+    resume keys of the buckets at or below the cap, and the plain keys of
+    the flush bucket (6.6 s, so 10 s) at the tick batches."""
+    keys = set()
+    for sec in buckets:
+        bf, bs = eng.bucket_frames(int(16000 * sec))
+        key = (bf, max_new_tokens_for(bs))
+        keys |= {key + (b, torch.float32, "resume") for b in (1,) + ticks}
+    bf, bs = eng.bucket_frames(int(16000 * 6.6))
+    keys |= {(bf, max_new_tokens_for(bs), b, torch.float32) for b in ticks}
+    return keys
+
+
 def test_warmup_builds_the_listed_keys(_clean_env):
     _clean_env.setenv("ASR_WARMUP_BATCH_SHAPES", "2")
     eng = load_engine(CKPT, device="cpu")
@@ -280,7 +297,9 @@ def test_warmup_builds_the_listed_keys(_clean_env):
         bf, bs = eng.bucket_frames(int(16000 * sec))
         keys |= {(bf, max_new_tokens_for(bs), b, torch.float32)
                  for b in (1, 2)}
-    assert set(eng.executables) == keys and len(keys) == 4
+    assert len(keys) == 4
+    keys |= _ws_keys(eng, (1, 2))
+    assert set(eng.executables) == keys and len(keys) == 4 + 8 + 3
 
 
 @pytest.mark.parametrize("skip", [False, True], ids=["warms", "skips"])
@@ -293,8 +312,8 @@ def test_manager_start_warms_unless_skipped(_clean_env, skip):
     mgr.start()
     try:
         bf, bs = eng.bucket_frames(16000)
-        want = set() if skip else {(bf, max_new_tokens_for(bs), 1,
-                                    torch.float32)}
+        want = set() if skip else ({(bf, max_new_tokens_for(bs), 1,
+                                     torch.float32)} | _ws_keys(eng, (1,)))
         assert set(eng.executables) == want
     finally:
         mgr.stop()

@@ -171,6 +171,21 @@ def test_timestamps_answer_501(url):
     assert status == 501 and body["statusCode"] == 501
 
 
+@pytest.mark.parametrize("upload", ["empty", "garbage"])
+def test_undecodable_upload_with_timestamps_answers_422(url, upload):
+    """The upload is decoded before ``return_timestamps`` is looked at, as
+    the JAX server does: audio that cannot be decoded answers 422
+    AUDIO_DECODE_FAILED with its size, not 501."""
+    data = b"" if upload == "empty" else b"not audio at all" * 8
+    status, body = _post(url, data, [("return_timestamps", "true")])
+    assert status == 422 and body["code"] == "AUDIO_DECODE_FAILED"
+    assert body["statusCode"] == 422
+    assert body["context"]["fileSize"] == len(data)
+    if data:
+        with pytest.raises(JaxDecodeError):
+            jax_decode_audio(data)
+
+
 def test_concurrent_uploads_share_one_dispatch(engine):
     """Four uploads of the 10 s bucket at once: all 200, with the solo
     path's texts, from fewer dispatches than uploads."""
