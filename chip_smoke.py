@@ -106,7 +106,25 @@ without a CUDA device, and whenever any phase fails. Phases:
    (T = 24, 32 and 64 at the 1 s and 6 s prompts, B = 1 and 4, f32 and
    bf16), kernel B with a ``[B]`` write position (T=1 at B = 8 and 96,
    T=64 at B=4; bf16, fp8 and int4 caches; bit-equal shares, repeat
-   bits) and #3 with per-row ``valid_to`` (B = 4 and 8, bf16 and int4).
+   bits) and #3 with per-row ``valid_to`` (B = 4 and 8, bf16 and int4);
+   the phase fails if the VAD counted a failure (``vad.failures``);
+11. word timestamps and the forced aligner, SRT subtitles, SSE and
+   translations through the server (``sidecars/``): (a) trained_ckpt in
+   f32 with ``FORCED_ALIGNER_ID`` at the same checkpoint and its aligner
+   on the card in f32: ``return_timestamps`` and ``accurate`` SRTs of 3
+   real clips equal the port's on the CPU (words equal, edges within
+   1e-3 s); (b) preset:1.7b bf16 (phase 5's engine) with
+   ``AlignerEngine`` on its own weights: ``accurate`` SRTs of a 120 s and
+   a 330 s upload (a 300 s and a 30 s aligner call; a fixed transcript
+   when the random weights transcribe to nothing) and the aligner's
+   encoder ms at 30/60/120/300 s; (c) 4 concurrent SSE streams of a 20 s
+   real clip: events in order, then ``done``, fewer dispatches than
+   chunks, first-event and whole-stream walls; (d) ``json`` and ``srt``
+   translations through a fake LLM on 127.0.0.1, and 502 when it fails.
+   The phase fails unless flash launched inside the alignments and no
+   alignment or VAD failure was counted. Phases 2 and 3 also hold flash
+   at the aligner's encoder lengths (T = 750, 1500 and 3750, windows of
+   50; f32 and bf16, repeat bits; kernel, plain and SDPA ms and the bound).
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -123,6 +141,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 import uuid
 
@@ -597,6 +616,7 @@ def kernel_phases(sh, dev):
             "library_ms": None, "bytes": nbytes})
     quant_kernel_rows(sh, dev, card, rows)
     ws_kernel_rows(sh, dev, card, rows)
+    aligner_kernel_rows(sh, dev, card, rows)
     return rows
 
 
@@ -1263,6 +1283,71 @@ def ws_kernel_rows(sh, dev, card, rows) -> None:
         rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
                                      sdpa, nbytes, flops, layers, card,
                                      note))
+
+
+ALIGNER_SECONDS = (60, 120, 300)    # the aligner's 30 s steps timed
+
+
+def aligner_flash_cases(sh, dtype, dev):
+    """Flash at the forced aligner's encoder: B=1, the encoder's 20 heads
+    × 64, T = 25 tokens a 2 s chunk of mel (750, 1500 and 3750 at 60, 120
+    and 300 s), windows of 50, ``valid_to`` = T. make_cases' tuple."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    h, d, w = sh["enc_heads"], sh["enc_d"], sh["window"]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    for sec in ALIGNER_SECONDS:
+        t = sh["t_enc"] * sec // 30
+        gen = torch.Generator(device=dev).manual_seed(sec)
+        q, k, v = (torch.randn((1, h, t, d), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        vt = torch.full((1,), t, dtype=torch.int32, device=dev)
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        mask = AttnSpec(window_block=w, valid_to=vt).dense_mask(1, t, t, dev)
+        yield (f"aligner_{sec}s", "flash_attention",
+               lambda q=q, k=k, v=v, vt=vt, zero=zero: flash_attention(
+                   q, k, v, q_offset=zero, kv_valid_from=zero,
+                   kv_valid_to=vt, window_block=w, return_residuals=True),
+               lambda q=q, k=k, v=v, vt=vt, zero=zero: flash_attention_plain(
+                   q, k, v, zero, vt, zero, causal=False, window_block=w,
+                   sm_scale=d ** -0.5),
+               lambda q=q, k=k, v=v, mask=mask:
+                   F.scaled_dot_product_attention(q, k, v,
+                                                  attn_mask=mask[:, None]),
+               4 * h * t * d * esize + 2 * 4 * h * t + 3 * 4,
+               4 * d * h * int(mask.sum()), 0)
+
+
+def aligner_kernel_rows(sh, dev, card, rows) -> None:
+    """Parity (phase 2, f32 and bf16, a repeat call's bits) and timing
+    (phase 3, bf16) of flash at the forced aligner's encoder lengths."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[dtype]
+        dt = str(dtype).replace("torch.", "")
+        for label, kernel, run, plain, sdpa, nbytes, flops, layers in \
+                aligner_flash_cases(sh, dtype, dev):
+            outs, refs = run(), plain()
+            torch.cuda.synchronize()
+            err = float((outs[0].float() - refs[0].float()).abs().max())
+            for a, b in zip(outs[1:], refs[1:]):
+                torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+            same_bits(kernel, label, outs, run())
+            del refs
+            log(f"[parity] {label} {dt} (T={outs[0].shape[2]}): "
+                f"max_abs_err={err:.3e} (bound {tol:g}); m and l within it; "
+                f"a repeat call's bits equal")
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {label} {dt}: error {err} "
+                                     f"above {tol}")
+            if dtype == torch.bfloat16:
+                if label == "aligner_300s":
+                    one_kernel_per_call(kernel, label, run)
+                rows[kernel].append(time_row(label, dt, err, run, plain,
+                                             sdpa, nbytes, flops, layers,
+                                             card))
+            del outs
+            torch.cuda.empty_cache()
 
 
 # -- phase 4 ---------------------------------------------------------------------
@@ -2580,7 +2665,478 @@ def realtime_phase(dev, bf16_model) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    log(f"[ws] phase 10 launches: {total}")
+    from qwen3_asr_tpu_torch.audio import vad
+    log(f"[ws] phase 10 launches: {total}; VAD failures counted "
+        f"{vad.failures}")
+    if vad.failures:
+        raise AssertionError(f"the VAD failed {vad.failures} time(s) and "
+                             f"answered speech")
+    return total
+
+
+# -- phase 11 --------------------------------------------------------------------
+
+SIDECAR_CLIPS = ("english_01", "chinese_02", "japanese_01")
+EDGE_TOL = 1e-3        # word edges, the card (f32) against the CPU
+# the SSE phase: 4 streams of a 20 s clip in 5 s chunks stepping 4 s
+SSE_STREAMS, SSE_CLIP_S = 4, 20
+
+
+def post_form(url: str, data: bytes, fields=(), timeout: float = 600):
+    """POST a multipart upload with form ``fields``: (status, headers,
+    body bytes), whatever the status."""
+    bnd = uuid.uuid4().hex
+    body = b"".join(
+        f"--{bnd}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+        f"{v}\r\n".encode() for k, v in dict(fields).items())
+    body += (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\"; "
+             f"filename=\"a.wav\"\r\n\r\n").encode() + data + \
+        f"\r\n--{bnd}--\r\n".encode()
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": f"multipart/form-data; boundary={bnd}"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+class FakeLLM:
+    """An OpenAI-compatible chat endpoint on 127.0.0.1 (standard library):
+    records each request body; answers "[n] translated" (n: the prompt's
+    length), the SRT it was sent in a markdown fence, or HTTP 500 with
+    ``fail``."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.bodies, self.fail = [], False
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                fake.bodies.append(body)
+                user = body["messages"][1]["content"]
+                content = ("```srt\n" + user.split("SRT Content:\n", 1)[1]
+                           + "\n```" if "SRT Content:" in user
+                           else f"[{len(user)}] translated")
+                data = json.dumps({"choices": [{"message": {
+                    "content": content}}]}).encode()
+                self.send_response(500 if fake.fail else 200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/v1"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+class AlignerCalls:
+    """Wraps an aligner's ``encode``: the mel frames of each call and the
+    flash launches made inside them."""
+
+    def __init__(self, aligner):
+        from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+        self.frames, self.flash = [], 0
+        encode = aligner.encode
+
+        def counted(audio):
+            n = flash_attention.launches
+            out = encode(audio)
+            self.flash += flash_attention.launches - n
+            self.frames.append(aligner.mel_frames(len(audio)))
+            return out
+
+        aligner.encode = counted
+
+
+def srt_events(srt: str) -> list:
+    """(index, start s, end s, text) of each SRT event."""
+    out = []
+    for block in filter(None, srt.strip().split("\n\n")):
+        lines = block.split("\n")
+        times = []
+        for stamp in lines[1].split(" --> "):
+            h, m, rest = stamp.split(":")
+            sec, ms = rest.split(",")
+            times.append(int(h) * 3600 + int(m) * 60 + int(sec)
+                         + int(ms) / 1000)
+        out.append((int(lines[0]), times[0], times[1], "\n".join(lines[2:])))
+    return out
+
+
+def same_words(name: str, ours: list, ref: list, tol: float) -> float:
+    """Word dicts (or SRT events) equal in text and within ``tol`` s at
+    every edge: the largest difference, or AssertionError."""
+    key = (lambda w: w["word"]) if ours and isinstance(ours[0], dict) \
+        else (lambda e: (e[0], e[3]))
+    edges = (lambda w: (w["start"], w["end"])) if ours and \
+        isinstance(ours[0], dict) else (lambda e: e[1:3])
+    if [key(w) for w in ours] != [key(w) for w in ref] or not ours:
+        raise AssertionError(f"{name}: words {ours} vs the CPU's {ref}")
+    worst = max(abs(a - b) for x, y in zip(ours, ref)
+                for a, b in zip(edges(x), edges(y)))
+    if worst > tol:
+        raise AssertionError(f"{name}: an edge {worst} s from the CPU's")
+    return worst
+
+
+def sidecar_f32_phase(dev, card: str) -> dict:
+    """(a) trained_ckpt in f32 on the card, ``FORCED_ALIGNER_ID`` at the
+    same checkpoint, its aligner on the card in f32: ``return_timestamps``
+    and accurate SRTs of real clips through the server equal the port's on
+    the CPU (words equal, edges within EDGE_TOL; SRT times within
+    EDGE_TOL plus their ms rounding); (d) translations (json, srt) through
+    a fake LLM on 127.0.0.1, and its failure as 502. Returns the launches
+    and the flash launches inside alignments."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager, load_engine
+    from qwen3_asr_tpu_torch.serving.server import (merge_results,
+                                                    merge_timestamps)
+    from qwen3_asr_tpu_torch.sidecars import subtitle
+    from qwen3_asr_tpu_torch.sidecars.aligner import AlignerEngine
+    from qwen3_asr_tpu_torch.text.repetition import detect_and_fix_repetitions
+    ckpt = os.path.join(DATA, "trained_ckpt")
+    subtitle.FORCED_ALIGNER_ID = ckpt
+    wavs = {}
+    for name in SIDECAR_CLIPS:
+        with open(os.path.join(DATA, "real", name + ".wav"), "rb") as f:
+            wavs[name] = f.read()
+    # the CPU's answers: the same port on CPU tensors
+    cpu = load_engine(ckpt, device="cpu")
+    subtitle.unload_aligner()
+    subtitle.load_aligner("cpu")
+    want = {}
+    for name, data in wavs.items():
+        audio, sr = decode_audio(data)
+        res = cpu.transcribe(audio, sr, None, True)
+        text, lang = merge_results(res)
+        for r in res:
+            r.text = detect_and_fix_repetitions(r.text)
+        want[name] = ({"text": detect_and_fix_repetitions(text),
+                       "language": lang, "timestamps": merge_timestamps(res)},
+                      subtitle.generate_srt_from_results(res, audio, sr,
+                                                         "accurate"))
+    subtitle.unload_aligner()
+    del cpu
+    gpu = load_engine(ckpt, device=dev, dtype=torch.float32)
+    # the aligner of FORCED_ALIGNER_ID in f32 on the card (bf16 is the
+    # default there): the server's own load then finds it loaded
+    subtitle._aligner = AlignerEngine.load(ckpt, dev, torch.float32)
+    calls = AlignerCalls(subtitle._aligner)
+    llm = FakeLLM()
+    saved = os.environ.get("OPENAI_BASE_URL")
+    os.environ["OPENAI_BASE_URL"] = llm.url
+    worst = {"timestamps": 0.0, "srt": 0.0}
+    try:
+        with serving(ModelManager(gpu)) as url:
+            base = url.rsplit("/v1/", 1)[0]
+            counter = PathLaunches(gpu)
+            for name, data in wavs.items():
+                st, _, raw = post_form(url, data,
+                                       {"return_timestamps": "true"})
+                body, (ref, ref_srt) = json.loads(raw), want[name]
+                if st != 200 or (body["text"], body["language"]) != \
+                        (ref["text"], ref["language"]):
+                    raise AssertionError(f"(a) {name}: {st} {body} vs the "
+                                         f"CPU's {ref}")
+                worst["timestamps"] = max(worst["timestamps"], same_words(
+                    name, body["timestamps"], ref["timestamps"], EDGE_TOL))
+                st, hdr, srt = post_form(base + "/v1/audio/subtitles", data,
+                                         {"mode": "accurate"})
+                if st != 200 or "subtitles.srt" not in \
+                        hdr["Content-Disposition"]:
+                    raise AssertionError(f"(a) {name} subtitles: {st}")
+                worst["srt"] = max(worst["srt"], same_words(
+                    name + " SRT", srt_events(srt.decode()),
+                    srt_events(ref_srt), EDGE_TOL + 1e-3))
+            launches, eager = counter.read()
+            with urllib.request.urlopen(base + "/health", timeout=60) as r:
+                state = json.loads(r.read())["aligner"]
+            # (d) translations of a real clip through the fake LLM
+            data = wavs["english_01"]
+            st, _, raw = post_form(base + "/v1/audio/translations", data,
+                                   {"language": "zh"})
+            jbody = json.loads(raw)
+            st2, hdr, srt = post_form(base + "/v1/audio/translations", data,
+                                      {"response_format": "srt"})
+            llm.fail = True
+            st3, _, err = post_form(base + "/v1/audio/translations", data)
+    finally:
+        llm.close()
+        if saved is None:
+            os.environ.pop("OPENAI_BASE_URL", None)
+        else:
+            os.environ["OPENAI_BASE_URL"] = saved
+    log(f"[sidecar] (a) trained_ckpt f32, FORCED_ALIGNER_ID=trained_ckpt, "
+        f"aligner f32 on the card: {len(wavs)} real clips' "
+        f"return_timestamps and accurate SRTs equal the CPU's (words equal; "
+        f"largest edge difference {worst['timestamps']:.2e} s in the "
+        f"timestamps, {worst['srt']:.2e} s in the SRTs, bound {EDGE_TOL:g}); "
+        f"/health aligner {state}; aligner calls {len(calls.frames)} (mel "
+        f"frames {sorted(set(calls.frames))}), flash launches inside them "
+        f"{calls.flash}; launches {launches}, eager {eager} | {card}")
+    if state != "loaded" or not calls.flash:
+        raise AssertionError(f"(a): aligner {state}, flash launches in "
+                             f"alignments {calls.flash}")
+    ok = (st == st2 == 200 and jbody["language"] == "zh"
+          and jbody["text"].endswith("translated") and b"-->" in srt
+          and not srt.startswith(b"```")
+          and "translated_subtitles.srt" in hdr["Content-Disposition"]
+          and st3 == 502
+          and json.loads(err)["code"] == "TRANSLATION_FAILED"
+          and [b["temperature"] for b in llm.bodies] == [0.3, 0.1, 0.3])
+    log(f"[sidecar] (d) translations through a fake LLM on 127.0.0.1: json "
+        f"{st} {jbody}, srt {st2} ({len(srt)} bytes, fence stripped), LLM "
+        f"down {st3} {json.loads(err)['code']}; temperatures "
+        f"{[b['temperature'] for b in llm.bodies]}")
+    if not ok:
+        raise AssertionError("(d): translations")
+    del gpu
+    torch.cuda.empty_cache()
+    return launches, calls.flash
+
+
+def read_sse(url: str, data: bytes, t_start: float):
+    """One SSE stream: (events, seconds from ``t_start`` to the first event
+    and to the end)."""
+    import http.client
+    from urllib.parse import urlsplit
+    bnd = uuid.uuid4().hex
+    body = (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"a.wav\"\r\n\r\n").encode() + data + \
+        f"\r\n--{bnd}--\r\n".encode()
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    conn.request("POST", u.path, body,
+                 {"Content-Type": f"multipart/form-data; boundary={bnd}"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"SSE: HTTP {resp.status}")
+    events, first = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            first = first or time.perf_counter() - t_start
+            events.append(json.loads(line[6:]))
+    conn.close()
+    return events, first, time.perf_counter() - t_start
+
+
+def sidecar_bf16_phase(engine, card: str) -> tuple:
+    """(b) preset:1.7b bf16 (phase 5's engine) with its aligner on the same
+    weights (``AlignerEngine(engine.model)``, no second copy): accurate
+    SRTs of a 120 s and a 330 s upload through the server (the 330 s one
+    in a 300 s and a 30 s aligner call), or, when the random weights
+    transcribe to nothing, ``generate_srt_from_results`` on the same audio
+    with a fixed English transcript (1.5 words a second), on the device
+    thread; the aligner's encoder at 30/60/120/300 s. (c) SSE: 4
+    concurrent streams of a 20 s real clip. Returns (launches, flash
+    launches inside alignments)."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    from qwen3_asr_tpu_torch.sidecars import subtitle
+    from qwen3_asr_tpu_torch.sidecars.aligner import AlignerEngine
+    audio = real_audio()
+    long = np.tile(audio, -(-330 * 16000 // len(audio)))[:330 * 16000]
+    words = []
+    for name in ("english_01", "english_02"):
+        with open(os.path.join(DATA, "real", name + ".txt"),
+                  encoding="utf-8") as f:
+            words += f.read().split()
+
+    class Fixed:
+        language = "en"
+
+        def __init__(self, seconds):
+            n = int(1.5 * seconds)
+            self.text = " ".join(words[i % len(words)] for i in range(n))
+
+    aligner = AlignerEngine(engine.model)
+    calls = AlignerCalls(aligner)
+    manager = ModelManager(engine)
+    with serving(manager) as url:
+        subtitle._aligner = aligner
+        base = url.rsplit("/v1/", 1)[0]
+        counter = PathLaunches(engine)
+        for sec in (120, 330):
+            clip = long[:sec * 16000]
+            n0 = len(calls.frames)
+            t0 = time.perf_counter()
+            st, _, srt = post_form(base + "/v1/audio/subtitles",
+                                   encode_wav(clip, 16000),
+                                   {"mode": "accurate"})
+            wall = time.perf_counter() - t0
+            srt, how = srt.decode(), "the server's transcript"
+            if st != 200:
+                raise AssertionError(f"(b) {sec} s subtitles: {st} {srt}")
+            if not srt.strip():
+                how = f"a fixed transcript of {int(1.5 * sec)} words"
+                t0 = time.perf_counter()
+                srt = manager.queue.submit(
+                    lambda clip=clip, sec=sec:
+                        subtitle.generate_srt_from_results(
+                            [Fixed(sec)], clip, 16000, "accurate")
+                ).result(timeout=600)
+                wall = time.perf_counter() - t0
+            events = srt_events(srt)
+            frames = calls.frames[n0:]
+            want = [30000, 3000] if sec == 330 else [12000]
+            log(f"[sidecar] (b) preset:1.7b bf16, accurate SRT of {sec} s "
+                f"({how}): {len(events)} events, last ends "
+                f"{events[-1][2] if events else None} s; aligner calls of "
+                f"{frames} mel frames; {wall:.3f} s wall | {card}")
+            if not events or frames != want or events[-1][2] > sec + 1:
+                raise AssertionError(f"(b) {sec} s: {len(events)} events, "
+                                     f"aligner frames {frames}")
+        flash = calls.flash
+        sse_phase(url.rsplit("/v1/", 1)[0], manager, card)
+        launches, eager = counter.read()
+    log(f"[sidecar] (b)+(c) launches {launches}, eager {eager}; flash "
+        f"launches inside alignments {flash}")
+    aligner_encoder_ms(aligner, long, card)
+    return launches, flash
+
+
+def aligner_encoder_ms(aligner, audio: np.ndarray, card: str) -> None:
+    """The aligner's encoder at 30, 60, 120 and 300 s of ``audio``: the
+    host wall of ``encode`` (mel, the encoder's eager launches, the tokens
+    copied to the host; median of 5, every length warmed first) beside
+    ``encoder_forward``'s device time (CUDA-graph replays)."""
+    from qwen3_asr_tpu_torch.models.encoder import encoder_forward
+    from qwen3_asr_tpu_torch.tools_perf.attn_phase import device_ms
+    lengths = (30, 60, 120, 300)
+    for sec in lengths:
+        aligner.encode(audio[:sec * 16000])
+    rows = []
+    for sec in lengths:
+        clip = audio[:sec * 16000]
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aligner.encode(clip)
+            walls.append(time.perf_counter() - t0)
+        frames = aligner.mel_frames(len(clip))
+        padded = torch.zeros((1, frames * 160), device=aligner.device)
+        padded[0, :len(clip)] = torch.from_numpy(clip).to(aligner.device)
+        with torch.inference_mode():
+            mel = aligner.frontend(padded)[0].to(aligner.dtype)
+            lens = torch.full((1,), frames, dtype=torch.int32,
+                              device=aligner.device)
+            ms = device_ms(lambda: encoder_forward(
+                aligner.model.params["encoder"], aligner.model.cfg.encoder,
+                mel, lens), iters=5, reps=2)
+        rows.append(f"{sec} s {np.median(walls) * 1e3:.1f} ms wall, "
+                    f"{ms:.2f} ms device")
+        del mel, padded
+        torch.cuda.empty_cache()
+    log(f"[sidecar] (b) the aligner's encoder "
+        f"({aligner.model.cfg.encoder.encoder_layers} layers) by seconds "
+        f"of audio: " + "; ".join(rows) + f" | {card}")
+
+
+def sse_phase(base: str, manager, card: str) -> None:
+    """(c) ``SSE_STREAMS`` concurrent streams of a ``SSE_CLIP_S`` s real
+    clip, after the keys their batches can reach (B = 1, 2 and 4 at the
+    chunks' 6 s bucket and the last one's 4 s) are built on the device
+    thread, then once more, timed, building no key. Every stream's events
+    in order (chunk_index 0.., the last final), then ``done``; fewer
+    dispatches than chunks."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    url = base + "/v1/audio/transcriptions/stream"
+    data = encode_wav(real_audio()[:SSE_CLIP_S * 16000], 16000)
+    engine = manager.engine
+
+    def warm():
+        for sec in (5, 4):
+            clip = np.zeros(sec * 16000, np.float32)
+            bf, bs = engine.bucket_frames(len(clip))
+            for batch in (1, 2, 4):
+                engine._run_bucket([clip] * batch, bf, bs, None)
+
+    manager.queue.submit(warm).result(timeout=600)
+
+    def streams():
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SSE_STREAMS) as pool:
+            return list(pool.map(lambda _: read_sse(url, data, t0),
+                                 range(SSE_STREAMS)))
+
+    before = manager.batcher.dispatches
+    keys = engine.executable_count
+    out = streams()
+    dispatches = manager.batcher.dispatches - before
+    if engine.executable_count != keys:
+        raise AssertionError("(c): the timed streams built a key")
+    chunks = 0
+    for events, _, _ in out:
+        body = events[:-1]
+        chunks += len(body)
+        if events[-1] != {"done": True} or not body or \
+                [e.get("chunk_index") for e in body] != \
+                list(range(len(body))) or not body[-1]["is_final"] or \
+                any(e["is_final"] for e in body[:-1]):
+            raise AssertionError(f"(c) SSE events {events}")
+    firsts = [f for _, f, _ in out]
+    totals = [t for _, _, t in out]
+    log(f"[sidecar] (c) SSE: {SSE_STREAMS} concurrent streams of a "
+        f"{SSE_CLIP_S} s real clip, their keys built: {chunks} chunks in "
+        f"{dispatches} "
+        f"dispatches; first event {np.median(firsts):.3f} s (median), "
+        f"{max(firsts):.3f} s (max); whole stream {np.median(totals):.3f} s "
+        f"(median), {max(totals):.3f} s (max); events in order, then done "
+        f"| {card}")
+    if dispatches >= chunks:
+        raise AssertionError(f"(c): {dispatches} dispatches for {chunks} "
+                             f"chunks")
+
+
+def sidecar_phase(dev, engine) -> dict:
+    """Phase 11: word timestamps and the forced aligner, SRT subtitles,
+    SSE streaming and translations. Returns the kernels' launches over its
+    runs; fails unless flash launched inside alignments and no alignment
+    or VAD failure was counted."""
+    from qwen3_asr_tpu_torch.audio import vad
+    from qwen3_asr_tpu_torch.sidecars import subtitle
+    card = card_line()
+    saved = os.environ.get("SKIP_WARMUP")
+    os.environ["SKIP_WARMUP"] = "true"     # keys are built on first use
+    total = {}
+    try:
+        for launches, flash in (sidecar_f32_phase(dev, card),
+                                sidecar_bf16_phase(engine, card)):
+            if not flash:
+                raise AssertionError("flash did not launch in alignments")
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    finally:
+        subtitle.unload_aligner()
+        if saved is None:
+            os.environ.pop("SKIP_WARMUP", None)
+        else:
+            os.environ["SKIP_WARMUP"] = saved
+    log(f"[sidecar] phase 11 launches {total}; failures counted: alignments "
+        f"{subtitle.failures}, VAD {vad.failures}")
+    if subtitle.failures or vad.failures:
+        raise AssertionError(f"alignment failures {subtitle.failures}, VAD "
+                             f"failures {vad.failures}")
     return total
 
 
@@ -2682,6 +3238,14 @@ def main() -> int:
         launches[name] += ws[name]
     launches_per_row = ws["qk_rope_kv_per_row"]
     phase_done("phase 10 (real time over WS)")
+    side = sidecar_phase(dev, engine)
+    # this slice's path, counted from 0 just before it
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch", "qk_rope_kv"):
+        if not side.get(name):
+            raise AssertionError(f"phase 11 launched no {name}")
+        launches[name] += side[name]
+    phase_done("phase 11 (timestamps, subtitles, SSE, translations)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

@@ -2,8 +2,10 @@
 engine's device.
 
 Counterpart of ``qwen3_asr_tpu/audio/vad.py``: ``is_speech(float32) ->
-bool`` at a 0.5 threshold, assuming speech if the detector fails. Two
-backends, picked by ``active_backend``:
+bool`` at a 0.5 threshold, assuming speech if the detector fails (the
+failure is logged and counted in ``failures``, so it is never silent).
+Every entry point runs on the card unless the caller passes
+``device="cpu"``. Two backends, picked by ``active_backend``:
 
 - ``learned`` (``audio/vad_model.py``), when its packaged weights are
   present and ``ASR_VAD`` is not ``spectral``;
@@ -18,16 +20,26 @@ length, so the ladder is part of the function.
 from __future__ import annotations
 
 import functools
+import logging
 import os
+import threading
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 FRAME = 400       # 25 ms @ 16 kHz
 HOP = 160         # 10 ms
 SR = 16000
 
 _BUCKETS = (50, 100, 200, 400, 600, 1000, 3000)  # frames (0.5 s .. 30 s)
+
+# is_speech calls whose detector raised (answered "speech"), this process
+failures = 0
+_failures_lock = threading.Lock()
 
 
 def _bucket(n_frames: int) -> int:
@@ -109,9 +121,10 @@ def _window(device: torch.device) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def spectral_probability(audio_float32: np.ndarray, device="cpu") -> float:
-    """The spectral speech probability of a mono f32 clip at 16 kHz."""
-    device = torch.device(device)
+def spectral_probability(audio_float32: np.ndarray, device=None) -> float:
+    """The spectral speech probability of a mono f32 clip at 16 kHz, on
+    ``device`` (the card unless asked for the CPU)."""
+    device = resolve_device(device)
     x = np.asarray(audio_float32, dtype=np.float32)
     if len(x) < FRAME:
         x = np.pad(x, (0, FRAME - len(x)))
@@ -153,9 +166,9 @@ def default_flush_ticks() -> int:
         return 2
 
 
-def speech_probability(audio_float32: np.ndarray, device="cpu") -> float:
+def speech_probability(audio_float32: np.ndarray, device=None) -> float:
     """The active backend's speech probability for a mono f32 clip at
-    16 kHz, computed on ``device``."""
+    16 kHz, computed on ``device`` (the card unless asked for the CPU)."""
     if active_backend() == "learned":
         from . import vad_model
         p = vad_model.speech_probability(audio_float32, device)
@@ -165,10 +178,15 @@ def speech_probability(audio_float32: np.ndarray, device="cpu") -> float:
 
 
 def is_speech(audio_float32: np.ndarray, threshold: float = 0.5,
-              device="cpu") -> bool:
+              device=None) -> bool:
     """True if the clip holds speech; True as well if the detector fails
-    (assume speech)."""
+    (assume speech, as the JAX package does), which is logged and counted
+    in ``failures``."""
+    global failures
     try:
         return speech_probability(audio_float32, device) >= threshold
-    except Exception:
+    except Exception:  # a session must keep running; the count shows it
+        with _failures_lock:
+            failures += 1
+        log.exception("VAD failed on %s; assuming speech", device)
         return True

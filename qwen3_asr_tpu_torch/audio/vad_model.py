@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve_device
+
 N_MELS = 32
 FRAME = 400      # 25 ms @ 16 kHz
 HOP = 160        # 10 ms
@@ -66,9 +68,10 @@ class VadNet(torch.nn.Module):
 
 
 def params_from_jax(params: Dict[str, np.ndarray],
-                    device="cpu") -> VadNet:
+                    device=None) -> VadNet:
     """The JAX package's parameter dict (numpy, its layout) → ``VadNet``
-    on ``device``, in f32."""
+    on ``device`` (the card unless asked for the CPU), in f32."""
+    device = resolve_device(device)
     net = VadNet()
     with torch.no_grad():
         for i, conv in enumerate(net.convs):
@@ -141,15 +144,16 @@ def featurize(x: torch.Tensor, n_frames_padded: int, n_frames: int
 
 
 @torch.inference_mode()
-def speech_probability(audio_float32: np.ndarray, device="cpu"
+def speech_probability(audio_float32: np.ndarray, device=None
                        ) -> Optional[float]:
     """The learned speech probability of a mono f32 clip at 16 kHz, on
-    ``device``; None when no weights are available."""
+    ``device`` (the card unless asked for the CPU); None when no weights
+    are available."""
     from .vad import _BUCKETS
     path = os.getenv("ASR_VAD_WEIGHTS", WEIGHTS_PATH)
     if not os.path.isfile(path):
         return None
-    device = torch.device(device)
+    device = resolve_device(device)
     x = np.asarray(audio_float32, dtype=np.float32)
     n_frames = max(1, 1 + (max(len(x), FRAME) - FRAME) // HOP)
     bucket = next((b for b in _BUCKETS if n_frames <= b), _BUCKETS[-1])

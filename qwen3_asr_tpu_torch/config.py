@@ -1,9 +1,11 @@
-"""The WebSocket streaming policy: which mode a connection runs in.
+"""The tuning constants of the sidecar routes, and the WebSocket
+streaming policy: which mode a connection runs in.
 
-Counterpart of the WS part of ``qwen3_asr_tpu/config.py`` (``WsMode``,
-``resolve_ws_mode``, ``ws_warmup_profile`` and the ``_safe_int`` /
-``_safe_float`` readers they use; ``qwen3_asr_tpu/config.py:43-51,
-199-265``), with the JAX package's environment variables and meanings:
+Counterpart of parts of ``qwen3_asr_tpu/config.py``: the ``_safe_int`` /
+``_safe_float`` readers, the SSE, translation and subtitle constants
+(``:43-51, 56-63``: same names and defaults), and ``WsMode``,
+``resolve_ws_mode`` and ``ws_warmup_profile`` (``:199-265``), with the JAX
+package's environment variables and meanings:
 
 - ``solo``: one session's ticks as B=1 resume decoding;
 - ``tick``: concurrent sessions' ticks coalesced into one batched resume
@@ -49,6 +51,16 @@ def _safe_float(name: str, default: str) -> float:
 
 def _safe_int(name: str, default: str) -> int:
     return _safe_parse(name, default, int)
+
+
+TRANSLATE_TEMPERATURE = _safe_float("TRANSLATE_TEMPERATURE", "0.3")
+TRANSLATE_SRT_TEMPERATURE = _safe_float("TRANSLATE_SRT_TEMPERATURE", "0.1")
+SSE_CHUNK_SECONDS = _safe_int("SSE_CHUNK_SECONDS", "5")
+SSE_OVERLAP_SECONDS = _safe_int("SSE_OVERLAP_SECONDS", "1")
+SUBTITLE_MAX_DURATION = _safe_float("SUBTITLE_MAX_DURATION", "7.0")
+SUBTITLE_PAUSE_THRESHOLD = _safe_float("SUBTITLE_PAUSE_THRESHOLD", "0.5")
+SUBTITLE_MIN_DURATION = _safe_float("SUBTITLE_MIN_DURATION", "0.833")
+SUBTITLE_MIN_GAP = _safe_float("SUBTITLE_MIN_GAP", "0.083")
 
 
 class WsMode(NamedTuple):

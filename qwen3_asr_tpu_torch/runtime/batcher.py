@@ -165,22 +165,24 @@ class MicroBatcher(_Collector):
             max_batch or int(os.getenv("ASR_MAX_BATCH", "8")))
 
     def transcribe(self, audio: np.ndarray, sr: int,
-                   language: Optional[str], priority: int = STANDARD
-                   ) -> concurrent.futures.Future:
+                   language: Optional[str], return_timestamps: bool = False,
+                   priority: int = STANDARD) -> concurrent.futures.Future:
         """A future of the request's results (a list of
-        ``TranscriptionResult``). Batched when possible; a solo job for
-        requests that cannot batch (resampling, multichannel, longer than
-        MAX_SEGMENT_S, or a cap of 1). ``priority`` is the queue lane; a
-        mixed group dispatches at its most urgent member's lane."""
+        ``TranscriptionResult``). Batched when possible; a solo job through
+        ``manager.transcribe_sync`` for requests that cannot batch (word
+        timestamps, resampling, multichannel, longer than MAX_SEGMENT_S,
+        or a cap of 1). ``priority`` is the queue lane; a mixed group
+        dispatches at its most urgent member's lane."""
         from ..models.asr import normalize_language
         from .engine import MAX_SEGMENT_S, TARGET_SR
         mgr = self.manager
-        if (sr != TARGET_SR or audio.ndim > 1
+        if (return_timestamps or sr != TARGET_SR or audio.ndim > 1
                 or len(audio) > MAX_SEGMENT_S * TARGET_SR
                 or self.max_batch <= 1):
             self._count_dispatch()
             return mgr.queue.submit(
-                lambda: mgr.engine.transcribe(audio, sr, language),
+                lambda: mgr.transcribe_sync(audio, sr, language,
+                                            return_timestamps),
                 priority=priority)
         bucket = mgr.engine.bucket_frames(len(audio))
         # Normalize the language BEFORE grouping: "en" and "English" are

@@ -20,9 +20,13 @@ max_new, batch, cache dtype, "resume"): the front graph adds the verify
 window and the accept arithmetic, the chunk graph is the per-row
 continuation, and the previous tokens are input buffers. A streaming
 session's tick takes it with ``transcribe(..., resume_tokens=...)`` and a
-cross-session tick batch with ``_run_bucket(..., resume_rows=...)``. AOT
-caches, meshes, draft models and the prefix-cached stream modes are not
-ported yet.
+cross-session tick batch with ``_run_bucket(..., resume_rows=...)``.
+
+``transcribe(..., return_timestamps=True)`` adds word timestamps to each
+segment's result: the forced aligner's (``sidecars/aligner.py``) when one
+is loaded, else char-proportional estimates, offset by the segment's start
+and rounded to ms, as the JAX engine gives them. AOT caches, meshes, draft
+models and the prefix-cached stream modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ class TranscriptionResult:
     start_time: float = 0.0
     end_time: float = 0.0
     token_ids: Optional[List[int]] = None
+    timestamps: Optional[List[dict]] = None
 
 
 def max_new_tokens_for(seconds: float) -> int:
@@ -445,14 +450,17 @@ class TranscriptionEngine:
     # -- public API -------------------------------------------------------------------
     def transcribe(self, audio: np.ndarray, sr: int,
                    language: Optional[str] = None,
+                   return_timestamps: bool = False,
                    context: str = "",
                    resume_tokens: Optional[Sequence[int]] = None
                    ) -> List[TranscriptionResult]:
         """One clip of any length → one result per segment.
 
-        ``resume_tokens``: the previous streaming tick's token ids, which a
-        resume key verifies as a self-draft (single-segment audio only; the
-        first ``max_new`` are used). The tokens equal a plain run's."""
+        ``return_timestamps``: each segment with text gets its word
+        timestamps (``_word_timestamps``). ``resume_tokens``: the previous
+        streaming tick's token ids, which a resume key verifies as a
+        self-draft (single-segment audio only; the first ``max_new`` are
+        used). The tokens equal a plain run's."""
         audio = _prep_audio(audio, sr)
         if len(audio) == 0:
             return []
@@ -471,11 +479,15 @@ class TranscriptionEngine:
         results = []
         for (seg_start, seg), text, token_ids in zip(segments, texts,
                                                      id_lists):
-            results.append(TranscriptionResult(
+            start_t = seg_start / TARGET_SR
+            end_t = (seg_start + len(seg)) / TARGET_SR
+            res = TranscriptionResult(
                 text=text, language=_response_language(text, lang_code),
-                start_time=seg_start / TARGET_SR,
-                end_time=(seg_start + len(seg)) / TARGET_SR,
-                token_ids=token_ids))
+                start_time=start_t, end_time=end_t, token_ids=token_ids)
+            if return_timestamps and text:
+                res.timestamps = _word_timestamps(seg, text, start_t, end_t,
+                                                  res.language)
+            results.append(res)
         return results
 
     def _run_segments_batched(self, segments, language, context):
@@ -552,3 +564,41 @@ def _response_language(text: str, lang_code: Optional[str]) -> str:
         from ..text.langid import detect_language
         return detect_language(text) or "auto"
     return "auto"
+
+
+def _word_timestamps(seg_audio: np.ndarray, text: str, start_t: float,
+                     end_t: float, language: str) -> List[dict]:
+    """Word timing of one segment: the forced aligner's when it is loaded,
+    char-proportional estimates otherwise and when the alignment fails
+    (logged and counted in ``sidecars.subtitle.failures``)."""
+    from ..sidecars import subtitle
+    if subtitle.aligner_loaded():
+        try:
+            words = subtitle.align_audio(seg_audio, TARGET_SR, text, language)
+            if words:
+                return [{"word": w.text,
+                         "start": round(w.start + start_t, 3),
+                         "end": round(w.end + start_t, 3)} for w in words]
+        except Exception:  # alignment must never fail the request
+            subtitle.count_failure("word timestamps")
+    return _estimate_word_timestamps(text, start_t, end_t)
+
+
+def _estimate_word_timestamps(text: str, start_t: float, end_t: float
+                              ) -> List[dict]:
+    """Char-proportional word timing over the segment."""
+    words = text.split()
+    if not words:
+        return []
+    total_chars = sum(len(w) for w in words) + len(words) - 1
+    dur = max(end_t - start_t, 1e-3)
+    out = []
+    pos = 0
+    for w in words:
+        w_start = start_t + dur * pos / max(total_chars, 1)
+        pos += len(w)
+        w_end = start_t + dur * pos / max(total_chars, 1)
+        pos += 1
+        out.append({"word": w, "start": round(w_start, 3),
+                    "end": round(w_end, 3)})
+    return out

@@ -212,11 +212,10 @@ class ModelManager:
         ``resume_tokens`` takes the resume key (a WS tick's self-draft).
         ``use_fast`` asks for the fast engine, which the port does not have
         yet (ROADMAP §1 item 7.2): the main engine serves, as JAX's does
-        without one (``lifecycle.py:412-414``). ``return_timestamps`` is
-        refused by the server before it gets here."""
-        if return_timestamps:
-            raise NotImplementedError("return_timestamps is not ported yet")
-        return self.engine.transcribe(audio, sr, lang_code, context,
+        without one (``lifecycle.py:412-414``). ``return_timestamps`` adds
+        each segment's word timestamps (the forced aligner's, if loaded)."""
+        return self.engine.transcribe(audio, sr, lang_code,
+                                      return_timestamps, context,
                                       resume_tokens=resume_tokens)
 
     def start(self) -> None:
@@ -228,4 +227,7 @@ class ModelManager:
         self.queue.start()
 
     def stop(self) -> None:
+        """Stop the device thread and unload the forced aligner."""
+        from ..sidecars import subtitle
         self.queue.stop()
+        subtitle.unload_aligner()

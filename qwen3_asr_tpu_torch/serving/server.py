@@ -1,20 +1,38 @@
 """HTTP server for the port, on the standard library.
 
-Counterpart of ``qwen3_asr_tpu/serving/server.py``'s batch and real-time
-routes: ``GET /health``, ``POST /v1/audio/transcriptions`` (multipart
-upload with ``file`` and an optional ``language``), answering ``{"text",
-"language"}`` or the same error bodies (422 AUDIO_DECODE_FAILED, 504
-TRANSCRIPTION_TIMEOUT), and ``WS /ws/transcribe`` (``serving/ws.py``: the
-upgrade, the frame codec and the streaming session). Each request runs on
-its own thread and goes through the manager's micro-batcher, which joins
-concurrent same-bucket uploads into one batched engine run on the queue's
-one device thread (that thread serializes all device work, so the
-handlers need no lock); a WS connection holds its thread for its
-lifetime. The other routes are not ported yet; ``return_timestamps=true``
-on decodable audio answers 501 until the aligner is.
-Every response carries ``X-Request-ID`` (the request's own, or a new
-one), and an upload may come with ``Content-Length`` or
-``Transfer-Encoding: chunked``.
+Counterpart of ``qwen3_asr_tpu/serving/server.py``'s public routes, with
+its request forms, answers, error codes and statuses:
+
+- ``GET /health``, with the forced aligner's state (``aligner``:
+  ``loaded``, ``unavailable_retrying`` or ``not_loaded``);
+- ``POST /v1/audio/transcriptions`` (multipart ``file``, ``language``,
+  ``return_timestamps``): ``{"text", "language"}`` and, with timestamps,
+  ``"timestamps"``; under ``ASR_TIMESTAMP_MODE=accurate`` (the default)
+  the aligner of ``FORCED_ALIGNER_ID`` is loaded first, and a failed load
+  is retried no sooner than ``ASR_ALIGNER_RETRY_S`` (300 s) later, the
+  words timed by char-proportional estimates meanwhile;
+- ``POST /v1/audio/transcriptions/stream``: server-sent events over
+  HTTP/1.1 chunked transfer, one flushed chunk an event; chunks of
+  ``SSE_CHUNK_SECONDS`` stepping back by ``SSE_OVERLAP_SECONDS``, each
+  through the micro-batcher (concurrent streams share dispatches), then
+  ``{"done": true}``, or the ``SSE_STREAM_ERROR`` event;
+- ``POST /v1/audio/subtitles`` (``mode`` ``fast`` or ``accurate``,
+  ``max_line_chars``): an SRT attachment (``sidecars/subtitle.py``);
+- ``POST /v1/audio/translations`` (``language`` ``en``/``zh``,
+  ``response_format`` ``json`` or ``srt``): the transcript through an
+  OpenAI-compatible LLM (``sidecars/translator.py``), 502
+  TRANSLATION_FAILED when it fails;
+- ``WS /ws/transcribe`` (``serving/ws.py``: the upgrade, the frame codec
+  and the streaming session).
+
+Each request runs on its own thread. All device work (transcriptions, the
+aligner's load and alignments) runs as jobs of the manager's queue on its
+one device thread, which serializes it, so the handlers need no lock;
+concurrent same-bucket uploads and SSE chunks go through the
+micro-batcher, which joins them into one batched engine run. A WS
+connection holds its thread for its lifetime. Every response carries
+``X-Request-ID`` (the request's own, or a new one), and an upload may come
+with ``Content-Length`` or ``Transfer-Encoding: chunked``.
 
 Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
 qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
@@ -23,7 +41,8 @@ qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
 ``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``, ``int4``), ``ASR_INT8_ACT``,
 ``ASR_MAX_BATCH`` (8),
 ``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it;
-the WS session's knobs are listed in ``serving/ws.py``.
+the WS session's knobs are listed in ``serving/ws.py``, the translator's
+in ``sidecars/translator.py``.
 """
 from __future__ import annotations
 
@@ -40,8 +59,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import config
 from ..audio.codec import AudioDecodeError, decode_audio
 from ..runtime.lifecycle import ModelManager, load_engine
+from ..runtime.queue import STANDARD
+from ..sidecars import subtitle
 from ..text.repetition import detect_and_fix_repetitions
 from ..utils.errors import error_body
 from . import ws
@@ -56,6 +78,86 @@ def merge_results(results) -> Tuple[str, str]:
     text = " ".join(r.text for r in results if r.text)
     language = next((r.language for r in results if r.language), "")
     return text, language
+
+
+def merge_timestamps(results) -> Optional[list]:
+    """Every segment's word timestamps in order, or None if there are none."""
+    stamps = [w for r in results for w in (r.timestamps or [])]
+    return stamps or None
+
+
+def sse_events(manager: ModelManager, audio, sr: int,
+               lang_code: Optional[str], return_timestamps: bool):
+    """The SSE ``data:`` lines of one streamed transcription, as the JAX
+    server's ``sse_transcribe_generator`` yields them. Each chunk is a
+    micro-batcher request, so chunks of concurrent streams that land in
+    one bucket share a dispatch (a stream's own chunks stay in order)."""
+    audio_duration = len(audio) / sr
+    t0 = time.time()
+    chunk_count = 0
+    log.info("SSE stream | audio=%.2fs lang=%s", audio_duration,
+             lang_code or "auto")
+
+    def transcribe(clip):
+        return manager.batcher.transcribe(clip, sr, lang_code,
+                                          return_timestamps).result(
+            timeout=manager.request_timeout)
+
+    try:
+        target = ws.TARGET_SR
+        chunk_samples = target * config.SSE_CHUNK_SECONDS
+        overlap_samples = target * config.SSE_OVERLAP_SECONDS
+        if sr != target:
+            chunk_samples = sr * config.SSE_CHUNK_SECONDS
+            overlap_samples = sr * config.SSE_OVERLAP_SECONDS
+        if overlap_samples >= chunk_samples:
+            # overlap >= chunk would advance by zero samples and transcribe
+            # the same chunk forever
+            log.warning("SSE_OVERLAP_SECONDS >= SSE_CHUNK_SECONDS; "
+                        "clamping overlap to half a chunk")
+            overlap_samples = chunk_samples // 2
+
+        if len(audio) <= chunk_samples:
+            results = transcribe(audio)
+            if results:
+                data = {"text": detect_and_fix_repetitions(results[0].text),
+                        "language": results[0].language, "is_final": True}
+                if return_timestamps and results[0].timestamps:
+                    data["timestamps"] = results[0].timestamps
+            else:
+                data = {"text": "", "language": lang_code or "auto",
+                        "is_final": True}
+            chunk_count += 1
+            yield f"data: {json.dumps(data)}\n\n"
+        else:
+            start = 0
+            chunk_index = 0
+            while start < len(audio):
+                end = min(start + chunk_samples, len(audio))
+                is_last = end >= len(audio)
+                results = transcribe(audio[start:end])
+                if results:
+                    data = {"text": detect_and_fix_repetitions(results[0].text),
+                            "language": results[0].language,
+                            "is_final": is_last, "chunk_index": chunk_index}
+                else:
+                    data = {"text": "", "language": lang_code or "auto",
+                            "is_final": is_last, "chunk_index": chunk_index}
+                chunk_count += 1
+                yield f"data: {json.dumps(data)}\n\n"
+                chunk_index += 1
+                if is_last:
+                    break
+                start = end - overlap_samples
+
+        log.info("SSE stream | done chunks=%d elapsed=%.2fs", chunk_count,
+                 time.time() - t0)
+        yield f"data: {json.dumps({'done': True})}\n\n"
+    except Exception as e:  # the stream ends with an error event
+        log.exception("SSE stream | error after %.2fs", time.time() - t0)
+        yield ("data: " + json.dumps({
+            "code": "SSE_STREAM_ERROR", "message": str(e),
+            "statusCode": 500}) + "\n\n")
 
 
 def parse_bool(raw: Optional[str], default: bool = False) -> bool:
@@ -126,6 +228,11 @@ def health_memory(device: torch.device) -> dict:
             "hbm_limit_mb": round(total / 1024 ** 2)}
 
 
+class _Answered(Exception):
+    """Raised by a step of a route that has already answered the request
+    (with an error)."""
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "AsrServer"
     protocol_version = "HTTP/1.1"
@@ -133,15 +240,28 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route access logs to logging
         log.debug("%s " + fmt, self.address_string(), *args)
 
-    def _json(self, status: int, body: dict) -> None:
-        data = json.dumps(body, ensure_ascii=False).encode("utf-8")
+    def _request_id(self) -> str:
+        return self.headers.get("X-Request-ID") or str(uuid.uuid4())
+
+    def _send(self, status: int, content_type: str, data: bytes,
+              filename: Optional[str] = None) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=utf-8")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
-        self.send_header("X-Request-ID", self.headers.get("X-Request-ID")
-                         or str(uuid.uuid4()))
+        if filename:
+            self.send_header("Content-Disposition",
+                             f'attachment; filename="{filename}"')
+        self.send_header("X-Request-ID", self._request_id())
         self.end_headers()
         self.wfile.write(data)
+
+    def _json(self, status: int, body: dict) -> None:
+        self._send(status, "application/json; charset=utf-8",
+                   json.dumps(body, ensure_ascii=False).encode("utf-8"))
+
+    def _text(self, text: str, filename: Optional[str] = None) -> None:
+        self._send(200, "text/plain; charset=utf-8", text.encode("utf-8"),
+                   filename)
 
     def _error(self, code: str, message: str, status: int, **context) -> None:
         self._json(status, error_body(code, message, status, **context))
@@ -167,12 +287,26 @@ class _Handler(BaseHTTPRequestHandler):
                                                    / 1024 ** 2),
                          "executable_count": engine.executable_count,
                          "active_ws_sessions":
-                             self.server.manager.ws_sessions})
+                             self.server.manager.ws_sessions,
+                         "aligner": self.server.aligner_state()})
 
     def do_POST(self):
-        if self.path.split("?", 1)[0] != "/v1/audio/transcriptions":
+        route = {"/v1/audio/transcriptions": self._transcriptions,
+                 "/v1/audio/transcriptions/stream": self._stream,
+                 "/v1/audio/subtitles": self._subtitles,
+                 "/v1/audio/translations": self._translations,
+                 }.get(self.path.split("?", 1)[0])
+        if route is None:
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
+        try:
+            route(*self._read_form())
+        except _Answered:
+            pass
+
+    # -- steps shared by the routes ------------------------------------------------
+    def _read_form(self) -> Tuple[dict, Optional[bytes]]:
+        """The multipart upload's (fields, file bytes)."""
         chunked = "chunked" in self.headers.get("Transfer-Encoding",
                                                 "").lower()
         length = int(self.headers.get("Content-Length") or 0)
@@ -184,58 +318,207 @@ class _Handler(BaseHTTPRequestHandler):
         except BodyTooLarge:
             self.close_connection = True
             self._error("PAYLOAD_TOO_LARGE", "upload exceeds 512 MiB", 413)
-            return
+            raise _Answered
         except ValueError:
             self.close_connection = True
             self._error("BAD_REQUEST", "malformed chunked body", 400)
-            return
+            raise _Answered
         fields, file_bytes, _ = parse_multipart(
             self.headers.get("Content-Type", ""), body)
-        # decode first, as the JAX server does: an empty or undecodable
-        # upload is a 422 whatever else it asks for
+        return fields, file_bytes
+
+    def _decode(self, file_bytes: Optional[bytes]):
+        """(audio, sr) of the upload; an empty or undecodable one answers
+        422 AUDIO_DECODE_FAILED, as the JAX server does."""
         if not file_bytes:
             self._error("AUDIO_DECODE_FAILED",
                         "Could not decode audio: empty file", 422, fileSize=0)
-            return
+            raise _Answered
         try:
-            audio, sr = decode_audio(file_bytes)
+            return decode_audio(file_bytes)
         except AudioDecodeError as e:
             self._error("AUDIO_DECODE_FAILED", f"Could not decode audio: {e}",
                         422, fileSize=len(file_bytes))
-            return
-        if parse_bool(fields.get("return_timestamps")):
-            self._error("NOT_IMPLEMENTED",
-                        "return_timestamps is not supported yet", 501)
-            return
-        language = fields.get("language", "auto")
-        lang_code = None if language == "auto" else language
-        mgr = self.server.manager
-        t0 = time.time()
+            raise _Answered
+
+    def _wait(self, future: concurrent.futures.Future, t0: float,
+              route: str, timeout_code: str, timeout_message: str):
+        """The result of a device job; past ``REQUEST_TIMEOUT`` a 504
+        (the job skipped if still queued), on a failure a 500."""
         try:
-            # Micro-batched: concurrent same-bucket uploads share one
-            # device dispatch (a solo job when the request cannot batch).
-            future = mgr.batcher.transcribe(audio, sr, lang_code)
-            results = future.result(timeout=mgr.request_timeout)
+            return future.result(timeout=self.server.manager.request_timeout)
         except concurrent.futures.TimeoutError:
             future.cancel()       # skips the device work if still queued
-            log.warning("POST /v1/audio/transcriptions | timed out after "
-                        "%.2fs", time.time() - t0)
-            self._error("TRANSCRIPTION_TIMEOUT", "Transcription timed out",
-                        504, elapsed=round(time.time() - t0, 2))
-            return
+            log.warning("%s | timed out after %.2fs", route,
+                        time.time() - t0)
+            self._error(timeout_code, timeout_message, 504,
+                        elapsed=round(time.time() - t0, 2))
+            raise _Answered
         except Exception as e:  # the server must keep answering
-            log.exception("transcription failed")
+            log.exception("%s failed", route)
             self._error("TRANSCRIPTION_FAILED", f"{type(e).__name__}: {e}",
                         500)
-            return
+            raise _Answered
+
+    def _transcribe_job(self, audio, sr: int, lang_code: Optional[str]
+                        ) -> concurrent.futures.Future:
+        """A whole upload's transcription as one standard-lane queue job."""
+        mgr = self.server.manager
+        return mgr.queue.submit(
+            lambda: mgr.transcribe_sync(audio, sr, lang_code, False),
+            priority=STANDARD)
+
+    # -- routes ------------------------------------------------------------------------
+    def _transcriptions(self, fields: dict, file_bytes: Optional[bytes]):
+        route = "POST /v1/audio/transcriptions"
+        # decode first, as the JAX server does: an empty or undecodable
+        # upload is a 422 whatever else it asks for
+        audio, sr = self._decode(file_bytes)
+        language = fields.get("language", "auto")
+        lang_code = None if language == "auto" else language
+        stamps = parse_bool(fields.get("return_timestamps"))
+        mgr = self.server.manager
+        t0 = time.time()
+        if stamps and os.getenv("ASR_TIMESTAMP_MODE",
+                                "accurate") == "accurate":
+            self.server.try_load_aligner()
+        # Micro-batched: concurrent same-bucket uploads share one device
+        # dispatch (a solo job when the request cannot batch).
+        results = self._wait(
+            mgr.batcher.transcribe(audio, sr, lang_code, stamps), t0, route,
+            "TRANSCRIPTION_TIMEOUT", "Transcription timed out")
         if results:
             text, language_code = merge_results(results)
             text = detect_and_fix_repetitions(text)
         else:
             text, language_code = "", (lang_code or language)
-        log.info("POST /v1/audio/transcriptions | %.2fs text_len=%d lang=%s",
-                 time.time() - t0, len(text), language_code)
-        self._json(200, {"text": text, "language": language_code})
+        body = {"text": text, "language": language_code}
+        timestamps = merge_timestamps(results) if results else None
+        if stamps and timestamps:
+            body["timestamps"] = timestamps
+        log.info("%s | %.2fs text_len=%d lang=%s", route, time.time() - t0,
+                 len(text), language_code)
+        self._json(200, body)
+
+    def _stream(self, fields: dict, file_bytes: Optional[bytes]):
+        audio, sr = self._decode(file_bytes)
+        language = fields.get("language", "auto")
+        lang_code = None if language == "auto" else language
+        self.send_response(200)
+        for k, v in (("Content-Type", "text/event-stream"),
+                     ("Cache-Control", "no-cache"),
+                     ("Connection", "keep-alive"),
+                     ("X-Accel-Buffering", "no"),
+                     ("Transfer-Encoding", "chunked"),
+                     ("X-Request-ID", self._request_id())):
+            self.send_header(k, v)
+        self.end_headers()
+        events = sse_events(self.server.manager, audio, sr, lang_code,
+                            parse_bool(fields.get("return_timestamps")))
+        try:
+            for event in events:
+                data = event.encode("utf-8")
+                self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except ConnectionError:
+            # the client went away: end the stream (and its chunks)
+            log.info("SSE stream | client disconnected")
+            self.close_connection = True
+        finally:
+            events.close()
+
+    def _subtitles(self, fields: dict, file_bytes: Optional[bytes]):
+        route = "POST /v1/audio/subtitles"
+        language = fields.get("language", "auto")
+        mode = fields.get("mode", "accurate")
+        try:
+            max_line_chars = int(fields.get("max_line_chars", "42"))
+        except ValueError:
+            max_line_chars = 42
+        t0 = time.time()
+        if mode not in ("fast", "accurate"):
+            self._error("INVALID_MODE",
+                        f"mode must be 'fast' or 'accurate', got '{mode}'",
+                        422)
+            return
+        audio, sr = self._decode(file_bytes)
+        lang_code = None if language == "auto" else language
+        if mode == "accurate":
+            try:
+                self.server.load_aligner()
+            except Exception as e:
+                log.error("%s | aligner load failed: %s", route, e)
+                self._error("SUBTITLE_TIMEOUT" if "timeout" in str(e).lower()
+                            else "WORKER_ERROR",
+                            f"ForcedAligner unavailable: {e}", 503)
+                return
+        results = self._wait(self._transcribe_job(audio, sr, lang_code), t0,
+                             route, "SUBTITLE_TIMEOUT",
+                             "Subtitle generation timed out")
+        if not results:
+            self._text("", "subtitles.srt")
+            return
+        for r in results:
+            r.text = detect_and_fix_repetitions(r.text)
+        # accurate mode aligns on the device thread
+        srt = self._wait(self.server.manager.queue.submit(
+            lambda: subtitle.generate_srt_from_results(
+                results=results, audio=audio, sr=sr, mode=mode,
+                max_line_chars=max_line_chars), priority=STANDARD),
+            t0, route, "SUBTITLE_TIMEOUT", "Subtitle generation timed out")
+        log.info("%s | completed in %.2fs mode=%s srt_len=%d", route,
+                 time.time() - t0, mode, len(srt))
+        self._text(srt, "subtitles.srt")
+
+    def _translations(self, fields: dict, file_bytes: Optional[bytes]):
+        from ..sidecars.translator import translate_srt, translate_text
+        route = "POST /v1/audio/translations"
+        language = fields.get("language", "en")
+        response_format = fields.get("response_format", "json")
+        t0 = time.time()
+        audio, sr = self._decode(file_bytes)
+        target = ("en" if language.lower() not in ("en", "zh")
+                  else language.lower())
+        results = self._wait(self._transcribe_job(audio, sr, None), t0,
+                             route, "TRANSCRIPTION_TIMEOUT",
+                             "Transcription timed out")
+        if response_format.lower() == "srt":
+            if not results:
+                self._text("")
+                return
+            for r in results:
+                r.text = detect_and_fix_repetitions(r.text)
+            # fast mode: host work only
+            srt = subtitle.generate_srt_from_results(
+                results, audio, sr, mode="fast", max_line_chars=42)
+            translated = self._translate(translate_srt, srt, target, route,
+                                         t0)
+            log.info("%s | completed in %.2fs format=%s", route,
+                     time.time() - t0, response_format)
+            self._text(translated, "translated_subtitles.srt")
+            return
+        text = (detect_and_fix_repetitions(merge_results(results)[0])
+                if results else "")
+        translated = (self._translate(translate_text, text, target, route, t0)
+                      if text.strip() else "")
+        log.info("%s | completed in %.2fs format=%s", route,
+                 time.time() - t0, response_format)
+        self._json(200, {"text": translated, "language": target})
+
+    def _translate(self, fn, content: str, target: str, route: str,
+                   t0: float) -> str:
+        """``fn(content, target)`` on this thread; a failure answers 502
+        TRANSLATION_FAILED."""
+        try:
+            return fn(content, target)
+        except Exception as e:
+            log.error("%s | translation API failed in %.2fs error=%s", route,
+                      time.time() - t0, e)
+            self._error("TRANSLATION_FAILED", f"Translation API failed: {e}",
+                        502)
+            raise _Answered
 
 
 class AsrServer(ThreadingHTTPServer):
@@ -244,6 +527,46 @@ class AsrServer(ThreadingHTTPServer):
     def __init__(self, manager: ModelManager, host: str, port: int):
         super().__init__((host, port), _Handler)
         self.manager = manager
+        # when a failed aligner load for word timestamps may be retried
+        # (time.monotonic()); 0.0: no failure pending
+        self.aligner_retry_at = 0.0
+
+    def load_aligner(self) -> None:
+        """Load ``FORCED_ALIGNER_ID`` on the engine's device, as a job of
+        the device thread (a no-op once loaded); raises what the load
+        raises."""
+        mgr = self.manager
+        mgr.queue.submit(lambda: subtitle.load_aligner(mgr.engine.device),
+                         priority=STANDARD).result(
+            timeout=mgr.request_timeout)
+
+    def try_load_aligner(self) -> None:
+        """For word timestamps: load the aligner unless it is loaded or a
+        failed load is inside its ``ASR_ALIGNER_RETRY_S`` backoff. A
+        failure is not an error (the engine estimates the words instead);
+        it starts the backoff. Two requests may both load at once: the
+        device thread runs the loads one after the other, and the second
+        finds the aligner loaded."""
+        if subtitle.aligner_loaded() or \
+                time.monotonic() < self.aligner_retry_at:
+            return
+        try:
+            self.load_aligner()
+            self.aligner_retry_at = 0.0
+        except Exception as e:
+            self.aligner_retry_at = time.monotonic() + float(
+                os.getenv("ASR_ALIGNER_RETRY_S", "300"))
+            log.info("Aligner unavailable for timestamps (%s); "
+                     "char-proportional estimates until the next retry "
+                     "window", e)
+
+    def aligner_state(self) -> str:
+        """``/health``'s ``aligner``."""
+        if subtitle.aligner_loaded():
+            return "loaded"
+        if self.aligner_retry_at:
+            return "unavailable_retrying"
+        return "not_loaded"
 
 
 def build_server(manager: ModelManager, host: str = "127.0.0.1",

@@ -105,12 +105,15 @@ def test_different_buckets_not_batched(manager, batches):
     assert sorted(batches) == [1, 1]
 
 
-@pytest.mark.parametrize("case", ["resample", "stereo", "long", "cap1"])
+@pytest.mark.parametrize("case", ["resample", "stereo", "long", "cap1",
+                                  "timestamps"])
 def test_requests_that_cannot_batch_go_solo(engine, monkeypatch, case):
+    """Each goes to the engine alone, through ``transcribe_sync``, with
+    its ``return_timestamps``."""
     calls = []
     monkeypatch.setattr(engine, "transcribe",
-                        lambda audio, sr, language: calls.append(
-                            (audio.shape, sr)) or [])
+                        lambda audio, sr, language, timestamps, *a, **k:
+                        calls.append((audio.shape, sr, timestamps)) or [])
     mgr = ModelManager(engine)
     mgr.batcher = MicroBatcher(mgr, window_ms=1000,
                                max_batch=1 if case == "cap1" else 8)
@@ -121,11 +124,14 @@ def test_requests_that_cannot_batch_go_solo(engine, monkeypatch, case):
             "stereo": (np.zeros((8000, 2), np.float32), 16000),
             "long": (np.zeros(31 * 16000, np.float32), 16000),
             "cap1": (np.zeros(8000, np.float32), 16000),
+            "timestamps": (np.zeros(8000, np.float32), 16000),
         }[case]
-        assert mgr.batcher.transcribe(audio, sr, None).result(WAIT) == []
+        stamps = case == "timestamps"
+        assert mgr.batcher.transcribe(audio, sr, None, stamps).result(
+            WAIT) == []
     finally:
         mgr.stop()
-    assert calls == [(audio.shape, sr)]
+    assert calls == [(audio.shape, sr, stamps)]
     assert mgr.batcher.dispatches == 1
 
 

@@ -85,6 +85,14 @@ FLASH_CASES = {
                          [256] * 4, [153] * 4),
     "verify_trained_ckpt_t40": (2, 4, 2, 40, 256, 48, True, 0, [20, 30],
                                 [256, 256], [110, 110]),
+    # the forced aligner's encoder at preset:1.7b: 25 tokens a 2 s chunk
+    # of mel, windows of 50, at 60, 120 and 300 s (T not a multiple of
+    # the 64-row tile at 3750)
+    "aligner_60s": (1, 20, 20, 750, 750, 64, False, 50, [0], [750], [0]),
+    "aligner_120s": (1, 20, 20, 1500, 1500, 64, False, 50, [0], [1500],
+                     [0]),
+    "aligner_300s": (1, 20, 20, 3750, 3750, 64, False, 50, [0], [3750],
+                     [0]),
 }
 
 
@@ -1311,3 +1319,138 @@ def test_qk_rope_kv_refuses_what_it_does_not_take(dev):
         qk_rope_kv_write(*inputs, 1e-6, other, 0, 0)
     with pytest.raises(ValueError, match="layer"):
         qk_rope_kv_write(*inputs, 1e-6, cache, 3, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", [n for n in FLASH_CASES
+                                  if n.startswith("aligner")])
+def test_flash_aligner_lengths_repeat_bits(dev, name, dtype):
+    """The aligner's encoder lengths: a repeat call gives the first call's
+    bits (out, m and l)."""
+    b, nq, nkv, t, s, d, causal, window, vf, vt, qo = FLASH_CASES[name]
+    rng = np.random.default_rng(2)
+    q, k, v = (_randn(rng, (b, nq, t, d), dtype, dev) for _ in range(3))
+    vt = torch.tensor(vt, dtype=torch.int32, device=dev)
+    outs = [flash_attention(q, k, v, window_block=window, kv_valid_to=vt,
+                            return_residuals=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], again))
+
+
+ALIGNER_CLIPS = ("english_01", "chinese_02", "japanese_01", "hindi_02")
+
+
+def _real_clip(name):
+    import os
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    root = os.path.join(os.path.dirname(__file__), "..", "e2e", "data")
+    with open(os.path.join(root, "real", name + ".wav"), "rb") as f:
+        audio, _ = decode_audio(f.read())
+    with open(os.path.join(root, "real", name + ".txt"),
+              encoding="utf-8") as f:
+        return audio.astype(np.float32), f.read().strip()
+
+
+@pytest.fixture
+def trained_aligners(dev):
+    import os
+    from qwen3_asr_tpu_torch.sidecars.aligner import AlignerEngine
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "e2e", "data",
+                        "trained_ckpt")
+    return (AlignerEngine.load(ckpt, device=dev, dtype=torch.float32),
+            AlignerEngine.load(ckpt, device="cpu"), ckpt)
+
+
+@pytest.mark.parametrize("clip", ALIGNER_CLIPS)
+def test_aligner_on_the_card_matches_the_cpu(trained_aligners, clip):
+    """The forced aligner on the card in f32 (flash on its encoder)
+    against the port on the CPU on a real clip: the same words, every edge
+    within 1e-3 s, and flash launched once an encoder layer."""
+    card, cpu, _ = trained_aligners
+    audio, text = _real_clip(clip)
+    before = flash_attention.launches
+    got = card.align(audio, 16000, text, "en")
+    assert flash_attention.launches - before == \
+        card.model.cfg.encoder.encoder_layers
+    want = cpu.align(audio, 16000, text, "en")
+    assert got and [w.text for w in got] == [w.text for w in want]
+    for a, b in zip(got, want):
+        assert abs(a.start - b.start) <= 1e-3 and abs(a.end - b.end) <= 1e-3
+
+
+def test_aligner_on_the_card_at_60s_is_optimal_under_the_cpus(
+        trained_aligners):
+    """60 s of the clips joined, where the partition has near-equal optima
+    (``tests/test_torch_aligner.py``): the same words, and the card's
+    partition, scored under the CPU's similarity, within the perturbation
+    bound of the CPU's (2 · frames · max |Δsim| plus 1e-5 of the score)."""
+    from qwen3_asr_tpu_torch.sidecars.aligner import _viterbi_partition
+    card, cpu, _ = trained_aligners
+    parts = [_real_clip(n) for n in ALIGNER_CLIPS]
+    audio = np.tile(np.concatenate([a for a, _ in parts]), 2)[:60 * 16000]
+    text = " ".join([" ".join(t for _, t in parts)] * 2)
+    got = card.align(audio, 16000, text, "en")
+    want = cpu.align(audio, 16000, text, "en")
+    assert got and [w.text for w in got] == [w.text for w in want]
+    sim = card.similarity(audio, 16000, text)[2]
+    ref = cpu.similarity(audio, 16000, text)[2]
+    assert sim.shape == ref.shape
+
+    def score(s, entries):
+        edges = list(entries) + [s.shape[1]]
+        return sum(float(s[i, edges[i]:edges[i + 1]].sum(dtype=np.float64))
+                   for i in range(s.shape[0]))
+
+    best = score(ref, _viterbi_partition(ref))
+    slack = (2 * sim.shape[1] * float(np.abs(sim - ref).max())
+             + 1e-5 * abs(best))
+    assert score(ref, _viterbi_partition(sim)) >= best - slack
+
+
+def test_aligner_loads_on_the_card_in_bf16_by_default(trained_aligners):
+    from qwen3_asr_tpu_torch.sidecars.aligner import AlignerEngine
+    _, _, ckpt = trained_aligners
+    eng = AlignerEngine.load(ckpt)
+    assert eng.device.type == "cuda" and eng.dtype == torch.bfloat16
+    audio, text = _real_clip("english_01")
+    words = eng.align(audio, 16000, text, "en")
+    assert [w.text for w in words] == text.split()
+    assert all(0 <= w.start <= w.end <= len(audio) / 16000 + 1e-6
+               for w in words)
+    assert all(a.end <= b.start + 1e-6 for a, b in zip(words, words[1:]))
+
+
+def test_vad_entry_points_run_on_the_card_by_default(dev, monkeypatch):
+    """With no device given every VAD entry point resolves the card (and
+    only the card), gives the CPU's probability within 1e-4, and counts no
+    failure."""
+    from qwen3_asr_tpu_torch.audio import vad, vad_model
+    from qwen3_asr_tpu_torch.utils import device as device_mod
+    seen = []
+
+    def spy(device=None):
+        got = device_mod.resolve_device(device)
+        seen.append(got.type)
+        return got
+
+    monkeypatch.setattr(vad, "resolve_device", spy)
+    monkeypatch.setattr(vad_model, "resolve_device", spy)
+    audio, _ = _real_clip("english_01")
+    x = audio[:19200]
+    before = vad.failures
+    for fn in (vad.spectral_probability, vad.speech_probability,
+               vad_model.speech_probability):
+        seen.clear()
+        p = fn(x)
+        assert seen and set(seen) == {"cuda"}
+        seen.clear()
+        assert abs(p - fn(x, "cpu")) <= 1e-4
+        assert seen and set(seen) == {"cpu"}
+    seen.clear()
+    assert vad.is_speech(x) is True
+    assert seen and set(seen) == {"cuda"}
+    net = vad_model.params_from_jax(vad_model.load_params())
+    assert next(net.parameters()).device.type == "cuda"
+    assert vad.failures == before

@@ -165,10 +165,31 @@ def test_non_wav_gets_422(url):
     assert body["message"].startswith("Could not decode audio: FLAC")
 
 
-def test_timestamps_answer_501(url):
+def test_timestamps_answer_501(url, jax_engine, monkeypatch):
+    """The upload that answered 501 before word timestamps were served
+    now answers 200 with the JAX server's body: no aligner loads
+    (``FORCED_ALIGNER_ID`` names no directory here), so both time the
+    words by char-proportional estimates; times within 1e-3 s."""
+    from qwen3_asr_tpu.sidecars import subtitle as jax_subtitle
+    from qwen3_asr_tpu_torch.sidecars import subtitle
+    monkeypatch.setattr(jax_subtitle, "_aligner", None)
+    monkeypatch.setattr(subtitle, "FORCED_ALIGNER_ID",
+                        os.path.join(ROOT, "no_such_aligner"))
     with open(os.path.join(ROOT, "real", "english_02.wav"), "rb") as f:
-        status, body = _post(url, f.read(), [("return_timestamps", "true")])
-    assert status == 501 and body["statusCode"] == 501
+        data = f.read()
+    status, body = _post(url, data, [("return_timestamps", "true")])
+    assert status == 200
+    text, lang, stamps = jax_merge(jax_engine.transcribe(
+        *jax_decode_audio(data), None, True))
+    want = {"text": detect_and_fix_repetitions(text), "language": lang,
+            "timestamps": stamps}
+    assert body.keys() == want.keys() and stamps
+    assert (body["text"], body["language"]) == (want["text"], lang)
+    assert [w["word"] for w in body["timestamps"]] == \
+        [w["word"] for w in stamps]
+    for ours, ref in zip(body["timestamps"], stamps):
+        assert abs(ours["start"] - ref["start"]) <= 1e-3
+        assert abs(ours["end"] - ref["end"]) <= 1e-3
 
 
 @pytest.mark.parametrize("upload", ["empty", "garbage"])

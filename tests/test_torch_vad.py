@@ -71,7 +71,7 @@ def _few_threads():
 @pytest.mark.parametrize("name", list(INPUTS))
 def test_spectral_probability_matches_jax(name):
     x = INPUTS[name]
-    ours = vad.spectral_probability(x)
+    ours = vad.spectral_probability(x, "cpu")
     ref = jvad._spectral_probability(x)
     assert abs(ours - ref) <= PROB_ATOL, (ours, ref)
     assert (ours >= 0.5) == (ref >= 0.5)
@@ -80,20 +80,21 @@ def test_spectral_probability_matches_jax(name):
 @pytest.mark.parametrize("name", list(INPUTS))
 def test_learned_probability_matches_jax(name):
     x = INPUTS[name]
-    ours = vad_model.speech_probability(x)
+    ours = vad_model.speech_probability(x, "cpu")
     ref = jvad_model.speech_probability(x)
     assert abs(ours - ref) <= PROB_ATOL, (ours, ref)
-    assert vad.is_speech(x) == jvad.is_speech(x)
+    assert vad.is_speech(x, device="cpu") == jvad.is_speech(x)
 
 
 def test_learned_vad_on_real_speech_and_noise():
     """The learned VAD hears every real clip and no synthetic noise or
     silence, as the JAX package's does."""
     for path in CLIPS:
-        assert vad.is_speech(_clip(path)), path
+        assert vad.is_speech(_clip(path), device="cpu"), path
     for name in ("noise", "silence", "tone"):
-        assert vad.is_speech(INPUTS[name]) == jvad.is_speech(INPUTS[name])
-    assert not vad.is_speech(INPUTS["silence"])
+        assert (vad.is_speech(INPUTS[name], device="cpu")
+                == jvad.is_speech(INPUTS[name]))
+    assert not vad.is_speech(INPUTS["silence"], device="cpu")
 
 
 def test_params_from_jax_is_the_packaged_copy():
@@ -108,7 +109,7 @@ def test_params_from_jax_is_the_packaged_copy():
     import jax.numpy as jnp
     feats = np.random.default_rng(0).standard_normal((60, 32)).astype(
         np.float32)
-    net = vad_model.params_from_jax(ref)
+    net = vad_model.params_from_jax(ref, "cpu")
     with torch.inference_mode():
         got = net.frame_logits(torch.from_numpy(feats)).numpy()
     want = np.asarray(jvad_model.frame_logits(
@@ -122,7 +123,7 @@ def test_backend_and_flush_ticks_match_jax(monkeypatch, env):
     assert vad.active_backend() == jvad.active_backend()
     assert vad.default_flush_ticks() == jvad.default_flush_ticks()
     x = INPUTS["english_01_tick"]
-    assert vad.is_speech(x) == jvad.is_speech(x)
+    assert vad.is_speech(x, device="cpu") == jvad.is_speech(x)
 
 
 def test_backend_without_weights_matches_jax(monkeypatch, tmp_path):
@@ -135,6 +136,40 @@ def test_backend_without_weights_matches_jax(monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError):
         vad.active_backend()
     assert vad.default_flush_ticks() == 2
+
+
+def test_vad_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    """With no device given, every VAD entry point asks for the card: on a
+    machine without one it raises ``resolve_device``'s error, and
+    ``is_speech`` answers "speech" as JAX does but counts the failure."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = INPUTS["english_01_tick"]
+    for fn in (vad.spectral_probability, vad.speech_probability,
+               vad_model.speech_probability):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vad_model.params_from_jax(vad_model.load_params())
+    before = vad.failures
+    assert vad.is_speech(INPUTS["silence"]) is True
+    assert vad.failures == before + 1
+    assert vad.is_speech(INPUTS["silence"], device="cpu") is False
+    assert vad.failures == before + 1
+
+
+def test_is_speech_failure_is_logged_and_counted(monkeypatch, caplog):
+    """A detector that raises: "speech" (JAX's answer), one failure
+    counted and the exception logged, for each call."""
+    def broken(*a, **k):
+        raise ValueError("detector broke")
+
+    monkeypatch.setattr(vad, "speech_probability", broken)
+    before = vad.failures
+    with caplog.at_level("ERROR", logger=vad.__name__):
+        assert vad.is_speech(INPUTS["silence"], device="cpu") is True
+        assert vad.is_speech(INPUTS["tone"], device="cpu") is True
+    assert vad.failures == before + 2
+    assert "detector broke" in caplog.text
 
 
 # -- the tick's host DSP ---------------------------------------------------------

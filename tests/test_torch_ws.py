@@ -258,8 +258,25 @@ def test_ws_vad_flush_single_tick(base, monkeypatch):
     assert msgs[2].get("is_final")
 
 
+def _wait_no_live_session(base, timeout=60.0):
+    """Until the server counts no live WS session: an earlier test's
+    session ends on the server's thread after its client has closed."""
+    import time
+    import urllib.request
+    http = base.replace("ws://", "http://") + "/health"
+    deadline = time.monotonic() + timeout
+    while True:
+        with urllib.request.urlopen(http, timeout=30) as r:
+            live = json.loads(r.read())["active_ws_sessions"]
+        if live == 0 or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert live == 0
+
+
 def test_ws_session_limit_rejects_then_recovers(base, monkeypatch):
     import urllib.request
+    _wait_no_live_session(base)
     monkeypatch.setenv("ASR_MAX_SESSIONS", "1")
     ws1 = _connect(base)
     assert ws1.receive_json()["status"] == "connected"
