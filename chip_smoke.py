@@ -124,7 +124,32 @@ without a CUDA device, and whenever any phase fails. Phases:
    The phase fails unless flash launched inside the alignments and no
    alignment or VAD failure was counted. Phases 2 and 3 also hold flash
    at the aligner's encoder lengths (T = 750, 1500 and 3750, windows of
-   50; f32 and bf16, repeat bits; kernel, plain and SDPA ms and the bound).
+   50; f32 and bf16, repeat bits; kernel, plain and SDPA ms and the bound);
+12. continuous batching, the decode pool (``runtime/pool.py``) behind
+   ``ASR_CONTINUOUS_BATCHING=true``: (a) trained_ckpt in f32 with
+   ``ASR_POOL_SLOTS=4``: the 12 real clips at once through the server
+   answer phase 4's bodies and, straight through the batcher, its token
+   ids, all through the pool (no fused key built), and a WS session with
+   ``ASR_POOL_WS=true`` sends every partial and its final through the
+   pool; (b) preset:1.7b bf16 (phase 5's engine), the pool at its
+   defaults (8 -> 32 slots, segments of 16): 24 uploads in waves of 8
+   (30, 15, 10 s buckets) 0.25 s apart through the server with the pool
+   and through the micro-batcher with it off, in turns (pool, batcher,
+   batcher, pool): tokens/s and request walls p50/p90; the window climbs
+   8 -> 16 -> 32 and back to 8; pool runs from replays only, each segment
+   graph recording #3 (#2 in f32) and kernel B's per-row route once a
+   layer and step; a 45 s upload (long-form, fused) served during a
+   fifth pool run equals its solo run (one stream and the ticket buffer
+   shared by two device threads); a fixed schedule of 16 requests (a
+   compaction and the window's re-layouts on the way) through the graphs
+   and eagerly, in turns: the same bits; the share of the pool's tokens
+   that agree with the micro-batcher's; a segment's device ms at windows
+   8, 16 and 32, the pool's memory and capture seconds; (c) the same
+   waves with ``QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true``:
+   an fp8 pool cache, kernel A on windows of 8 and 16 rows, kernel C at
+   32 and on the prompts, no W8A8. Phases 2 and 3 also hold #3 at the
+   pool's windows (8, 16, 32 rows of S=768, per-row valid_from and
+   valid_to; bf16 and fp8).
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -617,6 +642,7 @@ def kernel_phases(sh, dev):
     quant_kernel_rows(sh, dev, card, rows)
     ws_kernel_rows(sh, dev, card, rows)
     aligner_kernel_rows(sh, dev, card, rows)
+    pool_kernel_rows(sh, dev, card, rows)
     return rows
 
 
@@ -1285,6 +1311,97 @@ def ws_kernel_rows(sh, dev, card, rows) -> None:
                                      note))
 
 
+POOL_WINDOWS = (8, 16, 32)      # the decode pool's window ladder at defaults
+
+
+def pool_row_cases(sh, dev):
+    """#3 at the decode pool's segment: windows of 8, 16 and 32 rows of the
+    pool cache (S = 768 at preset:1.7b), every row at its own place: rows
+    of the 30, 15 and 10 s buckets in turn (their prompt lengths), each at
+    its own point of its budget, with the left pads of two prompt
+    prefixes; bf16 and fp8 caches: (kernel, label, run, plain, SDPA,
+    bytes, flops, layers, note)."""
+    from qwen3_asr_tpu_torch.models.asr import PromptTemplate
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.encoder import encoder_output_length
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.decode_attention_batch import (
+        decode_attention_batched, decode_attention_batched_plain)
+    from qwen3_asr_tpu_torch.runtime.engine import (PREFIX_BUDGET,
+                                                    max_new_tokens_for)
+    from qwen3_asr_tpu_torch.runtime.lifecycle import preset_tokenizer
+    cfg = preset("1.7b")
+    suffix = len(preset_tokenizer(cfg.decoder.vocab_size).encode(
+        PromptTemplate().suffix_text()))
+    chunk = cfg.encoder.n_window * 2
+    nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
+    s = sh["cache"]
+    bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
+    for batch in POOL_WINDOWS:
+        vf0, vt0 = [], []
+        for r in range(batch):
+            sec = (30, 15, 10)[r % 3]
+            plen = (PREFIX_BUDGET + suffix
+                    + int(encoder_output_length(sec * 100, chunk)))
+            vf0.append(sh["valid_from"] - 6 * (r % 2))
+            vt0.append(plen + 1 + (r * 37) % max_new_tokens_for(sec))
+        live = sum(b - a for a, b in zip(vf0, vt0))
+        for kv_dtype in (bf16, fp8):
+            gen = torch.Generator(device=dev).manual_seed(batch + 23)
+            q = torch.randn((batch, nq, 1, d), generator=gen,
+                            device=dev).to(bf16)
+            k, v = (torch.randn((layers, batch, nkv, s, d), generator=gen,
+                                device=dev).to(kv_dtype) for _ in range(2))
+            vf = torch.tensor(vf0, dtype=torch.int32, device=dev)
+            vt = torch.tensor(vt0, dtype=torch.int32, device=dev)
+            kb, vb = (k, v) if kv_dtype == bf16 else (k.to(bf16), v.to(bf16))
+            mask = AttnSpec(valid_from=vf, valid_to=vt).dense_mask(
+                batch, 1, s, dev)
+            yield ("decode_attention_batch",
+                   f"pool_b{batch}_s{s}_{KV_NAMES[kv_dtype]}",
+                   lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
+                       decode_attention_batched(q, k, v, layer_idx=layer,
+                                                kv_valid_from=vf,
+                                                kv_valid_to=vt),),
+                   lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
+                       decode_attention_batched_plain(
+                           q, k, v, vf, vt, layer_idx=layer,
+                           sm_scale=d ** -0.5),),
+                   lambda layer, q=q, kb=kb, vb=vb, mask=mask:
+                       F.scaled_dot_product_attention(
+                           q, kb[layer], vb[layer], attn_mask=mask[:, None],
+                           enable_gqa=True),
+                   2 * batch * nq * d * 2
+                   + 2 * nkv * live * d * k.element_size() + 8 * batch,
+                   4 * d * nq * live, layers,
+                   "" if kv_dtype == bf16 else " on a bf16 copy of the cache")
+            del k, v, kb, vb
+
+
+def pool_kernel_rows(sh, dev, card, rows) -> None:
+    """Parity (phase 2) and timing (phase 3) of #3 at the decode pool's
+    shapes (``pool_row_cases``)."""
+    tol = TOL[torch.bfloat16]
+    for kernel, label, run, plain, sdpa, nbytes, flops, layers, note in \
+            pool_row_cases(sh, dev):
+        errs = []
+        for layer in (0, layers - 1):
+            out, ref = run(layer)[0], plain(layer)[0]
+            torch.cuda.synchronize()
+            errs.append(float((out.float() - ref.float()).abs().max()))
+        err = max(errs)
+        same_bits(kernel, label, run(layers - 1), run(layers - 1))
+        log(f"[parity] {kernel} {label} (per-row valid_from and valid_to, "
+            f"layers 0 and {layers - 1}): max_abs_err={err:.3e} (bound "
+            f"{tol:g}); a repeat call's bits equal")
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {label}: error {err} above "
+                                 f"{tol}")
+        rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
+                                     sdpa, nbytes, flops, layers, card,
+                                     note))
+
+
 ALIGNER_SECONDS = (60, 120, 300)    # the aligner's 30 s steps timed
 
 
@@ -1428,9 +1545,11 @@ def real_text_phase(dev):
                    for w in wavs]
         batched = [f.result(timeout=600)[0] for f in futures]
         direct = manager.batcher.dispatches - by_http
+    wants = []
     for path, body, res, ref in zip(clips, bodies, batched, refs):
         text, lang = merge_results(ref)
         want = {"text": detect_and_fix_repetitions(text), "language": lang}
+        wants.append(want)
         if body != want or res.token_ids != ref[0].token_ids:
             raise AssertionError(f"{os.path.basename(path)} at batch: "
                                  f"{body} / {res.token_ids} vs cpu solo "
@@ -1442,6 +1561,8 @@ def real_text_phase(dev):
         raise AssertionError(f"{by_http}/{direct} dispatches for "
                              f"{len(clips)} clips: nothing batched")
     check_records(gpu, "trained_ckpt f32")
+    # for phase 12 (a): the engine, the uploads, their answers and ids
+    return gpu, wavs, wants, [ref[0].token_ids for ref in refs]
 
 
 # -- phase 5 ---------------------------------------------------------------------
@@ -1508,7 +1629,8 @@ class PathLaunches:
     """Each kernel's launches while the main path runs. The engines run
     captured CUDA graphs, and a replay moves no wrapper counter: a kernel's
     launches are the counters' (eager launches) plus, for every graph of
-    ``engines``, what its capture recorded times its replays. A graph
+    ``engines`` (engines, or decode pools), what its capture recorded
+    times its replays. A graph
     built inside the window (a key's first request) has added its
     capture's recording to the counters, which launched nothing: that is
     taken out, and its warm-up run before the capture stays, as eager.
@@ -1548,8 +1670,11 @@ class PathLaunches:
         self.known = set(map(id, self._graphs()))
 
     def _graphs(self):
-        return [g for e in self.engines for x in e.executables.values()
-                for g in (x.front, x.chunk)]
+        """The engines' graphs, and a decode pool's (``graphs()``)."""
+        return [g for e in self.engines
+                for g in (e.graphs() if hasattr(e, "graphs") else
+                          [g for x in e.executables.values()
+                           for g in (x.front, x.chunk)])]
 
     def read(self):
         """(launches, eager launches) of each kernel since construction."""
@@ -3140,6 +3265,488 @@ def sidecar_phase(dev, engine) -> dict:
     return total
 
 
+# -- phase 12 --------------------------------------------------------------------
+
+# the waves of phase 12: 8 uploads of each bucket's seconds at once, the
+# waves WAVE_GAP_S apart, longest first (the window climbs 8 -> 16 -> 32)
+POOL_WAVES = (30, 15, 10)
+WAVE_GAP_S = 0.25
+POOL_ENV = {"ASR_CONTINUOUS_BATCHING": "true"}
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` updated with ``values`` while it is open."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def transcription_url(ws_url: str) -> str:
+    return ws_url.replace("ws://", "http://").replace(
+        "/ws/transcribe", "/v1/audio/transcriptions")
+
+
+class WindowTrace:
+    """The pool's window, sampled every 2 ms while it is open: the sequence
+    of the values it took."""
+
+    def __init__(self, pool):
+        self.pool, self.seq = pool, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            if not self.seq or self.seq[-1] != self.pool.window:
+                self.seq.append(self.pool.window)
+            time.sleep(0.002)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+@contextlib.contextmanager
+def generated_tokens(engine, pool=None):
+    """A one-item list counting the tokens generated while it is open: the
+    pool's rows at their retirement, or the engine's bucket runs."""
+    count = [0]
+    if pool is not None:
+        retire = pool._retire
+
+        def counted(slot):
+            count[0] += len(pool._tokens[slot])
+            retire(slot)
+        pool._retire = counted
+    else:
+        from qwen3_asr_tpu_torch.runtime.engine import max_new_tokens_for
+        run_bucket = engine._run_bucket
+
+        def counted(clips, bucket_frames, bucket_s, *a, **k):
+            texts, ids = run_bucket(clips, bucket_frames, bucket_s, *a, **k)
+            # a row's tokens, its EOS included; not the batch's pad rows
+            # (the 0.1 s silent clips of _pad_pow2)
+            budget = max_new_tokens_for(bucket_s)
+            count[0] += sum(min(len(i) + 1, budget)
+                            for c, i in zip(clips, ids)
+                            if len(c) != 1600 or c.any())
+            return texts, ids
+        engine._run_bucket = counted
+    try:
+        yield count
+    finally:
+        if pool is not None:
+            del pool._retire
+        else:
+            del engine._run_bucket
+
+
+def wave_clips():
+    """POOL_WAVES' clips: for each wave, 8 cuts of the real clips joined,
+    each 0.5 s short of its bucket, from distinct offsets."""
+    audio = real_audio()
+    return [[audio[(3 * i + w) * 16000:(3 * i + w) * 16000
+                   + int((sec - 0.5) * 16000)] for i in range(8)]
+            for w, sec in enumerate(POOL_WAVES)]
+
+
+def send_waves(url: str, waves) -> tuple:
+    """Each wave's bodies at once (a thread each), the waves WAVE_GAP_S
+    apart: ({(wave, i): (body, wall s)}, the run's wall s)."""
+    results = {}
+
+    def one(key, data):
+        t0 = time.perf_counter()
+        body = post(url, data)
+        results[key] = (body, time.perf_counter() - t0)
+
+    threads = []
+    t0 = time.perf_counter()
+    for w, wave in enumerate(waves):
+        for i, data in enumerate(wave):
+            threads.append(threading.Thread(target=one, args=((w, i), data)))
+            threads[-1].start()
+        if w + 1 < len(waves):
+            time.sleep(WAVE_GAP_S)
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(results) != sum(map(len, waves)):
+        raise AssertionError(f"{len(results)} of {sum(map(len, waves))} "
+                             f"uploads answered")
+    for body, _ in results.values():
+        if not isinstance(body.get("text"), str) or "language" not in body:
+            raise AssertionError(f"bad response {body}")
+    return results, wall
+
+
+def pool_ids(manager, clips, under_lock: bool = False) -> list:
+    """Token ids of ``clips`` through ``manager``'s pool, all submitted at
+    once; ``under_lock``: while holding the pool's lock, so that its drive
+    thread takes them in one admission round (a fixed schedule)."""
+    pool = manager.pool
+    out, done = {}, threading.Event()
+
+    def cb(i):
+        def ok(text, ids):
+            out[i] = ids
+            if len(out) == len(clips):
+                done.set()
+
+        def err(e):
+            out[i] = e
+            done.set()
+        return ok, err
+
+    with (pool._cv if under_lock else contextlib.nullcontext()):
+        for i, clip in enumerate(clips):
+            pool.submit(clip, None, *cb(i))
+    if not done.wait(timeout=600):
+        raise AssertionError("the pool did not answer in 600 s")
+    bad = [o for o in out.values() if isinstance(o, Exception)]
+    if bad:
+        raise bad[0]
+    return [out[i] for i in range(len(clips))]
+
+
+def agreement(ours, ref) -> str:
+    """Requests with equal ids, and the share of tokens before each
+    request's first difference."""
+    same = sum(a == b for a, b in zip(ours, ref))
+    total = sum(max(len(a), len(b)) for a, b in zip(ours, ref))
+    prefix = 0
+    for a, b in zip(ours, ref):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        prefix += n
+    return (f"{same}/{len(ref)} requests equal, {prefix / max(total, 1):.1%} "
+            f"of tokens before the first difference")
+
+
+def pool_report(pool, name: str, card: str) -> None:
+    """The pool's graphs (capture seconds, what each recorded) and the
+    memory it holds."""
+    layers = pool.model.cfg.decoder.num_hidden_layers
+    for w, g in pool._decode_fns.items():
+        log(f"[pool] {name} segment graph, window {w}: captured in "
+            f"{g.capture_s:.3f} s, recorded {g.recorded} | {card}")
+        per_step = {k: n / (layers * pool.segment)
+                    for k, n in g.recorded.items() if n}
+        if (g.recorded.get("qk_rope_kv_per_row") != layers * pool.segment
+                or g.recorded.get("qk_rope_kv") != layers * pool.segment):
+            raise AssertionError(f"{name} window {w}: recorded {g.recorded},"
+                                 f" want kernel B's per-row route once a "
+                                 f"layer and step")
+        attn = ("decode_attention" if per_step.get("decode_attention")
+                else "decode_attention_batch")
+        if g.recorded.get(attn) != layers * pool.segment:
+            raise AssertionError(f"{name} window {w}: {attn} recorded "
+                                 f"{g.recorded.get(attn)}, want one a layer "
+                                 f"and step")
+    for bf, p in pool._prefill_fns.items():
+        log(f"[pool] {name} prefill graph, bucket {bf} frames (prompt "
+            f"{p.prompt_len}, cache {p.s_pad}): captured in "
+            f"{p.graph.capture_s:.3f} s, recorded {p.graph.recorded}")
+    log(f"[pool] {name}: {pool.base}..{pool.max_slots} slots (windows "
+        f"{pool._sizes}), S={pool.s_pool}, "
+        f"{str(pool.cache_dtype).replace('torch.', '')} cache; holds "
+        f"{pool.held_bytes() / 2**30:.3f} GiB (cache, state, prefill "
+        f"buffers); its {len(pool.graphs())} graphs captured in "
+        f"{sum(g.capture_s for g in pool.graphs()):.2f} s | {card}")
+
+
+def segment_ms(pool, name: str, card: str) -> None:
+    """Device ms of one segment at each window, every row live at its own
+    position (as mid-traffic), between CUDA events; the pool is idle and
+    its rows are inactive again afterwards."""
+    n = pool.max_slots
+    with torch.inference_mode():
+        for w in pool._sizes:
+            pool.pos.copy_(torch.tensor([460 + (r * 37) % 200
+                                         for r in range(n)]))
+            pool.valid_from.fill_(0)
+            pool.limit.fill_(pool.s_pool - 1)
+            pool.last.fill_(1000)
+            pool.active.fill_(True)
+            ms = replay_ms(pool._decode_fns[w], replays=3)
+            log(f"[pool] {name} segment at window {w}: {ms:.3f} ms device "
+                f"({ms / pool.segment:.3f} ms a step of {w} rows) | {card}")
+        pool.active.fill_(False)
+        torch.cuda.synchronize()
+
+
+def pool_f32_phase(real, card: str) -> dict:
+    """(a) trained_ckpt in f32 on the card with ``ASR_POOL_SLOTS=4`` (the
+    prefill graphs captured as buckets come): the 12 real clips at once
+    through the server answer phase 4's bodies and, straight through the
+    batcher, its token ids, all through the pool; a WS session with
+    ``ASR_POOL_WS=true`` sends its partials and final through the pool;
+    no fused key is built."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    gpu, wavs, want_bodies, want_ids = real
+    manager = ModelManager(gpu)
+    keys = len(gpu.executables)
+    with environ(ASR_CONTINUOUS_BATCHING="true", ASR_POOL_SLOTS="4",
+                 ASR_POOL_WS="true", SKIP_WARMUP="true"):
+        with ws_serving(manager) as ws_url:
+            pool = manager.pool
+            counter = PathLaunches(gpu, pool)
+            t0 = time.perf_counter()
+            bodies, walls = post_all(transcription_url(ws_url), wavs)
+            wall = time.perf_counter() - t0
+            futures = [manager.batcher.transcribe(*decode_audio(w), None)
+                       for w in wavs]
+            ids = [f.result(timeout=600)[0].token_ids for f in futures]
+            admitted = pool.admitted
+            msgs = ws_stream(ws_url, real_pcm("english_02.wav"),
+                             "?use_server_vad=false")
+            ws_admitted = pool.admitted - admitted
+            launches, eager = counter.read()
+            pool_report(pool, "trained_ckpt f32", card)
+    kinds = [("final" if m.get("is_final") else "partial")
+             for m in msgs if "text" in m]
+    log(f"[pool] (a) trained_ckpt f32, 4..16 slots: 12 uploads at once in "
+        f"{wall:.3f} s ({percentiles(walls)}), bodies equal to phase 4's: "
+        f"{bodies == want_bodies}; 12 through the batcher, token ids equal "
+        f"to phase 4's (the CPU's): {ids == want_ids}; {admitted} admitted; "
+        f"WS: {kinds.count('partial')} partials and {kinds.count('final')} "
+        f"final, {ws_admitted} transcriptions admitted to the pool of "
+        f"{len(manager.ws_calls)}; final {msgs[-2].get('text')!r}; fused "
+        f"keys built {len(gpu.executables) - keys}; launches {launches}, "
+        f"eager {eager} (the prefills captured as buckets came) | {card}")
+    if bodies != want_bodies or ids != want_ids:
+        bad = [i for i, (a, b) in enumerate(zip(ids, want_ids)) if a != b]
+        raise AssertionError(f"(a): the pool's answers differ from phase "
+                             f"4's at clips {bad}")
+    if (admitted != 2 * len(wavs) or "partial" not in kinds
+            or kinds[-1] != "final" or ws_admitted != len(manager.ws_calls)
+            or len(gpu.executables) != keys):
+        raise AssertionError(f"(a): {admitted} admitted, WS {kinds}, "
+                             f"{ws_admitted} of {len(manager.ws_calls)} "
+                             f"through the pool, {len(gpu.executables) - keys}"
+                             f" fused keys built")
+    for name in ("flash_attention", "decode_attention", "qk_rope_kv",
+                 "qk_rope_kv_per_row"):
+        if not launches[name]:
+            raise AssertionError(f"(a) launched no {name}")
+    return launches
+
+
+def pool_bf16_phase(engine, card: str) -> dict:
+    """(b) preset:1.7b bf16 (phase 5's engine, its keys warm), the pool at
+    its defaults (8 -> 32 slots, segments of 16): the waves through the
+    server with the pool and through the micro-batcher with it off, in
+    turns (pool, batcher, batcher, pool): walls p50/p90 and tokens/s; a
+    45 s upload (long-form, fused) during a fifth run, through the pool,
+    equals its solo run; replays only; each segment graph records #3 and kernel B's
+    per-row route once a layer and step; a fixed schedule of 16 requests
+    (a compaction and re-layouts on the way) through the graphs and
+    eagerly gives the same bits; the agreement of the pool's tokens with
+    the micro-batcher's; the segment's device ms at windows 8, 16, 32."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    waves = wave_clips()
+    bodies = [[encode_wav(c, 16000) for c in wave] for wave in waves]
+    flat = [c for wave in waves for c in wave]
+    long_form = real_audio()[:45 * 16000]
+    solo = [r.token_ids for r in engine.transcribe(long_form, 16000)]
+    # the micro-batcher's keys at B=8 for the three buckets
+    for sec in POOL_WAVES:
+        bf, bs = engine.bucket_frames(int(sec * 16000))
+        engine._run_bucket([np.zeros(1600, np.float32)] * 8, bf, bs, None)
+    # phase 5 warmed the engine's keys: neither manager warms them again
+    # (the pool still captures its prefills for the warmup buckets)
+    batched, pooled = ModelManager(engine), ModelManager(engine)
+    batched.warmed = pooled.warmed = True
+    batched.batcher = MicroBatcher(batched, window_ms=200, max_batch=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    out = {}
+    with ws_serving(batched) as batch_url, environ(**POOL_ENV), \
+            ws_serving(pooled) as pool_url:
+        pool = pooled.pool
+        torch.cuda.empty_cache()
+        log(f"[pool] preset:1.7b bf16: the pool and its graphs take "
+            f"{(torch.cuda.memory_reserved() - reserved) / 2**30:.3f} GiB "
+            f"more reserved | {card}")
+        pool_report(pool, "preset:1.7b bf16", card)
+        runs = {"pool": [], "batcher": []}
+        # in turns, then once more through the pool with the 45 s upload
+        for turn, mode in enumerate(("pool", "batcher", "batcher", "pool",
+                                     "pool")):
+            mgr = pooled if mode == "pool" else batched
+            url = transcription_url(pool_url if mode == "pool"
+                                    else batch_url)
+            side = {}
+            if turn == 4:
+                side["thread"] = threading.Thread(target=lambda: side.update(
+                    ids=[r.token_ids for r in mgr.batcher.transcribe(
+                        long_form, 16000, None).result(timeout=600)]))
+            counter = PathLaunches(engine, pool)
+            dispatches = batched.batcher.dispatches
+            with generated_tokens(engine, pool if mode == "pool" else None) \
+                    as n, WindowTrace(pool) as trace:
+                if "thread" in side:
+                    side["thread"].start()
+                results, wall = send_waves(url, bodies)
+                if "thread" in side:
+                    side["thread"].join(timeout=600)
+            launches, eager = counter.read()
+            walls = [w for _, w in results.values()]
+            if turn < 4:
+                runs[mode].append((n[0] / wall, walls))
+            log(f"[pool] preset:1.7b bf16, {mode} run {turn + 1}"
+                + (" with the 45 s upload" if turn == 4 else "")
+                + f": 24 uploads "
+                f"({'/'.join(map(str, POOL_WAVES))} s waves of 8, "
+                f"{WAVE_GAP_S} s apart) in {wall:.3f} s, {n[0]} tokens = "
+                f"{n[0] / wall:.1f} tokens/s; request walls "
+                f"{percentiles(walls)}"
+                + (f"; windows {trace.seq}" if mode == "pool" else
+                   f"; {batched.batcher.dispatches - dispatches} dispatches")
+                + f"; launches {launches}, eager {eager} | {card}")
+            if mode == "pool":
+                if any(eager.values()):
+                    raise AssertionError(f"pool run: eager launches {eager}")
+                if 32 not in trace.seq or trace.seq[-1] != 8:
+                    raise AssertionError(f"pool windows {trace.seq}: want "
+                                         f"8 -> 16 -> 32 and back to 8")
+                if turn < 4 and (launches["decode_attention"]
+                                 or not launches["decode_attention_batch"]):
+                    raise AssertionError(f"pool run: launches {launches}")
+                for k, v in launches.items():
+                    out[k] = out.get(k, 0) + v
+            if "ids" in side:
+                log(f"[pool] the 45 s upload (long-form, {len(solo)} "
+                    f"segments, fused) during the pool run: token ids equal"
+                    f" to its solo run: {side['ids'] == solo}")
+                if side["ids"] != solo:
+                    raise AssertionError("the 45 s upload served beside the "
+                                         "pool differs from its solo run")
+        for mode, got in runs.items():
+            rates = [r for r, _ in got]
+            walls = [w for _, ws in got for w in ws]
+            log(f"[pool] preset:1.7b bf16, {mode}: {', '.join(f'{r:.1f}' for r in rates)} "
+                f"tokens/s; request walls {percentiles(walls)} | {card}")
+
+        # a fixed schedule: 8 cuts of the 10 s wave (rows 0-7) and 8 of the
+        # 30 s (rows 8-15) taken in one round, through the graphs and
+        # eagerly, in turns: the 10 s rows retire first, the 30 s ones are
+        # compacted into rows 0-7 and the window shrinks 16 -> 8
+        fixed = waves[2] + waves[0]
+        got = {}
+        for mode in ("graph", "eager", "eager", "graph"):
+            pool.eager = mode == "eager"
+            try:
+                with WindowTrace(pool) as trace:
+                    t0 = time.perf_counter()
+                    ids = pool_ids(pooled, fixed, under_lock=True)
+                    wall = time.perf_counter() - t0
+            finally:
+                pool.eager = False
+            got.setdefault("ids", ids)
+            log(f"[pool] fixed schedule, {mode}: {wall:.3f} s, windows "
+                f"{trace.seq}, rows moved so far {pool.moved}; ids equal to"
+                f" the first run's: {ids == got['ids']} | {card}")
+            if ids != got["ids"] or trace.seq[-1] != 8 or 16 not in trace.seq:
+                raise AssertionError(f"fixed schedule, {mode}: ids differ or"
+                                     f" windows {trace.seq}")
+        if not pool.moved:
+            raise AssertionError("the fixed schedule compacted no row")
+
+        # the pool's tokens against the micro-batcher's, in bf16
+        ours = pool_ids(pooled, flat)
+        futures = [batched.batcher.transcribe(c, 16000, None) for c in flat]
+        ref = [f.result(timeout=600)[0].token_ids for f in futures]
+        log(f"[pool] bf16 agreement, pool against the micro-batcher (B=8) "
+            f"on the 24 clips: {agreement(ours, ref)} | {card}")
+        segment_ms(pool, "preset:1.7b bf16", card)
+    return out
+
+
+def pool_quantized_phase(dev, card: str) -> dict:
+    """(c) the waves with QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4
+    ASR_INT8_ACT=true: the pool cache is fp8; a warm-up pass of the waves
+    captures the prefills, then a timed pass from replays only: kernel A
+    on windows of at most 16 rows, C at 32 and on the prompts, no W8A8."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    waves = wave_clips()
+    bodies = [[encode_wav(c, 16000) for c in wave] for wave in waves]
+    with environ(**DEFAULT_ENV, **POOL_ENV, SKIP_WARMUP="true"):
+        engine, _ = quantized_engine(dev, DEFAULT_ENV, card,
+                                     "int8 + int4 KV + W8A8, pooled")
+        manager = ModelManager(engine)
+        launches = pool_quantized_waves(engine, manager, bodies, card)
+    del engine, manager
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pool_quantized_waves(engine, manager, bodies, card: str) -> dict:
+    """(c)'s runs on ``manager``'s pool: the warm-up pass, then the timed
+    one and the segment's device ms. Returns the timed pass's launches."""
+    with ws_serving(manager) as url:
+        pool = manager.pool
+        url = transcription_url(url)
+        if pool.cache_dtype != torch.float8_e4m3fn:
+            raise AssertionError(f"int4 engine's pool cache "
+                                 f"{pool.cache_dtype}")
+        send_waves(url, bodies)
+        counter = PathLaunches(engine, pool)
+        with generated_tokens(engine, pool) as n, WindowTrace(pool) as trace:
+            results, wall = send_waves(url, bodies)
+        launches, eager = counter.read()
+        walls = [w for _, w in results.values()]
+        log(f"[pool] int8 + int4 KV (fp8 pool cache): 24 uploads in "
+            f"{wall:.3f} s, {n[0]} tokens = {n[0] / wall:.1f} tokens/s; "
+            f"request walls {percentiles(walls)}; windows {trace.seq}; "
+            f"launches {launches}, eager {eager} | {card}")
+        pool_report(pool, "int8 + int4 KV", card)
+        by_window = {w: g.recorded for w, g in pool._decode_fns.items()}
+        if (any(eager.values()) or 32 not in trace.seq
+                or launches["w8a8"] or launches["widened_product"]
+                or launches["decode_attention_batch_int4"]
+                or not launches["decode_attention_batch"]
+                or any(by_window[w].get("qgemm") for w in (8, 16))
+                or any(by_window[w].get("qgemv") for w in (32,))
+                or not by_window[32].get("qgemm")):
+            raise AssertionError(f"(c): launches {launches}, eager {eager}, "
+                                 f"windows {trace.seq}, recorded {by_window}")
+        segment_ms(pool, "int8 + int4 KV", card)
+    return launches
+
+
+def pool_phase(dev, bf16_engine, real) -> dict:
+    """Phase 12: continuous batching (``runtime/pool.py``), (a)-(c). Returns
+    each kernel's launches over the phase's runs, each counted from 0."""
+    card = card_line()
+    total = {}
+    for got in (pool_f32_phase(real, card), pool_bf16_phase(bf16_engine, card),
+                pool_quantized_phase(dev, card)):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    log(f"[pool] phase 12 launches {total}")
+    return total
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -3200,7 +3807,7 @@ def main() -> int:
     log(f"[shapes] {sh}")
     rows = kernel_phases(sh, dev)
     phase_done("phases 2-3 (kernel parity and timing)")
-    real_text_phase(dev)
+    real = real_text_phase(dev)
     phase_done("phase 4 (real text)")
     engine, uploads = full_width_engine(dev), upload_bodies()
     launches, solo = main_path_phase(engine, uploads, dev)
@@ -3246,6 +3853,16 @@ def main() -> int:
             raise AssertionError(f"phase 11 launched no {name}")
         launches[name] += side[name]
     phase_done("phase 11 (timestamps, subtitles, SSE, translations)")
+    pooled = pool_phase(dev, engine, real)
+    del real
+    # this slice's path, counted from 0 just before it
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch", "qgemv", "qgemm", "qk_rope_kv"):
+        if not pooled.get(name):
+            raise AssertionError(f"phase 12 launched no {name}")
+        launches[name] += pooled[name]
+    launches_per_row += pooled["qk_rope_kv_per_row"]
+    phase_done("phase 12 (continuous batching)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

@@ -42,7 +42,10 @@ _TICKETS = 4096          # ticket slots, one per (row, KV head) of a call
 # One zeroed ticket buffer per device, shared by the kernels that combine
 # across blocks (this one, ops/decode_attention_batch.py and
 # ops/slab_reader.py) and left zeroed by every call; calls on one device
-# share it, so they run one at a time (one stream, as the engine runs them).
+# share it, so they must run one at a time. They do on the serving path:
+# the queue's device thread and the decode pool's both launch on the
+# default stream, and a CUDA graph's build, whose eager run is on a side
+# stream, holds runtime/graphs.py's device_lock, which every replay takes.
 _tickets: Dict[torch.device, torch.Tensor] = {}
 
 

@@ -168,7 +168,10 @@ class MicroBatcher(_Collector):
                    language: Optional[str], return_timestamps: bool = False,
                    priority: int = STANDARD) -> concurrent.futures.Future:
         """A future of the request's results (a list of
-        ``TranscriptionResult``). Batched when possible; a solo job through
+        ``TranscriptionResult``). Through the decode pool when the manager
+        runs one and the request can pool (``pool_eligible``; whatever its
+        lane, as in ``qwen3_asr_tpu/runtime/batcher.py:352-355``); else
+        batched when possible; a solo job through
         ``manager.transcribe_sync`` for requests that cannot batch (word
         timestamps, resampling, multichannel, longer than MAX_SEGMENT_S,
         or a cap of 1). ``priority`` is the queue lane; a mixed group
@@ -176,6 +179,9 @@ class MicroBatcher(_Collector):
         from ..models.asr import normalize_language
         from .engine import MAX_SEGMENT_S, TARGET_SR
         mgr = self.manager
+        if mgr.pool_eligible(audio, sr, return_timestamps):
+            # the pool coalesces at the decode-step level
+            return mgr.transcribe_pooled(audio, sr, language)
         if (return_timestamps or sr != TARGET_SR or audio.ndim > 1
                 or len(audio) > MAX_SEGMENT_S * TARGET_SR
                 or self.max_batch <= 1):

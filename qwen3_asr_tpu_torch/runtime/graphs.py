@@ -8,16 +8,27 @@ captures the same work as CUDA graphs instead: ``Graph`` wraps one function
 that reads and writes only persistent tensors (allocated outside it) and
 replays it, and the engine keeps two per key (``runtime/engine.py``
 ``BucketExecutable``: everything up to the first token, and a chunk of
-decode steps from ``runtime/generate.py``).
+decode steps from ``runtime/generate.py``); the decode pool keeps one per
+bucket's prefill and one per slot window's segment (``runtime/pool.py``).
 
 On the card, building a ``Graph`` runs its function once eagerly on a side
 stream (the serving path's only eager run: it builds the kernels, sets
 their shared-memory opt-ins, allocates the ticket buffer, cuBLAS
 workspaces and cuFFT plans, none of which a capture may do), then captures
-it in thread-local mode, so other threads may use CUDA meanwhile. A
-failure in either raises; nothing falls back to running eagerly. On the CPU a
-``Graph`` is its function, run eagerly: the CPU tests run the very code the
-card captures, on the same persistent buffers.
+it in thread-local mode. A failure in either raises; nothing falls back to
+running eagerly. On the CPU a ``Graph`` is its function, run eagerly: the
+CPU tests run the very code the card captures, on the same persistent
+buffers.
+
+Two threads drive the card: the queue's device thread (the engine's keys)
+and the decode pool's. Both launch on the device's default stream, so
+their replays and eager ops run one after another there. The one other
+stream is the capture stream, where a build's eager run executes; a build
+waits for the default stream before it starts and makes the default stream
+wait for it when it ends, and it holds ``device_lock`` from start to end,
+which every replay takes while it is enqueued. So no kernel of a build runs
+beside a replay (the decode kernels share one ticket buffer,
+``ops/decode_attention.py``), and no two captures overlap.
 
 The wrappers' launch counters move when a kernel is launched eagerly or
 recorded into a capture, never on a replay; ``Graph.recorded`` keeps what
@@ -27,15 +38,17 @@ launches are the eager ones plus recorded × replays (``launches``).
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
 # One capture stream per device: warm-up and capture run on the same stream
-# (so the capture finds the cuBLAS workspace its warm-up allocated), and
-# captures happen on one thread at a time (the queue's device thread).
+# (so the capture finds the cuBLAS workspace its warm-up allocated).
 _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
+# Held by a build from start to end and by a replay while it is enqueued.
+device_lock = threading.RLock()
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -72,7 +85,9 @@ class Graph:
     a replay redoes its work on whatever those tensors hold. Graphs built
     with one ``pool`` share their memory for temporaries; that is safe
     because nothing a graph leaves for later lives in the pool and replays
-    never overlap (one device thread, one stream)."""
+    never overlap: every replay runs on the default stream, and no build's
+    eager run beside one (``device_lock``). The engine's keys share one
+    pool and the decode pool's graphs another."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
                  pool=None):
@@ -83,6 +98,10 @@ class Graph:
         self.capture_s = 0.0     # warm-up run and capture, seconds
         if device.type != "cuda":
             return
+        with device_lock:
+            self._build(fn, device, pool)
+
+    def _build(self, fn, device, pool) -> None:
         t0 = time.perf_counter()
         stream = _capture_streams.get(device)
         if stream is None:
@@ -116,8 +135,9 @@ class Graph:
         if self.graph is None:
             self.fn()
             return
-        self.graph.replay()
-        self.replays += 1
+        with device_lock:
+            self.graph.replay()
+            self.replays += 1
 
 
 def launches(graphs: Iterable[Graph], eager: Dict[str, int]

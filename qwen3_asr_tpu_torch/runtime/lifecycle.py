@@ -12,17 +12,21 @@ the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
 and the server use (the micro-batcher, the tick batcher, the live WS
 session count, ``transcribe_sync``), and warms the engine's executables on
 start (``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it), refusing first
-a WS mode the port does not serve (``config.check_ws_modes``). Idle
-unload, the watchdog, the fast engine and the pool are not ported yet
-(ROADMAP §1 item 7).
+a WS mode the port does not serve (``config.check_ws_modes``), and under
+``ASR_CONTINUOUS_BATCHING=true`` then builds the decode pool
+(``runtime/pool.py``) and routes the requests it can serve there
+(``pool_eligible``, ``transcribe_pooled``). Idle unload, the watchdog and
+the fast engine are not ported yet (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import os
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..models.asr import AsrModel, PromptTemplate
@@ -36,8 +40,10 @@ from ..utils.device import resolve_device, working_dtype
 from ..config import check_ws_modes
 from .batcher import MicroBatcher, TickBatcher
 from .checkpoint import load_asr_checkpoint
-from .engine import AUDIO_BUCKETS_S, TranscriptionEngine
-from .queue import PriorityInferQueue
+from .engine import (AUDIO_BUCKETS_S, MAX_SEGMENT_S, TARGET_SR,
+                     TranscriptionEngine, TranscriptionResult, _prep_audio,
+                     _response_language)
+from .queue import PriorityInferQueue, settle
 
 log = logging.getLogger(__name__)
 
@@ -182,14 +188,25 @@ def load_engine(model_id: str, device="cuda",
     return engine
 
 
+def _relay(source: concurrent.futures.Future,
+           reply: concurrent.futures.Future) -> None:
+    """Settle ``reply`` with what ``source`` settled with."""
+    try:
+        settle(reply, result=source.result())
+    except (Exception, concurrent.futures.CancelledError) as e:
+        settle(reply, exc=e)
+
+
 class ModelManager:
     """Owns the engine and its scheduler; one per serving process.
 
     ``start()`` warms the engine's executables for ``_warmup_buckets()``
-    (once per manager, unless ``SKIP_WARMUP=true``), then starts the
-    queue's device thread; ``stop()`` settles every job still waiting for
-    it. ``REQUEST_TIMEOUT`` (seconds, default 300) bounds how long the
-    server waits for one transcription."""
+    (once per manager, unless ``SKIP_WARMUP=true``), builds the decode pool
+    under ``ASR_CONTINUOUS_BATCHING=true`` (its graphs captured for the
+    same buckets), then starts the queue's device thread; ``stop()`` stops
+    the pool and settles every job still waiting for the device thread.
+    ``REQUEST_TIMEOUT`` (seconds, default 300) bounds how long the server
+    waits for one transcription."""
 
     def __init__(self, engine: TranscriptionEngine):
         self.engine = engine
@@ -203,6 +220,7 @@ class ModelManager:
         self.ws_lock = threading.Lock()
         self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
         self.warmed = False
+        self.pool = None
 
     def transcribe_sync(self, audio, sr: int, lang_code: Optional[str],
                         return_timestamps: bool = False,
@@ -220,14 +238,78 @@ class ModelManager:
 
     def start(self) -> None:
         check_ws_modes()
-        if not self.warmed and os.getenv("SKIP_WARMUP",
-                                         "").lower() != "true":
+        warm = os.getenv("SKIP_WARMUP", "").lower() != "true"
+        if not self.warmed and warm:
             self.engine.warmup(_warmup_buckets())
             self.warmed = True
+        # Continuous batching: pooled decode slots share every weight read
+        # across concurrent requests; opt-in, as in the JAX package, since
+        # the fused path has the better single-stream latency.
+        if (self.pool is None and os.getenv("ASR_CONTINUOUS_BATCHING",
+                                            "").lower() == "true"):
+            from .pool import DecodePool
+            self.pool = DecodePool(self.engine,
+                                   buckets=_warmup_buckets() if warm else ())
         self.queue.start()
 
     def stop(self) -> None:
-        """Stop the device thread and unload the forced aligner."""
+        """Stop the pool and the device thread, and unload the forced
+        aligner."""
         from ..sidecars import subtitle
+        pool, self.pool = self.pool, None
+        if pool is not None:
+            pool.stop()
         self.queue.stop()
         subtitle.unload_aligner()
+
+    def pool_eligible(self, audio, sr: int, return_timestamps: bool) -> bool:
+        """Requests the decode pool can serve: plain mono transcription up
+        to one segment; everything else keeps the fused path."""
+        return (self.pool is not None and not return_timestamps
+                and sr == TARGET_SR and np.asarray(audio).ndim == 1
+                and len(audio) <= MAX_SEGMENT_S * TARGET_SR)
+
+    def transcribe_pooled(self, audio, sr: int, language
+                          ) -> concurrent.futures.Future:
+        """Continuous-batching route: a future of the request's results,
+        greedy-identical to the fused path's. A request that meets a
+        stopped pool is served on the fused path (``PoolStoppedError``, as
+        JAX's ``transcribe_pooled`` does)."""
+        from ..models.asr import normalize_language
+        from .pool import PoolStoppedError
+        audio = _prep_audio(audio, sr)
+        reply: concurrent.futures.Future = concurrent.futures.Future()
+        if len(audio) == 0:
+            reply.set_result([])
+            return reply
+        pool = self.pool        # a snapshot: stop() nulls it
+        if pool is None:
+            return self._pooled_fallback(audio, language)
+        lang_code, _ = normalize_language(language)
+        end_t = len(audio) / TARGET_SR
+
+        def ok(text, ids):
+            settle(reply, result=[TranscriptionResult(
+                text=text, language=_response_language(text, lang_code),
+                start_time=0.0, end_time=end_t, token_ids=ids)])
+
+        def err(e):
+            if not isinstance(e, PoolStoppedError):
+                settle(reply, exc=e)
+                return
+            try:
+                fused = self._pooled_fallback(audio, language)
+            except Exception as e2:   # the queue has stopped too
+                settle(reply, exc=e2)
+                return
+            fused.add_done_callback(lambda f: _relay(f, reply))
+
+        pool.submit(audio, language, ok, err)
+        return reply
+
+    def _pooled_fallback(self, audio, language) -> concurrent.futures.Future:
+        """Fused-path service for a request that raced a stopped pool."""
+        from ..models.asr import normalize_language
+        lang_code, _ = normalize_language(language)
+        return self.queue.submit(lambda: self.transcribe_sync(
+            audio, TARGET_SR, lang_code, False))

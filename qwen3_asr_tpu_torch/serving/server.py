@@ -4,7 +4,9 @@ Counterpart of ``qwen3_asr_tpu/serving/server.py``'s public routes, with
 its request forms, answers, error codes and statuses:
 
 - ``GET /health``, with the forced aligner's state (``aligner``:
-  ``loaded``, ``unavailable_retrying`` or ``not_loaded``);
+  ``loaded``, ``unavailable_retrying`` or ``not_loaded``) and, when the
+  decode pool runs, ``continuous_batching`` (``slots``, ``window``,
+  ``depth``);
 - ``POST /v1/audio/transcriptions`` (multipart ``file``, ``language``,
   ``return_timestamps``): ``{"text", "language"}`` and, with timestamps,
   ``"timestamps"``; under ``ASR_TIMESTAMP_MODE=accurate`` (the default)
@@ -41,6 +43,10 @@ qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
 ``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``, ``int4``), ``ASR_INT8_ACT``,
 ``ASR_MAX_BATCH`` (8),
 ``ASR_BATCH_WINDOW_MS`` (20) and ``REQUEST_TIMEOUT`` (300 s) tune it;
+``ASR_CONTINUOUS_BATCHING=true`` sends uploads, SSE chunks and batched WS
+flushes that can pool to the decode pool (``runtime/pool.py``;
+``ASR_POOL_SLOTS``, ``ASR_POOL_MAX_SLOTS``, ``ASR_POOL_SEGMENT``,
+``ASR_POOL_WS``);
 the WS session's knobs are listed in ``serving/ws.py``, the translator's
 in ``sidecars/translator.py``.
 """
@@ -274,7 +280,17 @@ class _Handler(BaseHTTPRequestHandler):
         if route != "/health":
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
-        engine = self.server.manager.engine
+        mgr = self.server.manager
+        engine, pool = mgr.engine, mgr.pool
+        # the decode pool's cache, state and graphs count as the engine's
+        # keys do (the e2e memory gate reads both fields)
+        held = engine.held_bytes() + (pool.held_bytes() if pool else 0)
+        graphs = engine.executable_count + (pool.executable_count
+                                            if pool else 0)
+        pooled = ({"continuous_batching": {"slots": pool.max_slots,
+                                           "window": pool.window,
+                                           "depth": pool.depth}}
+                  if pool is not None else {})
         self._json(200, {"status": "ok",
                          "model_loaded": True,
                          "model_id": engine.model_id,
@@ -283,11 +299,10 @@ class _Handler(BaseHTTPRequestHandler):
                          "kv_cache_dtype": str(engine.cache_dtype).replace(
                              "torch.", ""),
                          **health_memory(engine.device),
-                         "device_arrays_mb": round(engine.held_bytes()
-                                                   / 1024 ** 2),
-                         "executable_count": engine.executable_count,
-                         "active_ws_sessions":
-                             self.server.manager.ws_sessions,
+                         "device_arrays_mb": round(held / 1024 ** 2),
+                         "executable_count": graphs,
+                         **pooled,
+                         "active_ws_sessions": mgr.ws_sessions,
                          "aligner": self.server.aligner_state()})
 
     def do_POST(self):

@@ -22,8 +22,10 @@ Two parts:
    ``solo``) or, in mode ``tick``, coalesced with other sessions' ticks by
    the manager's ``TickBatcher``; at ``ASR_WS_TICK_MIN_SESSIONS`` (3) or
    more sessions concurrent finals go through the micro-batcher. All of it
-   on the express lane. The host DSP of a tick (s16 → f32, the 300-3400 Hz
-   bandpass) is numpy; the VAD runs on the engine's device.
+   on the express lane; with the decode pool running and
+   ``ASR_POOL_WS=true``, a solo tick or flush goes to the pool instead.
+   The host DSP of a tick (s16 → f32, the 300-3400 Hz bandpass) is numpy;
+   the VAD runs on the engine's device.
 
 The messages and their order are the JAX server's: the greeting
 ``{"status": "connected", "sample_rate", "format", "buffer_size",
@@ -364,11 +366,16 @@ def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
             and os.getenv("ASR_WS_BATCH_FLUSH", "true").lower() == "true"
             and mgr.ws_sessions >= int(
                 os.getenv("ASR_WS_TICK_MIN_SESSIONS", "3") or 3))
+        # WS ticks keep the resume path unless ASR_POOL_WS=true, as in the
+        # JAX server (qwen3_asr_tpu/serving/server.py:558-585)
+        pool_ws = os.getenv("ASR_POOL_WS", "").lower() == "true"
         if batch_flush:
             # concurrent finals coalesce into one batched dispatch; their
             # results keep their token ids
             future = mgr.batcher.transcribe(audio, TARGET_SR, lang_code,
                                             priority=EXPRESS)
+        elif pool_ws and mgr.pool_eligible(audio, TARGET_SR, False):
+            future = mgr.transcribe_pooled(audio, TARGET_SR, lang_code)
         else:
             future = mgr.queue.submit(
                 lambda: mgr.transcribe_sync(audio, TARGET_SR, lang_code,
