@@ -15,7 +15,9 @@ without a CUDA device, and whenever any phase fails. Phases:
    single-token decode step at B=1 and B=4 in f32 (TF32 off) and bf16; the
    batched decode step at S=768 for B=1 and B=8 with bf16 and fp8 caches,
    and at the JAX serving shape B=96, S=512 with fp8; the slab-read probe
-   at its three shapes; and the quantized configurations' kernels: the
+   at its five shapes (bf16, fp8 and the packed int4 cache with its scale
+   rows at B=8 S=768; fp8 and int4 at B=96 S=512); and the quantized
+   configurations' kernels: the
    quantized GEMV (kernel A) at M = 1, 8 and 16 for every preset:1.7b
    projection, the tied lm_head and the decoder's two grouped launches
    (q/k/v, gate/up), int8, fp8 and int4 (group scales; library call: one
@@ -71,7 +73,8 @@ without a CUDA device, and whenever any phase fails. Phases:
    them): wall, device busy share, the top kernels, and one decode kernel
    per layer and computed step;
 8. the KV read-rate probe (``tools_perf/attn_phase.py``) at its shapes,
-   each beside kernel #3's read rate at the same B and cache dtype;
+   each beside kernel #3's read rate at the same B and cache dtype (its
+   int4 route's for the int4 shapes);
 9. the JAX package's default serving configuration: preset:1.7b with
    ``QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true`` (weight
    bytes before and after), its keys warmed, the 30 s upload at B=1 and 8
@@ -149,7 +152,28 @@ without a CUDA device, and whenever any phase fails. Phases:
    an fp8 pool cache, kernel A on windows of 8 and 16 rows, kernel C at
    32 and on the prompts, no W8A8. Phases 2 and 3 also hold #3 at the
    pool's windows (8, 16, 32 rows of S=768, per-row valid_from and
-   valid_to; bf16 and fp8).
+   valid_to; bf16 and fp8);
+13. WS prefix caching, ``ASR_WS_STREAM_MODE=prefix``
+   (``runtime/stream.py``): (a) trained_ckpt in f32 at an 8.5 s cap, a
+   quiet real clip then a loud one in 450 ms ticks with chunk trims: every
+   tick's token ids equal the fused resume path's at the pinned bucket on
+   the card and the CPU session's; tail, full and redo ticks all seen; two
+   sessions in turns (the working buffers handed over) equal their solo
+   runs; graph = eager bit for bit (ids, the prompt's keys, the audio
+   tokens); (b) preset:1.7b bf16 (phase 5's engine) at a 30 s cap: its
+   stream keys warmed (seconds, graphs, capture, memory), one session over
+   WS streaming 40 s of the real clips tiled, unpaced: partial wall
+   p50/p90, each tick's stream ms by kind (tail at each rung, full, redo),
+   the session's memory, its hand-overs (none), replays only; each stream
+   graph's device ms and a hand-over's copies; then the same audio in mode
+   ``solo`` (its resume keys warmed first): partial wall p50/p90; (c) the
+   same prefix session with ``QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4
+   ASR_INT8_ACT=true``: an fp8 session cache, #3 at B=1, kernels A and C.
+   The phase fails on a bind failure (``serving/ws.py``
+   ``prefix_bind_failures``) or a VAD failure. Phases 2 and 3 also hold
+   flash at the mode's shapes: the segment prefill at T = 64 and 389
+   (q_offset = P - T, S=768) and one encoder block (T = 50 and 25, windows
+   of 50), f32 and bf16, repeat bits, kernel, plain and SDPA ms.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -451,19 +475,19 @@ def slab_cases(dev):
     """The slab-read probe (kernel #4) at the probe's shapes, on the last
     layer of its seeded cache. (label, kernel call, plain call, bytes,
     layers)."""
-    from qwen3_asr_tpu_torch.ops.slab_reader import (slab_read,
+    from qwen3_asr_tpu_torch.ops.slab_reader import (slab_bytes, slab_read,
                                                      slab_read_plain)
     from qwen3_asr_tpu_torch.tools_perf.attn_phase import (
         LAYERS, NKV, SHAPES, stacked_cache)
     for name, batch, seq, dtype in SHAPES:
-        k, v = stacked_cache(batch, seq, dtype, dev)
+        cache = stacked_cache(batch, seq, dtype, dev)
         yield (name,
-               lambda layer, k=k, v=v: slab_read(k, v, layer_idx=layer,
-                                                 seed=1),
-               lambda layer, k=k, v=v: slab_read_plain(
-                   k, v, layer_idx=layer, seed=1, block_s=128),
-               2 * batch * NKV * seq * 128 * k.element_size(), LAYERS)
-        del k, v
+               lambda layer, c=cache: slab_read(**c, layer_idx=layer,
+                                                seed=1),
+               lambda layer, c=cache: slab_read_plain(
+                   **c, layer_idx=layer, seed=1, block_s=128),
+               slab_bytes(batch, NKV, seq, dtype), LAYERS)
+        del cache
 
 
 def per_call_ms(fn, layers: int) -> float:
@@ -643,6 +667,7 @@ def kernel_phases(sh, dev):
     ws_kernel_rows(sh, dev, card, rows)
     aligner_kernel_rows(sh, dev, card, rows)
     pool_kernel_rows(sh, dev, card, rows)
+    stream_kernel_rows(sh, dev, card, rows)
     return rows
 
 
@@ -1467,6 +1492,98 @@ def aligner_kernel_rows(sh, dev, card, rows) -> None:
             torch.cuda.empty_cache()
 
 
+STREAM_SEGMENTS = (64, 389)     # segment prefills timed: T at the 30 s cap
+
+
+def stream_flash_cases(sh, dtype, dev):
+    """Flash at the prefix mode's shapes (``runtime/stream.py``, a 30 s
+    cap): the segment prefill, T = 64 (a tail tick, q_offset = 389) and
+    T = 389 (a rebuild from 64), causal at q_offset = P - T over the whole
+    cache (S=768), left-padded from valid_from; and one encoder block,
+    [1, 20, 50, 64] and the last, half block [1, 20, 25, 64], windows of
+    50. make_cases' tuple."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    nq, nkv, d, s, plen = (sh["nq"], sh["nkv"], sh["d"], sh["cache"],
+                           sh["prompt_len"])
+    esize = torch.tensor([], dtype=dtype).element_size()
+    vf0 = sh["valid_from"]
+    for t in STREAM_SEGMENTS:
+        gen = torch.Generator(device=dev).manual_seed(t)
+        q = torch.randn((1, nq, t, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((1, nkv, s, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        off = plen - t
+        vf = torch.full((1,), vf0, dtype=torch.int32, device=dev)
+        vt = torch.full((1,), s, dtype=torch.int32, device=dev)
+        qo = torch.full((1,), off, dtype=torch.int32, device=dev)
+        mask = AttnSpec(causal=True, q_offset=off, valid_from=vf
+                        ).dense_mask(1, t, s, dev)
+        yield (f"segment_prefill_t{t}", "flash_attention",
+               lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo: flash_attention(
+                   q, k, v, causal=True, q_offset=qo, kv_valid_from=vf,
+                   kv_valid_to=vt, return_residuals=True),
+               lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo:
+                   flash_attention_plain(q, k, v, vf, vt, qo, causal=True,
+                                         window_block=0, sm_scale=d ** -0.5),
+               lambda q=q, k=k, v=v, mask=mask:
+                   F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask[:, None], enable_gqa=True),
+               (2 * nq * t * d + 2 * nkv * (plen - vf0) * d) * esize
+               + 2 * 4 * nq * t + 3 * 4,
+               4 * d * nq * int(mask.sum()), 0)
+        del k, v
+    h, d, w = sh["enc_heads"], sh["enc_d"], sh["window"]
+    for t in (w, w // 2):
+        gen = torch.Generator(device=dev).manual_seed(t)
+        q, k, v = (torch.randn((1, h, t, d), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        vt = torch.full((1,), t, dtype=torch.int32, device=dev)
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        mask = AttnSpec(window_block=w, valid_to=vt).dense_mask(1, t, t, dev)
+        yield (f"encoder_block_t{t}", "flash_attention",
+               lambda q=q, k=k, v=v, vt=vt, zero=zero: flash_attention(
+                   q, k, v, q_offset=zero, kv_valid_from=zero,
+                   kv_valid_to=vt, window_block=w, return_residuals=True),
+               lambda q=q, k=k, v=v, vt=vt, zero=zero: flash_attention_plain(
+                   q, k, v, zero, vt, zero, causal=False, window_block=w,
+                   sm_scale=d ** -0.5),
+               lambda q=q, k=k, v=v, mask=mask:
+                   F.scaled_dot_product_attention(q, k, v,
+                                                  attn_mask=mask[:, None]),
+               4 * h * t * d * esize + 2 * 4 * h * t + 3 * 4,
+               4 * d * h * int(mask.sum()), 0)
+
+
+def stream_kernel_rows(sh, dev, card, rows) -> None:
+    """Parity (phase 2, f32 and bf16, a repeat call's bits) and timing
+    (phase 3, bf16) of flash at the prefix mode's shapes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[dtype]
+        dt = str(dtype).replace("torch.", "")
+        for label, kernel, run, plain, sdpa, nbytes, flops, layers in \
+                stream_flash_cases(sh, dtype, dev):
+            outs, refs = run(), plain()
+            torch.cuda.synchronize()
+            err = float((outs[0].float() - refs[0].float()).abs().max())
+            for a, b in zip(outs[1:], refs[1:]):
+                torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+            same_bits(kernel, label, outs, run())
+            log(f"[parity] {label} {dt}: max_abs_err={err:.3e} (bound "
+                f"{tol:g}); m and l within it; a repeat call's bits equal")
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {label} {dt}: error {err} "
+                                     f"above {tol}")
+            if dtype == torch.bfloat16:
+                if label == "segment_prefill_t64":
+                    one_kernel_per_call(kernel, label, run)
+                rows[kernel].append(time_row(label, dt, err, run, plain,
+                                             sdpa, nbytes, flops, layers,
+                                             card))
+            del outs, refs
+
+
 # -- phase 4 ---------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1629,8 +1746,8 @@ class PathLaunches:
     """Each kernel's launches while the main path runs. The engines run
     captured CUDA graphs, and a replay moves no wrapper counter: a kernel's
     launches are the counters' (eager launches) plus, for every graph of
-    ``engines`` (engines, or decode pools), what its capture recorded
-    times its replays. A graph
+    ``engines`` (engines with their stream graphs, or decode pools), what
+    its capture recorded times its replays. A graph
     built inside the window (a key's first request) has added its
     capture's recording to the counters, which launched nothing: that is
     taken out, and its warm-up run before the capture stays, as eager.
@@ -1661,7 +1778,8 @@ class PathLaunches:
             "widened_product": (widened_product, "cuda_calls"),
             "qk_rope_kv": (qk_rope_kv_write, "launches"),
             "qk_rope_kv_per_row": (qk_rope_kv_write, "launches_per_row"),
-            "slab_reader": (slab_read, "launches")}
+            "slab_reader": (slab_read, "launches"),
+            "slab_reader_int4": (slab_read, "launches_int4")}
         self.engines = engines
         for w, attr in self.counters.values():
             setattr(w, attr, 0)
@@ -1674,7 +1792,8 @@ class PathLaunches:
         return [g for e in self.engines
                 for g in (e.graphs() if hasattr(e, "graphs") else
                           [g for x in e.executables.values()
-                           for g in (x.front, x.chunk)])]
+                           for g in (x.front, x.chunk)]
+                          + e.stream_graphs())]
 
     def read(self):
         """(launches, eager launches) of each kernel since construction."""
@@ -2043,13 +2162,15 @@ def profile_phase(engine, wav: bytes, top: int = 12,
 # the batched decode case (kernel #3) at each probe shape's B and dtype
 PROBE_TWIN = {"engine_b8_s768_bf16": "batched_b8_s768_bf16",
               "engine_b8_s768_fp8": "batched_b8_s768_fp8",
-              "jax_default_b96_s512_fp8": "batched_b96_s512_fp8"}
+              "jax_default_b96_s512_fp8": "batched_b96_s512_fp8",
+              "engine_b8_s768_int4": "int4_b8_s768",
+              "jax_default_b96_s512_int4": "int4_b96_s512"}
 
 
 def probe_phase(batched_rows):
     """The KV read-rate probe at its shapes, each beside kernel #3's read
-    rate at the same B and cache dtype (phase 3). Returns its rows and the
-    launches."""
+    rate at the same B and cache dtype (phase 3; its int4 route's rows
+    for the int4 shapes). Returns its rows and the launches."""
     from qwen3_asr_tpu_torch.tools_perf.attn_phase import probe
     card = card_line()
     counter = PathLaunches()
@@ -2059,15 +2180,18 @@ def probe_phase(batched_rows):
         twin = next(x for x in batched_rows
                     if x["shape"] == PROBE_TWIN[r["shape"]])
         rate = twin["bytes"] / twin["ms"] / 1e6
+        earlier = EARLIER_MS.get(r["shape"])
         log(f"[probe] {r['shape']}: {r['ms']:.4f} ms per layer "
             f"({r['bytes'] / 1e6:.1f} MB), {r['gb_s']:.0f} GB/s = "
-            f"{r['share']:.1%} of 3.35 TB/s (before the redesign, "
-            f"PERF.md: {EARLIER_MS[r['shape']]:.4f} ms); kernel #3 "
+            f"{r['share']:.1%} of 3.35 TB/s"
+            + (f" (before the redesign, PERF.md: {earlier:.4f} ms)"
+               if earlier else "") + "; kernel #3 "
             f"{twin['shape']} "
             f"reads {rate:.0f} GB/s = {rate / r['gb_s']:.1%} of the probe's "
             f"rate | {card}")
-    if not launches["slab_reader"]:
-        raise AssertionError(f"the probe launched no slab read: {launches}")
+    if not launches["slab_reader"] or not launches["slab_reader_int4"]:
+        raise AssertionError(f"the probe launched no slab read (or no int4 "
+                             f"one): {launches}")
     return rows, launches
 
 
@@ -3747,6 +3871,396 @@ def pool_phase(dev, bf16_engine, real) -> dict:
     return total
 
 
+# -- phase 13 --------------------------------------------------------------------
+
+STREAM_CAP_F32 = 8.5      # (a): pins trained_ckpt's 10 s bucket, 5 blocks
+STREAM_CAP_S = 30.0       # (b), (c): pins the 30 s bucket, 8 blocks
+STREAM_SECONDS = 40.0     # (b), (c): the real clips tiled, unpaced
+# a lone session: no batched flush keys to warm, and the cap's bucket
+STREAM_ENV = {"ASR_WS_STREAM_MODE": "prefix", "WS_WINDOW_MAX_S": "30",
+              "ASR_WS_TICK_MAX_BATCH": "1", "ASR_WARMUP_BUCKETS": "30",
+              "ASR_WARMUP_BATCH_SHAPES": ""}
+
+
+@contextlib.contextmanager
+def ws_cap(cap_s: float):
+    """The WS route's window cap (module constants read at its import)."""
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    saved = ws_mod.WS_WINDOW_MAX_S, ws_mod.WS_WINDOW_MAX_BYTES
+    ws_mod.WS_WINDOW_MAX_S = cap_s
+    ws_mod.WS_WINDOW_MAX_BYTES = int(cap_s * 16000 * 2)
+    try:
+        yield
+    finally:
+        ws_mod.WS_WINDOW_MAX_S, ws_mod.WS_WINDOW_MAX_BYTES = saved
+
+
+def stream_windows(audio: np.ndarray, cap_s: float, chunk: int) -> list:
+    """The partial windows of a WS session: 450 ms appends, trimmed at the
+    cap in ``chunk``-sample steps."""
+    cap, tick = int(cap_s * 16000), int(0.45 * 16000)
+    window, out = np.zeros(0, np.float32), []
+    for off in range(0, len(audio), tick):
+        window = np.concatenate([window, audio[off:off + tick]])
+        if len(window) > cap:
+            window = window[-(-(len(window) - cap) // chunk) * chunk:]
+        out.append(window)
+    return out
+
+
+class TickTimer:
+    """Each session tick's stream time (CUDA events around
+    ``StreamSession._run``, which ends on its one host read) and kind:
+    ``full`` (from position 0), ``redo`` (the clamp max proven wrong),
+    ``tail@<rung>``."""
+
+    def __init__(self):
+        from qwen3_asr_tpu_torch.runtime.stream import StreamSession
+        self.cls, self.orig, self.ticks = StreamSession, \
+            StreamSession._run, []
+        timer = self
+
+        def timed(sess, window, changed, clamp, seg_start):
+            redo = sess.stats["redo"] > getattr(sess, "_timer_redo", 0)
+            sess._timer_redo = sess.stats["redo"]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = timer.orig(sess, window, changed, clamp, seg_start)
+            end.record()
+            end.synchronize()
+            kind = ("redo" if redo else "full" if seg_start == 0
+                    else f"tail@{seg_start}")
+            timer.ticks.append((kind, len(changed),
+                                sess.last_run["chunks"],
+                                start.elapsed_time(end)))
+            return out
+
+        StreamSession._run = timed
+
+    def close(self) -> None:
+        self.cls._run = self.orig
+
+    def report(self, name: str, card: str) -> dict:
+        kinds = {}
+        for kind, changed, chunks, ms in self.ticks:
+            kinds.setdefault(kind, []).append((changed, chunks, ms))
+        out = {}
+        for kind, rows in sorted(kinds.items()):
+            ms = [r[2] for r in rows]
+            out[kind] = float(np.median(ms))
+            log(f"[stream] {name}: {kind}: {len(rows)} tick(s), stream ms "
+                f"median {np.median(ms):.2f} (min {min(ms):.2f}, max "
+                f"{max(ms):.2f}), blocks encoded {np.mean([r[0] for r in rows]):.1f}, "
+                f"chunks of 8 steps {np.mean([r[1] for r in rows]):.1f} | "
+                f"{card}")
+        return out
+
+
+def session_launch_check(name: str, launches: dict, want) -> None:
+    missing = [k for k in want if not launches.get(k)]
+    if missing or launches.get("widened_product"):
+        raise AssertionError(f"{name}: no launch of {missing} (launches "
+                             f"{launches})")
+
+
+def stream_f32_phase(dev, card: str) -> dict:
+    """(a) trained_ckpt f32, cap 8.5 s: a quiet real clip then a loud one
+    in 450 ms ticks with chunk trims; every tick's ids equal the fused
+    resume path's at the pinned bucket on the card and the CPU session's;
+    tail, full and redo ticks; two interleaved sessions give their solo
+    ids; graph = eager bit for bit. Returns the session's launches."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    ckpt = os.path.join(DATA, "trained_ckpt")
+    gpu = load_engine(ckpt, device=dev, dtype=torch.float32)
+    cpu = load_engine(ckpt, device="cpu")
+
+    def clip(name):
+        with open(os.path.join(DATA, "real", name), "rb") as f:
+            return decode_audio(f.read())[0]
+
+    chunk = gpu.model.cfg.encoder.n_window * 2 * 160
+    audio_a = np.concatenate([0.3 * clip("english_01.wav"),
+                              3.0 * clip("english_02.wav")[:48000]])
+    audio_b = 0.5 * clip("chinese_01.wav")
+    wins_a = stream_windows(audio_a.astype(np.float32), STREAM_CAP_F32, chunk)
+    wins_b = stream_windows(audio_b.astype(np.float32), STREAM_CAP_F32, chunk)
+    frames, bucket_s = gpu.bucket_frames(int(STREAM_CAP_F32 * 16000))
+
+    def solo(engine, wins, lang, eager=False):
+        sess = engine.stream_session(STREAM_CAP_F32, lang)
+        sess.eager = eager
+        ids = [sess.update(w)[1] for w in wins]
+        return sess, ids
+
+    from qwen3_asr_tpu_torch.runtime.stream import warm_stream_keys
+    warm_stream_keys(gpu, STREAM_CAP_F32)
+    counter = PathLaunches(gpu)
+    sess_a, ids_a = solo(gpu, wins_a, "en")
+    launches, eager = counter.read()
+    work = sess_a.work
+    plen = sess_a.prompt_len
+    snap = [x[:, :, :, :plen].clone() for x in work.loop.cache[:2]]
+    snap.append(work.audio.clone())
+    stats = dict(sess_a.stats)
+    sess_a.release()
+    fused, prev = [], []
+    for w in wins_a:
+        prev = gpu._run_bucket([w], frames, bucket_s, "en",
+                               resume_tokens=list(prev))[1][0]
+        fused.append(prev)
+    cpu_sess, cpu_ids = solo(cpu, wins_a, "en")
+    same_fused = sum(a == b for a, b in zip(ids_a, fused))
+    same_cpu = sum(a == b for a, b in zip(ids_a, cpu_ids))
+    log(f"[stream] (a) trained_ckpt f32, cap {STREAM_CAP_F32} s: "
+        f"{len(wins_a)} ticks, stats {stats}; token ids equal to the "
+        f"fused resume path on the card at the pinned bucket on "
+        f"{same_fused}/{len(wins_a)} ticks and to the CPU session on "
+        f"{same_cpu}/{len(wins_a)}; CPU stats {cpu_sess.stats}; launches "
+        f"{launches} ({eager} eager) | {card}")
+    if same_fused != len(wins_a) or same_cpu != len(wins_a) or not (
+            stats["tail"] and stats["full"] and stats["redo"]):
+        raise AssertionError(f"(a): fused {same_fused}, CPU {same_cpu} of "
+                             f"{len(wins_a)} ticks; stats {stats}")
+    # two sessions in turns against their solo runs
+    sess_b, ids_b = solo(gpu, wins_b, "zh")
+    sess_b.release()
+    before = work.handovers
+    a, b = gpu.stream_session(STREAM_CAP_F32, "en"), gpu.stream_session(
+        STREAM_CAP_F32, "zh")
+    got_a, got_b = [], []
+    for i in range(max(len(wins_a), len(wins_b))):
+        if i < len(wins_a):
+            got_a.append(a.update(wins_a[i])[1])
+        if i < len(wins_b):
+            got_b.append(b.update(wins_b[i])[1])
+    handovers = work.handovers - before
+    log(f"[stream] (a) two sessions in turns: {handovers} hand-overs of "
+        f"the working buffers ({work.state_bytes() / 1e6:.2f} MB each "
+        f"way); each equal to its solo run: {got_a == ids_a} / "
+        f"{got_b == ids_b} | {card}")
+    if got_a != ids_a or got_b != ids_b or not handovers:
+        raise AssertionError("(a): interleaved sessions differ from their "
+                             "solo runs")
+    a.release()
+    b.release()
+    # graph = eager, bit for bit: the ids of every tick, the prompt's keys
+    # and the audio tokens after the last
+    sess_e, ids_e = solo(gpu, wins_a, "en", eager=True)
+    state = [x[:, :, :, :plen] for x in work.loop.cache[:2]] + [work.audio]
+    bits = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(snap, state))
+    log(f"[stream] (a) eager run of the same ticks: ids equal "
+        f"{ids_e == ids_a}, the prompt's keys and audio tokens bit-equal "
+        f"{bits}")
+    if ids_e != ids_a or not bits:
+        raise AssertionError("(a): graphs and eager differ")
+    sess_e.release()
+    session_launch_check("(a)", launches, ("flash_attention",
+                                           "decode_attention", "qk_rope_kv"))
+    if any(eager.values()):
+        raise AssertionError(f"(a): eager launches {eager}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stream_session_ws(engine, name: str, pcm: bytes, card: str,
+                      warm: bool = True):
+    """A prefix-mode session over WS at the 30 s cap (``STREAM_ENV``):
+    the manager's warmup (timed: stream keys, capture seconds, memory),
+    then one session streaming ``pcm`` unpaced, its ticks timed by kind.
+    Returns (launches, partial walls, the session)."""
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    manager = ModelManager(engine)
+    manager.warmed = not warm
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    manager.start()
+    manager.stop()
+    manager.warmed = True
+    warm_s = time.perf_counter() - t0
+    graphs = engine.stream_graphs()
+    log(f"[stream] {name}: warmup {warm_s:.1f} s, the stream keys "
+        f"{engine.stream_warmup.get('keys')} in "
+        f"{engine.stream_warmup.get('seconds', 0):.1f} s ({len(graphs)} "
+        f"graphs, {sum(g.capture_s for g in graphs):.2f} s of capture); "
+        f"{(torch.cuda.memory_allocated() - held) / 2**30:.3f} GiB more "
+        f"allocated | {card}")
+    sessions = []
+    orig = engine.stream_session
+
+    def keep(*a, **k):
+        sessions.append(orig(*a, **k))
+        return sessions[-1]
+
+    engine.stream_session = keep
+    failures = ws_mod.prefix_bind_failures
+    built = len(engine.stream_graphs())
+    timer = TickTimer()
+    try:
+        with ws_serving(manager) as url:
+            counter = PathLaunches(engine)
+            msgs = ws_stream(url, pcm, "?use_server_vad=false")
+            launches, eager = counter.read()
+    finally:
+        timer.close()
+        del engine.stream_session
+    walls = [w for kind, w, _ in manager.ws_calls if kind == "partial"]
+    errors = [m for m in msgs if "[error" in m.get("text", "")]
+    if len(sessions) != 1 or errors or \
+            ws_mod.prefix_bind_failures != failures:
+        raise AssertionError(f"{name}: {len(sessions)} sessions bound, "
+                             f"errors {errors[:2]}, bind failures "
+                             f"{ws_mod.prefix_bind_failures - failures}")
+    sess = sessions[0]
+    work = engine._stream_fns[("state", sess.prompt_len, sess.max_new,
+                               sess.cache_dtype)]
+    log(f"[stream] {name}: one session, {sess.stats}, partial wall "
+        f"{percentiles(walls)}; session cache {sess.cache_dtype}, its "
+        f"state {work.state_bytes() / 1e6:.1f} MB in the working buffers "
+        f"(workspace {work.nbytes() / 1e6:.1f} MB), {sess.held_bytes()} "
+        f"bytes of its own; {work.handovers} hand-overs; launches "
+        f"{launches} ({eager} eager: the warm-up runs of the keys the "
+        f"final's segments built, the 30.6 s window split at its quietest "
+        f"frame); bind failures 0 | {card}")
+    timer.report(name, card)
+    # every tick from replays: no stream graph was built during the run
+    if len(engine.stream_graphs()) != built or work.handovers:
+        raise AssertionError(f"{name}: {len(engine.stream_graphs()) - built}"
+                             f" stream graphs built while streaming, "
+                             f"{work.handovers} hand-overs")
+    return launches, walls, sess, work
+
+
+def handover_ms(work, card: str) -> float:
+    """Device ms of one hand-over's copies (the owner's state out, the new
+    one's in) at this workspace's shapes, between CUDA events."""
+    state = work.state_tensors()
+    out = [torch.empty_like(x) for x in state]
+    inn = [torch.empty_like(x) for x in state]
+
+    def copy():
+        for d, s_ in zip(out, state):
+            d.copy_(s_)
+        for d, s_ in zip(state, inn):
+            d.copy_(s_)
+
+    copy()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        copy()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 10
+    nbytes = 2 * 2 * work.state_bytes()     # each way read and written
+    log(f"[stream] a hand-over at {work.cache_dtype}: "
+        f"{2 * work.state_bytes() / 1e6:.1f} MB copied, {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.0f} GB/s read + written) | {card}")
+    return ms
+
+
+def stream_graph_ms(engine, work, name: str, card: str) -> None:
+    """Device ms of each stream graph (an encoder block, each rung's
+    front, a chunk of 8 continuation steps), replayed between CUDA events
+    on the working buffers (no session owns them by now)."""
+    parts = []
+    for key, fn in engine._stream_fns.items():
+        if key[0] == "encode":
+            parts.append(f"encode {key[1]} frames {replay_ms(fn.graph):.3f}")
+    for seg_start, g in sorted(work.fronts.items()):
+        parts.append(f"front@{seg_start} {replay_ms(g):.3f}")
+    parts.append(f"chunk {replay_ms(work.chunk):.3f}")
+    log(f"[stream] {name}: device ms a replay: {'; '.join(parts)} | {card}")
+
+
+def stream_phase(dev, engine, f32: bool = True) -> dict:
+    """Phase 13: WS prefix caching (``runtime/stream.py``); ``f32=False``
+    leaves (a) out. Returns the kernels' launches over its session
+    runs."""
+    from qwen3_asr_tpu_torch.audio import vad
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    card = card_line()
+    total = {}
+
+    def add(got):
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+
+    if f32:
+        add(stream_f32_phase(dev, card))
+    pcm = np.round(real_audio()[:int(STREAM_SECONDS * 16000)]
+                   * 32768.0).astype("<i2").tobytes()
+    with environ(**STREAM_ENV), ws_cap(STREAM_CAP_S):
+        # (b) preset:1.7b bf16, phase 5's engine: prefix, then solo
+        launches, walls, sess, work = stream_session_ws(
+            engine, "(b) preset:1.7b bf16 prefix", pcm, card)
+        session_launch_check("(b)", launches, (
+            "flash_attention", "decode_attention", "qk_rope_kv"))
+        add(launches)
+        stream_graph_ms(engine, work, "(b) preset:1.7b bf16", card)
+        handover_ms(work, card)
+        del sess, work
+        with environ(ASR_WS_STREAM_MODE="solo"):
+            # the resume keys of every bucket a growing window meets
+            t0 = time.perf_counter()
+            for sec in (1, 2, 4, 6, 10, 15, 20, 30):
+                bf, bs = engine.bucket_frames(int(sec * 16000))
+                engine._run_bucket([np.zeros(int(sec * 16000), np.float32)],
+                                   bf, bs, "en", resume_tokens=[])
+            log(f"[stream] (b) solo: the resume keys up to 30 s warm in "
+                f"{time.perf_counter() - t0:.1f} s")
+            manager = ModelManager(engine)
+            manager.warmed = True
+            with ws_serving(manager) as url:
+                counter = PathLaunches(engine)
+                ws_stream(url, pcm, "?use_server_vad=false")
+                solo_launches, _ = counter.read()
+            solo_walls = [w for kind, w, _ in manager.ws_calls
+                          if kind == "partial"]
+        log(f"[stream] (b) the same audio in mode solo (resume, the whole "
+            f"window re-encoded every tick): partial wall "
+            f"{percentiles(solo_walls)}; prefix: {percentiles(walls)}; "
+            f"launches {solo_launches} | {card}")
+        del manager
+        torch.cuda.empty_cache()
+        # (c) the JAX package's default serving row: an fp8 session cache
+        saved = {k: os.environ.get(k) for k in DEFAULT_ENV}
+        try:
+            qeng, _ = quantized_engine(dev, DEFAULT_ENV, card,
+                                       "(c) int8 + int4 KV + W8A8")
+            launches, walls_c, sess, work = stream_session_ws(
+                qeng, "(c) int8 + int4 KV + W8A8 prefix", pcm, card)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if sess.cache_dtype != torch.float8_e4m3fn:
+            raise AssertionError(f"(c): session cache {sess.cache_dtype}")
+        session_launch_check("(c)", launches, (
+            "flash_attention", "decode_attention_batch", "qgemv", "qgemm",
+            "qk_rope_kv"))
+        add(launches)
+        stream_graph_ms(qeng, work, "(c) int8 + int4 KV", card)
+        handover_ms(work, card)
+        del qeng, sess, work
+        torch.cuda.empty_cache()
+    log(f"[stream] phase 13 launches {total}; bind failures "
+        f"{ws_mod.prefix_bind_failures}, VAD failures {vad.failures}")
+    if ws_mod.prefix_bind_failures or vad.failures:
+        raise AssertionError("phase 13: a bind or VAD failure was counted")
+    return total
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -3817,7 +4331,8 @@ def main() -> int:
     phase_done("phase 6 (main path at B=8)")
     profile_phase(engine, uploads[-1][1])
     phase_done("phase 7 (profile)")
-    probe_rows, probe_launches = probe_phase(rows["decode_attention_batch"])
+    probe_rows, probe_launches = probe_phase(
+        rows["decode_attention_batch"] + rows["decode_attention_batch_int4"])
     launches["slab_reader"] = probe_launches["slab_reader"]
     for r in probe_rows:
         head = next(x for x in rows["slab_reader"] if x["shape"] == r["shape"])
@@ -3863,6 +4378,15 @@ def main() -> int:
         launches[name] += pooled[name]
     launches_per_row += pooled["qk_rope_kv_per_row"]
     phase_done("phase 12 (continuous batching)")
+    streamed = stream_phase(dev, engine)
+    # this slice's path, counted from 0 just before each of its runs
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch", "qgemv", "qgemm", "qk_rope_kv"):
+        if not streamed.get(name):
+            raise AssertionError(f"phase 13 launched no {name}")
+        launches[name] += streamed[name]
+    launches_per_row += streamed["qk_rope_kv_per_row"]
+    phase_done("phase 13 (WS prefix caching)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

@@ -9,6 +9,19 @@
 //
 // in f32, summed in order of j, for the slabs j = 0 .. S/bs - 1.
 //
+// The int4 route reads the layer as kernel #3's int4 route reads it: the
+// packed payload [L, B, Nkv, S, 64] uint8 (byte i of a row holds dims 2i,
+// low nibble, and 2i + 1, high nibble, each as value + 8) by one bulk copy
+// of the chunk's rows each for K and V, and the chunk's bf16 scale rows
+// [L, B, Nkv, S, 1] by one more bulk copy each, all on one barrier. Its
+// term folds the scales in, so a scale that did not land shows:
+//
+//   o[b, :] = sum over j of ((k * ks)[b, 0, j*bs, :] + (v * vs)[b, 0, j*bs, :]
+//                            + seed)
+//
+// (The TPU probe's int4 shape reads a jnp.int4 array with no scales; the
+// port's int4 cache always comes with them, 66 bytes a row in all.)
+//
 // Reading every byte. On the TPU the auto-pipeline copies whole blocks into
 // VMEM whatever the kernel body touches, so the sliver sum reads the whole
 // cache. Here every byte of the layer lands in shared memory through 1-D
@@ -22,7 +35,7 @@
 // its V rows by one bulk copy each onto one mbarrier, and a ticket per
 // row. It does no arithmetic worth
 // counting, so it is bound by bytes only: 2 * B * Nkv * S * 128 * itemsize
-// per layer over the card's 3.35 TB/s.
+// per layer (int4: 2 * B * Nkv * S * (64 + 2)) over the card's 3.35 TB/s.
 //
 // One launch: the head-0 blocks write the sliver term of every slab that
 // starts in their chunk to f32 scratch; the last block of row b to
@@ -35,6 +48,8 @@
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
@@ -43,6 +58,7 @@ constexpr int kD = 128;
 constexpr int kThreads = kD;            // thread t takes head dim t
 constexpr int kChunkBytes = 16384;      // as csrc/decode_attention_batch.cu
 constexpr int kBatch = 8;               // sliver terms loaded at once
+constexpr int kMaxChunk = 128;          // keys of one chunk (the plan's)
 
 __device__ __forceinline__ float value(const uint8_t* p, int i) {
   const __half_raw hr = __nv_cvt_fp8_to_halfraw(p[i], __NV_E4M3);
@@ -52,38 +68,68 @@ __device__ __forceinline__ float value(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
 }
 
+struct Int4x2 { uint8_t bits; };        // two int4 values, dims 2i, 2i + 1
+
+// dim i % 128 of row i / 128, widened (the scale is applied by the caller)
+__device__ __forceinline__ float value(const Int4x2* p, int i) {
+  const uint8_t byte = p[i >> 1].bits;
+  return (float)((int)((i & 1) ? byte >> 4 : byte & 15) - 8);
+}
+
+template <typename T> struct RowBytes {
+  static constexpr int value = kD * (int)sizeof(T);
+};
+template <> struct RowBytes<Int4x2> { static constexpr int value = kD / 2; };
+
 // Grid (n_split, Nkv, B). Dynamic shared memory: [K chunk | V chunk].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 slab_kernel(const T* __restrict__ k, const T* __restrict__ v,
+            const __nv_bfloat16* __restrict__ k_sc,
+            const __nv_bfloat16* __restrict__ v_sc,
             float* __restrict__ terms, float* __restrict__ o,
             unsigned* __restrict__ tickets, int layer, int batch, int nkv,
             int s_len, int bs, int chunk, float seed) {
+  constexpr bool kInt4 = std::is_same<T, Int4x2>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full;
+  __shared__ __align__(16) __nv_bfloat16 kss[kMaxChunk], vss[kMaxChunk];
   __shared__ int last_s;
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int n_slab = s_len / bs;
-  const int tile_bytes = chunk * kD * (int)sizeof(T);
+  const int tile_bytes = chunk * RowBytes<T>::value;
   const T* ks = reinterpret_cast<const T*>(smem);
-  const T* vs = ks + chunk * kD;
+  const T* vs = reinterpret_cast<const T*>(smem + tile_bytes);
 
   if (tid == 0) {
     const size_t first =
         (((size_t)layer * batch + b) * nkv + h) * s_len + (size_t)j * chunk;
+    const uint32_t sbytes = kInt4 ? (uint32_t)chunk * 2u : 0u;
+    const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
+    const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
     sm90::mbar_init(&full, 1);
-    sm90::mbar_expect_tx(&full, 2 * tile_bytes);
-    sm90::bulk_load(smem, k + first * kD, tile_bytes, &full);
-    sm90::bulk_load(smem + tile_bytes, v + first * kD, tile_bytes, &full);
+    sm90::mbar_expect_tx(&full, 2 * tile_bytes + 2 * sbytes);
+    sm90::bulk_load(smem, kb + first * RowBytes<T>::value, tile_bytes,
+                    &full);
+    sm90::bulk_load(smem + tile_bytes, vb + first * RowBytes<T>::value,
+                    tile_bytes, &full);
+    if (kInt4) {
+      sm90::bulk_load(kss, k_sc + first, sbytes, &full);
+      sm90::bulk_load(vss, v_sc + first, sbytes, &full);
+    }
   }
   __syncthreads();   // the barrier's init
   sm90::mbar_wait(&full, 0);
   if (h == 0) {
     const int c0 = j * chunk;
     for (int i = (c0 + bs - 1) / bs; i * bs < c0 + chunk; ++i) {
-      const int r = (i * bs - c0) * kD + tid;
-      terms[((size_t)b * n_slab + i) * kD + tid] =
-          (value(ks, r) + value(vs, r)) + seed;
+      const int row = i * bs - c0, r = row * kD + tid;
+      float kv = value(ks, r), vv = value(vs, r);
+      if (kInt4) {
+        kv *= __bfloat162float(kss[row]);
+        vv *= __bfloat162float(vss[row]);
+      }
+      terms[((size_t)b * n_slab + i) * kD + tid] = (kv + vv) + seed;
     }
   }
   __syncthreads();   // the block's terms, before its ticket
@@ -110,30 +156,37 @@ slab_kernel(const T* __restrict__ k, const T* __restrict__ v,
 }
 
 template <typename T>
-int launch(const void* k, const void* v, float* terms, float* o,
-           unsigned* tickets, int layer, int batch, int nkv, int s_len,
-           int bs, int chunk, float seed, cudaStream_t st) {
-  const int tile_bytes = chunk * kD * (int)sizeof(T);
-  if (tile_bytes > kChunkBytes) return (int)cudaErrorInvalidValue;
+int launch(const void* k, const void* v, const void* k_sc, const void* v_sc,
+           float* terms, float* o, unsigned* tickets, int layer, int batch,
+           int nkv, int s_len, int bs, int chunk, float seed,
+           cudaStream_t st) {
+  const int tile_bytes = chunk * RowBytes<T>::value;
+  if (tile_bytes > kChunkBytes || chunk > kMaxChunk)
+    return (int)cudaErrorInvalidValue;
   static bool raised[sm90::kMaxDevices] = {};
   const cudaError_t err =
       sm90::max_smem(slab_kernel<T>, 2 * kChunkBytes, raised);
   if (err != cudaSuccess) return (int)err;
   slab_kernel<T><<<dim3(s_len / chunk, nkv, batch), kThreads,
                    2 * tile_bytes, st>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), terms, o, tickets,
-      layer, batch, nkv, s_len, bs, chunk, seed);
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const __nv_bfloat16*>(k_sc),
+      static_cast<const __nv_bfloat16*>(v_sc), terms, o, tickets, layer,
+      batch, nkv, s_len, bs, chunk, seed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 1 = bfloat16, 2 = float8_e4m3fn. k/v point at the start of the
+// dtype: 1 = bfloat16, 2 = float8_e4m3fn, 3 = packed int4 ([L, B, nkv,
+// s_len, 64] uint8 with k_scale / v_scale, its [L, B, nkv, s_len, 1] bf16
+// planes; null for the other dtypes). k/v point at the start of the
 // stacked cache [L, B, nkv, s_len, 128]; `layer` selects the layer.
 // `chunk` is kernel #3's for this cache. terms: [B, s_len / bs, 128] f32
 // scratch; o: [B, 128] f32; tickets: B zeroed unsigned ints, left zeroed.
 // Returns the launch's cudaError_t.
 extern "C" int slab_read_fwd(int dtype, const void* k, const void* v,
+                             const void* k_scale, const void* v_scale,
                              void* terms, void* o, void* tickets, int layer,
                              int batch, int nkv, int s_len, int d, int bs,
                              int chunk, float seed, void* stream) {
@@ -146,10 +199,16 @@ extern "C" int slab_read_fwd(int dtype, const void* k, const void* v,
   auto* tk = static_cast<unsigned*>(tickets);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(k, v, tp, op, tk, layer, batch, nkv, s_len,
-                                 bs, chunk, seed, st);
+    return launch<__nv_bfloat16>(k, v, nullptr, nullptr, tp, op, tk, layer,
+                                 batch, nkv, s_len, bs, chunk, seed, st);
   if (dtype == 2)
-    return launch<uint8_t>(k, v, tp, op, tk, layer, batch, nkv, s_len, bs,
-                           chunk, seed, st);
+    return launch<uint8_t>(k, v, nullptr, nullptr, tp, op, tk, layer, batch,
+                           nkv, s_len, bs, chunk, seed, st);
+  if (dtype == 3) {
+    if (k_scale == nullptr || v_scale == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch<Int4x2>(k, v, k_scale, v_scale, tp, op, tk, layer, batch,
+                          nkv, s_len, bs, chunk, seed, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -25,8 +25,14 @@ cross-session tick batch with ``_run_bucket(..., resume_rows=...)``.
 ``transcribe(..., return_timestamps=True)`` adds word timestamps to each
 segment's result: the forced aligner's (``sidecars/aligner.py``) when one
 is loaded, else char-proportional estimates, offset by the segment's start
-and rounded to ms, as the JAX engine gives them. AOT caches, meshes, draft
-models and the prefix-cached stream modes are not ported yet.
+and rounded to ms, as the JAX engine gives them.
+
+The prefix-cached WS mode (``runtime/stream.py``) has executables of its
+own, shared by every session: ``stream_session`` binds a session, and
+``_stream_fn`` memoizes its keys (``("encode", frames)``, ``("state", P,
+max_new, dtype)``, ``("tick", seg_start, P, max_new, dtype)``). AOT
+caches, meshes, draft models and the grouped stream mode are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -186,8 +192,12 @@ class TranscriptionEngine:
         self.executables: Dict[tuple, BucketExecutable] = {}
         self.graph_pool = (torch.cuda.graph_pool_handle()
                            if self.device.type == "cuda" else None)
+        # the prefix-cached WS mode's executables (runtime/stream.py),
+        # replayed on the same device thread, in the same graph pool
+        self._stream_fns: Dict[tuple, object] = {}
         # shapes and counts of the last bucket run (for measurement scripts)
         self.last_run: dict = {}
+        self.stream_warmup: dict = {}   # the prefix mode's keys and seconds
 
     @property
     def executable_count(self) -> int:
@@ -200,7 +210,9 @@ class TranscriptionEngine:
         key's buffers, loop state and KV cache. Safe from another thread
         (``/health``) while the device thread adds a key."""
         return (param_bytes(self.model.params)
-                + sum(x.nbytes() for x in list(self.executables.values())))
+                + sum(x.nbytes() for x in list(self.executables.values()))
+                + sum(x.nbytes() for x in list(self._stream_fns.values())
+                      if hasattr(x, "nbytes")))
 
     # -- bucketing ---------------------------------------------------------------
     def bucket_frames(self, n_samples: int) -> Tuple[int, float]:
@@ -281,6 +293,29 @@ class TranscriptionEngine:
         self.executables[key] = exe
         return exe, time.perf_counter() - t0
 
+    # -- WS prefix caching (runtime/stream.py) ------------------------------------
+    def _stream_fn(self, key: tuple, plan=None):
+        """The stream executable of ``key``, built on first use and shared
+        by every session (``runtime/stream.py`` ``build_stream_fn``)."""
+        fn = self._stream_fns.get(key)
+        if fn is None:
+            from .stream import build_stream_fn
+            fn = self._stream_fns[key] = build_stream_fn(self, key, plan)
+        return fn
+
+    def stream_session(self, cap_s: float, language: Optional[str] = None,
+                       context: str = ""):
+        """A WS connection's prefix-cached session at window cap ``cap_s``:
+        encoder blocks and decoder keys persist across its ticks."""
+        from .stream import StreamSession
+        return StreamSession(self, cap_s, language, context)
+
+    def stream_graphs(self) -> List[Graph]:
+        """Every graph of the stream executables (encoders, workspaces'
+        chunks, tick fronts)."""
+        return [g for fn in list(self._stream_fns.values())
+                if hasattr(fn, "graphs") for g in fn.graphs()]
+
     def warmup(self, buckets: Optional[Sequence[float]] = None,
                language: Optional[str] = "en") -> None:
         """Build and run the executables of ``buckets`` (default: the
@@ -297,8 +332,13 @@ class TranscriptionEngine:
         plain keys of the flush bucket (the cap plus
         ``WS_FLUSH_SILENCE_MS``) at those batches, which concurrent finals
         reach through the micro-batcher. (JAX nests the last under
-        ``tick``: ``ADVICE.md``'s first finding.) A WS mode the port
-        refuses raises (``config.check_ws_modes``)."""
+        ``tick``: ``ADVICE.md``'s first finding.) Under ``prefix``, every
+        stream executable a session at the cap can reach (each block
+        shape's encoder, each rung's tick front, the continuation), built
+        directly rather than by pacing a throwaway session across the cap
+        as JAX does (``engine.py:921-975``): the same keys, without the
+        paced ticks' decode time. A WS mode the port refuses raises
+        (``config.check_ws_modes``)."""
         from ..config import _safe_float, _safe_int, check_ws_modes
         modes = {m.name for m in check_ws_modes()}
         buckets = buckets or AUDIO_BUCKETS_S[:2]
@@ -335,6 +375,12 @@ class TranscriptionEngine:
             bf, bs = self.bucket_frames(len(dummy))
             for batch in shapes:
                 self._run_bucket([dummy] * batch, bf, bs, language)
+        if "prefix" in modes:
+            from .stream import warm_stream_keys
+            t0 = time.perf_counter()
+            keys = warm_stream_keys(self, cap)
+            self.stream_warmup = {"keys": keys,
+                                  "seconds": time.perf_counter() - t0}
 
     # -- core batched path --------------------------------------------------------
     def bucket_inputs(self, clips: Sequence[np.ndarray], bucket_frames: int,

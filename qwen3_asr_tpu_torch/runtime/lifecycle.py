@@ -15,8 +15,10 @@ start (``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it), refusing first
 a WS mode the port does not serve (``config.check_ws_modes``), and under
 ``ASR_CONTINUOUS_BATCHING=true`` then builds the decode pool
 (``runtime/pool.py``) and routes the requests it can serve there
-(``pool_eligible``, ``transcribe_pooled``). Idle unload, the watchdog and
-the fast engine are not ported yet (ROADMAP §1 item 7).
+(``pool_eligible``, ``transcribe_pooled``). It also tracks the live
+prefix-mode WS sessions (``register_stream_session``, weakly), so that an
+idle unload can release them; idle unload, the watchdog and the fast
+engine are not ported yet (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import concurrent.futures
 import logging
 import os
 import threading
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -221,6 +224,25 @@ class ModelManager:
         self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
         self.warmed = False
         self.pool = None
+        # live prefix-mode WS sessions (runtime/stream.py), weakly: a
+        # session dies with its connection
+        self._stream_sessions = weakref.WeakSet()
+        self._sessions_lock = threading.Lock()
+        self._last_stream_ref = None
+
+    def register_stream_session(self, session) -> None:
+        """Track a WS prefix-mode session, so that an unload can
+        ``release()`` it (ROADMAP §1 item 7.2)."""
+        with self._sessions_lock:
+            self._stream_sessions.add(session)
+        self._last_stream_ref = weakref.ref(session)
+
+    @property
+    def last_stream_session(self):
+        """The newest prefix-mode session (for tests and measurement), a
+        weak reference: a strong one would keep its device buffers after
+        its connection closed."""
+        return self._last_stream_ref() if self._last_stream_ref else None
 
     def transcribe_sync(self, audio, sr: int, lang_code: Optional[str],
                         return_timestamps: bool = False,

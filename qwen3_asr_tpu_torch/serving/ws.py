@@ -21,9 +21,15 @@ Two parts:
    resume (the previous partial's tokens as a self-draft), alone (mode
    ``solo``) or, in mode ``tick``, coalesced with other sessions' ticks by
    the manager's ``TickBatcher``; at ``ASR_WS_TICK_MIN_SESSIONS`` (3) or
-   more sessions concurrent finals go through the micro-batcher. All of it
-   on the express lane; with the decode pool running and
-   ``ASR_POOL_WS=true``, a solo tick or flush goes to the pool instead.
+   more sessions concurrent finals go through the micro-batcher. In mode
+   ``prefix`` (``runtime/stream.py``) the connection binds a
+   ``StreamSession`` and each partial is one job, ``session.update``, with
+   cached encoder blocks and a persistent decoder cache; its window is
+   trimmed in encoder-chunk quanta (sample-exact when the cap is under one
+   chunk), and a parallel sample-exact window feeds flushes and finals,
+   which keep the fused path. All of it on the express lane; with the
+   decode pool running and ``ASR_POOL_WS=true``, a solo tick or flush goes
+   to the pool instead.
    The host DSP of a tick (s16 → f32, the 300-3400 Hz bandpass) is numpy;
    the VAD runs on the engine's device.
 
@@ -38,9 +44,11 @@ true, "is_final": false}`` (only when the text is not empty); finals
 ``ASR_MAX_SESSIONS``) and ``WEBSOCKET_ERROR``; ``[timeout]`` and
 ``[error: ...]`` as a tick's text when its transcription fails.
 
-The modes with cached encoder blocks (``prefix``, ``grouped``) are not
-ported: the manager refuses a configuration that reaches them at start
-(``config.check_ws_modes``).
+A session that cannot be bound is logged, counted
+(``prefix_bind_failures``) and answered as the tick's ``[error: ...]``.
+JAX serves the fused path in its place (``server.py:700-707``); the port
+does not. The grouped mode is not ported: the manager refuses a
+configuration that reaches it at start (``config.check_ws_modes``).
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import logging
 import os
 import socket
 import struct
+import threading
 import time
 import uuid
 from typing import NamedTuple, Optional, Tuple
@@ -80,6 +89,11 @@ ASR_USE_SERVER_VAD = os.getenv("ASR_USE_SERVER_VAD",
 # with the spectral one (audio/vad.py default_flush_ticks)
 ASR_VAD_FLUSH_TICKS = max(1, _safe_int(
     "ASR_VAD_FLUSH_TICKS", str(_vad_default_flush_ticks())))
+
+# prefix-mode sessions that could not be bound (each answered as its
+# tick's "[error: ...]")
+prefix_bind_failures = 0
+_failures_lock = threading.Lock()
 
 # -- RFC 6455 ------------------------------------------------------------------
 
@@ -330,16 +344,60 @@ def _trim_exact(window: bytearray) -> None:
         del window[:((len(window) - WS_WINDOW_MAX_BYTES) // 2) * 2]
 
 
+def trim_quantum_bytes(engine, prefix: bool) -> int:
+    """The partial window's trim step: in mode ``prefix`` one encoder
+    chunk (``n_window * 2`` frames: 2 s at preset:1.7b), so cached blocks
+    stay on their grid between trims; a cap under one chunk holds no grid,
+    and every other mode trims sample-exact."""
+    if not prefix:
+        return 2
+    chunk_bytes = engine.model.cfg.encoder.n_window * 2 * 160 * 2
+    return chunk_bytes if chunk_bytes <= WS_WINDOW_MAX_BYTES else 2
+
+
+def _trim_partial(window: bytearray, quantum: int) -> None:
+    """Trim the partial window to the cap, from the front, in
+    ``quantum``-byte steps; never empty it (then sample-exact)."""
+    if len(window) <= WS_WINDOW_MAX_BYTES:
+        return
+    trim = len(window) - WS_WINDOW_MAX_BYTES
+    trim = -(-trim // quantum) * quantum if quantum > 2 else (trim // 2) * 2
+    if trim >= len(window):
+        trim = ((len(window) - WS_WINDOW_MAX_BYTES) // 2) * 2
+    del window[:trim]
+
+
+def _bind_session(mgr, lang_code):
+    """A prefix-mode session for the connection, built on the device
+    thread and registered with the manager; or the exception that
+    stopped it, logged and counted."""
+    global prefix_bind_failures
+    try:
+        future = mgr.queue.submit(
+            lambda: mgr.engine.stream_session(WS_WINDOW_MAX_S, lang_code),
+            priority=EXPRESS)
+        session = future.result(timeout=mgr.request_timeout)
+        mgr.register_stream_session(session)
+        return session, None
+    except Exception as e:
+        with _failures_lock:
+            prefix_bind_failures += 1
+        log.error("[WS] prefix-cache session could not be bound: %s", e)
+        return None, e
+
+
 def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
                              lang_code, use_vad: bool, resume_tokens=None,
-                             tick_batch=None):
+                             tick_batch=None, session=None):
     """Bandpass, VAD gate and an express-lane transcription of a window's
     bytes → (text, token_ids). ``resume_tokens`` (the previous partial's)
     make it a resume run. A flush (``pad_silence``) appends
     ``WS_FLUSH_SILENCE_MS`` of silence; at ``ASR_WS_TICK_MIN_SESSIONS`` or
     more live sessions it goes through the micro-batcher with other
     sessions' finals. A partial in mode ``tick`` goes through the tick
-    batcher. A failure becomes ``[timeout]`` or ``[error: ...]``."""
+    batcher, one with a prefix-mode ``session`` is ``session.update`` on
+    the device thread. A failure becomes ``[timeout]`` or
+    ``[error: ...]``."""
     t0 = time.time()
     future = None
     try:
@@ -353,6 +411,11 @@ def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
         if use_vad and not is_speech(audio, device=mgr.engine.device):
             log.info("[WS] VAD: silence, skipping inference")
             return "", resume_tokens
+        if session is not None and not pad_silence:
+            future = mgr.queue.submit(lambda: session.update(audio),
+                                      priority=EXPRESS)
+            raw, token_ids = future.result(timeout=mgr.request_timeout)
+            return detect_and_fix_repetitions(raw), token_ids
         if tick_batch is None:
             tick_batch = os.getenv("ASR_WS_TICK_BATCH",
                                    "").lower() == "true"
@@ -430,6 +493,10 @@ def websocket_transcribe(handler) -> None:
     silent_ticks = 0             # consecutive silent ticks (VAD debounce)
     prev_tokens = None           # the last partial's ids (resume decoding)
     admitted = False
+    # mode prefix: the connection's session, and the sample-exact window
+    # that flushes and finals read (the partial window trims in chunks)
+    stream_session = None
+    exact_window = bytearray()
     try:
         if client_sr not in (8000, 16000):
             ws.send_json({"code": "UNSUPPORTED_SAMPLE_RATE",
@@ -455,6 +522,17 @@ def websocket_transcribe(handler) -> None:
             return
         # fixed for the connection's lifetime
         ws_mode = resolve_ws_mode(WS_WINDOW_MAX_S, sessions)
+        prefix = ws_mode.prefix
+        quantum = trim_quantum_bytes(mgr.engine, prefix)
+
+        def flush_bytes() -> bytes:
+            return bytes(exact_window if prefix else audio_window)
+
+        def clear_windows() -> None:
+            audio_window.clear()
+            exact_window.clear()
+            if stream_session is not None:
+                stream_session.reset()
         log.info("[WS] streaming mode: %s (cap=%ss, sessions=%d)",
                  ws_mode.name, WS_WINDOW_MAX_S, sessions)
         ws.send_json({"status": "connected", "sample_rate": client_sr,
@@ -481,20 +559,23 @@ def websocket_transcribe(handler) -> None:
                 if action == "flush":
                     if audio_buffer:
                         audio_window.extend(audio_buffer)
+                        if prefix:
+                            exact_window.extend(audio_buffer)
                         audio_buffer.clear()
                     text = ""
-                    if audio_window:
+                    payload = flush_bytes()
+                    if payload:
                         text, _ = _transcribe_with_context(
-                            mgr, bytes(audio_window), True, lang_code,
-                            use_vad, resume_tokens=prev_tokens)
+                            mgr, payload, True, lang_code, use_vad,
+                            resume_tokens=prev_tokens)
                         chunk_count += 1
                     ws.send_json({"text": text, "is_partial": False,
                                   "is_final": True})
-                    audio_window.clear()
+                    clear_windows()
                     prev_tokens = None
                 elif action == "reset":
                     audio_buffer.clear()
-                    audio_window.clear()
+                    clear_windows()
                     prev_tokens = None
                     ws.send_json({"status": "buffer_reset"})
                 elif action == "config":
@@ -503,6 +584,10 @@ def websocket_transcribe(handler) -> None:
                         lang_code = None
                     elif new_lang:
                         lang_code = new_lang
+                    if new_lang and stream_session is not None:
+                        # the prompt changed: a new session next tick
+                        stream_session.release()
+                        stream_session = None
                     if "use_server_vad" in cmd:
                         use_vad = bool(cmd["use_server_vad"])
                     ws.send_json({"status": "configured",
@@ -521,8 +606,11 @@ def websocket_transcribe(handler) -> None:
             if len(audio_buffer) < WS_BUFFER_SIZE:
                 continue
             audio_window.extend(audio_buffer)
+            if prefix:
+                exact_window.extend(audio_buffer)
+                _trim_exact(exact_window)
             audio_buffer.clear()
-            _trim_exact(audio_window)
+            _trim_partial(audio_window, quantum)
             vad_flushed = False
             if use_vad:
                 tail = bytes(audio_window[-WS_BUFFER_SIZE:])
@@ -538,18 +626,27 @@ def websocket_transcribe(handler) -> None:
                     prev_had_speech, silent_ticks = False, 0
                     vad_flushed = True
                     text, _ = _transcribe_with_context(
-                        mgr, bytes(audio_window), True, lang_code, use_vad,
+                        mgr, flush_bytes(), True, lang_code, use_vad,
                         resume_tokens=prev_tokens)
                     chunk_count += 1
                     if text:
                         ws.send_json({"text": text, "is_partial": False,
                                       "is_final": True})
-                    audio_window.clear()
+                    clear_windows()
                     prev_tokens = None
             if not vad_flushed:
-                text, prev_tokens = _transcribe_with_context(
-                    mgr, bytes(audio_window), False, lang_code, use_vad,
-                    resume_tokens=prev_tokens, tick_batch=ws_mode.tick)
+                bind_error = None
+                if prefix and stream_session is None:
+                    stream_session, bind_error = _bind_session(mgr,
+                                                               lang_code)
+                if bind_error is not None:
+                    # no fused fallback: the tick fails as it is
+                    text, prev_tokens = f"[error: {bind_error}]", None
+                else:
+                    text, prev_tokens = _transcribe_with_context(
+                        mgr, bytes(audio_window), False, lang_code,
+                        use_vad, resume_tokens=prev_tokens,
+                        tick_batch=ws_mode.tick, session=stream_session)
                 chunk_count += 1
                 if text:
                     ws.send_json({"text": text, "is_partial": True,
@@ -557,9 +654,12 @@ def websocket_transcribe(handler) -> None:
         # disconnect: transcribe what is left, as the JAX server does
         if audio_buffer:
             audio_window.extend(audio_buffer)
-        if audio_window:
+            if prefix:
+                exact_window.extend(audio_buffer)
+        payload = flush_bytes()
+        if payload:
             text, _ = _transcribe_with_context(
-                mgr, bytes(audio_window), True, lang_code, use_vad,
+                mgr, payload, True, lang_code, use_vad,
                 resume_tokens=prev_tokens)
             chunk_count += 1
             if text:
@@ -577,4 +677,7 @@ def websocket_transcribe(handler) -> None:
         if admitted:
             with mgr.ws_lock:
                 mgr.ws_sessions -= 1
+        if stream_session is not None:
+            # its device buffers must not outlive the connection
+            stream_session.release()
         ws.close()

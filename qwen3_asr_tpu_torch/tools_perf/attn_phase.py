@@ -12,8 +12,9 @@ loop does.
 
 Run on a machine with the card: ``python -m
 qwen3_asr_tpu_torch.tools_perf.attn_phase``. It prints one line for each
-shape: the engine's at preset:1.7b (B=8, S=768, bf16 and fp8, the 28
-layers) and the JAX probe's default (B=96, S=512, fp8).
+shape: the engine's at preset:1.7b (B=8, S=768, bf16, fp8 and the packed
+int4 cache with its scales, the 28 layers) and the JAX probe's default
+(B=96, S=512, fp8 and int4).
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 LAYERS, NKV, HEAD_DIM = 28, 8, 128  # preset:1.7b's decoder
 SHAPES = (("engine_b8_s768_bf16", 8, 768, torch.bfloat16),
           ("engine_b8_s768_fp8", 8, 768, torch.float8_e4m3fn),
-          ("jax_default_b96_s512_fp8", 96, 512, torch.float8_e4m3fn))
+          ("jax_default_b96_s512_fp8", 96, 512, torch.float8_e4m3fn),
+          ("engine_b8_s768_int4", 8, 768, torch.int4),
+          ("jax_default_b96_s512_int4", 96, 512, torch.int4))
 
 
 def device_ms(fn: Callable[[], object], iters: int = 20,
@@ -57,23 +60,33 @@ def device_ms(fn: Callable[[], object], iters: int = 20,
 
 
 def stacked_cache(batch: int, seq: int, dtype: torch.dtype, dev,
-                  seed: int = 0):
-    """Seeded random K and V caches [LAYERS, batch, NKV, seq, HEAD_DIM]."""
+                  seed: int = 0) -> dict:
+    """Seeded random K and V caches [LAYERS, batch, NKV, seq, HEAD_DIM] as
+    ``slab_read``'s keyword arguments: ``k``, ``v`` and, for
+    ``torch.int4``, the packed payloads with ``k_scale``/``v_scale``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     shape = (LAYERS, batch, NKV, seq, HEAD_DIM)
-    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
-                 for _ in range(2))
+    if dtype != torch.int4:
+        k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        return {"k": k, "v": v}
+    k, v = (torch.randint(0, 256, shape[:-1] + (HEAD_DIM // 2,),
+                          generator=gen, device=dev, dtype=torch.uint8)
+            for _ in range(2))
+    ks, vs = ((torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+               * 0.3 + 0.01).bfloat16() for _ in range(2))
+    return {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
 
 
 def probe(dev="cuda") -> List[dict]:
     """Time one slab-read call per shape (stepping through the layers) and
     return its read rate."""
-    from ..ops.slab_reader import slab_read
+    from ..ops.slab_reader import slab_bytes, slab_read
     rows = []
     for name, batch, seq, dtype in SHAPES:
-        k, v = stacked_cache(batch, seq, dtype, dev)
-        layer_bytes = 2 * batch * NKV * seq * HEAD_DIM * k.element_size()
-        ms = device_ms(lambda: [slab_read(k, v, layer_idx=i, seed=1)
+        cache = stacked_cache(batch, seq, dtype, dev)
+        layer_bytes = slab_bytes(batch, NKV, seq, dtype)
+        ms = device_ms(lambda: [slab_read(**cache, layer_idx=i, seed=1)
                                 for i in range(LAYERS)]) / LAYERS
         rate = layer_bytes / (ms * 1e-3)
         rows.append({"shape": name, "batch": batch, "seq": seq,
@@ -81,7 +94,7 @@ def probe(dev="cuda") -> List[dict]:
                      "bytes": layer_bytes, "ms": ms,
                      "bound_ms": layer_bytes / HBM_BYTES_PER_S * 1e3,
                      "gb_s": rate / 1e9, "share": rate / HBM_BYTES_PER_S})
-        del k, v
+        del cache
     return rows
 
 

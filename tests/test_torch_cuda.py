@@ -332,6 +332,36 @@ def test_slab_kernel_matches_plain(dev, dtype, bs):
     torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("bs", [128, 32])
+def test_slab_kernel_int4_matches_plain(dev, bs):
+    """The int4 read (packed payload and scale rows by bulk copies): one
+    launch per call, the same bits twice, the plain version's checksum,
+    tickets back at 0."""
+    from qwen3_asr_tpu_torch.tools_perf.attn_phase import stacked_cache
+    gen = torch.Generator(device=dev).manual_seed(bs)
+    shape = (3, 8, 8, 768)
+    k, v = (torch.randint(0, 256, shape + (64,), generator=gen, device=dev,
+                          dtype=torch.uint8) for _ in range(2))
+    ks, vs = ((torch.rand(shape + (1,), generator=gen, device=dev) * 0.3
+               + 0.01).bfloat16() for _ in range(2))
+    before = (slab_read.launches, slab_read.launches_int4)
+    outs = [slab_read(k, v, layer_idx=1, seed=5, block_s=bs, k_scale=ks,
+                      v_scale=vs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (slab_read.launches, slab_read.launches_int4) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(outs[0], outs[1])
+    assert not decode_module._tickets[outs[0].device].any()
+    ref = slab_read_plain(k, v, layer_idx=1, seed=5, block_s=bs, k_scale=ks,
+                          v_scale=vs)
+    torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
+    # the probe's own int4 shape, at its B=96 S=512 layout
+    cache = stacked_cache(96, 512, torch.int4, dev)
+    out = slab_read(**cache, layer_idx=27, seed=1)
+    torch.testing.assert_close(out, slab_read_plain(
+        **cache, layer_idx=27, seed=1, block_s=128), atol=1e-5, rtol=1e-5)
+
+
 def test_new_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((2, 4, 1, 128), device=dev, dtype=torch.float16)
     k = torch.zeros((2, 2, 128, 128), device=dev, dtype=torch.bfloat16)
@@ -429,6 +459,61 @@ def test_warm_request_makes_no_eager_launch(dev):
                    "qgemm": 0, "widened_product": 0, "w8a8": 0,
                    "qk_rope_kv": 2 * (1 + run["steps_run"]),
                    "qk_rope_kv_per_row": 0}
+
+
+# (working dtype, engine KV dtype)
+STREAM_KEYS = {"f32": (torch.float32, torch.float32),
+               "bf16": (torch.bfloat16, torch.bfloat16),
+               "bf16_int4": (torch.bfloat16, torch.int4)}
+
+
+@pytest.mark.parametrize("name", list(STREAM_KEYS))
+def test_stream_session_graphs_equal_eager(dev, name):
+    """A prefix-mode session (``runtime/stream.py``) at a 4 s cap with
+    chunk trims: its graphs give the eager run's ids on every tick; each
+    rung's front records the segment prefill and the verify window (kernel
+    B twice a layer), the chunk kernel B's per-row route once a layer and
+    step; an int4 engine's session runs an fp8 cache through #3. In f32
+    every tick's ids are also the fused resume path's."""
+    dtype, kv = STREAM_KEYS[name]
+    model = _model(dev)
+    model.params = _cast_tree(model.params, dtype)
+    eng = TranscriptionEngine(model, device=dev, dtype=dtype,
+                              cache_dtype=kv)
+    rng = np.random.default_rng(7)
+    audio = (rng.standard_normal(6 * 16000) * 0.1).astype(np.float32)
+    chunk = eng.model.cfg.encoder.n_window * 2 * 160
+    wins, w = [], np.zeros(0, np.float32)
+    for off in range(0, len(audio), 7200):
+        w = np.concatenate([w, audio[off:off + 7200]])
+        if len(w) > 4 * 16000:
+            w = w[-(-(len(w) - 4 * 16000) // chunk) * chunk:]
+        wins.append(w)
+    graph = eng.stream_session(4.0, "en")
+    ids = [graph.update(x)[1] for x in wins]
+    graph.release()
+    eager = eng.stream_session(4.0, "en")
+    eager.eager = True
+    assert [eager.update(x)[1] for x in wins] == ids
+    assert graph.stats["tail"] and graph.stats["full"]
+    work = eager.work
+    layers = SMALL.decoder.num_hidden_layers
+    for g in work.fronts.values():
+        assert g.recorded["qk_rope_kv"] == 2 * layers
+    assert work.chunk.recorded["qk_rope_kv_per_row"] == 0
+    assert work.chunk.recorded["qk_rope_kv"] == DECODE_CHUNK * layers
+    decode = ("decode_attention_batch" if kv == torch.int4
+              else "decode_attention")
+    assert work.chunk.recorded[decode] == DECODE_CHUNK * layers
+    assert eager.cache_dtype == (torch.float8_e4m3fn if kv == torch.int4
+                                 else kv)
+    if dtype == torch.float32:
+        frames, bucket_s = eng.bucket_frames(4 * 16000)
+        prev = []
+        for x, want in zip(wins, ids):
+            prev = eng._run_bucket([x], frames, bucket_s, "en",
+                                   resume_tokens=prev)[1][0]
+            assert prev == want
 
 
 def _cast_tree(tree, dtype):

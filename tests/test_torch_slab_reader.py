@@ -57,3 +57,50 @@ def test_refuses_a_cache_that_does_not_tile():
     k = torch.zeros((1, 2, 2, 100, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         slab_read(k, k, block_s=64)
+
+
+def _int4_cache(rng, shape):
+    """A packed int4 cache [.., S, 64] uint8 and its bf16 scales [.., S, 1],
+    with the values unpacked to numpy as the restatement reads them."""
+    vals = rng.integers(-8, 8, size=shape).astype(np.int8)
+    packed = ((vals[..., 0::2] + 8).astype(np.uint8)
+              | ((vals[..., 1::2] + 8).astype(np.uint8) << 4))
+    scale = torch.from_numpy(
+        rng.uniform(0.01, 0.3, size=shape[:-1] + (1,)).astype(np.float32)
+    ).to(torch.bfloat16)
+    return torch.from_numpy(packed), scale, vals.astype(np.float32)
+
+
+@pytest.mark.parametrize("layer,bs,seed", [(0, 128, 0), (2, 32, -5)])
+def test_int4_plain_matches_restatement(layer, bs, seed):
+    """The int4 shape: each slab's sliver term is the dequantized value
+    (payload times its row's scale), K plus V plus the seed, summed over
+    the slabs in f32."""
+    rng = np.random.default_rng(40 + layer)
+    shape = (3, 4, 2, 256, 128)
+    k, ks, kf = _int4_cache(rng, shape)
+    v, vs, vf = _int4_cache(rng, shape)
+    kd = kf * ks.float().numpy()
+    vd = vf * vs.float().numpy()
+    ref = slab_kernel_numpy(kd[layer], vd[layer], seed, rows=2, bs=bs)
+    ours = slab_read(k, v, layer_idx=layer, seed=seed, block_s=bs,
+                     k_scale=ks, v_scale=vs)
+    assert ours.dtype == torch.float32 and ours.shape == (4, 128)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("batch,nkv,s_len,dtype,row", [
+    (8, 8, 768, torch.bfloat16, 256), (8, 8, 768, torch.float8_e4m3fn, 128),
+    (8, 8, 768, torch.int4, 66), (96, 8, 512, torch.int4, 66)])
+def test_slab_bytes(batch, nkv, s_len, dtype, row):
+    """The bytes one call reads: K and V of one layer, a row of 128 dims
+    (int4: the 64-byte payload and the 2-byte scale)."""
+    from qwen3_asr_tpu_torch.ops.slab_reader import slab_bytes
+    assert slab_bytes(batch, nkv, s_len, dtype) == 2 * batch * nkv * s_len * row
+
+
+def test_int4_needs_both_scales():
+    k = torch.zeros((1, 2, 2, 128, 64), dtype=torch.uint8)
+    s = torch.ones((1, 2, 2, 128, 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        slab_read(k, k, k_scale=s)

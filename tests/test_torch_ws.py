@@ -417,6 +417,102 @@ def test_refused_ws_modes_raise_at_start(engine, monkeypatch):
         ModelManager(engine).start()
 
 
+# -- mode prefix (runtime/stream.py) --------------------------------------------------
+
+def _prefix_mode(monkeypatch, cap_s):
+    """ASR_WS_STREAM_MODE=prefix at a ``cap_s`` window cap (the server's
+    module constants, read at import)."""
+    monkeypatch.setenv("ASR_WS_STREAM_MODE", "prefix")
+    monkeypatch.setattr(ws_mod, "WS_WINDOW_MAX_S", cap_s)
+    monkeypatch.setattr(ws_mod, "WS_WINDOW_MAX_BYTES", int(cap_s * 16000 * 2))
+
+
+def _until_final(ws):
+    msgs = [ws.receive_json(timeout=120)]
+    while not msgs[-1].get("is_final"):
+        msgs.append(ws.receive_json(timeout=120))
+    return msgs
+
+
+def test_ws_prefix_partials_equal_a_session_and_final_the_fused_path(
+        base, engine, manager, monkeypatch):
+    """One prefix-mode connection (cap 3 s, trained_ckpt's 1 s chunks):
+    its partials are those of a StreamSession fed the same bandpassed
+    windows, trimmed in 1 s steps; its final is the fused path's on the
+    sample-exact window and the flush's silence; the session had tail
+    ticks and was bound once."""
+    from qwen3_asr_tpu_torch.audio.frontend import fir_same, pcm16_to_f32
+    from qwen3_asr_tpu_torch.text.repetition import \
+        detect_and_fix_repetitions
+    _prefix_mode(monkeypatch, 3.0)
+    quantum = ws_mod.trim_quantum_bytes(engine, True)
+    assert quantum == 32000
+    pcm = _real_pcm("english_02.wav", 5.5)
+    bandpass = ws_mod._bandpass_kernel()
+    ref = engine.stream_session(3.0, "English")
+    window, exact, want, prev = bytearray(), bytearray(), [], None
+    for i in range(0, len(pcm) - TICK + 1, TICK):
+        window += pcm[i:i + TICK]
+        exact += pcm[i:i + TICK]
+        ws_mod._trim_partial(window, quantum)
+        ws_mod._trim_exact(exact)
+        text, prev = ref.update(fir_same(pcm16_to_f32(bytes(window)),
+                                         bandpass))
+        if text:
+            want.append(detect_and_fix_repetitions(text))
+    assert ref.stats["tail"] > 0 and len(want) >= 5, (ref.stats, want)
+    ref.release()
+    full = fir_same(pcm16_to_f32(bytes(exact) + bytes(
+        int(ws_mod.WS_FLUSH_SILENCE_MS / 1000 * 16000) * 2)), bandpass)
+    final = engine.transcribe(full, 16000, "English", resume_tokens=prev)
+
+    failures = ws_mod.prefix_bind_failures
+    ws = _connect(base, "?use_server_vad=false")
+    ws.receive_json()
+    n = len(pcm) - len(pcm) % TICK
+    for i in range(0, n, TICK):
+        ws.send_bytes(pcm[i:i + TICK])
+    ws.send_json({"action": "flush"})
+    msgs = _until_final(ws)
+    # the flush's reset is done once the next action is answered
+    ws.send_json({"action": "reset"})
+    assert ws.receive_json(timeout=60) == {"status": "buffer_reset"}
+    sess = manager.last_stream_session
+    ws.close()
+    assert [m["text"] for m in msgs[:-1]] == want
+    assert all(m["is_partial"] for m in msgs[:-1])
+    assert msgs[-1]["text"] == detect_and_fix_repetitions(final[0].text)
+    assert ws_mod.prefix_bind_failures == failures
+    assert sess is not None and sess.stats["tail"] > 0, sess and sess.stats
+    assert not sess.has_state()      # the flush reset it
+
+
+def test_ws_prefix_bind_failure_answers_error(base, engine, manager,
+                                              monkeypatch):
+    """A session that cannot be bound: the tick answers "[error: ...]",
+    the failure is counted, and nothing serves it on the fused path."""
+    _prefix_mode(monkeypatch, 3.0)
+
+    def refuse(*a, **k):
+        raise RuntimeError("no room for a session")
+    monkeypatch.setattr(engine, "stream_session", refuse)
+    fused = []
+    orig = manager.transcribe_sync
+    monkeypatch.setattr(manager, "transcribe_sync",
+                        lambda *a, **k: fused.append(1) or orig(*a, **k))
+    failures = ws_mod.prefix_bind_failures
+    ws = _connect(base, "?use_server_vad=false")
+    ws.receive_json()
+    ws.send_bytes(_real_pcm("english_01.wav", 0.45)[:TICK])
+    msg = ws.receive_json(timeout=60)
+    # before the close, whose final of what is left takes the fused path
+    assert not fused
+    ws.close()
+    assert msg == {"text": "[error: no room for a session]",
+                   "is_partial": True, "is_final": False}
+    assert ws_mod.prefix_bind_failures == failures + 1
+
+
 # -- the frame codec -----------------------------------------------------------------
 
 def test_fragments_ping_and_large_frames(base):

@@ -2,7 +2,7 @@
 JAX package's (``qwen3_asr_tpu/config.py``) over a grid of environment
 settings: ``resolve_ws_mode`` and ``ws_warmup_profile`` give the same
 modes, and the port refuses, at start, a configuration that can resolve to
-a mode it does not serve (``prefix``, ``grouped``)."""
+a mode it does not serve (``grouped``), and serves ``prefix``."""
 import itertools
 
 import pytest
@@ -86,16 +86,31 @@ def test_default_modes_are_solo_and_tick(env):
                                   "legacy_prefix", "legacy_both", "cap_10",
                                   "min_cap_5"])
 def test_manager_refuses_unported_modes_at_start(env, name):
-    """The manager refuses before it warms anything or starts its device
-    thread."""
+    """The manager refuses a configuration that can resolve to a mode the
+    port does not serve (``grouped``; the ``auto`` policy at a long cap
+    warms it too) before it warms anything or starts its device thread.
+    One whose modes are all ported (``prefix`` alone, served since slice
+    15) goes on to the warmup."""
     from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
 
     class NoEngine:
+        warmed = 0
+
         def warmup(self, *a, **k):
-            raise AssertionError("warmed a refused configuration")
+            self.warmed += 1
 
     _set(env, name)
+    names = {m.name for m in tcfg.ws_warmup_profile()}
     mgr = ModelManager(NoEngine())
+    if names <= set(tcfg.PORTED_WS_MODES):
+        assert names == {"prefix"}
+        try:
+            mgr.start()
+            assert mgr.engine.warmed == 1
+        finally:
+            mgr.stop()
+        return
     with pytest.raises(ValueError, match="not ported"):
         mgr.start()
+    assert mgr.engine.warmed == 0
     assert mgr.queue._thread is None
