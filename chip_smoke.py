@@ -173,7 +173,30 @@ without a CUDA device, and whenever any phase fails. Phases:
    ``prefix_bind_failures``) or a VAD failure. Phases 2 and 3 also hold
    flash at the mode's shapes: the segment prefill at T = 64 and 389
    (q_offset = P - T, S=768) and one encoder block (T = 50 and 25, windows
-   of 50), f32 and bf16, repeat bits, kernel, plain and SDPA ms.
+   of 50), f32 and bf16, repeat bits, kernel, plain and SDPA ms;
+14. the grouped WS mode, ``ASR_WS_STREAM_MODE=grouped``
+   (``runtime/stream_group.py``, ``GroupTickBatcher``): (a) trained_ckpt
+   in f32, 4 slots at an 8.5 s cap, direct ``StreamGroup.tick`` calls: a
+   quiet then loud clip from the first cadence, a Chinese one joining two
+   cadences late, one leaving early and a fourth taking its slot; every
+   tick's ids equal a solo session's on the card (the first member's also
+   the fused resume path's) and the same schedule's on the CPU; graph =
+   eager; (b) preset:1.7b bf16 (phase 5's engine) at a 30 s cap and the
+   default 8 slots: the group keys warmed, 4 WS sessions streaming 20 s
+   of the real clips each at once, unpaced, into one group (the group tick
+   batcher dispatching when all 4 have landed, within 200 ms): its group
+   sizes and dispatches, partial wall p50/p90, each dispatch's device ms
+   by rung, bind failures (none); a fixed schedule of direct ticks (two
+   members, a third joining) through the graphs and eagerly: the same ids
+   and the members' prompt keys and audio tokens bit-equal; each front
+   recording flash and kernel B twice a layer, the chunk #3 and kernel
+   B's per-row route once a layer and step; the device ms of a front at
+   rungs 64 and 389 and of a chunk at 8 rows; (c) the same schedule with
+   ``QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true``: an fp8
+   group cache, kernels A and C. Phases 2 and 3 also hold flash at the
+   group's segment prefill (B=8, T = 64 and 389, per-row valid_from) and
+   #3 at its continuation (B=8, S=768, rows at their own frontiers; bf16
+   and fp8).
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -668,6 +691,7 @@ def kernel_phases(sh, dev):
     aligner_kernel_rows(sh, dev, card, rows)
     pool_kernel_rows(sh, dev, card, rows)
     stream_kernel_rows(sh, dev, card, rows)
+    pool_kernel_rows(sh, dev, card, rows, group=True)
     return rows
 
 
@@ -1339,13 +1363,15 @@ def ws_kernel_rows(sh, dev, card, rows) -> None:
 POOL_WINDOWS = (8, 16, 32)      # the decode pool's window ladder at defaults
 
 
-def pool_row_cases(sh, dev):
+def pool_row_cases(sh, dev, group: bool = False):
     """#3 at the decode pool's segment: windows of 8, 16 and 32 rows of the
     pool cache (S = 768 at preset:1.7b), every row at its own place: rows
     of the 30, 15 and 10 s buckets in turn (their prompt lengths), each at
     its own point of its budget, with the left pads of two prompt
     prefixes; bf16 and fp8 caches: (kernel, label, run, plain, SDPA,
-    bytes, flops, layers, note)."""
+    bytes, flops, layers, note). With ``group``: the grouped WS mode's
+    continuation instead, 8 slots of the 30 s cap's prompt (453), each
+    row at its own frontier."""
     from qwen3_asr_tpu_torch.models.asr import PromptTemplate
     from qwen3_asr_tpu_torch.models.config import preset
     from qwen3_asr_tpu_torch.models.encoder import encoder_output_length
@@ -1362,10 +1388,10 @@ def pool_row_cases(sh, dev):
     nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
     s = sh["cache"]
     bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
-    for batch in POOL_WINDOWS:
+    for batch in ((GROUP_SLOTS,) if group else POOL_WINDOWS):
         vf0, vt0 = [], []
         for r in range(batch):
-            sec = (30, 15, 10)[r % 3]
+            sec = 30 if group else (30, 15, 10)[r % 3]
             plen = (PREFIX_BUDGET + suffix
                     + int(encoder_output_length(sec * 100, chunk)))
             vf0.append(sh["valid_from"] - 6 * (r % 2))
@@ -1383,7 +1409,8 @@ def pool_row_cases(sh, dev):
             mask = AttnSpec(valid_from=vf, valid_to=vt).dense_mask(
                 batch, 1, s, dev)
             yield ("decode_attention_batch",
-                   f"pool_b{batch}_s{s}_{KV_NAMES[kv_dtype]}",
+                   f"{'group' if group else 'pool'}_b{batch}_s{s}_"
+                   f"{KV_NAMES[kv_dtype]}",
                    lambda layer, q=q, k=k, v=v, vf=vf, vt=vt: (
                        decode_attention_batched(q, k, v, layer_idx=layer,
                                                 kv_valid_from=vf,
@@ -1403,12 +1430,13 @@ def pool_row_cases(sh, dev):
             del k, v, kb, vb
 
 
-def pool_kernel_rows(sh, dev, card, rows) -> None:
+def pool_kernel_rows(sh, dev, card, rows, group: bool = False) -> None:
     """Parity (phase 2) and timing (phase 3) of #3 at the decode pool's
-    shapes (``pool_row_cases``)."""
+    shapes (``pool_row_cases``), or with ``group`` at the grouped WS
+    mode's."""
     tol = TOL[torch.bfloat16]
     for kernel, label, run, plain, sdpa, nbytes, flops, layers, note in \
-            pool_row_cases(sh, dev):
+            pool_row_cases(sh, dev, group):
         errs = []
         for layer in (0, layers - 1):
             out, ref = run(layer)[0], plain(layer)[0]
@@ -1493,6 +1521,7 @@ def aligner_kernel_rows(sh, dev, card, rows) -> None:
 
 
 STREAM_SEGMENTS = (64, 389)     # segment prefills timed: T at the 30 s cap
+GROUP_SLOTS = 8                 # the grouped mode's default slots
 
 
 def stream_flash_cases(sh, dtype, dev):
@@ -1532,6 +1561,37 @@ def stream_flash_cases(sh, dtype, dev):
                        q, k, v, attn_mask=mask[:, None], enable_gqa=True),
                (2 * nq * t * d + 2 * nkv * (plen - vf0) * d) * esize
                + 2 * 4 * nq * t + 3 * 4,
+               4 * d * nq * int(mask.sum()), 0)
+        del k, v
+    # the grouped mode's segment prefill: every slot's row from one rung,
+    # B=8, each row left-padded from its own prefix's valid_from
+    batch = GROUP_SLOTS
+    for t in STREAM_SEGMENTS:
+        gen = torch.Generator(device=dev).manual_seed(t + batch)
+        q = torch.randn((batch, nq, t, d), generator=gen,
+                        device=dev).to(dtype)
+        k, v = (torch.randn((batch, nkv, s, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        off = plen - t
+        rows_vf = [vf0 - 6 * (r % 2) - 9 * (r % 3 == 2) for r in range(batch)]
+        vf = torch.tensor(rows_vf, dtype=torch.int32, device=dev)
+        vt = torch.full((batch,), s, dtype=torch.int32, device=dev)
+        qo = torch.full((batch,), off, dtype=torch.int32, device=dev)
+        mask = AttnSpec(causal=True, q_offset=off, valid_from=vf
+                        ).dense_mask(batch, t, s, dev)
+        yield (f"group_segment_prefill_b{batch}_t{t}", "flash_attention",
+               lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo: flash_attention(
+                   q, k, v, causal=True, q_offset=qo, kv_valid_from=vf,
+                   kv_valid_to=vt, return_residuals=True),
+               lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo:
+                   flash_attention_plain(q, k, v, vf, vt, qo, causal=True,
+                                         window_block=0, sm_scale=d ** -0.5),
+               lambda q=q, k=k, v=v, mask=mask:
+                   F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask[:, None], enable_gqa=True),
+               (2 * batch * nq * t * d
+                + 2 * nkv * sum(plen - x for x in rows_vf) * d) * esize
+               + 2 * 4 * batch * nq * t + 3 * 4 * batch,
                4 * d * nq * int(mask.sum()), 0)
         del k, v
     h, d, w = sh["enc_heads"], sh["enc_d"], sh["window"]
@@ -4261,6 +4321,394 @@ def stream_phase(dev, engine, f32: bool = True) -> dict:
     return total
 
 
+# -- phase 14: the grouped WS mode ------------------------------------------------
+
+GROUP_SECONDS = 20.0      # (b): each session's audio, the real clips tiled
+GROUP_SESSIONS = 4        # (b): WS sessions at once
+# 30 s cap, the default 8 slots; no batched tick keys to warm
+GROUP_ENV = {"ASR_WS_STREAM_MODE": "grouped", "WS_WINDOW_MAX_S": "30",
+             "ASR_WS_TICK_MAX_BATCH": "1", "ASR_WARMUP_BUCKETS": "30",
+             "ASR_WARMUP_BATCH_SHAPES": "",
+             "ASR_WS_GROUP_SLOTS": str(GROUP_SLOTS)}
+
+
+class DispatchTimer:
+    """Each group dispatch's device time (CUDA events around
+    ``StreamGroup._dispatch``: the rows' inputs, the front, the chunks and
+    the one host read that ends it), by the rung it ran from."""
+
+    def __init__(self):
+        from qwen3_asr_tpu_torch.runtime.stream_group import StreamGroup
+        self.cls, self.orig, self.rows = StreamGroup, \
+            StreamGroup._dispatch, []
+        timer = self
+
+        def timed(group, seg_start, reqs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = timer.orig(group, seg_start, reqs)
+            end.record()
+            end.synchronize()
+            timer.rows.append((seg_start, len(reqs),
+                               group.last_run["live"],
+                               group.last_run["chunks"],
+                               start.elapsed_time(end)))
+            return out
+
+        StreamGroup._dispatch = timed
+
+    def close(self) -> None:
+        self.cls._dispatch = self.orig
+
+    def report(self, name: str, card: str) -> dict:
+        by = {}
+        for seg, ticking, live, chunks, ms in self.rows:
+            by.setdefault(seg, []).append((ticking, live, chunks, ms))
+        out = {}
+        for seg, rows in sorted(by.items()):
+            ms = [r[3] for r in rows]
+            out[seg] = float(np.median(ms))
+            log(f"[group] {name}: dispatch from {seg}: {len(rows)}, device "
+                f"ms median {np.median(ms):.2f} (min {min(ms):.2f}, max "
+                f"{max(ms):.2f}); ticking rows "
+                f"{np.mean([r[0] for r in rows]):.2f}, live rows "
+                f"{np.mean([r[1] for r in rows]):.2f}, chunks of 8 steps "
+                f"{np.mean([r[2] for r in rows]):.1f} | {card}")
+        return out
+
+
+def group_schedule(engine, cap_s: float, plan: list, slots: int,
+                   eager: bool = False):
+    """Direct ``StreamGroup.tick`` calls on a fixed schedule. ``plan``:
+    [(name, language, audio, join cadence, leave cadence or None)]; each
+    member's window grows by 450 ms a cadence and is trimmed at the cap
+    in encoder-chunk steps; a member leaves (its slot free for the next)
+    before its leave cadence. Returns (the group, [{name: ids}] a cadence,
+    {name: [windows]}, {name: row}, the members left, by name)."""
+    from qwen3_asr_tpu_torch.runtime.stream_group import StreamGroup
+    group = StreamGroup(engine, cap_s, slots)
+    group.eager = eager
+    chunk = engine.model.cfg.encoder.n_window * 2 * 160
+    cap, tick = int(cap_s * 16000), int(0.45 * 16000)
+    last = max(j + -(-len(a) // tick) if lv is None else lv
+               for _, _, a, j, lv in plan)
+    members, wins, rows, out = {}, {}, {}, []
+    for cadence in range(last):
+        for name, lang, audio, join, leave in plan:
+            if leave == cadence and name in members:
+                members.pop(name).release()
+            if join == cadence:
+                members[name] = group.attach_or_raise(lang)
+                rows[name] = members[name].row
+                wins[name] = []
+        reqs = []
+        for name, lang, audio, join, leave in plan:
+            k = cadence - join
+            if name not in members or k * tick >= len(audio):
+                continue
+            w = audio[:(k + 1) * tick]
+            w = w[max(0, -(-(len(w) - cap) // chunk) * chunk):] \
+                if len(w) > cap else w
+            wins[name].append(w)
+            reqs.append((name, w))
+        res = group.tick([(members[n], w) for n, w in reqs]) if reqs else []
+        out.append({n: ids for (n, _), (_, ids) in zip(reqs, res)})
+    return group, out, wins, rows, members
+
+
+def release_all(members) -> None:
+    for m in members.values():
+        m.release()
+
+
+def group_f32_phase(dev, card: str) -> dict:
+    """(a) trained_ckpt f32, 4 slots, cap 8.5 s, direct group ticks: a
+    quiet then loud clip from the first cadence, a Chinese clip joining
+    two cadences late, one leaving early and a fourth taking its slot;
+    every tick's ids equal a solo session's on the card (and, for the
+    first member, the fused resume path's) and the same schedule's on the
+    CPU; graph = eager. Returns the group's launches."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    ckpt = os.path.join(DATA, "trained_ckpt")
+    gpu = load_engine(ckpt, device=dev, dtype=torch.float32)
+    cpu = load_engine(ckpt, device="cpu")
+
+    def clip(name, scale=1.0):
+        with open(os.path.join(DATA, "real", name), "rb") as f:
+            return (scale * decode_audio(f.read())[0]).astype(np.float32)
+
+    plan = [("a", "en", np.concatenate([clip("english_01.wav", 0.3),
+                                        clip("english_02.wav", 3.0)[:48000]]
+                                       ).astype(np.float32), 0, None),
+            ("b", "zh", clip("chinese_01.wav", 0.5), 2, None),
+            ("c", "en", clip("english_02.wav"), 0, 8),
+            ("d", "ja", clip("japanese_01.wav"), 11, None)]
+    from qwen3_asr_tpu_torch.runtime.stream import warm_stream_keys
+    warm_stream_keys(gpu, STREAM_CAP_F32, 4)
+    counter = PathLaunches(gpu)
+    group, ids, wins, rows, left = group_schedule(gpu, STREAM_CAP_F32, plan,
+                                                  4)
+    launches, eager = counter.read()
+    stats = {n: dict(m.stats) for n, m in left.items()}
+    release_all(left)
+    ticks = sum(len(c) for c in ids)
+    per = {n: [c[n] for c in ids if n in c] for n in wins}
+    # a solo session on the card fed each member's windows
+    solo_eq = 0
+    for name, lang, *_ in plan:
+        sess = gpu.stream_session(STREAM_CAP_F32, lang)
+        solo_eq += sum(sess.update(w)[1] == got
+                       for w, got in zip(wins[name], per[name]))
+        sess.release()
+    frames, bucket_s = gpu.bucket_frames(int(STREAM_CAP_F32 * 16000))
+    fused_eq, prev = 0, []
+    for w, got in zip(wins["a"], per["a"]):
+        prev = gpu._run_bucket([w], frames, bucket_s, "en",
+                               resume_tokens=list(prev))[1][0]
+        fused_eq += prev == got
+    _, cpu_ids, _, _, cpu_left = group_schedule(cpu, STREAM_CAP_F32, plan, 4)
+    release_all(cpu_left)
+    _, eager_ids, _, _, eager_left = group_schedule(gpu, STREAM_CAP_F32, plan,
+                                                    4, eager=True)
+    release_all(eager_left)
+    cpu_eq = sum(a == b for a, b in zip(ids, cpu_ids))
+    log(f"[group] (a) trained_ckpt f32, cap {STREAM_CAP_F32} s, 4 slots: "
+        f"{len(ids)} cadences, {ticks} ticks in {group.dispatches} "
+        f"dispatches, rows {rows} (d reuses c's), stats {stats}; ids "
+        f"equal to a solo session on the card on {solo_eq}/{ticks} ticks, "
+        f"to the fused resume path on {fused_eq}/{len(per['a'])} of a's, "
+        f"to the CPU group on {cpu_eq}/{len(ids)} cadences; eager run "
+        f"equal {eager_ids == ids}; launches {launches} ({eager} eager) | "
+        f"{card}")
+    if (solo_eq != ticks or fused_eq != len(per["a"]) or cpu_eq != len(ids)
+            or eager_ids != ids or rows["d"] != rows["c"]
+            or not stats["a"]["redo"]):
+        raise AssertionError("(a): the group differs from its references")
+    session_launch_check("(a)", launches, ("flash_attention",
+                                           "decode_attention", "qk_rope_kv"))
+    if any(eager.values()):
+        raise AssertionError(f"(a): eager launches {eager}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def group_fixed_schedule(engine, name: str, card: str) -> tuple:
+    """A fixed schedule of direct ticks at the 30 s cap, 8 slots: two
+    members from the first cadence, a third joining at the second (a
+    rebuild from position 0 for every row); through the graphs, then
+    eagerly: the same ids, and the members' rows of the prompt's keys and
+    audio tokens bit-equal. Returns (launches of the graph run, the
+    workspace)."""
+    audio = real_audio()
+    plan = [("a", "en", audio[:int(1.35 * 16000)], 0, None),
+            ("b", "en", audio[int(40 * 16000):int(41.35 * 16000)], 0, None),
+            ("c", "zh", audio[int(80 * 16000):int(80.9 * 16000)], 1, None)]
+    counter = PathLaunches(engine)
+    t0 = time.perf_counter()
+    group, ids, _, rows, left = group_schedule(engine, STREAM_CAP_S, plan,
+                                               GROUP_SLOTS)
+    graph_s = time.perf_counter() - t0
+    launches, eager = counter.read()
+    work = group.work
+    plen = work.plan.prompt_len
+    take = sorted(rows.values())
+
+    def state():
+        return [x[:, take, :, :plen].clone() for x in work.loop.cache
+                if x is not None] + [work.audio[take].clone()]
+    snap = state()
+    release_all(left)
+    t0 = time.perf_counter()
+    _, eager_ids, _, _, eager_left = group_schedule(
+        engine, STREAM_CAP_S, plan, GROUP_SLOTS, eager=True)
+    eager_s = time.perf_counter() - t0
+    bits = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(snap, state()))
+    release_all(eager_left)
+    log(f"[group] {name}: fixed schedule ({sum(len(c) for c in ids)} ticks "
+        f"in {group.dispatches} dispatches) through the graphs "
+        f"{graph_s:.2f} s, eagerly {eager_s:.2f} s: ids equal "
+        f"{eager_ids == ids}, the members' prompt keys and audio tokens "
+        f"bit-equal {bits}; launches {launches} ({eager} eager) | {card}")
+    if eager_ids != ids or not bits:
+        raise AssertionError(f"{name}: graphs and eager differ")
+    if any(eager.values()):
+        raise AssertionError(f"{name}: eager launches {eager}")
+    return launches, work
+
+
+def group_records(work, name: str, layers: int) -> None:
+    """Every front records flash and kernel B twice a layer (the segment
+    prefill and the verify window), the chunk kernel B's per-row route and
+    the decode kernel once a layer and step."""
+    from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
+    fronts = {s: (g.recorded.get("flash_attention"),
+                  g.recorded.get("qk_rope_kv"))
+              for s, g in sorted(work.fronts.items())}
+    chunk = {k: n for k, n in work.chunk.recorded.items() if n}
+    log(f"[group] {name}: recorded (flash, kernel B) a front {fronts}; a "
+        f"chunk {chunk}")
+    want_chunk = DECODE_CHUNK * layers
+    if (any(v != (2 * layers, 2 * layers) for v in fronts.values())
+            or chunk.get("qk_rope_kv_per_row") != want_chunk
+            or chunk.get("decode_attention_batch") != want_chunk):
+        raise AssertionError(f"{name}: records {fronts} {chunk}")
+
+
+def group_ws(engine, card: str, pcms) -> tuple:
+    """(b) the WS sessions through the server at ``GROUP_ENV``: the
+    manager's warmup (timed), then every session streaming at once,
+    unpaced. Returns (launches, partial walls, the batcher)."""
+    from qwen3_asr_tpu_torch.runtime.batcher import GroupTickBatcher
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    manager = ModelManager(engine)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    manager.start()
+    manager.stop()
+    manager.warmed = True
+    keys = [k for k in engine.stream_warmup.get("keys", [])
+            if k[0] in ("gstate", "gtick")]
+    capture = sum(g.capture_s for k in keys if k[0] == "gstate"
+                  for g in engine._stream_fns[k].graphs())
+    log(f"[group] (b) warmup {time.perf_counter() - t0:.1f} s: the group "
+        f"keys {keys} ({capture:.2f} s of capture); "
+        f"{(torch.cuda.memory_allocated() - held) / 2**30:.3f} GiB more "
+        f"allocated | {card}")
+    # unpaced sessions land their ticks together: dispatch when all have
+    # landed, waiting at most 200 ms for a straggler
+    manager.group_tick_batcher = GroupTickBatcher(
+        manager, window_ms=200, max_batch=len(pcms))
+    groups = []
+    orig = engine.stream_group_member
+
+    def keep(*a, **k):
+        member = orig(*a, **k)
+        groups.append(member.group)
+        return member
+
+    engine.stream_group_member = keep
+    failures = ws_mod.prefix_bind_failures
+    built = len(engine.stream_graphs())
+    timer = DispatchTimer()
+    try:
+        with ws_serving(manager) as url:
+            counter = PathLaunches(engine)
+            with concurrent.futures.ThreadPoolExecutor(len(pcms)) as pool:
+                msgs = list(pool.map(
+                    lambda p: ws_stream(url, p, "?use_server_vad=false"),
+                    pcms))
+            launches, eager = counter.read()
+    finally:
+        timer.close()
+        del engine.stream_group_member
+    walls = [w for kind, w, _ in manager.ws_calls if kind == "partial"]
+    errors = [m for ms in msgs for m in ms if "[error" in m.get("text", "")]
+    batcher = manager.group_tick_batcher
+    group = groups[0] if groups else None
+    log(f"[group] (b) {len(pcms)} sessions over WS, {GROUP_SECONDS} s each "
+        f"unpaced: {batcher.ticks} ticks in {batcher.dispatches} "
+        f"dispatches of the group tick batcher, group sizes "
+        f"{batcher.groups}; the group's dispatches (redos included) "
+        f"{group.dispatches if group else None}; partial wall "
+        f"{percentiles(walls)}; bind failures "
+        f"{ws_mod.prefix_bind_failures - failures}; group cache "
+        f"{group.cache_dtype if group else None}, "
+        f"{group.work.state_bytes() / 1e6 if group else 0:.1f} MB of state "
+        f"(workspace {group.work.nbytes() / 1e6 if group else 0:.1f} MB), "
+        f"{group.work.handovers if group else 0} hand-overs; launches "
+        f"{launches} ({eager} eager: the warm-up runs of the keys the "
+        f"finals built) | {card}")
+    timer.report("(b) preset:1.7b bf16", card)
+    if (len(groups) != len(pcms) or any(g is not group for g in groups)
+            or errors or ws_mod.prefix_bind_failures != failures
+            or not any(size >= 2 for size in batcher.groups)
+            or len(engine.stream_graphs()) != built):
+        raise AssertionError(
+            f"(b): {len(set(map(id, groups)))} groups for "
+            f"{len(groups)} binds, errors {errors[:2]}, bind failures "
+            f"{ws_mod.prefix_bind_failures - failures}, group sizes "
+            f"{batcher.groups}, "
+            f"{len(engine.stream_graphs()) - built} graphs built")
+    return launches, walls, batcher
+
+
+def group_phase(dev, engine, f32: bool = True) -> dict:
+    """Phase 14: the grouped WS mode (``runtime/stream_group.py``);
+    ``f32=False`` leaves (a) out. Returns the kernels' launches over its
+    main-path runs."""
+    from qwen3_asr_tpu_torch.audio import vad
+    from qwen3_asr_tpu_torch.serving import ws as ws_mod
+    card = card_line()
+    total = {}
+
+    def add(got):
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+
+    if f32:
+        add(group_f32_phase(dev, card))
+    audio = real_audio()
+    step = int(GROUP_SECONDS * 16000)
+    pcms = [np.round(np.roll(audio, -i * step)[:step] * 32768.0)
+            .astype("<i2").tobytes() for i in range(GROUP_SESSIONS)]
+    layers = engine.model.cfg.decoder.num_hidden_layers
+    with environ(**GROUP_ENV), ws_cap(STREAM_CAP_S):
+        # (b) preset:1.7b bf16, phase 5's engine
+        launches, walls, _ = group_ws(engine, card, pcms)
+        session_launch_check("(b)", launches, (
+            "flash_attention", "decode_attention_batch", "qk_rope_kv"))
+        add(launches)
+        fixed, work = group_fixed_schedule(engine, "(b) preset:1.7b bf16",
+                                           card)
+        add(fixed)
+        group_records(work, "(b)", layers)
+        log(f"[group] (b) device ms a replay: front@64 "
+            f"{replay_ms(work.fronts[64]):.3f}, front@389 "
+            f"{replay_ms(work.fronts[389]):.3f}, a chunk of 8 steps at "
+            f"{work.rows} rows {replay_ms(work.chunk):.3f} | {card}")
+        del work
+        torch.cuda.empty_cache()
+        # (c) the JAX package's default serving row: an fp8 group cache
+        saved = {k: os.environ.get(k) for k in DEFAULT_ENV}
+        try:
+            qeng, _ = quantized_engine(dev, DEFAULT_ENV, card,
+                                       "(c) int8 + int4 KV + W8A8")
+            from qwen3_asr_tpu_torch.runtime.stream import warm_stream_keys
+            warm_stream_keys(qeng, STREAM_CAP_S, GROUP_SLOTS)
+            fixed, work = group_fixed_schedule(
+                qeng, "(c) int8 + int4 KV + W8A8", card)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if work.cache_dtype != torch.float8_e4m3fn:
+            raise AssertionError(f"(c): group cache {work.cache_dtype}")
+        session_launch_check("(c)", fixed, (
+            "flash_attention", "decode_attention_batch", "qgemv", "qgemm",
+            "qk_rope_kv"))
+        group_records(work, "(c)", layers)
+        log(f"[group] (c) device ms a replay: front@64 "
+            f"{replay_ms(work.fronts[64]):.3f}, front@389 "
+            f"{replay_ms(work.fronts[389]):.3f}, a chunk of 8 steps at "
+            f"{work.rows} rows {replay_ms(work.chunk):.3f} | {card}")
+        add(fixed)
+        del qeng, work
+        torch.cuda.empty_cache()
+    log(f"[group] phase 14 launches {total}; bind failures "
+        f"{ws_mod.prefix_bind_failures}, VAD failures {vad.failures}")
+    if ws_mod.prefix_bind_failures or vad.failures:
+        raise AssertionError("phase 14: a bind or VAD failure was counted")
+    return total
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -4387,6 +4835,15 @@ def main() -> int:
         launches[name] += streamed[name]
     launches_per_row += streamed["qk_rope_kv_per_row"]
     phase_done("phase 13 (WS prefix caching)")
+    grouped = group_phase(dev, engine)
+    # this slice's path, counted from 0 just before each of its runs
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch", "qgemv", "qgemm", "qk_rope_kv"):
+        if not grouped.get(name):
+            raise AssertionError(f"phase 14 launched no {name}")
+        launches[name] += grouped[name]
+    launches_per_row += grouped["qk_rope_kv_per_row"]
+    phase_done("phase 14 (grouped WS)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

@@ -13,12 +13,12 @@ package's environment variables and meanings:
 - ``prefix``: one session's ticks with cached encoder blocks and decoder
   KV across ticks (``runtime/stream.py``);
 - ``grouped``: the same, with concurrent sessions' ticks in one pooled
-  dispatch (``runtime/stream_group.py``, ``GroupTickBatcher``), which the
-  port does not have yet (ROADMAP §1 item 10, slice 16).
-  ``check_ws_modes`` refuses a configuration that can resolve to it, at
-  start, rather than serving another mode in its place. So does the
-  ``auto`` policy at a cap of ``ASR_WS_GROUP_MIN_CAP_S`` or more, whose
-  warmup profile names both ``prefix`` and ``grouped``.
+  dispatch (``runtime/stream_group.py``, ``GroupTickBatcher``). The
+  ``auto`` policy at a cap of ``ASR_WS_GROUP_MIN_CAP_S`` or more names
+  both ``prefix`` and ``grouped`` in its warmup profile.
+
+``check_ws_modes`` refuses, at start, a mode name it does not know,
+rather than serving another mode in its place.
 
 Priority: ``ASR_WS_STREAM_MODE`` names a mode (``auto`` = the policy); else
 the legacy flags ``ASR_WS_PREFIX_CACHE`` / ``ASR_WS_TICK_BATCH``, if either
@@ -35,7 +35,7 @@ from typing import List, NamedTuple
 
 log = logging.getLogger(__name__)
 
-PORTED_WS_MODES = ("solo", "tick", "prefix")
+PORTED_WS_MODES = ("solo", "tick", "prefix", "grouped")
 
 
 def _safe_parse(name: str, default: str, cast):
@@ -116,16 +116,12 @@ def ws_warmup_profile() -> List[WsMode]:
 
 def check_ws_modes() -> List[WsMode]:
     """``ws_warmup_profile()``, or ValueError if it names a mode the port
-    does not serve (``grouped``, or an unknown name)."""
+    does not serve (an unknown name in ``ASR_WS_STREAM_MODE``)."""
     modes = ws_warmup_profile()
     refused = [m.name for m in modes if m.name not in PORTED_WS_MODES]
     if refused:
         raise ValueError(
-            f"WS stream mode(s) {refused} are not ported: ``grouped`` "
-            f"(runtime/stream_group.py with GroupTickBatcher) comes with "
-            f"slice 16 (ROADMAP §1 item 10), and the auto policy at a cap "
-            f"of ASR_WS_GROUP_MIN_CAP_S or more can reach it; the port "
-            f"serves {list(PORTED_WS_MODES)}. Set ASR_WS_STREAM_MODE=prefix "
-            f"(or ASR_WS_PREFIX_CACHE=true alone) for long caps, or lower "
-            f"WS_WINDOW_MAX_S below ASR_WS_GROUP_MIN_CAP_S")
+            f"WS stream mode(s) {refused} are not ported: no such mode; "
+            f"ASR_WS_STREAM_MODE takes auto or one of "
+            f"{list(PORTED_WS_MODES)}")
     return modes

@@ -374,3 +374,20 @@ def param_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(param_bytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
+
+
+def param_leaves(tree) -> list:
+    """The tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in param_leaves(v)]
+    return [tree]
+
+
+def param_count(tree) -> int:
+    """Parameters as JAX's ``/health`` counts them (``model_params_m``:
+    every leaf's elements, a packed int4 payload two a byte)."""
+    if is_packed_int4(tree):
+        return tree["q"].numel() * 2 + tree["s"].numel()
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return tree.numel()

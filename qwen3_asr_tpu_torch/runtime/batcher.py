@@ -11,8 +11,8 @@ per request, so the lock is a ``threading.Lock``, the timer a
 ``threading.Timer`` and each reply a ``concurrent.futures.Future``.
 ``TickBatcher`` (``qwen3_asr_tpu/runtime/batcher.py:153-261``) coalesces
 concurrent WS sessions' partial ticks into one batched resume run;
-``GroupTickBatcher`` waits for the prefix-cached stream modes (ROADMAP §1
-item 10).
+``GroupTickBatcher`` (``:262-326``) coalesces the partial ticks of one
+stream group's members into one pooled-cache dispatch.
 """
 from __future__ import annotations
 
@@ -150,6 +150,85 @@ class _Collector:
                 settle(p.future, result=res)
 
         reply.add_done_callback(done)
+
+
+class _PendingGroupTick:
+    __slots__ = ("member", "audio", "future")
+
+    def __init__(self, member, audio, future):
+        self.member = member
+        self.audio = audio
+        self.future = future
+
+
+class GroupTickBatcher(_Collector):
+    """Tick coalescing for the grouped WS mode: partial ticks of members
+    of one ``StreamGroup`` (``runtime/stream_group.py``) that land within
+    ``ASR_WS_TICK_WINDOW_MS`` (6) run as ONE ``StreamGroup.tick`` on the
+    group's pooled cache, up to ``ASR_WS_GROUP_SLOTS`` (8) members. The key
+    is the group, so members of different groups dispatch apart. A
+    member's repeated ticks in one collection split into rounds, in order
+    (its second tick diffs against its first's state); a member released
+    before its round runs gets ``("", [])``. A lone live session
+    (``manager.ws_sessions <= 1``) skips the window. Dispatched on the
+    express lane."""
+
+    def __init__(self, manager, window_ms: Optional[float] = None,
+                 max_batch: Optional[int] = None):
+        super().__init__(
+            manager,
+            (window_ms if window_ms is not None else
+             float(os.getenv("ASR_WS_TICK_WINDOW_MS", "6"))) / 1000,
+            max_batch or int(os.getenv("ASR_WS_GROUP_SLOTS", "8")))
+        # dispatched rounds by size, and the ticks they carried (the JAX
+        # server's asr_group_tick_{groups,ticks}_total)
+        self.groups: dict = {}
+        self.ticks = 0
+
+    def tick(self, member, audio: np.ndarray) -> concurrent.futures.Future:
+        """One member's partial tick → a future of (text, token_ids)."""
+        future: concurrent.futures.Future = concurrent.futures.Future()
+        self._enqueue(("g", id(member.group)),
+                      _PendingGroupTick(member, audio, future),
+                      solo=getattr(self.manager, "ws_sessions", 0) <= 1)
+        return future
+
+    def _submit(self, key, group: List[_PendingGroupTick]) -> None:
+        # a member appears at most once a dispatch: repeats go to later
+        # rounds, which the queue's one lane runs in order
+        rounds: List[List[_PendingGroupTick]] = []
+        for p in group:
+            for rnd in rounds:
+                if all(q.member is not p.member for q in rnd):
+                    rnd.append(p)
+                    break
+            else:
+                rounds.append([p])
+        for rnd in rounds:
+            live = [p for p in rnd if p.member.group is not None]
+            for p in rnd:
+                if p.member.group is None:
+                    # released mid-flight: an empty partial, not sent
+                    settle(p.future, result=("", []))
+            if not live:
+                continue
+            with self._lock:
+                self.groups[len(live)] = self.groups.get(len(live), 0) + 1
+                self.ticks += len(live)
+
+            def run(live=live):
+                out: List[Optional[tuple]] = [("", [])] * len(live)
+                ticking = [(i, p) for i, p in enumerate(live)
+                           if p.member.group is not None]
+                if ticking:
+                    grp = ticking[0][1].member.group
+                    got = grp.tick([(p.member, p.audio)
+                                    for _, p in ticking])
+                    for (i, _), res in zip(ticking, got):
+                        out[i] = res
+                return out
+
+            self._dispatch(live, run, priority=EXPRESS)
 
 
 class MicroBatcher(_Collector):

@@ -27,12 +27,15 @@ segment's result: the forced aligner's (``sidecars/aligner.py``) when one
 is loaded, else char-proportional estimates, offset by the segment's start
 and rounded to ms, as the JAX engine gives them.
 
-The prefix-cached WS mode (``runtime/stream.py``) has executables of its
-own, shared by every session: ``stream_session`` binds a session, and
-``_stream_fn`` memoizes its keys (``("encode", frames)``, ``("state", P,
-max_new, dtype)``, ``("tick", seg_start, P, max_new, dtype)``). AOT
-caches, meshes, draft models and the grouped stream mode are not ported
-yet.
+The prefix-cached WS modes (``runtime/stream.py``,
+``runtime/stream_group.py``) have executables of their own, shared by
+every session and group: ``stream_session`` binds a session,
+``stream_group_member`` a member of a group (``_stream_groups``, by
+bucket), and ``_stream_fn`` memoizes their keys (``("encode", frames)``,
+``("state", P, max_new, dtype)``, ``("tick", seg_start, P, max_new,
+dtype)``, ``("gstate", P, max_new, slots, dtype)``, ``("gtick",
+seg_start, P, max_new, slots, dtype)``). AOT caches, meshes and draft
+models are not ported yet.
 """
 from __future__ import annotations
 
@@ -192,27 +195,35 @@ class TranscriptionEngine:
         self.executables: Dict[tuple, BucketExecutable] = {}
         self.graph_pool = (torch.cuda.graph_pool_handle()
                            if self.device.type == "cuda" else None)
-        # the prefix-cached WS mode's executables (runtime/stream.py),
+        # the prefix-cached WS modes' executables (runtime/stream.py),
         # replayed on the same device thread, in the same graph pool
         self._stream_fns: Dict[tuple, object] = {}
+        # the grouped mode's groups (runtime/stream_group.py), by bucket
+        self._stream_groups: Dict[tuple, list] = {}
         # shapes and counts of the last bucket run (for measurement scripts)
         self.last_run: dict = {}
-        self.stream_warmup: dict = {}   # the prefix mode's keys and seconds
+        self.stream_warmup: dict = {}   # the stream modes' keys and seconds
 
     @property
     def executable_count(self) -> int:
-        """Keys built so far: serving a fixed set of shapes must hold it
-        constant (each key holds its KV cache and loop state)."""
-        return len(self.executables)
+        """Keys built so far (the bucket keys and the stream keys) and the
+        live stream groups, as JAX's ``engine.py:170-180`` counts them:
+        serving a fixed set of shapes must hold it constant (each key
+        holds its KV cache and loop state)."""
+        return (len(self.executables) + len(self._stream_fns)
+                + sum(len(g) for g in list(self._stream_groups.values())))
 
     def held_bytes(self) -> int:
-        """Bytes of the tensors the engine holds: its weights and every
-        key's buffers, loop state and KV cache. Safe from another thread
-        (``/health``) while the device thread adds a key."""
+        """Bytes of the tensors the engine holds: its weights, every key's
+        buffers, loop state and KV cache, and the stream groups' stashed
+        state. Safe from another thread (``/health``) while the device
+        thread adds a key."""
         return (param_bytes(self.model.params)
                 + sum(x.nbytes() for x in list(self.executables.values()))
                 + sum(x.nbytes() for x in list(self._stream_fns.values())
-                      if hasattr(x, "nbytes")))
+                      if hasattr(x, "nbytes"))
+                + sum(g.held_bytes() for gs in
+                      list(self._stream_groups.values()) for g in list(gs)))
 
     # -- bucketing ---------------------------------------------------------------
     def bucket_frames(self, n_samples: int) -> Tuple[int, float]:
@@ -310,9 +321,39 @@ class TranscriptionEngine:
         from .stream import StreamSession
         return StreamSession(self, cap_s, language, context)
 
+    def stream_group_member(self, cap_s: float,
+                            language: Optional[str] = None,
+                            context: str = "", slots: Optional[int] = None):
+        """A WS connection's member of a grouped prefix-cache session
+        (``runtime/stream_group.py``): it joins a group of its bucket with
+        a free slot, else starts a group of ``slots``
+        (``ASR_WS_GROUP_SLOTS``, 8) rows."""
+        from .stream_group import StreamGroup
+        slots = slots or int(os.getenv("ASR_WS_GROUP_SLOTS", "8"))
+        key = self.bucket_frames(int(cap_s * TARGET_SR))
+        groups = self._stream_groups.setdefault(key, [])
+        for g in groups:
+            member = g.try_attach(language, context)
+            if member is not None:
+                return member
+        group = StreamGroup(self, cap_s, slots)
+        groups.append(group)
+        return group.attach_or_raise(language, context)
+
+    def _drop_stream_group_if_empty(self, group) -> None:
+        """An emptied group leaves the registry (the next member of its
+        bucket starts a fresh one) and drops its stashed state; its
+        workspace stays an engine key (ROADMAP §3)."""
+        if group.live_members == 0:
+            for groups in self._stream_groups.values():
+                if group in groups:
+                    groups.remove(group)
+                    break
+            group.drop_state()
+
     def stream_graphs(self) -> List[Graph]:
         """Every graph of the stream executables (encoders, workspaces'
-        chunks, tick fronts)."""
+        chunks, tick fronts, the groups' included)."""
         return [g for fn in list(self._stream_fns.values())
                 if hasattr(fn, "graphs") for g in fn.graphs()]
 
@@ -337,7 +378,11 @@ class TranscriptionEngine:
         shape's encoder, each rung's tick front, the continuation), built
         directly rather than by pacing a throwaway session across the cap
         as JAX does (``engine.py:921-975``): the same keys, without the
-        paced ticks' decode time. A WS mode the port refuses raises
+        paced ticks' decode time. Under ``grouped``, the same for a group
+        of ``ASR_WS_GROUP_SLOTS`` slots (its workspace and ``gtick``
+        fronts), where JAX paces a 2-member throwaway group
+        (``engine.py:934-959``); the ``auto`` policy at a long cap names
+        both modes, and both are built. An unknown WS mode raises
         (``config.check_ws_modes``)."""
         from ..config import _safe_float, _safe_int, check_ws_modes
         modes = {m.name for m in check_ws_modes()}
@@ -375,10 +420,16 @@ class TranscriptionEngine:
             bf, bs = self.bucket_frames(len(dummy))
             for batch in shapes:
                 self._run_bucket([dummy] * batch, bf, bs, language)
-        if "prefix" in modes:
+        if modes & {"prefix", "grouped"}:
             from .stream import warm_stream_keys
             t0 = time.perf_counter()
-            keys = warm_stream_keys(self, cap)
+            keys = []
+            if "prefix" in modes:
+                keys += warm_stream_keys(self, cap)
+            if "grouped" in modes:
+                slots = _safe_int("ASR_WS_GROUP_SLOTS", "8")
+                keys += [k for k in warm_stream_keys(self, cap, slots)
+                         if k not in keys]
             self.stream_warmup = {"keys": keys,
                                   "seconds": time.perf_counter() - t0}
 

@@ -9,15 +9,16 @@ device; ``ASR_KV_CACHE_DTYPE`` picks
 the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
 ``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs), and
 ``ModelManager`` holds the fields of its ``ModelManager`` that the batchers
-and the server use (the micro-batcher, the tick batcher, the live WS
-session count, ``transcribe_sync``), and warms the engine's executables on
+and the server use (the micro-batcher, the tick batcher, the group tick
+batcher, the live WS session count, ``transcribe_sync``), and warms the engine's executables on
 start (``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it), refusing first
 a WS mode the port does not serve (``config.check_ws_modes``), and under
 ``ASR_CONTINUOUS_BATCHING=true`` then builds the decode pool
 (``runtime/pool.py``) and routes the requests it can serve there
 (``pool_eligible``, ``transcribe_pooled``). It also tracks the live
-prefix-mode WS sessions (``register_stream_session``, weakly), so that an
-idle unload can release them; idle unload, the watchdog and the fast
+prefix-mode WS sessions and group members (``register_stream_session``,
+weakly), so that an idle unload can release them and ``/health`` counts
+what they hold; idle unload, the watchdog and the fast
 engine are not ported yet (ROADMAP §1 item 7).
 """
 from __future__ import annotations
@@ -41,7 +42,7 @@ from ..ops.quant import (check_mode, check_quantized_dtype, param_bytes,
 from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
 from ..config import check_ws_modes
-from .batcher import MicroBatcher, TickBatcher
+from .batcher import GroupTickBatcher, MicroBatcher, TickBatcher
 from .checkpoint import load_asr_checkpoint
 from .engine import (AUDIO_BUCKETS_S, MAX_SEGMENT_S, TARGET_SR,
                      TranscriptionEngine, TranscriptionResult, _prep_audio,
@@ -216,6 +217,7 @@ class ModelManager:
         self.queue = PriorityInferQueue()
         self.batcher = MicroBatcher(self)
         self.tick_batcher = TickBatcher(self)
+        self.group_tick_batcher = GroupTickBatcher(self)
         # live WS sessions (kept by the server): the tick batcher skips its
         # window when there is nothing to coalesce with, and the mode policy
         # reads it
@@ -224,18 +226,27 @@ class ModelManager:
         self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
         self.warmed = False
         self.pool = None
-        # live prefix-mode WS sessions (runtime/stream.py), weakly: a
-        # session dies with its connection
+        # live prefix-mode WS sessions (runtime/stream.py) and group
+        # members (runtime/stream_group.py), weakly: a session dies with
+        # its connection
         self._stream_sessions = weakref.WeakSet()
         self._sessions_lock = threading.Lock()
         self._last_stream_ref = None
 
     def register_stream_session(self, session) -> None:
-        """Track a WS prefix-mode session, so that an unload can
-        ``release()`` it (ROADMAP §1 item 7.2)."""
+        """Track a WS prefix-mode session or group member, so that an
+        unload can ``release()`` it (ROADMAP §1 item 7.2)."""
         with self._sessions_lock:
             self._stream_sessions.add(session)
         self._last_stream_ref = weakref.ref(session)
+
+    def stream_session_bytes(self) -> int:
+        """Device bytes the registered sessions hold of their own (their
+        stashed states; a group member's live in its group, which the
+        engine counts)."""
+        with self._sessions_lock:
+            sessions = list(self._stream_sessions)
+        return sum(s.held_bytes() for s in sessions)
 
     @property
     def last_stream_session(self):

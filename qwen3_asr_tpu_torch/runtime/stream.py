@@ -52,6 +52,13 @@ buffers of its own and the new owner's copied in (``acquire``). A lone
 session never copies. A tick reads the host once after its last chunk:
 the tokens, the length and every block's raw max in one transfer.
 
+The grouped mode (``runtime/stream_group.py``) runs on the same
+workspace class with ``slots`` rows: ``("gstate", P, max_new, slots,
+dtype)`` and its fronts ``("gtick", seg_start, P, max_new, slots,
+dtype)``; its owner is a ``StreamGroup``. The diff, the clamp guess and
+the first stale position (``diff_blocks``, ``clamp_guess``,
+``change_token``) are shared with the group's members.
+
 The session cache of an int4 engine is fp8, as JAX's is
 (``stream.py:161-168``; kept for token parity, ROADMAP §3).
 """
@@ -203,45 +210,58 @@ class BlockEncoder:
 
 
 class StreamWorkspace:
-    """``("state", P, max_new, dtype)``: the working buffers every tick
-    graph of one pinned bucket reads and writes, and the owner session
-    whose state they hold. The resume loop (``ResumeLoop``, batch 1) holds
-    the working cache ``[L, 1, n_kv, s_pad, D]``, ``valid_from`` and the
-    draft; ``audio`` holds the prompt's audio tokens, ``halo`` the
-    window's reflect-padded samples, ``prefix`` the prompt's prefix ids,
-    ``maxes`` the blocks' raw maxes of this tick. ``chunk`` (the
-    continuation) is built here, before any session owns the buffers: a
-    build runs its function once, and a chunk is not idempotent. The tick
-    fronts (``front``) are built on first use: a front run twice is a
-    front run once."""
+    """The working buffers every tick graph of one pinned bucket reads and
+    writes, for ``rows`` rows, and the owner whose state they hold: under
+    ``("state", P, max_new, dtype)`` one row, a ``StreamSession``'s; under
+    ``("gstate", P, max_new, slots, dtype)`` ``slots`` rows, a
+    ``StreamGroup``'s pooled cache (``runtime/stream_group.py``). The
+    resume loop (``ResumeLoop``, batch ``rows``) holds the working cache
+    ``[L, rows, n_kv, s_pad, D]``, ``valid_from`` and the draft; ``audio``
+    ``[rows, n_tok, H]`` holds the prompts' audio tokens, ``prefix``
+    ``[rows, 64]`` the prefix ids, ``live`` ``[rows]`` which rows decode
+    (a dead row's first token is EOS), ``maxes`` ``[rows, n_blocks]`` the
+    blocks' raw maxes of this tick, and ``halo`` the reflect-padded
+    samples of the window being encoded (one row's at a time). ``chunk``
+    (the continuation) is built here, before any owner holds the buffers:
+    a build runs its function once, and a chunk is not idempotent. The
+    tick fronts (``front``) are built on first use: a front run twice is
+    a front run once."""
 
-    def __init__(self, engine, plan: BucketPlan, cache_dtype: torch.dtype):
+    def __init__(self, engine, plan: BucketPlan, key: tuple):
         dev = engine.device
         cfg = engine.model.cfg
-        self.engine, self.plan, self.cache_dtype = engine, plan, cache_dtype
+        self.engine, self.plan, self.key = engine, plan, key
+        self.cache_dtype = cache_dtype = key[-1]
+        self.rows = rows = key[3] if key[0] == "gstate" else 1
         self.loop = ResumeLoop(
-            engine.model.params["decoder"], cfg.decoder, 1, plan.prompt_len,
-            plan.max_new, eos_id=engine.model.eos_id,
+            engine.model.params["decoder"], cfg.decoder, rows,
+            plan.prompt_len, plan.max_new, eos_id=engine.model.eos_id,
             pad_id=engine.model.pad_id, cache_dtype=cache_dtype, device=dev)
-        self.prefix = torch.zeros((1, plan.prefix_budget), dtype=torch.int32,
-                                  device=dev)
-        self.audio = torch.zeros((1, sum(plan.block_tokens),
+        self.prefix = torch.zeros((rows, plan.prefix_budget),
+                                  dtype=torch.int32, device=dev)
+        self.audio = torch.zeros((rows, sum(plan.block_tokens),
                                   cfg.encoder.output_dim),
                                  dtype=engine.dtype, device=dev)
         self.halo = torch.zeros(plan.pinned_samples + N_FFT,
                                 dtype=torch.float32, device=dev)
-        self.maxes = torch.zeros(len(plan.spans), dtype=torch.float32,
-                                 device=dev)
-        self.owner: Optional["StreamSession"] = None
+        self.maxes = torch.zeros((rows, len(plan.spans)),
+                                 dtype=torch.float32, device=dev)
+        self.live = torch.ones(rows, dtype=torch.bool, device=dev)
+        self.owner = None
         self.lock = threading.Lock()
         self.handovers = 0        # owner changes that copied a state in/out
         self.copied_bytes = 0
         self.fronts: Dict[int, Graph] = {}
         self.chunk = Graph(self.loop.chunk, dev, engine.graph_pool)
 
+    def front_key(self, seg_start: int) -> tuple:
+        """The engine's key of this workspace's front at ``seg_start``."""
+        kind = "gtick" if self.key[0] == "gstate" else "tick"
+        return (kind, seg_start) + self.key[1:]
+
     # -- the working state ---------------------------------------------------
     def state_tensors(self) -> List[torch.Tensor]:
-        """What a session keeps between ticks: its cache and audio
+        """What an owner keeps between ticks: its cache and audio
         tokens."""
         return [x for x in self.loop.cache if x is not None] + [self.audio]
 
@@ -250,15 +270,16 @@ class StreamWorkspace:
 
     def nbytes(self) -> int:
         return (self.loop.nbytes() + self.prefix.nbytes + self.audio.nbytes
-                + self.halo.nbytes + self.maxes.nbytes)
+                + self.halo.nbytes + self.maxes.nbytes + self.live.nbytes)
 
-    def acquire(self, session: "StreamSession") -> None:
-        """Make ``session`` the owner: the old owner's state (if it has
-        one) is copied out to its own buffers, and ``session``'s copied in
-        (if it was stashed). A lone session never copies."""
+    def acquire(self, owner) -> None:
+        """Make ``owner`` (a session or a group: ``has_state()`` and
+        ``stored``) the owner: the old owner's state (if it has one) is
+        copied out to its own buffers, and ``owner``'s copied in (if it
+        was stashed). A lone owner never copies."""
         with self.lock:
             old = self.owner
-            if old is session:
+            if old is owner:
                 return
             copied = False
             if old is not None and old.has_state():
@@ -268,47 +289,93 @@ class StreamWorkspace:
                 for dst, src in zip(old.stored, self.state_tensors()):
                     dst.copy_(src)
                 copied = True
-            if session.has_state():
-                if session.stored is None:
-                    raise RuntimeError("a stream session with state owns "
+            if owner.has_state():
+                if owner.stored is None:
+                    raise RuntimeError("a stream owner with state owns "
                                        "neither the workspace nor a copy")
-                for dst, src in zip(self.state_tensors(), session.stored):
+                for dst, src in zip(self.state_tensors(), owner.stored):
                     dst.copy_(src)
                 copied = True
             if copied:
                 self.handovers += 1
                 self.copied_bytes += self.state_bytes() * (
                     int(old is not None and old.has_state())
-                    + int(session.has_state()))
-            self.owner = session
+                    + int(owner.has_state()))
+            self.owner = owner
 
-    def drop(self, session: "StreamSession") -> None:
-        """``session`` no longer counts on the working buffers."""
+    def drop(self, owner) -> None:
+        """``owner`` no longer counts on the working buffers."""
         with self.lock:
-            if self.owner is session:
+            if self.owner is owner:
                 self.owner = None
 
     # -- the tick ------------------------------------------------------------
+    def load_rows(self, prefix: np.ndarray, valid_from: np.ndarray,
+                  prev: np.ndarray, prev_len: np.ndarray,
+                  live: np.ndarray) -> None:
+        """Every row's inputs, host to device: the prefix ids [rows, 64],
+        ``valid_from`` [rows], the draft [rows, max_new] and its length
+        [rows], and which rows decode [rows]."""
+        loop = self.loop
+        self.prefix.copy_(torch.from_numpy(prefix))
+        loop.valid_from.copy_(torch.from_numpy(valid_from))
+        loop.prev_tokens.copy_(torch.from_numpy(prev))
+        loop.prev_len.copy_(torch.from_numpy(prev_len))
+        self.live.copy_(torch.from_numpy(live))
+
+    def encode(self, row: int, window: np.ndarray, blocks: List[int],
+               clamp: float, eager: bool = False) -> None:
+        """Encode ``blocks`` of ``window`` (f32 samples, at most the
+        bucket) at clamp max ``clamp`` into row ``row``'s audio tokens and
+        raw maxes, through the shared ``("encode", frames)`` encoders."""
+        if not blocks:
+            return
+        eng, plan = self.engine, self.plan
+        padded = np.zeros(plan.pinned_samples, np.float32)
+        padded[:len(window)] = window
+        self.halo.copy_(torch.from_numpy(
+            np.pad(padded, N_FFT // 2, mode="reflect")))
+        for b in blocks:
+            lo, hi = plan.spans[b]
+            enc = eng._stream_fn(("encode", hi - lo))
+            enc.seg.copy_(self.halo[lo * HOP_LENGTH:
+                                    (hi - 1) * HOP_LENGTH + N_FFT])
+            enc.clamp.fill_(clamp)
+            if eager:
+                enc._run()
+            else:
+                enc.graph()
+            off = plan.block_offsets[b]
+            self.audio[row, off:off + plan.block_tokens[b]].copy_(
+                enc.tokens[0])
+            self.maxes[row, b].copy_(enc.raw_max)
+
     def run_front(self, seg_start: int) -> None:
-        """The segment prefill of the prompt [prefix | audio | suffix] from
-        ``seg_start`` on the working cache (positions seg_start..P-1,
-        causal at q_offset = seg_start), the first token, then resume's
-        verify window and accept arithmetic (``ResumeLoop.verify``)."""
+        """The segment prefill of every row's prompt [prefix | audio |
+        suffix] from ``seg_start`` on the working cache (positions
+        seg_start..P-1, causal at q_offset = seg_start, each row from its
+        ``valid_from``), the first token (EOS for a dead row, so it cannot
+        hold the shared loop open: JAX's ``stream_group.py:416-419``), then
+        resume's verify window and accept arithmetic
+        (``ResumeLoop.verify``)."""
         eng, loop = self.engine, self.loop
         params, cfg = eng.model.params["decoder"], eng.model.cfg.decoder
         pre = embed_tokens(params, self.prefix.long())
-        suf = embed_tokens(params, eng._suffix[None, :])
+        suf = embed_tokens(params, eng._suffix[None, :]).expand(
+            self.rows, -1, -1)
         prompt = torch.cat([pre.to(eng.dtype), self.audio,
-                            suf.to(eng.dtype)], dim=1)          # [1, P, H]
+                            suf.to(eng.dtype)], dim=1)      # [rows, P, H]
         seg = prompt[:, seg_start:]
         positions = torch.arange(seg_start, loop.prompt_len,
-                                 device=prompt.device)[None]
+                                 device=prompt.device).expand(self.rows, -1)
         spec = AttnSpec(causal=True, q_offset=seg_start,
                         valid_from=loop.valid_from)
         hidden, _ = decoder_forward(params, cfg, seg, positions, loop.cache,
                                     seg_start, spec)
         first = lm_logits(params, cfg, hidden[:, -1]).argmax(-1).to(
             torch.int32)
+        first = torch.where(self.live, first,
+                            torch.full_like(first, eng.model.eos_id))
         loop.verify(first)
 
     def front(self, seg_start: int) -> Graph:
@@ -319,8 +386,92 @@ class StreamWorkspace:
             self.fronts[seg_start] = g
         return g
 
+    def run(self, seg_start: int, eager: bool = False):
+        """The tick's decoder work on the loaded rows: the front at
+        ``seg_start``, then chunks while a row is live; then ONE host read
+        of every row's tokens and length and the blocks' raw maxes.
+        Returns (tokens [rows, max_new], lengths [rows], maxes [rows,
+        n_blocks] f32, chunks run)."""
+        loop = self.loop
+        if eager:
+            chunks = run_loop(lambda: self.run_front(seg_start), loop.chunk,
+                              loop.active)
+        else:
+            front = self.engine._stream_fn(self.front_key(seg_start))
+            chunks = run_loop(front, self.chunk, loop.active)
+        lengths = (loop.tokens != loop.pad_id).sum(-1).to(torch.int32)
+        host = torch.cat([loop.tokens.flatten(), lengths,
+                          self.maxes.flatten().view(torch.int32)]
+                         ).cpu().numpy()
+        n_tok = self.rows * loop.max_new
+        tokens = host[:n_tok].reshape(self.rows, loop.max_new)
+        lengths = host[n_tok:n_tok + self.rows]
+        maxes = host[n_tok + self.rows:].view(np.float32).reshape(
+            self.rows, -1)
+        return tokens, lengths, maxes, chunks
+
     def graphs(self) -> List[Graph]:
         return [self.chunk] + list(self.fronts.values())
+
+
+# -- a tick's plan, shared by the session and the group's members -----------------
+
+def diff_blocks(plan: BucketPlan, window: np.ndarray,
+                prev_window: np.ndarray, encoded: List[bool]) -> List[int]:
+    """The blocks a tick encodes against the previous tick's window: those
+    the new samples reach, those a shrunk window must encode as zeros
+    again, and those never encoded (before the clamp max is considered)."""
+    n, m = len(window), len(prev_window)
+    lim = min(m, n)
+    neq = np.nonzero(window[:lim] != prev_window[:lim])[0]
+    common = int(neq[0]) if len(neq) else lim
+    first_changed = max(0, min(common, m - FIR_HALO))
+
+    # STFT frames overlap (N_FFT > hop): a changed sample reaches frames
+    # N_FFT / 2 samples away on BOTH sides, so the block before an edge
+    # and the block after it can read it.
+    block_of = plan.block_of_sample
+    frontier_block = block_of(
+        min(max(n - 1, 0) + N_FFT // 2, plan.pinned_samples - 1))
+    first_block = block_of(max(0, first_changed - N_FFT // 2))
+    changed = list(range(first_block, frontier_block + 1))
+    # A chunk-quantized trim can SHRINK the window across a block edge:
+    # blocks between the new and the old frontier still hold trimmed-out
+    # audio where the fused path sees zeros. Encode them again from the
+    # zero-padded signal (past the old frontier a block is unencoded or
+    # already encodes zeros).
+    if m:
+        prev_frontier = block_of(
+            min(m - 1 + N_FFT // 2, plan.pinned_samples - 1))
+        changed += [b for b in range(frontier_block + 1, prev_frontier + 1)
+                    if encoded[b]]
+    missing = [b for b in range(len(plan.spans))
+               if not encoded[b] and b not in changed]
+    return sorted(set(changed) | set(missing))
+
+
+def clamp_guess(block_max: np.ndarray) -> float:
+    """The optimistic clamp max: the best known one (a changed block's
+    stored max is stale, but still the best prior); the fetched maxes
+    prove it or refute it."""
+    known = [mx for mx in block_max if np.isfinite(mx)]
+    return max(max(known) if known else -10.0, -10.0)
+
+
+def true_max(block_max: np.ndarray) -> float:
+    """The window's proven clamp max, once every block's max is known."""
+    return max(float(np.max(block_max)), -10.0)
+
+
+def change_token(plan: BucketPlan, changed: List[int],
+                 prefix_filled: bool) -> int:
+    """The first stale decoder position; the prefix's keys (< 64) survive
+    trims and clamp changes, and only a new or reset session lacks
+    them."""
+    if not prefix_filled:
+        return 0
+    first_stale = changed[0] if changed else len(plan.spans)
+    return plan.prefix_budget + sum(plan.block_tokens[:first_stale])
 
 
 class StreamSession:
@@ -412,68 +563,25 @@ class StreamSession:
             return "", []
         if n > self.pinned_samples:
             window = window[-self.pinned_samples:]
-            n = self.pinned_samples
         self.stats["ticks"] += 1
-
-        # the diff against the previous tick
-        m = len(self.prev_window)
-        lim = min(m, n)
-        neq = np.nonzero(window[:lim] != self.prev_window[:lim])[0]
-        common = int(neq[0]) if len(neq) else lim
-        first_changed = max(0, min(common, m - FIR_HALO))
-
-        # STFT frames overlap (N_FFT > hop): a changed sample reaches
-        # frames N_FFT / 2 samples away on BOTH sides, so the block before
-        # an edge and the block after it can read it.
-        block_of = self.plan.block_of_sample
-        frontier_block = block_of(
-            min(max(n - 1, 0) + N_FFT // 2, self.pinned_samples - 1))
-        first_block = block_of(max(0, first_changed - N_FFT // 2))
-        changed = list(range(first_block, frontier_block + 1))
-        # A chunk-quantized trim can SHRINK the window across a block
-        # edge: blocks between the new and the old frontier still hold
-        # trimmed-out audio where the fused path sees zeros. Encode them
-        # again from the zero-padded signal (past the old frontier a block
-        # is unencoded or already encodes zeros).
-        if m:
-            prev_frontier = block_of(
-                min(m - 1 + N_FFT // 2, self.pinned_samples - 1))
-            changed += [b for b in range(frontier_block + 1,
-                                         prev_frontier + 1)
-                        if self.encoded[b]]
-        missing = [b for b in range(len(self.spans))
-                   if not self.encoded[b] and b not in changed]
-
-        # The optimistic clamp max: the best known one (a changed block's
-        # stored max is stale, but still the best prior); the fetched maxes
-        # prove it or refute it.
-        known = [mx for mx in self.block_max if np.isfinite(mx)]
-        guess = max(max(known) if known else -10.0, -10.0)
-
-        # The first stale decoder position; the prefix's keys (< 64)
-        # survive trims and clamp changes, and only a new or reset session
-        # lacks them.
+        changed = diff_blocks(self.plan, window, self.prev_window,
+                              self.encoded)
+        guess = clamp_guess(self.block_max)
         if self.clamp_max is None or guess != self.clamp_max:
             changed = list(range(len(self.spans)))  # every block is stale
-        else:
-            changed = sorted(set(changed) | set(missing))
-        first_stale = changed[0] if changed else len(self.spans)
-        change_tok = (self.plan.prefix_budget
-                      + sum(self.block_tokens[:first_stale]))
-        if not self._prefix_filled:
-            change_tok = 0
+        change_tok = change_token(self.plan, changed, self._prefix_filled)
         seg_start = max(s for s in self.seg_starts if s <= change_tok)
 
         ids = self._run(window, changed, guess, seg_start)
-        true_max = max(float(np.max(self.block_max)), -10.0)
-        if true_max != guess:
+        proven = true_max(self.block_max)
+        if proven != guess:
             # A new frame raised the window's max (or the block that held
             # it was trimmed out): redo with the proven max, every block.
             self.stats["redo"] += 1
-            ids = self._run(window, list(range(len(self.spans))), true_max,
+            ids = self._run(window, list(range(len(self.spans))), proven,
                             self.plan.prefix_budget)
         self._prefix_filled = True
-        self.clamp_max = true_max
+        self.clamp_max = proven
 
         self.prev_window = window.copy()
         self.prev_tokens = ids
@@ -486,98 +594,75 @@ class StreamSession:
              seg_start: int) -> List[int]:
         """Encode the changed blocks, run one decoder tick, read the
         results (tokens, length and the blocks' raw maxes: one read)."""
-        eng, work, plan = self.engine, self.work, self.plan
-        padded = np.zeros(self.pinned_samples, np.float32)
-        padded[:len(window)] = window
-        halo = np.pad(padded, N_FFT // 2, mode="reflect")
+        work = self.work
         prev = np.full((1, self.max_new), self.model.pad_id, np.int32)
         usable = self.prev_tokens[:self.max_new]
         prev[0, :len(usable)] = usable
-        loop = work.loop
         work.acquire(self)
         try:
             # inputs first (host to device), then the launches
-            work.halo.copy_(torch.from_numpy(halo))
-            loop.prev_tokens.copy_(torch.from_numpy(prev))
-            loop.prev_len.fill_(len(usable))
-            work.prefix.copy_(torch.from_numpy(self.prefix))
-            loop.valid_from.fill_(int(self.valid_from[0]))
+            work.load_rows(self.prefix, self.valid_from, prev,
+                           np.array([len(usable)], np.int32),
+                           np.ones(1, np.bool_))
+            work.encode(0, window, changed, clamp, self.eager)
             for b in changed:
-                lo, hi = self.spans[b]
-                enc = eng._stream_fn(("encode", hi - lo))
-                enc.seg.copy_(work.halo[lo * HOP_LENGTH:
-                                        (hi - 1) * HOP_LENGTH + N_FFT])
-                enc.clamp.fill_(clamp)
-                if self.eager:
-                    enc._run()
-                else:
-                    enc.graph()
-                off = plan.block_offsets[b]
-                work.audio[:, off:off + self.block_tokens[b]].copy_(
-                    enc.tokens)
-                work.maxes[b].copy_(enc.raw_max)
                 self.encoded[b] = True
-            if self.eager:
-                chunks = run_loop(lambda: work.run_front(seg_start),
-                                  loop.chunk, loop.active)
-            else:
-                front = eng._stream_fn(("tick", seg_start, self.prompt_len,
-                                        self.max_new, self.cache_dtype))
-                chunks = run_loop(front, work.chunk, loop.active)
+            tokens, lengths, maxes, chunks = work.run(seg_start, self.eager)
             self.stats["full" if seg_start == 0 else "tail"] += 1
-            lengths = (loop.tokens != self.model.pad_id).sum(-1).to(
-                torch.int32)
-            host = torch.cat([loop.tokens[0], lengths,
-                              work.maxes.view(torch.int32)]).cpu().numpy()
         except Exception:
             # the working buffers and the session's state are no longer
             # to be trusted: the next tick rebuilds from scratch
             self.reset()
             work.drop(self)
             raise
-        n_tok = self.max_new
-        tokens, length = host[:n_tok], int(host[n_tok])
-        maxes = host[n_tok + 1:].view(np.float32)
         for b in changed:
-            self.block_max[b] = float(maxes[b])
+            self.block_max[b] = float(maxes[0, b])
         self.last_run = {"seg_start": seg_start, "changed": len(changed),
                          "chunks": chunks}
-        return strip_generation(tokens, length, self.model.eos_id)
+        return strip_generation(tokens[0], int(lengths[0]),
+                                self.model.eos_id)
 
 
-# -- engine-level executables (shared by every session) -------------------------
+# -- engine-level executables (shared by every session and group) ---------------
 
 def build_stream_fn(engine, key, plan: Optional[BucketPlan] = None):
     """What the engine memoizes under ``key`` (``engine._stream_fn``):
     ``("encode", frames)`` a ``BlockEncoder``; ``("state", P, max_new,
-    dtype)`` a ``StreamWorkspace`` (``plan`` given); ``("tick", seg_start,
-    P, max_new, dtype)`` that workspace's front graph at ``seg_start``."""
+    dtype)`` a session's ``StreamWorkspace`` and ``("gstate", P, max_new,
+    slots, dtype)`` a group's (``plan`` given); ``("tick", seg_start, P,
+    max_new, dtype)`` and ``("gtick", seg_start, P, max_new, slots,
+    dtype)`` that workspace's front graph at ``seg_start``."""
     kind = key[0]
     if kind == "encode":
         return BlockEncoder(engine, key[1])
-    if kind == "state":
+    if kind in ("state", "gstate"):
         if plan is None:
             raise KeyError(f"{key}: a workspace is built from its plan")
-        return StreamWorkspace(engine, plan, key[3])
-    if kind == "tick":
-        _, seg_start, prompt_len, max_new, dtype = key
-        work = engine._stream_fns[("state", prompt_len, max_new, dtype)]
-        return work.front(seg_start)
+        return StreamWorkspace(engine, plan, key)
+    if kind in ("tick", "gtick"):
+        state = ("gstate" if kind == "gtick" else "state",) + key[2:]
+        return engine._stream_fns[state].front(key[1])
     raise KeyError(key)
 
 
-def warm_stream_keys(engine, cap_s: float) -> List[tuple]:
-    """Build every executable a session at ``cap_s`` can reach (each block
-    shape's encoder, the workspace with its chunk graph, each rung's
-    front) and return their keys. Nothing runs but each build's own
-    run."""
+def warm_stream_keys(engine, cap_s: float,
+                     slots: Optional[int] = None) -> List[tuple]:
+    """Build every executable a session at ``cap_s`` (with ``slots``: a
+    group of that many slots) can reach (each block shape's encoder, the
+    workspace with its chunk graph, each rung's front) and return their
+    keys. Nothing runs but each build's own run."""
     plan = BucketPlan(engine, cap_s)
     dtype = session_cache_dtype(engine)
     keys = [("encode", f) for f in sorted({hi - lo for lo, hi in
                                            plan.spans})]
-    keys.append(("state", plan.prompt_len, plan.max_new, dtype))
-    keys += [("tick", s, plan.prompt_len, plan.max_new, dtype)
-             for s in plan.seg_starts]
+    if slots is None:
+        keys.append(("state", plan.prompt_len, plan.max_new, dtype))
+        keys += [("tick", s, plan.prompt_len, plan.max_new, dtype)
+                 for s in plan.seg_starts]
+    else:
+        keys.append(("gstate", plan.prompt_len, plan.max_new, slots, dtype))
+        keys += [("gtick", s, plan.prompt_len, plan.max_new, slots, dtype)
+                 for s in plan.seg_starts]
     for key in keys:
         engine._stream_fn(key, plan)
     return keys

@@ -3,10 +3,15 @@
 Counterpart of ``qwen3_asr_tpu/serving/server.py``'s public routes, with
 its request forms, answers, error codes and statuses:
 
-- ``GET /health``, with the forced aligner's state (``aligner``:
-  ``loaded``, ``unavailable_retrying`` or ``not_loaded``) and, when the
-  decode pool runs, ``continuous_batching`` (``slots``, ``window``,
-  ``depth``);
+- ``GET /health``, with JAX's fields (``model_params_m``, ``device``
+  as the card's kind, ``num_devices``; ``hbm_used_mb`` and
+  ``hbm_limit_mb`` only for an engine on the card; ``device_arrays_mb``:
+  weights, keys, the pool, the stream sessions' and groups' stashed
+  state and the aligner's weights; ``executable_count``: the bucket and
+  stream keys, the live stream groups and the pool's graphs), the forced
+  aligner's state (``aligner``: ``loaded``, ``unavailable_retrying`` or
+  ``not_loaded``) and, when the decode pool runs,
+  ``continuous_batching`` (``slots``, ``window``, ``depth``);
 - ``POST /v1/audio/transcriptions`` (multipart ``file``, ``language``,
   ``return_timestamps``): ``{"text", "language"}`` and, with timestamps,
   ``"timestamps"``; under ``ASR_TIMESTAMP_MODE=accurate`` (the default)
@@ -68,6 +73,7 @@ import torch
 from .. import config
 from ..audio.codec import AudioDecodeError, decode_audio
 from ..runtime.lifecycle import ModelManager, load_engine
+from ..ops.quant import param_count
 from ..runtime.queue import STANDARD
 from ..sidecars import subtitle
 from ..text.repetition import detect_and_fix_repetitions
@@ -224,14 +230,27 @@ def read_chunked(rfile, limit: int) -> bytes:
 def health_memory(device: torch.device) -> dict:
     """The card's memory in MB as JAX's ``/health`` reports it
     (``hbm_used_mb`` in use by the allocator, ``hbm_limit_mb`` the card's
-    total), or nulls for an engine on the CPU."""
+    total); neither key for an engine on the CPU, which has no such stats
+    (JAX's ``lifecycle.py:532``)."""
     if device.type != "cuda":
-        return {"hbm_used_mb": None, "hbm_limit_mb": None}
+        return {}
     used = torch.cuda.memory_stats(device).get(
         "allocated_bytes.all.current", 0)
     _, total = torch.cuda.mem_get_info(device)
     return {"hbm_used_mb": round(used / 1024 ** 2),
             "hbm_limit_mb": round(total / 1024 ** 2)}
+
+
+def device_bytes(mgr) -> int:
+    """``/health``'s ``device_arrays_mb`` in bytes: every tensor the server
+    holds on its device (the e2e memory gate's source where the device has
+    no memory stats): the engine's weights, keys and stream groups'
+    stashed state, the decode pool's, the registered stream sessions'
+    stashed state and the forced aligner's weights, each once."""
+    engine, pool = mgr.engine, mgr.pool
+    return (engine.held_bytes() + (pool.held_bytes() if pool else 0)
+            + mgr.stream_session_bytes()
+            + subtitle.aligner_bytes(engine.model.params))
 
 
 class _Answered(Exception):
@@ -282,11 +301,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         mgr = self.server.manager
         engine, pool = mgr.engine, mgr.pool
-        # the decode pool's cache, state and graphs count as the engine's
-        # keys do (the e2e memory gate reads both fields)
-        held = engine.held_bytes() + (pool.held_bytes() if pool else 0)
+        held = device_bytes(mgr)
         graphs = engine.executable_count + (pool.executable_count
                                             if pool else 0)
+        cuda = engine.device.type == "cuda"
         pooled = ({"continuous_batching": {"slots": pool.max_slots,
                                            "window": pool.window,
                                            "depth": pool.depth}}
@@ -294,7 +312,12 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {"status": "ok",
                          "model_loaded": True,
                          "model_id": engine.model_id,
-                         "device": str(engine.device),
+                         "model_params_m": round(
+                             param_count(engine.model.params) / 1e6, 1),
+                         "device": (torch.cuda.get_device_name(engine.device)
+                                    if cuda else "cpu"),
+                         "num_devices": (torch.cuda.device_count()
+                                         if cuda else 1),
                          "dtype": str(engine.dtype).replace("torch.", ""),
                          "kv_cache_dtype": str(engine.cache_dtype).replace(
                              "torch.", ""),

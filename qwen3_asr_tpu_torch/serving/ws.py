@@ -27,7 +27,12 @@ Two parts:
    cached encoder blocks and a persistent decoder cache; its window is
    trimmed in encoder-chunk quanta (sample-exact when the cap is under one
    chunk), and a parallel sample-exact window feeds flushes and finals,
-   which keep the fused path. All of it on the express lane; with the
+   which keep the fused path. In mode ``grouped``
+   (``runtime/stream_group.py``) the connection binds a member of a
+   ``StreamGroup`` instead, and its partials go through the manager's
+   ``GroupTickBatcher``, which runs the ticks of one group's members that
+   land together as one pooled-cache dispatch; flushes and finals are
+   those of mode ``prefix``. All of it on the express lane; with the
    decode pool running and ``ASR_POOL_WS=true``, a solo tick or flush goes
    to the pool instead.
    The host DSP of a tick (s16 → f32, the 300-3400 Hz bandpass) is numpy;
@@ -44,11 +49,11 @@ true, "is_final": false}`` (only when the text is not empty); finals
 ``ASR_MAX_SESSIONS``) and ``WEBSOCKET_ERROR``; ``[timeout]`` and
 ``[error: ...]`` as a tick's text when its transcription fails.
 
-A session that cannot be bound is logged, counted
+A session or group member that cannot be bound is logged, counted
 (``prefix_bind_failures``) and answered as the tick's ``[error: ...]``.
 JAX serves the fused path in its place (``server.py:700-707``); the port
-does not. The grouped mode is not ported: the manager refuses a
-configuration that reaches it at start (``config.check_ws_modes``).
+does not. A member is released when its connection closes, which frees
+its slot.
 """
 from __future__ import annotations
 
@@ -90,8 +95,8 @@ ASR_USE_SERVER_VAD = os.getenv("ASR_USE_SERVER_VAD",
 ASR_VAD_FLUSH_TICKS = max(1, _safe_int(
     "ASR_VAD_FLUSH_TICKS", str(_vad_default_flush_ticks())))
 
-# prefix-mode sessions that could not be bound (each answered as its
-# tick's "[error: ...]")
+# prefix-mode sessions and group members that could not be bound (each
+# answered as its tick's "[error: ...]")
 prefix_bind_failures = 0
 _failures_lock = threading.Lock()
 
@@ -367,15 +372,17 @@ def _trim_partial(window: bytearray, quantum: int) -> None:
     del window[:trim]
 
 
-def _bind_session(mgr, lang_code):
-    """A prefix-mode session for the connection, built on the device
-    thread and registered with the manager; or the exception that
-    stopped it, logged and counted."""
+def _bind_session(mgr, lang_code, grouped: bool = False):
+    """A prefix-mode session for the connection (with ``grouped``, a
+    member of a stream group), built on the device thread and registered
+    with the manager; or the exception that stopped it, logged and
+    counted."""
     global prefix_bind_failures
+    engine = mgr.engine
+    bind = engine.stream_group_member if grouped else engine.stream_session
     try:
         future = mgr.queue.submit(
-            lambda: mgr.engine.stream_session(WS_WINDOW_MAX_S, lang_code),
-            priority=EXPRESS)
+            lambda: bind(WS_WINDOW_MAX_S, lang_code), priority=EXPRESS)
         session = future.result(timeout=mgr.request_timeout)
         mgr.register_stream_session(session)
         return session, None
@@ -396,8 +403,8 @@ def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
     more live sessions it goes through the micro-batcher with other
     sessions' finals. A partial in mode ``tick`` goes through the tick
     batcher, one with a prefix-mode ``session`` is ``session.update`` on
-    the device thread. A failure becomes ``[timeout]`` or
-    ``[error: ...]``."""
+    the device thread, and one with a group member goes through the group
+    tick batcher. A failure becomes ``[timeout]`` or ``[error: ...]``."""
     t0 = time.time()
     future = None
     try:
@@ -412,8 +419,11 @@ def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
             log.info("[WS] VAD: silence, skipping inference")
             return "", resume_tokens
         if session is not None and not pad_silence:
-            future = mgr.queue.submit(lambda: session.update(audio),
-                                      priority=EXPRESS)
+            if hasattr(session, "group"):
+                future = mgr.group_tick_batcher.tick(session, audio)
+            else:
+                future = mgr.queue.submit(lambda: session.update(audio),
+                                          priority=EXPRESS)
             raw, token_ids = future.result(timeout=mgr.request_timeout)
             return detect_and_fix_repetitions(raw), token_ids
         if tick_batch is None:
@@ -637,8 +647,8 @@ def websocket_transcribe(handler) -> None:
             if not vad_flushed:
                 bind_error = None
                 if prefix and stream_session is None:
-                    stream_session, bind_error = _bind_session(mgr,
-                                                               lang_code)
+                    stream_session, bind_error = _bind_session(
+                        mgr, lang_code, grouped=ws_mode.tick)
                 if bind_error is not None:
                     # no fused fallback: the tick fails as it is
                     text, prev_tokens = f"[error: {bind_error}]", None
@@ -678,6 +688,7 @@ def websocket_transcribe(handler) -> None:
             with mgr.ws_lock:
                 mgr.ws_sessions -= 1
         if stream_session is not None:
-            # its device buffers must not outlive the connection
+            # its device buffers (or its group's slot) must not outlive
+            # the connection
             stream_session.release()
         ws.close()

@@ -273,6 +273,20 @@ def aligner_loaded() -> bool:
     return _aligner is not None
 
 
+def aligner_bytes(shared=None) -> int:
+    """Device bytes of the loaded aligner's weights (0 with none loaded),
+    less the tensors it shares with the parameter tree ``shared`` (an
+    aligner built on the engine's own weights adds nothing)."""
+    from ..ops.quant import param_leaves
+    aligner = _aligner
+    if aligner is None:
+        return 0
+    seen = ({t.data_ptr() for t in param_leaves(shared)}
+            if shared is not None else set())
+    return sum(t.nbytes for t in param_leaves(aligner.model.params)
+               if t.data_ptr() not in seen)
+
+
 def align_audio(audio, sr: int, text: str, language: str
                 ) -> List[WordTimestamp]:
     """Word-level alignment with 5-minute chunking + heuristic fallback.

@@ -516,6 +516,110 @@ def test_stream_session_graphs_equal_eager(dev, name):
             assert prev == want
 
 
+def _group_schedule(eng, eager: bool, cap_s: float = 4.0, slots: int = 4):
+    """A fixed schedule of grouped ticks (``runtime/stream_group.py``):
+    members a and c tick from the first cadence, b joins at the third, c
+    leaves after the sixth and d takes its slot at the eighth; 450 ms
+    appends of seeded noise, chunk trims at the cap. Returns (the group,
+    every cadence's {member: ids}, every member's windows)."""
+    from qwen3_asr_tpu_torch.runtime.stream_group import StreamGroup
+    group = StreamGroup(eng, cap_s, slots)
+    group.eager = eager
+    chunk = eng.model.cfg.encoder.n_window * 2 * 160
+    cap = int(cap_s * 16000)
+    joins, leaves = {"a": 0, "c": 0, "b": 2, "d": 7}, {"c": 6}
+    audio = {n: (np.random.default_rng(i).standard_normal(7 * 16000) * 0.1
+                 ).astype(np.float32) for i, n in enumerate("abcd")}
+    members, wins, out = {}, {}, []
+    for cadence in range(12):
+        for n, at in joins.items():
+            if at == cadence:
+                members[n] = group.attach_or_raise("en")
+                wins[n] = [np.zeros(0, np.float32)]
+        for n, at in leaves.items():
+            if at == cadence:
+                members.pop(n).release()
+        reqs = []
+        for n in sorted(members):
+            k = cadence - joins[n]
+            w = np.concatenate([wins[n][-1],
+                                audio[n][k * 7200:(k + 1) * 7200]])
+            if len(w) > cap:
+                w = w[-(-(len(w) - cap) // chunk) * chunk:]
+            wins[n].append(w)
+            reqs.append((members[n], w))
+        res = group.tick(reqs)
+        out.append({n: ids for n, (_, ids) in zip(sorted(members), res)})
+    for m in members.values():
+        m.release()
+    return group, out, {n: w[1:] for n, w in wins.items()}
+
+
+@pytest.mark.parametrize("name", list(STREAM_KEYS))
+def test_stream_group_graphs_equal_eager(dev, name):
+    """A grouped session of 4 slots at a 4 s cap, with a join, a leave and
+    a slot reused: its graphs give the eager run's ids on every tick; each
+    rung's front records the segment prefill and the verify window (flash
+    and kernel B twice a layer), the chunk kernel B's per-row route and
+    the decode kernel (#3; #2 for an f32 cache) once a layer and step; an
+    int4 engine's group runs an fp8 cache. In f32 each member's ids are
+    also a solo session's on its windows."""
+    dtype, kv = STREAM_KEYS[name]
+    model = _model(dev)
+    model.params = _cast_tree(model.params, dtype)
+    eng = TranscriptionEngine(model, device=dev, dtype=dtype,
+                              cache_dtype=kv)
+    group, ids, wins = _group_schedule(eng, eager=False)
+    _, eager, _ = _group_schedule(eng, eager=True)
+    assert eager == ids
+    assert any(len(set(v)) >= 3 for c in ids for v in c.values())
+    work = group.work
+    assert group.cache_dtype == (torch.float8_e4m3fn if kv == torch.int4
+                                 else kv)
+    assert work.loop.cache.k.dtype == group.cache_dtype
+    layers = SMALL.decoder.num_hidden_layers
+    for g in work.fronts.values():
+        assert g.recorded["qk_rope_kv"] == 2 * layers
+        assert g.recorded["flash_attention"] == 2 * layers
+    assert work.chunk.recorded["qk_rope_kv"] == DECODE_CHUNK * layers
+    assert work.chunk.recorded["qk_rope_kv_per_row"] == DECODE_CHUNK * layers
+    decode = ("decode_attention" if kv == torch.float32
+              else "decode_attention_batch")
+    assert work.chunk.recorded[decode] == DECODE_CHUNK * layers
+    if dtype == torch.float32:
+        for n, ws in wins.items():
+            sess = eng.stream_session(4.0, "en")
+            assert [sess.update(w)[1] for w in ws] == [
+                c[n] for c in ids if n in c], n
+            sess.release()
+
+
+def test_warm_group_tick_makes_no_eager_launch(dev):
+    """A warm group tick is replays only: the wrappers' counters do not
+    move, and its launches are what the captures recorded times their
+    replays (flash in the block encoders and twice a layer in the front,
+    #3 and kernel B's per-row route once a layer and step)."""
+    eng = TranscriptionEngine(_model(dev), device=dev)
+    _group_schedule(eng, eager=False)       # builds every graph it meets
+    built = eng.stream_graphs()
+    for g in built:
+        g.replays = 0
+    before = graphs.kernel_launches()
+    group, _, _ = _group_schedule(eng, eager=False)
+    assert graphs.kernel_launches() == before
+    assert eng.stream_graphs() == built
+    got = graphs.launches(built, dict.fromkeys(before, 0))
+    layers = SMALL.decoder.num_hidden_layers
+    steps = group.work.chunk.replays * DECODE_CHUNK
+    fronts = sum(g.replays for g in group.work.fronts.values())
+    assert fronts >= 12 and steps > 0
+    assert got["decode_attention_batch"] == layers * steps
+    assert got["qk_rope_kv_per_row"] == layers * steps
+    assert got["qk_rope_kv"] == 2 * layers * fronts + layers * steps
+    assert got["flash_attention"] > 2 * layers * fronts
+    assert got["widened_product"] == 0 and got["decode_attention"] == 0
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}

@@ -290,12 +290,97 @@ def test_health_reports_memory_and_keys(engine):
             _, _, body = _get(u, "/health")
             counts.append(body["executable_count"])
     assert body["model_id"] == CKPT
-    assert body["hbm_used_mb"] is None and body["hbm_limit_mb"] is None
+    # off the card neither HBM key is sent (JAX sends them only where the
+    # device has memory stats), so the memory gate reads device_arrays_mb
+    assert "hbm_used_mb" not in body and "hbm_limit_mb" not in body
     params_mb = sum(x.numel() * x.element_size() for x in jax.tree.leaves(
         engine.model.params)) / 1024 ** 2
     assert body["device_arrays_mb"] >= round(params_mb)
     assert counts[0] >= 1 and counts == [counts[0]] * 3
-    assert counts[0] == len(engine.executables)
+    assert counts[0] == len(engine.executables) + len(engine._stream_fns)
+    # JAX's keys: the parameter count of the same checkpoint, the device
+    # kind and the device count
+    _, jparams = jax_load(CKPT, dtype=jnp.float32, cache=False)
+    assert body["model_params_m"] == round(sum(
+        x.size for x in jax.tree.leaves(jparams)) / 1e6, 1)
+    assert body["device"] == "cpu" and body["num_devices"] == 1
+
+
+def test_health_counts_stream_state_groups_and_the_aligner(engine,
+                                                           monkeypatch):
+    """``device_arrays_mb`` adds a prefix session's stashed state (two
+    sessions of one workspace in turns), a group's workspace and stashed
+    state (two one-slot groups of one key in turns) and a loaded aligner's
+    weights (none for an aligner on the engine's own weights);
+    ``executable_count`` grows by the stream keys built and the live
+    groups, and the groups leave it when their members do."""
+    from qwen3_asr_tpu_torch.serving import server as server_mod
+    from qwen3_asr_tpu_torch.sidecars import subtitle
+    from qwen3_asr_tpu_torch.sidecars.aligner import AlignerEngine
+    mgr = ModelManager(engine)
+    with open(os.path.join(ROOT, "real", "english_01.wav"), "rb") as f:
+        window = decode_audio(f.read())[0][:16000].astype(np.float32)
+
+    def added(fn):
+        """(bytes, executable count) that ``fn`` adds, and the keys it
+        built."""
+        keys, b0 = set(engine._stream_fns), server_mod.device_bytes(mgr)
+        c0 = engine.executable_count
+        out = fn()
+        new = [k for k in engine._stream_fns if k not in keys]
+        return (server_mod.device_bytes(mgr) - b0,
+                engine.executable_count - c0, new, out)
+
+    def two_sessions():
+        a, b = (engine.stream_session(30.0, "en") for _ in range(2))
+        for s in (a, b):
+            mgr.register_stream_session(s)
+            s.update(window)        # b's tick stashes a's state
+        return a, b
+    grown, count, new, (a, b) = added(two_sessions)
+    fns = engine._stream_fns
+    assert a.held_bytes() == a.work.state_bytes() > 0 == b.held_bytes()
+    assert grown == sum(fns[k].nbytes() for k in new
+                        if hasattr(fns[k], "nbytes")) + a.held_bytes()
+    assert count == len(new) and any(k[0] == "state" for k in new)
+
+    def two_groups():
+        members = [engine.stream_group_member(30.0, "en", slots=1)
+                   for _ in range(2)]
+        for m in members:
+            mgr.register_stream_session(m)
+            m.update(window)        # the second group stashes the first's
+        return members
+    grown, count, new, (m1, m2) = added(two_groups)
+    g1, g2 = m1.group, m2.group
+    assert g1 is not g2 and g1.work is g2.work
+    assert g1.held_bytes() == g1.work.state_bytes() > 0 == g2.held_bytes()
+    assert m1.held_bytes() == 0 and any(k[0] == "gstate" for k in new)
+    assert grown == sum(fns[k].nbytes() for k in new
+                        if hasattr(fns[k], "nbytes")) + g1.held_bytes()
+    assert count == len(new) + 2          # the keys and the two groups
+
+    other = load_engine(CKPT, device="cpu").model
+    monkeypatch.setattr(subtitle, "_aligner", AlignerEngine(other))
+    grown, _, _, _ = added(lambda: None)
+    assert subtitle.aligner_bytes(engine.model.params) == sum(
+        x.numel() * x.element_size() for x in jax.tree.leaves(other.params))
+    monkeypatch.setattr(subtitle, "_aligner", AlignerEngine(engine.model))
+    assert subtitle.aligner_bytes(engine.model.params) == 0
+
+    with serving(mgr) as u:
+        _, _, body = _get(u, "/health")
+        assert body["device_arrays_mb"] == round(
+            server_mod.device_bytes(mgr) / 1024 ** 2)
+        assert body["executable_count"] == engine.executable_count
+    count = engine.executable_count
+    before, stashes = server_mod.device_bytes(mgr), (a.held_bytes()
+                                                     + g1.held_bytes())
+    for s in (a, b, m1, m2):
+        s.release()
+    # the keys stay; the groups and every stashed state go
+    assert engine.executable_count == count - 2
+    assert before - server_mod.device_bytes(mgr) == stashes
 
 
 def test_chunked_upload_reads_whole(url):

@@ -13,11 +13,13 @@ and on. Then the tick batcher: concurrent ticks coalesce into fewer
 dispatches, each row with its solo resume tokens; a refused WS mode; and
 the frame codec's edges (fragments, ping, a large frame)."""
 import asyncio
+import concurrent.futures
 import contextlib
 import json
 import os
 import struct
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -412,7 +414,9 @@ def test_tick_batcher_coalesces_and_matches_solo(engine):
 
 
 def test_refused_ws_modes_raise_at_start(engine, monkeypatch):
-    monkeypatch.setenv("WS_WINDOW_MAX_S", "12")
+    """An unknown mode name is refused at start (every named mode, the
+    ``auto`` policy at a 12 s cap too, is served)."""
+    monkeypatch.setenv("ASR_WS_STREAM_MODE", "turbo")
     with pytest.raises(ValueError, match="not ported"):
         ModelManager(engine).start()
 
@@ -487,15 +491,21 @@ def test_ws_prefix_partials_equal_a_session_and_final_the_fused_path(
     assert not sess.has_state()      # the flush reset it
 
 
+@pytest.mark.parametrize("mode,bind", [("prefix", "stream_session"),
+                                       ("grouped", "stream_group_member")])
 def test_ws_prefix_bind_failure_answers_error(base, engine, manager,
-                                              monkeypatch):
-    """A session that cannot be bound: the tick answers "[error: ...]",
-    the failure is counted, and nothing serves it on the fused path."""
+                                              monkeypatch, mode, bind):
+    """A session (mode ``prefix``) or a group member (mode ``grouped``)
+    that cannot be bound: the tick answers "[error: ...]", the failure is
+    counted, and nothing serves it on the fused path."""
+    # an earlier connection's final on its close takes the fused path
+    _wait_no_live_session(base)
     _prefix_mode(monkeypatch, 3.0)
+    monkeypatch.setenv("ASR_WS_STREAM_MODE", mode)
 
     def refuse(*a, **k):
         raise RuntimeError("no room for a session")
-    monkeypatch.setattr(engine, "stream_session", refuse)
+    monkeypatch.setattr(engine, bind, refuse)
     fused = []
     orig = manager.transcribe_sync
     monkeypatch.setattr(manager, "transcribe_sync",
@@ -511,6 +521,100 @@ def test_ws_prefix_bind_failure_answers_error(base, engine, manager,
     assert msg == {"text": "[error: no room for a session]",
                    "is_partial": True, "is_final": False}
     assert ws_mod.prefix_bind_failures == failures + 1
+
+
+# -- mode grouped (runtime/stream_group.py) -------------------------------------------
+
+def _jax_sessions(query, scripts):
+    """JAX's app, one connection a script, all at once; each connection's
+    messages up to its ``buffer_reset``."""
+    from aiohttp.test_utils import TestClient, TestServer
+    from qwen3_asr_tpu.serving.server import build_app
+
+    async def one(client, script):
+        ws = await client.ws_connect("/ws/transcribe" + query)
+        got = [await ws.receive_json()]
+        for kind, data in script:
+            if kind == "bytes":
+                await ws.send_bytes(data)
+            else:
+                await ws.send_json(data)
+        while got[-1] != {"status": "buffer_reset"}:
+            got.append(await asyncio.wait_for(ws.receive_json(), 300))
+        await ws.close()
+        return got
+
+    async def go():
+        client = TestClient(TestServer(build_app()))
+        await client.start_server()
+        try:
+            return await asyncio.gather(*[one(client, s) for s in scripts])
+        finally:
+            await client.close()
+
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(go())
+    finally:
+        loop.close()
+
+
+@pytest.mark.parametrize("flags", [
+    {"ASR_WS_STREAM_MODE": "grouped"},
+    {"ASR_WS_PREFIX_CACHE": "true", "ASR_WS_TICK_BATCH": "true"}],
+    ids=["grouped", "legacy_both"])
+def test_ws_grouped_sessions_join_one_group_and_match_jax(engine,
+                                                          monkeypatch,
+                                                          flags):
+    """Two connections in mode ``grouped`` (named, or by both legacy
+    flags) at the default 6 s cap: they join ONE group, their partials
+    coalesce through the group tick batcher (fewer dispatches than
+    ticks), every message (partials, the flush's final, the reset) equals
+    JAX's server's for the same PCM, and a close releases the member's
+    slot (the emptied group leaves the registry)."""
+    for k, v in flags.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("MODEL_ID", CKPT)
+    scripts = []
+    for name in ("english_01.wav", "english_02.wav"):
+        pcm = _real_pcm(name, 7.2)
+        scripts.append([("bytes", pcm[i:i + TICK])
+                        for i in range(0, len(pcm), TICK)]
+                       + [("json", {"action": "flush"}),
+                          ("json", {"action": "reset"})])
+    query = "?use_server_vad=false"
+    manager = ModelManager(engine)
+    manager.group_tick_batcher = batcher_mod.GroupTickBatcher(
+        manager, window_ms=1000, max_batch=2)
+    groups = []
+    orig = engine.stream_group_member
+
+    def keep(*a, **k):
+        member = orig(*a, **k)
+        groups.append(member.group)
+        return member
+    monkeypatch.setattr(engine, "stream_group_member", keep)
+    failures = ws_mod.prefix_bind_failures
+    with serving(manager) as u:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            ours = list(pool.map(lambda s: _port_session(u, query, s),
+                                 scripts))
+        for _ in range(200):            # the handlers release on close
+            if not any(engine._stream_groups.values()):
+                break
+            time.sleep(0.05)
+    ref = _jax_sessions(query, scripts)
+    assert ours == ref
+    assert len(groups) == 2 and groups[0] is groups[1]
+    assert groups[0].live_members == 0
+    assert not any(engine._stream_groups.values())
+    batcher = manager.group_tick_batcher
+    assert batcher.ticks == sum(len(s) - 2 for s in scripts)
+    assert batcher.dispatches < batcher.ticks and 2 in batcher.groups
+    assert ws_mod.prefix_bind_failures == failures
+    kinds = [("final" if m.get("is_final") else "partial")
+             for msgs in ours for m in msgs if "text" in m]
+    assert kinds.count("partial") > 10 and "final" in kinds
 
 
 # -- the frame codec -----------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's WS mode policy (``qwen3_asr_tpu_torch/config.py``) against the
 JAX package's (``qwen3_asr_tpu/config.py``) over a grid of environment
 settings: ``resolve_ws_mode`` and ``ws_warmup_profile`` give the same
-modes, and the port refuses, at start, a configuration that can resolve to
-a mode it does not serve (``grouped``), and serves ``prefix``."""
+modes; the port starts and warms every mode (``grouped`` and the ``auto``
+policy at long caps included) and refuses, at start, a mode name it does
+not know."""
 import itertools
 
 import pytest
@@ -22,6 +23,7 @@ ENVS = {
     "explicit_auto": {"ASR_WS_STREAM_MODE": "auto"},
     "explicit_prefix": {"ASR_WS_STREAM_MODE": "prefix"},
     "explicit_grouped": {"ASR_WS_STREAM_MODE": "GROUPED"},
+    "explicit_unknown": {"ASR_WS_STREAM_MODE": "turbo"},
     "legacy_tick": {"ASR_WS_TICK_BATCH": "true"},
     "legacy_off": {"ASR_WS_TICK_BATCH": "false"},
     "legacy_empty": {"ASR_WS_PREFIX_CACHE": ""},
@@ -84,13 +86,13 @@ def test_default_modes_are_solo_and_tick(env):
 
 @pytest.mark.parametrize("name", ["explicit_prefix", "explicit_grouped",
                                   "legacy_prefix", "legacy_both", "cap_10",
-                                  "min_cap_5"])
-def test_manager_refuses_unported_modes_at_start(env, name):
-    """The manager refuses a configuration that can resolve to a mode the
-    port does not serve (``grouped``; the ``auto`` policy at a long cap
-    warms it too) before it warms anything or starts its device thread.
-    One whose modes are all ported (``prefix`` alone, served since slice
-    15) goes on to the warmup."""
+                                  "min_cap_5", "explicit_unknown"])
+def test_manager_starts_ported_modes_and_refuses_unknown(env, name):
+    """The manager starts and warms every configuration whose modes the
+    port serves: ``prefix``, ``grouped`` (explicit or by the legacy
+    flags) and the ``auto`` policy at a long cap, which names both. It
+    refuses an unknown mode name before it warms anything or starts its
+    device thread."""
     from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
 
     class NoEngine:
@@ -103,7 +105,7 @@ def test_manager_refuses_unported_modes_at_start(env, name):
     names = {m.name for m in tcfg.ws_warmup_profile()}
     mgr = ModelManager(NoEngine())
     if names <= set(tcfg.PORTED_WS_MODES):
-        assert names == {"prefix"}
+        assert names in ({"prefix"}, {"grouped"}, {"prefix", "grouped"})
         try:
             mgr.start()
             assert mgr.engine.warmed == 1
