@@ -196,7 +196,33 @@ without a CUDA device, and whenever any phase fails. Phases:
    group cache, kernels A and C. Phases 2 and 3 also hold flash at the
    group's segment prefill (B=8, T = 64 and 389, per-row valid_from) and
    #3 at its continuation (B=8, S=768, rows at their own frontiers; bf16
-   and fp8).
+   and fp8);
+15. the manager's lifecycle, its second engine and token-level
+   speculative decoding (``runtime/lifecycle.py``,
+   ``runtime/speculative.py``): (a) a lazy ``ModelManager()`` behind the
+   server, built from ``MODEL_ID=trained_ckpt``,
+   ``FAST_MODEL_ID=trained_draft``, ``USE_SPECULATIVE=true``,
+   ``IDLE_TIMEOUT=2`` and ``ASR_WATCHDOG_INTERVAL=1``, f32: ``/health``
+   before the load, the load and warmup (spec keys), the 12 real clips one
+   at a time and then all at once, token-identical to phase 4's greedy
+   ids and to the CPU's spec ids (rounds and tokens a round printed);
+   ``/health`` showing the idle unload (``model_loaded`` false,
+   ``model_id`` null); the allocator's memory before the load, loaded,
+   after the unload (the residue at most ``UNLOAD_RESIDUE_MIB``) and after
+   a reload by a request, whose answer and ids are the same; then
+   ``DUAL_MODEL=true`` without speculation: one WS session whose partials
+   the fast engine decodes and whose final the main one does; (b) phase
+   5's preset:1.7b bf16 engine as the verifier with a preset:0.6b draft of
+   random bf16 weights (seed 1), γ = 4: the spec keys' capture seconds and
+   memory; the 30 s upload at B=1 and 8 uploads at once at B=8 through the
+   server from replays only; walls against greedy in turns (spec, greedy,
+   greedy, spec), rounds and tokens a round; device ms a round and of its
+   draft steps and verify forward; graph = eager bit for bit at B=8;
+   1.7b self-draft at B=1 (the acceptance ceiling); with an fp8 cache, the
+   share of a round that widening the verifier's layers takes. Phases 2
+   and 3 also hold flash at the verify window (T = γ = 4 at a per-row
+   q_offset over S = 768, B = 1 and 8) and kernel B writing the window at
+   a position a row.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -205,6 +231,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import glob
 import json
 import os
@@ -692,6 +719,7 @@ def kernel_phases(sh, dev):
     pool_kernel_rows(sh, dev, card, rows)
     stream_kernel_rows(sh, dev, card, rows)
     pool_kernel_rows(sh, dev, card, rows, group=True)
+    spec_kernel_rows(sh, dev, card, rows)
     return rows
 
 
@@ -1170,21 +1198,23 @@ def verify_flash_cases(sh, ws, dtype, dev):
                    4 * d * nq * int(mask.sum()), 0)
 
 
-def qk_row_cases(sh, dev):
+def qk_row_cases(sh, dev, shapes=None, caches=None):
     """Kernel B with one write position a row (the resume loop's
     continuation and a verify window): T=1 at B=8 (S=256, one row at S,
     which writes nothing) and B=96 (S=512), T=64 at B=4 (S=256), into
-    bf16, fp8 and int4 caches of 28 layers: qk_rope_kv_cases' tuple."""
+    bf16, fp8 and int4 caches of 28 layers, or the (B, T, S, positions)
+    ``shapes`` into ``caches``: qk_rope_kv_cases' tuple."""
     from qwen3_asr_tpu_torch.models.config import preset
     from qwen3_asr_tpu_torch.models.decoder import init_kv_cache, rope_cos_sin
     from qwen3_asr_tpu_torch.ops.qk_rope_kv import (qk_rope_kv_write,
                                                     qk_rope_kv_write_plain)
     cfg = preset("1.7b").decoder
     nq, nkv, d, layers = sh["nq"], sh["nkv"], sh["d"], sh["layers"]
-    shapes = ((8, 1, 256, [153, 160, 200, 17, 254, 255, 100, 256]),
-              (96, 1, 512, [(37 * i) % 512 for i in range(96)]),
-              (4, 64, 256, [153, 100, 192, 12]))
-    for kv_name, kv in QK_CACHES.items():
+    shapes = shapes or (
+        (8, 1, 256, [153, 160, 200, 17, 254, 255, 100, 256]),
+        (96, 1, 512, [(37 * i) % 512 for i in range(96)]),
+        (4, 64, 256, [153, 100, 192, 12]))
+    for kv_name, kv in (caches or QK_CACHES).items():
         for batch, t, s_len, pos in shapes:
             gen = torch.Generator(device=dev).manual_seed(batch + t + 7)
 
@@ -1308,38 +1338,8 @@ def ws_kernel_rows(sh, dev, card, rows) -> None:
                 rows[kernel].append(time_row(label, dt, err, run, plain,
                                              sdpa, nbytes, flops, layers,
                                              card))
-    for label, run, plain, ours, ref, nbytes, ops, layers in \
-            qk_row_cases(sh, dev):
-        q, q_ref = run(layers - 1), plain(layers - 1)
-        torch.cuda.synchronize()
-        err = qk_parity(label, q, q_ref, ours, ref)
-        planes = [p.clone() for p in ours if p is not None]
-        same_bits("qk_rope_kv", label, [q], [run(layers - 1)])
-        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                   for a, b in zip(planes, (p for p in ours
-                                            if p is not None))):
-            raise AssertionError(f"qk_rope_kv {label}: a repeat call "
-                                 f"changed the cache's bits")
-        del q, q_ref, planes
-        if label == "qk_rows_b8_t1_int4":
-            one_kernel_per_call("qk_rope_kv", label,
-                                lambda: run(layers - 1),
-                                also=("qk_rope_kv_per_row",))
-        ms, plain_ms = per_call_ms(run, layers), per_call_ms(plain, layers)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        log(f"[timing] qk_rope_kv {label} (device, one position a row): "
-            f"kernel {ms:.4f} ms, plain chain {plain_ms:.4f} ms (kernel / "
-            f"plain {ms / plain_ms:.3f}); bound {bound:.6f} ms ({nbytes} "
-            f"bytes), share {bound / ms:.2%}; no library call | {card}")
-        rows["qk_rope_kv"].append({
-            "shape": label, "dtype": "bfloat16", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes})
-        del ours, ref
+    qk_row_rows(qk_row_cases(sh, dev), card, rows,
+                headline="qk_rows_b8_t1_int4")
     tol = TOL[torch.bfloat16]
     for kernel, label, run, plain, sdpa, nbytes, flops, layers, note in \
             row_valid_to_cases(sh, ws_bucket_shapes(), dev):
@@ -1358,6 +1358,45 @@ def ws_kernel_rows(sh, dev, card, rows) -> None:
         rows[kernel].append(time_row(label, "bfloat16", err, run, plain,
                                      sdpa, nbytes, flops, layers, card,
                                      note))
+
+
+def qk_row_rows(cases, card, rows, headline=None, tag="") -> None:
+    """Kernel B per row: each case against its plain chain (q and K within
+    one ulp, V's bytes equal), a repeat call's bits, its device ms beside
+    the plain chain's and the bound; ``headline`` also records one kernel
+    per call."""
+    for label, run, plain, ours, ref, nbytes, ops, layers in cases:
+        q, q_ref = run(layers - 1), plain(layers - 1)
+        torch.cuda.synchronize()
+        err = qk_parity(label, q, q_ref, ours, ref)
+        planes = [p.clone() for p in ours if p is not None]
+        same_bits("qk_rope_kv", label, [q], [run(layers - 1)])
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(planes, (p for p in ours
+                                            if p is not None))):
+            raise AssertionError(f"qk_rope_kv {label}: a repeat call "
+                                 f"changed the cache's bits")
+        del q, q_ref, planes
+        if label == headline:
+            one_kernel_per_call("qk_rope_kv", label,
+                                lambda: run(layers - 1),
+                                also=("qk_rope_kv_per_row",))
+        ms, plain_ms = per_call_ms(run, layers), per_call_ms(plain, layers)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"[timing] qk_rope_kv {label}{tag} (device, one position a "
+            f"row): kernel {ms:.4f} ms, plain chain {plain_ms:.4f} ms "
+            f"(kernel / plain {ms / plain_ms:.3f}); bound {bound:.6f} ms "
+            f"({nbytes} bytes), share {bound / ms:.2%}; no library call | "
+            f"{card}")
+        rows["qk_rope_kv"].append({
+            "shape": label, "dtype": "bfloat16", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes})
+        del ours, ref
 
 
 POOL_WINDOWS = (8, 16, 32)      # the decode pool's window ladder at defaults
@@ -4709,6 +4748,559 @@ def group_phase(dev, engine, f32: bool = True) -> dict:
     return total
 
 
+# -- phase 15: the lifecycle, the second engine and token-level speculation -------
+
+SPEC_GAMMA = 4
+# what an idle unload may leave allocated on the card (tests/test_torch_cuda.py
+# UNLOAD_RESIDUE_BYTES): what a process's first load creates and torch
+# keeps (cuBLAS's workspace, cuFFT's plans, the decode kernels' tickets)
+UNLOAD_RESIDUE_MIB = 64
+SPEC_ENV = {"USE_SPECULATIVE": "true", "IDLE_TIMEOUT": "2",
+            "ASR_WATCHDOG_INTERVAL": "1", "ASR_WARMUP_BUCKETS": "10,15",
+            "ASR_BATCH_WINDOW_MS": "500"}
+
+
+def spec_shapes():
+    """(prompt length, max_new, spec cache length) of preset:1.7b's 30 s
+    bucket: the verify window's largest cache."""
+    from qwen3_asr_tpu_torch.runtime.speculative import spec_cache_length
+    plen, max_new, _ = bucket_shape(30)
+    return plen, max_new, spec_cache_length(plen, max_new, SPEC_GAMMA)
+
+
+def bucket_shape(sec: int):
+    """(prompt length, max_new, cache length) of a preset:1.7b bucket."""
+    from qwen3_asr_tpu_torch.models.asr import PromptTemplate
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.encoder import encoder_output_length
+    from qwen3_asr_tpu_torch.runtime.engine import (PREFIX_BUDGET,
+                                                    max_new_tokens_for)
+    from qwen3_asr_tpu_torch.runtime.generate import cache_length
+    from qwen3_asr_tpu_torch.runtime.lifecycle import preset_tokenizer
+    cfg = preset("1.7b")
+    suffix = len(preset_tokenizer(cfg.decoder.vocab_size).encode(
+        PromptTemplate().suffix_text()))
+    chunk = cfg.encoder.n_window * 2
+    frames = -(-sec * 100 // chunk) * chunk
+    plen = PREFIX_BUDGET + int(encoder_output_length(frames, chunk)) + suffix
+    max_new = max_new_tokens_for(frames / 100)
+    return plen, max_new, cache_length(plen, max_new)
+
+
+# text lengths of the verify window's rows (each row at its own frontier)
+SPEC_TEXT_LENS = [128, 1, 37, 90, 200, 255, 12, 64]
+
+
+def spec_flash_cases(sh, dtype, dev):
+    """#1 at the verify window: q [B, nq, γ, d], causal from a per-row
+    q_offset = plen + text_len - 1 (rows at their own frontiers, some left
+    padded further) over the 30 s spec cache (S = 768); B = 1 and 8.
+    make_cases' tuple."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    nq, nkv, d = sh["nq"], sh["nkv"], sh["d"]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    plen, _, s = spec_shapes()
+    t, vf0 = SPEC_GAMMA, sh["valid_from"]
+    for batch in (1, 8):
+        gen = torch.Generator(device=dev).manual_seed(batch + 17)
+        q = torch.randn((batch, nq, t, d), generator=gen,
+                        device=dev).to(dtype)
+        k, v = (torch.randn((batch, nkv, s, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        vfs = [vf0, vf0 + 28, 0, vf0, 3, vf0, 40, vf0][:batch]
+        offs = [plen + n - 1 for n in SPEC_TEXT_LENS[:batch]]
+        vf = torch.tensor(vfs, dtype=torch.int32, device=dev)
+        vt = torch.full((batch,), s, dtype=torch.int32, device=dev)
+        qo = torch.tensor(offs, dtype=torch.int32, device=dev)
+        mask = AttnSpec(causal=True, q_offset=qo, valid_from=vf
+                        ).dense_mask(batch, t, s, dev)
+        keys = sum(o + t - x for o, x in zip(offs, vfs))
+        yield (f"spec_verify_t{t}_b{batch}", "flash_attention",
+               lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo:
+                   flash_attention(q, k, v, causal=True, q_offset=qo,
+                                   kv_valid_from=vf, kv_valid_to=vt,
+                                   return_residuals=True),
+               lambda q=q, k=k, v=v, vf=vf, vt=vt, qo=qo:
+                   flash_attention_plain(q, k, v, vf, vt, qo, causal=True,
+                                         window_block=0,
+                                         sm_scale=d ** -0.5),
+               lambda q=q, k=k, v=v, mask=mask:
+                   F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask[:, None], enable_gqa=True),
+               (2 * batch * nq * t * d + 2 * nkv * keys * d) * esize
+               + 2 * 4 * batch * nq * t + 3 * 4 * batch,
+               4 * d * nq * int(mask.sum()), 0)
+
+
+def spec_kernel_rows(sh, dev, card, rows) -> None:
+    """Parity (phase 2) and timing (phase 3) at token speculation's
+    shapes: flash at the verify window (f32 and bf16; bf16 timed) and
+    kernel B writing the window's γ keys at a position a row, into a bf16
+    cache of the 30 s spec length."""
+    plen, max_new, s = spec_shapes()
+    log(f"[shapes] spec: 30 s bucket prompt {plen}, max_new {max_new}, "
+        f"spec cache {s}, γ = {SPEC_GAMMA}")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol, dt = TOL[dtype], str(dtype).replace("torch.", "")
+        for label, kernel, run, plain, sdpa, nbytes, flops, layers in \
+                spec_flash_cases(sh, dtype, dev):
+            outs, refs = run(), plain()
+            torch.cuda.synchronize()
+            err = float((outs[0].float() - refs[0].float()).abs().max())
+            for a, b in zip(outs[1:], refs[1:]):
+                torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+            same_bits(kernel, label, outs, run())
+            log(f"[parity] {label} {dt}: max_abs_err={err:.3e} (bound "
+                f"{tol:g}); m and l within it; a repeat call's bits equal")
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {label} {dt}: error {err} "
+                                     f"above {tol}")
+            if dtype == torch.bfloat16:
+                if label.endswith("_b8"):
+                    one_kernel_per_call(kernel, label, run)
+                rows[kernel].append(time_row(
+                    label, dt, err, run, plain, sdpa, nbytes, flops, layers,
+                    card))
+    shapes = [(b, SPEC_GAMMA, s, [plen + n - 1 for n in SPEC_TEXT_LENS[:b]])
+              for b in (1, 8)]
+    qk_row_rows(qk_row_cases(sh, dev, shapes, {"bf16": QK_CACHES["bf16"]}),
+                card, rows, headline=f"qk_rows_b8_t{SPEC_GAMMA}_bf16",
+                tag=" (the verify window)")
+
+
+def memory_mib(dev) -> tuple:
+    """(allocated, reserved) MiB of the caching allocator on ``dev``."""
+    return (torch.cuda.memory_allocated(dev) / 2 ** 20,
+            torch.cuda.memory_reserved(dev) / 2 ** 20)
+
+
+def get_health(base: str) -> dict:
+    with urllib.request.urlopen(base + "/health", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def spec_launch_check(name: str, launches: dict, want) -> None:
+    missing = [k for k in want if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: launched no {missing}: {launches}")
+
+
+def spec_f32_phase(dev, wavs, wants, greedy_ids, card) -> dict:
+    """(a) trained_ckpt f32 with trained_draft f32 through a lazy
+    ``ModelManager()`` behind the server: the 12 clips one at a time, then
+    all at once, token-identical to phase 4's greedy ids and the CPU's
+    spec ids; the idle unload seen in /health and the memory it returns;
+    a reload by a request; then ``DUAL_MODEL`` without speculation, one WS
+    session whose partials the fast engine decodes. Returns the launches
+    of the card's runs."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager, load_engine
+    from qwen3_asr_tpu_torch.serving.server import device_bytes
+    ckpt = os.path.join(DATA, "trained_ckpt")
+    draft = os.path.join(DATA, "trained_draft")
+    clips = [decode_audio(w) for w in wavs]
+    cpu = load_engine(ckpt, device="cpu")
+    cpu.attach_draft(load_engine(draft, device="cpu").model)
+    cpu_ids = [cpu.transcribe(a, sr)[0].token_ids for a, sr in clips]
+    del cpu
+    if cpu_ids != greedy_ids:
+        raise AssertionError("(a): the CPU's spec ids are not phase 4's "
+                             "greedy ids")
+    total = {}
+
+    def add(got):
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+
+    mem = {}
+    with environ(MODEL_ID=ckpt, FAST_MODEL_ID=draft, **SPEC_ENV):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem["before the load"] = memory_mib(dev)
+        manager = ModelManager(device=dev, dtype=torch.float32)
+        with serving(manager) as url:
+            base = url.rsplit("/v1/", 1)[0]
+            health = get_health(base)
+            if health["model_loaded"] or health["model_id"] is not None:
+                raise AssertionError(f"(a): /health before the load {health}")
+            counter = PathLaunches()
+            t0 = time.perf_counter()
+            manager.ensure_loaded()
+            load_s = time.perf_counter() - t0
+            eng, fast = manager.engine, manager.fast_engine
+            if eng.draft_model is not fast.model or eng.dtype != torch.float32:
+                raise AssertionError("(a): the draft is not attached")
+            health = get_health(base)
+            spec_keys = sum("spec" in k for k in eng.executables)
+            log(f"[spec] (a) lazy load of trained_ckpt + trained_draft f32 "
+                f"with the warmup (buckets 10, 15): {load_s:.2f} s; main "
+                f"engine {len(eng.executables)} keys ({spec_keys} spec), "
+                f"fast {len(fast.executables)}; /health model_loaded "
+                f"{health['model_loaded']}, executable_count "
+                f"{health['executable_count']}, device_arrays_mb "
+                f"{health['device_arrays_mb']} | {card}")
+            if not (health["model_loaded"] and health["model_id"] == ckpt
+                    and spec_keys):
+                raise AssertionError(f"(a): /health once loaded {health}")
+            solo, walls, tokens, rounds = [], [], 0, 0
+            for a, sr in clips:
+                # one at a time: the manager's job, as a solo request runs
+                t0 = time.perf_counter()
+                res = manager.queue.submit(
+                    lambda a=a, sr=sr: manager.transcribe_sync(a, sr, None)
+                ).result(600)[0]
+                walls.append(time.perf_counter() - t0)
+                run = eng.last_run
+                if not run.get("spec") or run["batch"] != 1:
+                    raise AssertionError(f"(a): a solo request ran {run}")
+                tokens += run["generated"] - 1
+                rounds += run["rounds"]
+                solo.append(res.token_ids)
+            bodies, _ = post_all(url, wavs)
+            d0 = manager.batcher.dispatches
+            futures = [manager.batcher.transcribe(a, sr, None)
+                       for a, sr in clips]
+            batched = [f.result(timeout=600)[0].token_ids for f in futures]
+            dispatches = manager.batcher.dispatches - d0
+            counter.engines = (eng, fast)
+            launches, eager = counter.read()
+            counter.engines = ()
+            add(launches)
+            mem["loaded"] = memory_mib(dev)
+            held = device_bytes(manager) / 2 ** 20
+            log(f"[spec] (a) 12 clips one at a time: {sum(walls):.3f} s, "
+                f"{rounds} verifier rounds for {tokens} tokens past the "
+                f"first: {tokens / rounds:.3f} tokens a round (γ = 4); "
+                f"ids equal to phase 4's greedy ids: {solo == greedy_ids}, "
+                f"to the CPU's spec ids: {solo == cpu_ids}; all 12 at once "
+                f"in {dispatches} dispatches: ids equal {batched == greedy_ids}"
+                f", server bodies equal {bodies == wants}; launches "
+                f"{launches}, eager {eager} (the load's warm-up runs); "
+                f"the engines hold {held:.1f} MiB | {card}")
+            if solo != greedy_ids or batched != greedy_ids or bodies != wants:
+                raise AssertionError("(a): speculative ids or bodies differ "
+                                     "from greedy")
+            if dispatches >= len(clips):
+                raise AssertionError(f"(a): {dispatches} dispatches for "
+                                     f"{len(clips)} clips")
+            spec_launch_check("(a)", launches, (
+                "flash_attention", "decode_attention", "qk_rope_kv"))
+            del eng, fast, res, run, futures, counter
+            t_idle = time.perf_counter()
+            while True:
+                health = get_health(base)
+                if not health["model_loaded"]:
+                    break
+                if time.perf_counter() - t_idle > 60:
+                    raise AssertionError("(a): no idle unload in 60 s")
+                time.sleep(0.25)
+            unload_s = time.perf_counter() - t_idle
+            # /health turns as the engines are dropped; the unload job goes
+            # on (the collection of their reference cycles, empty_cache):
+            # a job queued now runs after it has ended
+            manager.queue.submit(lambda: None).result(60)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem["after the unload"] = memory_mib(dev)
+            if health["model_id"] is not None or manager.engine is not None:
+                raise AssertionError(f"(a): /health after the unload {health}")
+            counter = PathLaunches()
+            t0 = time.perf_counter()
+            body = post(url, wavs[0])
+            reload_s = time.perf_counter() - t0
+            res = manager.batcher.transcribe(*clips[0], None).result(600)[0]
+            counter.engines = (manager.engine, manager.fast_engine)
+            launches, _ = counter.read()
+            counter.engines = ()
+            add(launches)
+            mem["after the reload"] = memory_mib(dev)
+            if body != wants[0] or res.token_ids != greedy_ids[0]:
+                raise AssertionError("(a): the reloaded engine's answer "
+                                     "differs")
+        residue = mem["after the unload"][0] - mem["before the load"][0]
+        log(f"[spec] (a) /health showed the unload {unload_s:.2f} s after "
+            f"the last request (IDLE_TIMEOUT=2, watchdog 1 s): "
+            f"model_loaded false, model_id null; the reload by a request "
+            f"{reload_s:.2f} s, its body and ids equal; memory MiB "
+            f"(allocated, reserved): "
+            + "; ".join(f"{k} ({a:.1f}, {r:.1f})" for k, (a, r) in
+                        mem.items())
+            + f"; residue after the unload {residue:.1f} MiB allocated "
+            f"(bound {UNLOAD_RESIDUE_MIB}) | {card}")
+        if residue > UNLOAD_RESIDUE_MIB:
+            held_by(ckpt, draft)
+            raise AssertionError(f"(a): {residue:.1f} MiB left after the "
+                                 f"unload")
+    del manager
+    gc.collect()
+    torch.cuda.empty_cache()
+    # DUAL_MODEL without speculation: partials on the fast engine
+    name = "english_02"
+    with environ(MODEL_ID=ckpt, FAST_MODEL_ID=draft, DUAL_MODEL="true",
+                 USE_SPECULATIVE="false", IDLE_TIMEOUT="0",
+                 ASR_WARMUP_BUCKETS="10,15"):
+        manager = ModelManager(device=dev, dtype=torch.float32)
+        manager.queue.start()
+        manager.ensure_loaded()
+        main, fast = manager.engine, manager.fast_engine
+        with ws_serving(manager) as ws_url:
+            counter = PathLaunches(main, fast)
+            msgs = ws_stream(ws_url, real_pcm(name + ".wav"))
+            launches, _ = counter.read()
+        add(launches)
+    fronts = {e: sum(x.front.replays for x in eng.executables.values())
+              for e, eng in (("main", main), ("fast", fast))}
+    fast_resume = sum(x.front.replays for k, x in fast.executables.items()
+                      if "resume" in k)
+    with open(os.path.join(DATA, "real", name + ".txt"),
+              encoding="utf-8") as f:
+        want = f.read().strip()
+    finals = [m["text"] for m in msgs if m.get("is_final")]
+    partials = [m for m in msgs if m.get("is_partial")]
+    log(f"[spec] (a) DUAL_MODEL=true: one WS session, {len(partials)} "
+        f"partials from {fronts['fast']} fast-engine runs ({fast_resume} "
+        f"with resume), finals from {fronts['main']} main-engine runs: "
+        f"{finals[-1] if finals else None!r}; no draft attached: "
+        f"{main.draft_model is None}; launches {launches} | {card}")
+    if (not partials or fast_resume < 1 or fronts["main"] < 1
+            or main.draft_model is not None or finals[-1:] != [want]):
+        raise AssertionError(f"(a) DUAL_MODEL: fronts {fronts}, finals "
+                             f"{finals} vs {want!r}")
+    del manager, main, fast
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def held_by(*model_ids) -> None:
+    """Log what still refers to each live engine of ``model_ids`` (two
+    levels of referrers): the diagnosis of an unload that freed less than
+    it should."""
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    gc.collect()
+    live = [o for o in gc.get_objects() if isinstance(o, TranscriptionEngine)
+            and o.model_id in model_ids]
+    for eng in live:
+        for ref in gc.get_referrers(eng):
+            if ref is live:
+                continue
+            outer = [type(r).__name__ for r in gc.get_referrers(ref)
+                     if r is not live][:6]
+            log(f"[spec] a live {eng.model_id} engine is referred to by a "
+                f"{type(ref).__name__} "
+                f"({list(ref)[:6] if isinstance(ref, dict) else ''}), "
+                f"itself referred to by {outer}")
+
+
+def draft_model_0_6b(dev):
+    """preset:0.6b in bf16 with random weights from seed 1: a draft for
+    preset:1.7b (its tokenizer and chunking)."""
+    from qwen3_asr_tpu_torch.models.asr import AsrModel
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.decoder import init_decoder_params
+    from qwen3_asr_tpu_torch.models.encoder import init_encoder_params
+    from qwen3_asr_tpu_torch.runtime.lifecycle import preset_tokenizer
+    cfg = preset("0.6b")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = {
+        "encoder": init_encoder_params(cfg.encoder, gen, dev, torch.bfloat16),
+        "decoder": init_decoder_params(cfg.decoder, gen, dev, torch.bfloat16)}
+    return AsrModel(cfg, params, preset_tokenizer(cfg.decoder.vocab_size))
+
+
+def spec_turns(name, spec, plain, inputs, card) -> dict:
+    """The spec key and the plain key on the same inputs, in turns (spec,
+    greedy, greedy, spec): walls with the copies in and out, the spec
+    runs' tokens equal to each other, rounds and tokens a round, and the
+    share of tokens equal to greedy's (bf16: not bit-stable)."""
+    walls = {"spec": [], "greedy": []}
+    out = {}
+    for mode in ("spec", "greedy", "greedy", "spec"):
+        exe = spec if mode == "spec" else plain
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = exe.run(*inputs)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        if mode in out and not torch.equal(res.tokens, out[mode].tokens):
+            raise AssertionError(f"{name}: two {mode} runs differ")
+        out[mode] = res
+    s, g = out["spec"], out["greedy"]
+    batch = s.tokens.shape[0]
+    gained = int((s.lengths - 1).clamp(min=0).sum())
+    equal = float((s.tokens == g.tokens).float().mean())
+    info = {"spec_s": min(walls["spec"]), "greedy_s": min(walls["greedy"]),
+            "rounds": s.steps, "tokens": int(s.lengths.sum()),
+            "tokens_per_round": gained / (batch * s.steps) if s.steps else 0}
+    log(f"[spec] {name}: spec {', '.join(f'{w:.3f}' for w in walls['spec'])}"
+        f" s, greedy {', '.join(f'{w:.3f}' for w in walls['greedy'])} s "
+        f"(spec / greedy {info['spec_s'] / info['greedy_s']:.2f}x); "
+        f"{info['tokens']} tokens in {s.steps} rounds ({s.steps_run} "
+        f"computed), {info['tokens_per_round']:.3f} tokens a row and round; "
+        f"greedy {g.steps} steps; token positions equal to greedy's "
+        f"{equal:.2%} | {card}")
+    return info
+
+
+def round_breakdown(exe, name, card) -> dict:
+    """Device ms of a round (a chunk replay over its rounds) and of its
+    parts as graphs of their own: the γ draft steps and the verify
+    forward (the accept arithmetic is the rest)."""
+    from qwen3_asr_tpu_torch.runtime.graphs import Graph
+    loop, dev = exe.loop, exe.audio.device
+    exe.front()
+    round_ms = replay_ms(exe.chunk) / loop.rounds_per_chunk
+    drafts = torch.zeros((loop.batch, loop.gamma), dtype=torch.int32,
+                         device=dev)
+    parts = {"draft": Graph(loop._draft, dev),
+             "verify": Graph(lambda: loop._verify(drafts), dev)}
+    ms = {k: replay_ms(g) for k, g in parts.items()}
+    ms["round"] = round_ms
+    log(f"[spec] {name}: a round {round_ms:.3f} ms of device time: "
+        f"{loop.gamma} draft steps {ms['draft']:.3f} ms "
+        f"({ms['draft'] / round_ms:.1%}), the verify forward at T = "
+        f"{loop.gamma} {ms['verify']:.3f} ms ({ms['verify'] / round_ms:.1%})"
+        f", the rest {round_ms - ms['draft'] - ms['verify']:.3f} ms | {card}")
+    del parts
+    return ms
+
+
+def spec_bf16_phase(dev, engine, card) -> dict:
+    """(b) phase 5's preset:1.7b bf16 engine as the verifier with a
+    preset:0.6b draft of random bf16 weights, γ = 4: the 30 s upload at
+    B=1 and phase 6's 8 uploads at B=8 through the server, from replays
+    only; walls against greedy in turns, rounds, tokens a round, device
+    ms a round and its parts, the keys' capture seconds and memory; graph
+    = eager bit for bit at B=8; 1.7b self-draft at B=1 (the acceptance
+    ceiling); the share of a round that widening an fp8 cache's layers
+    for the verify window takes. Returns the launches."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.batcher import MicroBatcher
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    from qwen3_asr_tpu_torch.runtime.graphs import Graph
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    draft = draft_model_0_6b(dev)
+    engine.attach_draft(draft)
+    audio = real_audio()
+    long = audio[:int(29.5 * 16000)]
+    seg = int(9.5 * 16000)
+    clips8 = [audio[i * seg:(i + 1) * seg] for i in range(8)]
+    (bf30, bs30), (bf10, bs10) = (engine.bucket_frames(len(long)),
+                                  engine.bucket_frames(seg))
+    from qwen3_asr_tpu_torch.runtime.engine import max_new_tokens_for
+    k1 = (bf30, max_new_tokens_for(bs30), 1)
+    k8 = (bf10, max_new_tokens_for(bs10), 8)
+    alloc0 = torch.cuda.memory_allocated(dev)
+    spec1, cap1 = engine.executable(*k1, gamma=SPEC_GAMMA)
+    spec8, cap8 = engine.executable(*k8, gamma=SPEC_GAMMA)
+    grown = (torch.cuda.memory_allocated(dev) - alloc0) / 2 ** 20
+    log(f"[spec] (b) spec keys of preset:1.7b + a preset:0.6b draft (bf16, "
+        f"γ = {SPEC_GAMMA}): 30 s B=1 built in {cap1:.2f} s "
+        f"({spec1.nbytes() / 2 ** 20:.1f} MiB of buffers, state and both "
+        f"caches), 10 s B=8 in {cap8:.2f} s ({spec8.nbytes() / 2 ** 20:.1f}"
+        f" MiB); {grown:.1f} MiB more allocated; B=8 chunk recorded "
+        f"{spec8.chunk.recorded} | {card}")
+    manager = ModelManager(engine)
+    manager.warmed = True        # phase 5 warmed it; the keys are built
+    manager.batcher = MicroBatcher(manager, window_ms=1000, max_batch=8)
+    bodies8 = [encode_wav(c, 16000) for c in clips8]
+    with serving(manager) as url:
+        counter = PathLaunches(engine)
+        t0 = time.perf_counter()
+        post(url, encode_wav(long, 16000))
+        wall1 = time.perf_counter() - t0
+        run1 = dict(engine.last_run)
+        t0 = time.perf_counter()
+        _, walls8 = post_all(url, bodies8)
+        wall8 = time.perf_counter() - t0
+        run8 = dict(engine.last_run)
+        launches, eager = counter.read()
+    log(f"[spec] (b) through the server: the 30 s upload {wall1:.3f} s "
+        f"(B={run1['batch']}, {run1['rounds']} rounds, "
+        f"{run1['tokens_per_round']:.3f} tokens a round), 8 uploads at once "
+        f"{wall8:.3f} s (B={run8['batch']}, {run8['rounds']} rounds, "
+        f"{run8['tokens_per_round']:.3f} tokens a row and round; request "
+        f"walls {percentiles(walls8)}); launches {launches}, eager {eager} "
+        f"| {card}")
+    if not (run1.get("spec") and run8.get("spec") and run1["batch"] == 1
+            and run8["batch"] == 8) or any(eager.values()):
+        raise AssertionError(f"(b): {run1}, {run8}, eager {eager}")
+    spec_launch_check("(b)", launches, (
+        "flash_attention", "decode_attention", "decode_attention_batch",
+        "qk_rope_kv", "qk_rope_kv_per_row"))
+    plain1, _ = engine.executable(*k1)
+    plain8, cap = engine.executable(*k8)
+    in1 = engine.bucket_inputs([long], bf30, None)
+    in8 = engine.bucket_inputs(clips8, bf10, None)
+    spec_turns("(b) 30 s, B=1, 0.6b draft", spec1, plain1, in1, card)
+    spec_turns("(b) 10 s, B=8, 0.6b draft", spec8, plain8, in8, card)
+    round_breakdown(spec1, "(b) 30 s, B=1", card)
+    round_breakdown(spec8, "(b) 10 s, B=8", card)
+    graph = spec8.run(*in8)
+    t0 = time.perf_counter()
+    eager_run = spec8.run(*in8, eager=True)
+    eager_s = time.perf_counter() - t0
+    if not (torch.equal(graph.tokens, eager_run.tokens)
+            and graph.steps == eager_run.steps):
+        raise AssertionError("(b): the spec key's graphs and its eager run "
+                             "differ")
+    log(f"[spec] (b) B=8 graph = eager: the same token bits and "
+        f"{graph.steps} rounds (eager run {eager_s:.2f} s) | {card}")
+    # the acceptance ceiling: the verifier as its own draft
+    engine.attach_draft(engine.model)
+    self1, cap_self = engine.executable(*k1, gamma=SPEC_GAMMA)
+    ceiling = spec_turns("(b) 30 s, B=1, self-draft", self1, plain1, in1,
+                         card)
+    if ceiling["tokens_per_round"] < SPEC_GAMMA - 0.5:
+        raise AssertionError(f"(b): self-draft accepted "
+                             f"{ceiling['tokens_per_round']:.2f} a round")
+    round_breakdown(self1, "(b) 30 s, B=1, self-draft", card)
+    # an fp8 cache: the verify window widens every layer first
+    fp8 = TranscriptionEngine(engine.model, device=dev, dtype=torch.bfloat16,
+                              cache_dtype=torch.float8_e4m3fn)
+    fp8.attach_draft(draft)
+    f8, cap_f8 = fp8.executable(*k8, gamma=SPEC_GAMMA)
+    res = f8.run(*in8)
+    parts = round_breakdown(f8, "(b) 10 s, B=8, fp8 cache", card)
+    cache = f8.loop.cache_v
+
+    def widen():
+        for i in range(cache.k.shape[0]):
+            cache.k[i].to(torch.bfloat16)
+            cache.v[i].to(torch.bfloat16)
+    widen_ms = replay_ms(Graph(widen, dev))
+    log(f"[spec] (b) fp8 cache, B=8: {res.steps} rounds; widening the "
+        f"verifier's {cache.k.shape[0]} layers (K and V) for the window "
+        f"{widen_ms:.3f} ms of a {parts['round']:.3f} ms round "
+        f"({widen_ms / parts['round']:.1%}) | {card}")
+    del fp8, f8, cache
+    # the engine serves without a draft again, its spec keys dropped
+    engine.draft_model = engine.draft_frontend = None
+    engine.executables = {k: v for k, v in engine.executables.items()
+                          if "spec" not in k}
+    del manager, spec1, spec8, self1, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spec_phase(dev, engine, real) -> dict:
+    """Phase 15: the manager's lifecycle, its second engine and token-level
+    speculative decoding. Returns the kernels' launches over its
+    main-path runs."""
+    card = card_line()
+    total = {}
+    for got in (spec_f32_phase(dev, *real, card),
+                spec_bf16_phase(dev, engine, card)):
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    log(f"[spec] phase 15 launches {total}")
+    return total
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -4817,6 +5409,7 @@ def main() -> int:
         launches[name] += side[name]
     phase_done("phase 11 (timestamps, subtitles, SSE, translations)")
     pooled = pool_phase(dev, engine, real)
+    spec_inputs = real[1:]         # phase 15 (a): the uploads, answers, ids
     del real
     # this slice's path, counted from 0 just before it
     for name in ("flash_attention", "decode_attention",
@@ -4844,6 +5437,15 @@ def main() -> int:
         launches[name] += grouped[name]
     launches_per_row += grouped["qk_rope_kv_per_row"]
     phase_done("phase 14 (grouped WS)")
+    spec = spec_phase(dev, engine, spec_inputs)
+    # this slice's path, counted from 0 just before each of its runs
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch", "qk_rope_kv"):
+        if not spec.get(name):
+            raise AssertionError(f"phase 15 launched no {name}")
+        launches[name] += spec[name]
+    launches_per_row += spec["qk_rope_kv_per_row"]
+    phase_done("phase 15 (lifecycle, the fast engine, speculation)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

@@ -10,9 +10,14 @@ not stall the admission of other requests. The port's server runs a thread
 per request, so the lock is a ``threading.Lock``, the timer a
 ``threading.Timer`` and each reply a ``concurrent.futures.Future``.
 ``TickBatcher`` (``qwen3_asr_tpu/runtime/batcher.py:153-261``) coalesces
-concurrent WS sessions' partial ticks into one batched resume run;
+concurrent WS sessions' partial ticks into one batched resume run, on the
+fast engine when one is loaded and the tick asks for it;
 ``GroupTickBatcher`` (``:262-326``) coalesces the partial ticks of one
-stream group's members into one pooled-cache dispatch.
+stream group's members into one pooled-cache dispatch. The batchers read
+the manager's engines when a request comes (after its
+``ensure_loaded``) and again when a dispatch runs: an idle unload may
+come between, and a dispatch that finds no engine loads it on the device
+thread before it runs.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import concurrent.futures
 import logging
 import os
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -49,6 +55,17 @@ class _Pending:
         # Queue lane for the request (0 = express, 1 = standard). A
         # coalesced group dispatches at its most urgent member's lane.
         self.priority = priority
+
+
+def dispatch_engine(mgr, use_fast: bool = False):
+    """The engine a dispatch runs on, read on the device thread: after an
+    idle unload that won the race against the request, the engines load
+    again first (``qwen3_asr_tpu/runtime/batcher.py:224``)."""
+    if mgr.engine is None:
+        log.info("Reloading model: request admitted during idle unload")
+        mgr._load_sync()
+    return (mgr.fast_engine if use_fast and mgr.fast_engine is not None
+            else mgr.engine)
 
 
 def _pow2_floor(n: int) -> int:
@@ -269,7 +286,7 @@ class MicroBatcher(_Collector):
                 lambda: mgr.transcribe_sync(audio, sr, language,
                                             return_timestamps),
                 priority=priority)
-        bucket = mgr.engine.bucket_frames(len(audio))
+        bucket = mgr.serving_engine().bucket_frames(len(audio))
         # Normalize the language BEFORE grouping: "en" and "English" are
         # the same request (identical prompt) and must batch together and
         # echo the same metadata the solo path returns.
@@ -281,7 +298,7 @@ class MicroBatcher(_Collector):
 
     def _submit(self, key, group: List[_Pending]) -> None:
         (bucket_frames, bucket_s), language = key[0], key[1] or None
-        engine = self.manager.engine
+        mgr = self.manager
         if len(group) > 1:
             log.debug("micro-batch: %d requests in bucket %ss", len(group),
                       bucket_s)
@@ -289,10 +306,15 @@ class MicroBatcher(_Collector):
         def run():
             from .engine import (TARGET_SR, TranscriptionResult,
                                  _response_language)
-            clips = [p.audio for p in group]
-            _pad_pow2(clips)
-            texts, id_lists = engine._run_bucket(clips, bucket_frames,
-                                                 bucket_s, language)
+            mgr._last_used = time.time()
+            try:
+                clips = [p.audio for p in group]
+                _pad_pow2(clips)
+                texts, id_lists = dispatch_engine(mgr)._run_bucket(
+                    clips, bucket_frames, bucket_s, language)
+            finally:
+                # at the end too: the unload's re-check may run next
+                mgr._last_used = time.time()
             return [[TranscriptionResult(
                 text=text, language=_response_language(text, language),
                 start_time=0.0, end_time=len(p.audio) / TARGET_SR,
@@ -329,23 +351,24 @@ class TickBatcher(_Collector):
                         resume_tokens, use_fast: bool
                         ) -> concurrent.futures.Future:
         """One session's partial tick → a future of (text, token_ids).
-        ``use_fast`` would take the fast engine, which the port does not
-        have yet: the main engine serves (ROADMAP §1 item 7.2)."""
+        ``use_fast`` takes the fast engine when one is loaded; the key is
+        (the engine taken is the fast one, bucket)."""
         from ..models.asr import normalize_language
         mgr = self.manager
-        engine = mgr.engine
+        engine = mgr.serving_engine(use_fast)
+        use_fast = engine is not mgr.engine
         language, _ = normalize_language(language)
-        # the key is the bucket: language is per ROW, so sessions of
-        # different languages still share one dispatch
+        # language is per ROW, so sessions of different languages still
+        # share one dispatch
         future: concurrent.futures.Future = concurrent.futures.Future()
-        self._enqueue(engine.bucket_frames(len(audio)),
+        self._enqueue((use_fast, engine.bucket_frames(len(audio))),
                       _PendingTick(audio, resume_tokens, language, future),
                       solo=getattr(mgr, "ws_sessions", 0) <= 1)
         return future
 
     def _submit(self, key, group: List[_PendingTick]) -> None:
-        bucket_frames, bucket_s = key
-        engine = self.manager.engine
+        use_fast, (bucket_frames, bucket_s) = key
+        mgr = self.manager
         if len(group) > 1:
             log.debug("tick batch: %d sessions in bucket %ss", len(group),
                       bucket_s)
@@ -354,19 +377,24 @@ class TickBatcher(_Collector):
             self.ticks += len(group)
 
         def run():
-            clips = [p.audio for p in group]
-            rows = [p.resume for p in group]
-            langs = [p.language for p in group]
-            if len(group) == 1:
-                texts, ids = engine._run_bucket(
-                    clips, bucket_frames, bucket_s, langs[0],
-                    resume_tokens=list(rows[0] or []))
-            else:
-                _pad_pow2(clips, rows)
-                langs.extend([None] * (len(clips) - len(langs)))
-                texts, ids = engine._run_bucket(
-                    clips, bucket_frames, bucket_s, None, resume_rows=rows,
-                    language_rows=langs)
+            mgr._last_used = time.time()
+            try:
+                engine = dispatch_engine(mgr, use_fast)
+                clips = [p.audio for p in group]
+                rows = [p.resume for p in group]
+                langs = [p.language for p in group]
+                if len(group) == 1:
+                    texts, ids = engine._run_bucket(
+                        clips, bucket_frames, bucket_s, langs[0],
+                        resume_tokens=list(rows[0] or []))
+                else:
+                    _pad_pow2(clips, rows)
+                    langs.extend([None] * (len(clips) - len(langs)))
+                    texts, ids = engine._run_bucket(
+                        clips, bucket_frames, bucket_s, None,
+                        resume_rows=rows, language_rows=langs)
+            finally:
+                mgr._last_used = time.time()
             return list(zip(texts[:len(group)], ids[:len(group)]))
 
         self._dispatch(group, run, priority=EXPRESS)

@@ -34,12 +34,21 @@ every session and group: ``stream_session`` binds a session,
 bucket), and ``_stream_fn`` memoizes their keys (``("encode", frames)``,
 ``("state", P, max_new, dtype)``, ``("tick", seg_start, P, max_new,
 dtype)``, ``("gstate", P, max_new, slots, dtype)``, ``("gtick",
-seg_start, P, max_new, slots, dtype)``). AOT caches, meshes and draft
-models are not ported yet.
+seg_start, P, max_new, slots, dtype)``).
+
+Token-level speculative decoding (``runtime/speculative.py``):
+``attach_draft`` takes a second model (the fast engine's) as the draft,
+and while it is attached every non-resume dispatch takes a spec key,
+(bucket_frames, max_new, batch, cache dtype, "spec", γ), whatever its
+batch: both encoders, each through its own model's mel frontend, both
+prompts from the same prefix ids, and a ``SpecLoop``, in two graphs as
+any key. The tokens are the plain key's; only the verifier's forwards
+change. AOT caches and meshes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -60,6 +69,9 @@ from .batcher import _pad_pow2
 from .generate import GreedyLoop, cache_length, run_loop, strip_generation
 from .graphs import Graph
 from .resume import ResumeLoop
+from .speculative import SpecLoop
+
+log = logging.getLogger(__name__)
 
 TARGET_SR = 16000
 AUDIO_BUCKETS_S: Tuple[float, ...] = (1, 2, 4, 6, 10, 15, 20, 30)
@@ -89,6 +101,17 @@ def max_new_tokens_for(seconds: float) -> int:
     return int(16 + 8 * seconds)
 
 
+def spec_gamma() -> int:
+    """``ASR_SPEC_GAMMA`` (default 4), the drafts a round; below 2 it warns
+    and takes 2, as the JAX engine does (``engine.py:429-433``)."""
+    gamma = int(os.getenv("ASR_SPEC_GAMMA", "4"))
+    if gamma < 2:
+        log.warning("ASR_SPEC_GAMMA=%d below the minimum; using 2 (the "
+                    "verify pass needs >=2 positions)", gamma)
+        gamma = 2
+    return gamma
+
+
 class BucketExecutable:
     """One key's executable: audio [B, n_samples] f32, prefix ids [B,
     PREFIX_BUDGET] and valid_from [B] as persistent input buffers, a
@@ -104,20 +127,24 @@ class BucketExecutable:
 
     def __init__(self, engine: "TranscriptionEngine", bucket_frames: int,
                  max_new: int, batch: int, resume: bool = False):
-        cfg, dev = engine.model.cfg, engine.device
+        dev = engine.device
         self.engine, self.bucket_frames = engine, bucket_frames
         self.resume = resume
         self.audio = torch.zeros((batch, bucket_frames * HOP_LENGTH),
                                  dtype=torch.float32, device=dev)
         self.prefix = torch.zeros((batch, PREFIX_BUDGET), dtype=torch.int32,
                                   device=dev)
-        self.loop = (ResumeLoop if resume else GreedyLoop)(
-            engine.model.params["decoder"], cfg.decoder, batch,
-            engine.prompt_length(bucket_frames), max_new,
-            eos_id=engine.model.eos_id, pad_id=engine.model.pad_id,
-            cache_dtype=engine.cache_dtype, device=dev)
+        self.loop = self._new_loop(batch, max_new)
         self.front = Graph(self._front, dev, engine.graph_pool)
         self.chunk = Graph(self.loop.chunk, dev, engine.graph_pool)
+
+    def _new_loop(self, batch: int, max_new: int):
+        eng = self.engine
+        return (ResumeLoop if self.resume else GreedyLoop)(
+            eng.model.params["decoder"], eng.model.cfg.decoder, batch,
+            eng.prompt_length(self.bucket_frames), max_new,
+            eos_id=eng.model.eos_id, pad_id=eng.model.pad_id,
+            cache_dtype=eng.cache_dtype, device=eng.device)
 
     def nbytes(self) -> int:
         """Bytes of the key's persistent tensors: input buffers, loop state
@@ -142,7 +169,7 @@ class BucketExecutable:
         ``ResumeResult``."""
         self.audio.copy_(torch.from_numpy(audio))
         self.prefix.copy_(torch.from_numpy(prefix))
-        self.loop.valid_from.copy_(torch.from_numpy(valid_from))
+        self._set_valid_from(torch.from_numpy(valid_from))
         if self.resume:
             self.loop.prev_tokens.copy_(torch.from_numpy(prev))
             self.loop.prev_len.copy_(torch.from_numpy(prev_len))
@@ -151,6 +178,49 @@ class BucketExecutable:
         else:
             chunks = run_loop(self.front, self.chunk, self.loop.active)
         return self.loop.result(chunks)
+
+    def _set_valid_from(self, valid_from: torch.Tensor) -> None:
+        self.loop.valid_from.copy_(valid_from)
+
+
+class SpecExecutable(BucketExecutable):
+    """A spec key's executable: the plain key's input buffers, and a
+    ``SpecLoop`` over the engine's model (the verifier) and its draft.
+    ``front`` runs the mel frontend and encoder of each model (the draft's
+    through its own frontend when its mel bins differ), both prompts from
+    the one prefix buffer, both prefills and the verifier's first token;
+    ``chunk`` runs ``rounds_per_chunk(γ)`` rounds (kernel #1 at the
+    verify window's T = γ with a per-row ``q_offset``, #2 or #3 at the
+    draft's steps, kernel B per row at T = 1 and T = γ). The draft's
+    weights belong to the fast engine; the key is dropped with the
+    engine, or when another draft is attached. Build it under inference
+    mode."""
+
+    def __init__(self, engine: "TranscriptionEngine", bucket_frames: int,
+                 max_new: int, batch: int, gamma: int):
+        self.draft, self.gamma = engine.draft_model, gamma
+        super().__init__(engine, bucket_frames, max_new, batch)
+
+    def _new_loop(self, batch: int, max_new: int) -> SpecLoop:
+        eng, draft, verify = self.engine, self.draft, self.engine.model
+        plen = eng.prompt_length(self.bucket_frames)
+        return SpecLoop(
+            draft.params["decoder"], verify.params["decoder"],
+            draft.cfg.decoder, verify.cfg.decoder, batch, plen, plen,
+            max_new, gamma=self.gamma, eos_id=verify.eos_id,
+            pad_id=verify.pad_id, cache_dtype=eng.cache_dtype,
+            device=eng.device)
+
+    def _front(self) -> None:
+        eng = self.engine
+        self.loop.prefill(
+            eng.prompt_embeds(self.audio, self.prefix, self.bucket_frames,
+                              self.draft, eng.draft_frontend),
+            eng.prompt_embeds(self.audio, self.prefix, self.bucket_frames))
+
+    def _set_valid_from(self, valid_from: torch.Tensor) -> None:
+        self.loop.valid_from_d.copy_(valid_from)
+        self.loop.valid_from_v.copy_(valid_from)
 
 
 class TranscriptionEngine:
@@ -203,6 +273,11 @@ class TranscriptionEngine:
         # shapes and counts of the last bucket run (for measurement scripts)
         self.last_run: dict = {}
         self.stream_warmup: dict = {}   # the stream modes' keys and seconds
+        # token-level speculation's draft (attach_draft), and its frontend
+        self.draft_model: Optional[AsrModel] = None
+        self.draft_frontend: Optional[LogMelFrontend] = None
+        # the idle watchdog's clock: every dispatch stamps it
+        self.last_used = time.time()
 
     @property
     def executable_count(self) -> int:
@@ -212,6 +287,30 @@ class TranscriptionEngine:
         holds its KV cache and loop state)."""
         return (len(self.executables) + len(self._stream_fns)
                 + sum(len(g) for g in list(self._stream_groups.values())))
+
+    def attach_draft(self, draft_model: AsrModel) -> None:
+        """Token-level speculative decoding: ``draft_model`` (on this
+        engine's device, in its dtype) proposes and this engine's model
+        verifies; the tokens stay the verifier's greedy ones. Refused, as
+        the JAX engine refuses (``engine.py:182-198``), when the two chunk
+        the audio differently (AssertionError) or when their tokenizers
+        give different prompt ids (ValueError): both prompts are built from
+        one prefix buffer. Drops the spec keys of an earlier draft."""
+        if draft_model.cfg.encoder.n_window != self.model.cfg.encoder.n_window:
+            raise AssertionError("draft/verify chunking differs")
+        probe = self.model.template.prefix_text("English", "probe context")
+        if (draft_model.tokenizer.encode(probe)
+                != self.model.tokenizer.encode(probe)):
+            raise ValueError(
+                "draft/verify tokenizers produce different prompt ids; "
+                "token-level speculative decoding requires shared token ids")
+        n_mels = draft_model.cfg.encoder.num_mel_bins
+        self.draft_frontend = (
+            self.frontend if n_mels == self.frontend.n_mels
+            else LogMelFrontend(n_mels=n_mels, device=self.device))
+        self.draft_model = draft_model
+        self.executables = {k: v for k, v in self.executables.items()
+                            if "spec" not in k}
 
     def held_bytes(self) -> int:
         """Bytes of the tensors the engine holds: its weights, every key's
@@ -268,13 +367,18 @@ class TranscriptionEngine:
                 + encoder_output_length(bucket_frames, self._chunk_frames))
 
     def prompt_embeds(self, audio: torch.Tensor, prefix_ids: torch.Tensor,
-                      bucket_frames: int) -> torch.Tensor:
+                      bucket_frames: int, model: Optional[AsrModel] = None,
+                      frontend: Optional[LogMelFrontend] = None
+                      ) -> torch.Tensor:
         """[B, n_samples] f32 PCM on the device → [prefix, audio, suffix]
         inputs_embeds [B, prompt_length(bucket_frames), H]. Device work
-        only (no host-to-device copy), so a CUDA graph can capture it."""
-        cfg, params = self.model.cfg, self.model.params
+        only (no host-to-device copy), so a CUDA graph can capture it.
+        ``model`` and its ``frontend`` (the draft's) default to the
+        engine's; the prefix and suffix ids are the same for both."""
+        model = model or self.model
+        cfg, params = model.cfg, model.params
         n_samples = bucket_frames * HOP_LENGTH
-        mel, _ = self.frontend(audio, n_samples)
+        mel, _ = (frontend or self.frontend)(audio, n_samples)
         b = audio.shape[0]
         flens = torch.full((b,), bucket_frames, dtype=torch.int32,
                            device=self.device)
@@ -287,20 +391,26 @@ class TranscriptionEngine:
 
     # -- executables ------------------------------------------------------------
     def executable(self, bucket_frames: int, max_new: int, batch: int,
-                   resume: bool = False) -> Tuple[BucketExecutable, float]:
+                   resume: bool = False, gamma: Optional[int] = None
+                   ) -> Tuple[BucketExecutable, float]:
         """The key's executable, built (its graphs captured, on the card)
         on first use; and the seconds this call spent building it. A resume
-        key is the plain key with "resume" appended."""
+        key is the plain key with "resume" appended, a spec key (``gamma``
+        set, a draft attached) the plain key with ("spec", γ)."""
         key = (bucket_frames, max_new, batch, self.cache_dtype)
         if resume:
             key += ("resume",)
+        elif gamma is not None:
+            key += ("spec", gamma)
         exe = self.executables.get(key)
         if exe is not None:
             return exe, 0.0
         t0 = time.perf_counter()
         with torch.inference_mode():
-            exe = BucketExecutable(self, bucket_frames, max_new, batch,
-                                   resume)
+            exe = (SpecExecutable(self, bucket_frames, max_new, batch, gamma)
+                   if gamma is not None else
+                   BucketExecutable(self, bucket_frames, max_new, batch,
+                                    resume))
         self.executables[key] = exe
         return exe, time.perf_counter() - t0
 
@@ -462,7 +572,18 @@ class TranscriptionEngine:
         ``resume_tokens``: one stream's previous tokens (batch 1, a resume
         key). ``resume_rows``: each row's previous tokens (None: no draft)
         for a cross-session tick batch. ``language_rows``: one language per
-        row, in place of ``language``."""
+        row, in place of ``language``. With a draft attached, every
+        dispatch that is not a resume takes the spec key, at any batch."""
+        self.last_used = time.time()
+        try:
+            return self._run_key(clips, bucket_frames, bucket_s, language,
+                                 context, resume_tokens, resume_rows,
+                                 language_rows)
+        finally:
+            self.last_used = time.time()
+
+    def _run_key(self, clips, bucket_frames, bucket_s, language, context,
+                 resume_tokens, resume_rows, language_rows):
         batch = len(clips)
         max_new = max_new_tokens_for(bucket_s)
         if resume_rows is None and resume_tokens is not None and batch == 1:
@@ -471,8 +592,10 @@ class TranscriptionEngine:
             raise ValueError(f"{len(resume_rows)} resume rows for {batch} "
                              f"clips")
         resume = resume_rows is not None
+        gamma = (spec_gamma() if not resume and self.draft_model is not None
+                 else None)
         exe, capture_s = self.executable(bucket_frames, max_new, batch,
-                                         resume)
+                                         resume, gamma)
         audio, prefix, valid_from = self.bucket_inputs(clips, bucket_frames,
                                                        language, context)
         if language_rows is not None:
@@ -497,7 +620,9 @@ class TranscriptionEngine:
         prompt_len = exe.loop.prompt_len
         self.last_run = {"batch": batch, "bucket_frames": bucket_frames,
                          "prompt_len": prompt_len,
-                         "cache_len": cache_length(prompt_len, max_new),
+                         "cache_len": (exe.loop.cache_v.k.shape[-2]
+                                       if gamma is not None else
+                                       cache_length(prompt_len, max_new)),
                          "max_new": max_new, "resume": resume,
                          "steps_run": result.steps_run,
                          "replays": (exe.front.replays + exe.chunk.replays
@@ -511,6 +636,14 @@ class TranscriptionEngine:
                                  steps=result.steps.tolist())
         else:
             self.last_run["steps"] = result.steps
+        if gamma is not None:
+            # the verifier's rounds, and the tokens a row gained a round
+            # past the prefill's first (at most γ)
+            rounds = result.steps
+            self.last_run.update(
+                spec=True, gamma=gamma, rounds=rounds,
+                tokens_per_round=(float(np.clip(lengths - 1, 0, None).sum())
+                                  / (batch * rounds) if rounds else 0.0))
         texts, id_lists = [], []
         for i in range(batch):
             ids = strip_generation(tokens[i], int(lengths[i]),

@@ -8,25 +8,31 @@ byte-level tokenizer; ``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with
 device; ``ASR_KV_CACHE_DTYPE`` picks
 the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
 ``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs), and
-``ModelManager`` holds the fields of its ``ModelManager`` that the batchers
-and the server use (the micro-batcher, the tick batcher, the group tick
-batcher, the live WS session count, ``transcribe_sync``), and warms the engine's executables on
-start (``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it), refusing first
-a WS mode the port does not serve (``config.check_ws_modes``), and under
-``ASR_CONTINUOUS_BATCHING=true`` then builds the decode pool
-(``runtime/pool.py``) and routes the requests it can serve there
-(``pool_eligible``, ``transcribe_pooled``). It also tracks the live
-prefix-mode WS sessions and group members (``register_stream_session``,
-weakly), so that an idle unload can release them and ``/health`` counts
-what they hold; idle unload, the watchdog and the fast
-engine are not ported yet (ROADMAP §1 item 7).
+``ModelManager`` is its ``ModelManager``: the lazy load of ``MODEL_ID``
+(``ensure_loaded``), the fast engine of ``FAST_MODEL_ID`` under
+``DUAL_MODEL`` or ``USE_SPECULATIVE`` (token-level speculation attaches
+its model as the main engine's draft; ``ASR_SPECULATIVE_MODE=result``
+keeps the reference's result-level heuristic), the warmup
+(``_warmup_buckets``; ``SKIP_WARMUP=true`` skips it), the decode pool
+under ``ASR_CONTINUOUS_BATCHING=true`` (``runtime/pool.py``;
+``pool_eligible``, ``transcribe_pooled``), the idle unload and its
+watchdog (``IDLE_TIMEOUT``, ``ASR_WATCHDOG_INTERVAL``), the micro-batcher,
+the tick batchers, the live WS session count and ``transcribe_sync``. It
+refuses first a WS mode the port does not serve
+(``config.check_ws_modes``), and tracks the live prefix-mode WS sessions
+and group members (``register_stream_session``, weakly), so that an idle
+unload releases them and ``/health`` counts what they hold. The JAX
+manager's asyncio lock and watchdog task are a ``threading.Lock`` and a
+daemon thread here; loads and unloads run on the queue's device thread.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import logging
 import os
 import threading
+import time
 import weakref
 from typing import Optional
 
@@ -42,7 +48,8 @@ from ..ops.quant import (check_mode, check_quantized_dtype, param_bytes,
 from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
 from ..config import check_ws_modes
-from .batcher import GroupTickBatcher, MicroBatcher, TickBatcher
+from .batcher import (GroupTickBatcher, MicroBatcher, TickBatcher,
+                      dispatch_engine)
 from .checkpoint import load_asr_checkpoint
 from .engine import (AUDIO_BUCKETS_S, MAX_SEGMENT_S, TARGET_SR,
                      TranscriptionEngine, TranscriptionResult, _prep_audio,
@@ -202,18 +209,44 @@ def _relay(source: concurrent.futures.Future,
 
 
 class ModelManager:
-    """Owns the engine and its scheduler; one per serving process.
+    """Owns the engines and their scheduler; one per serving process.
 
-    ``start()`` warms the engine's executables for ``_warmup_buckets()``
-    (once per manager, unless ``SKIP_WARMUP=true``), builds the decode pool
-    under ``ASR_CONTINUOUS_BATCHING=true`` (its graphs captured for the
-    same buckets), then starts the queue's device thread; ``stop()`` stops
-    the pool and settles every job still waiting for the device thread.
-    ``REQUEST_TIMEOUT`` (seconds, default 300) bounds how long the server
-    waits for one transcription."""
+    ``ModelManager()`` loads lazily: the first ``ensure_loaded()`` loads
+    ``MODEL_ID`` on ``device`` (the card unless the caller asks for the
+    CPU; in ``dtype``, by default the device's working dtype) as a job of the queue's one device thread, so loads, unloads and
+    requests run there in order, one at a time. Under ``USE_SPECULATIVE``
+    or ``DUAL_MODEL`` it also loads the fast engine from ``FAST_MODEL_ID``
+    (a failed fast load is logged, and the main engine serves alone); under
+    ``USE_SPECULATIVE`` with ``ASR_SPECULATIVE_MODE=token`` (the default)
+    the fast engine's model becomes the main engine's draft. Then it warms
+    both (``_warmup_buckets``, unless ``SKIP_WARMUP=true``) and builds the
+    decode pool under ``ASR_CONTINUOUS_BATCHING=true``. A daemon thread,
+    the watchdog, wakes every ``ASR_WATCHDOG_INTERVAL`` seconds (30) and
+    queues an unload once nothing has used the engines for
+    ``IDLE_TIMEOUT`` seconds (120; 0 turns it off); the next request loads
+    them again. The watchdog never touches the card itself.
 
-    def __init__(self, engine: TranscriptionEngine):
+    ``ModelManager(engine)`` serves the engine it is handed: ``start()``
+    warms it and builds the pool. Such a manager has no ``MODEL_ID`` of
+    its own to load again, so it is never unloaded and starts no
+    watchdog. ``stop()`` stops the watchdog, the pool and the device
+    thread (settling every job still waiting) and unloads the forced
+    aligner. ``REQUEST_TIMEOUT`` (seconds, default 300) bounds how long
+    the server waits for one transcription."""
+
+    def __init__(self, engine: Optional[TranscriptionEngine] = None,
+                 device="cuda", dtype: Optional[torch.dtype] = None):
         self.engine = engine
+        # the working dtype a lazy load asks for (None: the device's)
+        self.dtype = dtype
+        self.fast_engine: Optional[TranscriptionEngine] = None
+        # where a lazy manager loads, and where the WS VAD runs
+        self.device = (getattr(engine, "device", device)
+                       if engine is not None else device)
+        # only a manager that loads its own engine unloads it
+        self.lazy = engine is None
+        self.loaded_model_id: Optional[str] = (
+            getattr(engine, "model_id", None) if engine is not None else None)
         self.queue = PriorityInferQueue()
         self.batcher = MicroBatcher(self)
         self.tick_batcher = TickBatcher(self)
@@ -224,8 +257,14 @@ class ModelManager:
         self.ws_sessions = 0
         self.ws_lock = threading.Lock()
         self.request_timeout = float(os.getenv("REQUEST_TIMEOUT", "300"))
+        self.idle_timeout = float(os.getenv("IDLE_TIMEOUT", "120"))
         self.warmed = False
         self.pool = None
+        # the JAX manager's asyncio lock: a load or an unload at a time
+        self._lock = threading.Lock()
+        self._last_used = 0.0
+        self._watchdog: Optional[threading.Thread] = None
+        self._watchdog_stop = threading.Event()
         # live prefix-mode WS sessions (runtime/stream.py) and group
         # members (runtime/stream_group.py), weakly: a session dies with
         # its connection
@@ -235,7 +274,7 @@ class ModelManager:
 
     def register_stream_session(self, session) -> None:
         """Track a WS prefix-mode session or group member, so that an
-        unload can ``release()`` it (ROADMAP §1 item 7.2)."""
+        unload can ``release()`` it."""
         with self._sessions_lock:
             self._stream_sessions.add(session)
         self._last_stream_ref = weakref.ref(session)
@@ -255,25 +294,47 @@ class ModelManager:
         its connection closed."""
         return self._last_stream_ref() if self._last_stream_ref else None
 
-    def transcribe_sync(self, audio, sr: int, lang_code: Optional[str],
-                        return_timestamps: bool = False,
-                        use_fast: bool = False, context: str = "",
-                        resume_tokens=None):
-        """One transcription, run ON the device thread (a queue job).
-        ``resume_tokens`` takes the resume key (a WS tick's self-draft).
-        ``use_fast`` asks for the fast engine, which the port does not have
-        yet (ROADMAP §1 item 7.2): the main engine serves, as JAX's does
-        without one (``lifecycle.py:412-414``). ``return_timestamps`` adds
-        each segment's word timestamps (the forced aligner's, if loaded)."""
-        return self.engine.transcribe(audio, sr, lang_code,
-                                      return_timestamps, context,
-                                      resume_tokens=resume_tokens)
-
+    # -- lifecycle ---------------------------------------------------------------
     def start(self) -> None:
+        """Refuse a WS mode the port does not serve; warm a handed engine
+        and build its pool; start the device thread, and the watchdog of a
+        lazy manager."""
         check_ws_modes()
+        if self.engine is not None and not self.lazy:
+            self._prepare(self.engine, None)
+        self.queue.start()
+        if self.lazy and self._watchdog is None:
+            self._watchdog_stop.clear()
+            self._watchdog = threading.Thread(
+                target=self._idle_watchdog, name="idle-watchdog",
+                daemon=True)
+            self._watchdog.start()
+
+    def stop(self) -> None:
+        """Stop the watchdog, the pool and the device thread, and unload
+        the forced aligner."""
+        from ..sidecars import subtitle
+        self._watchdog_stop.set()
+        watchdog, self._watchdog = self._watchdog, None
+        if watchdog is not None and watchdog is not threading.current_thread():
+            watchdog.join(timeout=10)
+        pool, self.pool = self.pool, None
+        if pool is not None:
+            pool.stop()
+        self.queue.stop()
+        subtitle.unload_aligner()
+
+    def _prepare(self, engine, fast) -> None:
+        """Warm the engines' keys for ``_warmup_buckets()`` (once per
+        manager; a spec key when a draft is attached), then build the
+        decode pool under ``ASR_CONTINUOUS_BATCHING=true`` (its graphs
+        captured for the same buckets)."""
         warm = os.getenv("SKIP_WARMUP", "").lower() != "true"
         if not self.warmed and warm:
-            self.engine.warmup(_warmup_buckets())
+            buckets = _warmup_buckets()
+            engine.warmup(buckets)
+            if fast is not None:
+                fast.warmup(buckets)
             self.warmed = True
         # Continuous batching: pooled decode slots share every weight read
         # across concurrent requests; opt-in, as in the JAX package, since
@@ -281,19 +342,200 @@ class ModelManager:
         if (self.pool is None and os.getenv("ASR_CONTINUOUS_BATCHING",
                                             "").lower() == "true"):
             from .pool import DecodePool
-            self.pool = DecodePool(self.engine,
+            self.pool = DecodePool(engine,
                                    buckets=_warmup_buckets() if warm else ())
-        self.queue.start()
 
-    def stop(self) -> None:
-        """Stop the pool and the device thread, and unload the forced
-        aligner."""
+    @staticmethod
+    def _set_cpu_affinity() -> None:
+        """``NUMA_NODE``: pin the process to that half of its CPUs (the
+        first half for node 0), as the JAX manager does; a failure is
+        logged and not fatal."""
+        numa_node = os.getenv("NUMA_NODE")
+        if numa_node is None:
+            return
+        try:
+            cpus = sorted(os.sched_getaffinity(0))
+            half = max(1, len(cpus) // 2)
+            node_cpus = cpus[:half] if int(numa_node) == 0 else cpus[half:]
+            if node_cpus:
+                os.sched_setaffinity(0, node_cpus)
+                log.info("CPU affinity set to NUMA node %s: %s", numa_node,
+                         node_cpus)
+        except (OSError, ValueError) as e:
+            log.error("CPU affinity setting failed (non-critical): %s", e)
+
+    def _load_sync(self) -> None:
+        """Load ``MODEL_ID`` (and the fast engine), attach the draft, warm
+        both and build the pool: on the device thread. A failure leaves
+        nothing loaded and raises."""
+        if self.engine is not None:
+            return
+        self._set_cpu_affinity()
+        model_id = os.getenv("MODEL_ID", "Qwen/Qwen3-ASR-1.7B")
+        t0 = time.time()
+        log.info("Loading %s...", model_id)
+        engine = load_engine(model_id, device=self.device, dtype=self.dtype)
+        fast = None
+        use_spec = os.getenv("USE_SPECULATIVE", "").lower() == "true"
+        dual = os.getenv("DUAL_MODEL", "").lower() == "true"
+        if use_spec or dual:
+            fast_id = os.getenv("FAST_MODEL_ID", "Qwen/Qwen3-ASR-0.6B")
+            if fast_id != model_id:
+                try:
+                    log.info("Loading fast model %s (%s)...", fast_id,
+                             "speculative" if use_spec else "dual-model")
+                    fast = load_engine(fast_id, device=self.device,
+                                       dtype=self.dtype)
+                except Exception as e:
+                    log.error("Fast model load failed: %s, using single "
+                              "model", e)
+            else:
+                log.info("Fast and main model identical; skipping dual load")
+        spec_mode = os.getenv("ASR_SPECULATIVE_MODE", "token").lower()
+        if use_spec and spec_mode == "token" and fast is not None:
+            try:
+                engine.attach_draft(fast.model)
+                log.info("Token-level speculative decoding enabled "
+                         "(gamma=%s)", os.getenv("ASR_SPEC_GAMMA", "4"))
+            except AssertionError as e:
+                log.error("Token-level speculative unavailable (%s); "
+                          "falling back to result-level", e)
+        # after attach_draft: the warmup builds the spec keys requests take
+        self.warmed = False
+        self._prepare(engine, fast)
+        self.fast_engine = fast
+        self.engine = engine
+        self.loaded_model_id = model_id
+        self._last_used = time.time()
+        log.info("Model loaded in %.1fs on %s (KV cache %s)",
+                 time.time() - t0, engine.device, engine.cache_dtype)
+
+    def _last_activity(self) -> float:
+        """The newest use on any path: the manager's stamp and each
+        engine's (the batchers, the pool and the stream modes dispatch on
+        the engines directly)."""
+        stamps = [self._last_used]
+        for eng in (self.engine, self.fast_engine):
+            if eng is not None:
+                stamps.append(getattr(eng, "last_used", 0.0))
+        return max(stamps)
+
+    def _unload_sync(self) -> None:
+        """The idle unload, on the device thread: skipped when the engines
+        were used since the watchdog looked, or work waits in the queue or
+        the pool; else the aligner, the pool, ``loaded_model_id`` (before
+        the engine: ``/health`` never sees an id without a model), both
+        engines and every registered stream session go, and the card's
+        cached blocks are returned."""
+        if self.engine is None:
+            return
+        if (time.time() - self._last_activity() <= self.idle_timeout
+                or self.queue.depth > 0
+                or (self.pool is not None and self.pool.depth > 0)):
+            log.info("Skipping idle unload: engine used or work in flight")
+            return
+        log.info("Unloading model (idle timeout)...")
         from ..sidecars import subtitle
+        subtitle.unload_aligner()
         pool, self.pool = self.pool, None
         if pool is not None:
             pool.stop()
-        self.queue.stop()
-        subtitle.unload_aligner()
+        self.loaded_model_id = None
+        self.engine = None
+        self.fast_engine = None
+        # a session holds its engine's tensors; its connection binds anew
+        with self._sessions_lock:
+            sessions = list(self._stream_sessions)
+        for session in sessions:
+            try:
+                session.release()
+            except Exception:  # one session must not keep the rest
+                log.exception("stream session release failed")
+        self._last_stream_ref = None
+        del pool, sessions
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        log.info("Model unloaded")
+
+    def ensure_loaded(self) -> None:
+        """Stamp the idle clock; load the engines if none is loaded, as a
+        job of the device thread (one load at a time; a caller that finds
+        them loaded takes no lock)."""
+        self._last_used = time.time()
+        if self.engine is not None:
+            return
+        with self._lock:
+            if self.engine is not None:
+                return
+            self.queue.submit(self._load_sync).result()
+            self._last_used = time.time()
+
+    def _idle_watchdog(self) -> None:
+        interval = float(os.getenv("ASR_WATCHDOG_INTERVAL", "30"))
+        while not self._watchdog_stop.wait(interval):
+            if self.idle_timeout <= 0 or self.engine is None:
+                continue
+            if time.time() - self._last_activity() <= self.idle_timeout:
+                continue
+            try:
+                with self._lock:
+                    if (self.engine is not None
+                            and time.time() - self._last_activity()
+                            > self.idle_timeout):
+                        self.queue.submit(self._unload_sync).result()
+            except Exception:  # one failed unload must not end the watchdog
+                log.exception("idle unload failed; watchdog continues")
+
+    # -- inference entry -----------------------------------------------------------
+    def transcribe_sync(self, audio, sr: int, lang_code: Optional[str],
+                        return_timestamps: bool = False,
+                        use_fast: bool = False, context: str = "",
+                        resume_tokens=None):
+        """One transcription, run ON the device thread (a queue job).
+        ``resume_tokens`` takes the resume key (a WS tick's self-draft).
+        ``use_fast`` takes the fast engine when one is loaded (WS partials
+        under ``DUAL_MODEL``). Under ``USE_SPECULATIVE`` with
+        ``ASR_SPECULATIVE_MODE=result`` a batch final goes to the fast
+        engine first, and its text stands when it is short and clean (the
+        reference's heuristic, ``lifecycle.py:409-411``), else the main
+        engine transcribes. ``return_timestamps`` adds each segment's word
+        timestamps (the forced aligner's, if loaded). A job that finds no
+        engine (an unload won the race against it) loads them first."""
+        self._last_used = time.time()
+        try:
+            engine = dispatch_engine(self, use_fast)
+            use_spec = (os.getenv("USE_SPECULATIVE", "").lower() == "true"
+                        and self.fast_engine is not None
+                        and resume_tokens is None and not use_fast
+                        and os.getenv("ASR_SPECULATIVE_MODE",
+                                      "token").lower() == "result")
+            if use_spec:
+                draft = self.fast_engine.transcribe(
+                    audio, sr, lang_code, return_timestamps, context)
+                draft_text = draft[0].text if draft else ""
+                if len(draft_text) < 100 and "[" not in draft_text:
+                    return draft
+                return engine.transcribe(audio, sr, lang_code,
+                                         return_timestamps, context)
+            return engine.transcribe(audio, sr, lang_code, return_timestamps,
+                                     context, resume_tokens=resume_tokens)
+        finally:
+            # at the end too: a long job must restart the idle clock
+            self._last_used = time.time()
+
+    def serving_engine(self, use_fast: bool = False) -> TranscriptionEngine:
+        """``ensure_loaded``, then the engine that serves: the fast one for
+        ``use_fast`` when it is loaded, else the main one. Tried again when
+        an unload wins the race between the two reads
+        (``qwen3_asr_tpu/runtime/batcher.py:185-197``)."""
+        for _ in range(3):
+            self.ensure_loaded()
+            fast = self.fast_engine if use_fast else None
+            engine = fast or self.engine
+            if engine is not None:
+                return engine
+        raise RuntimeError("engine unavailable (load/unload race)")
 
     def pool_eligible(self, audio, sr: int, return_timestamps: bool) -> bool:
         """Requests the decode pool can serve: plain mono transcription up

@@ -61,6 +61,7 @@ import contextlib
 import logging
 import os
 import threading
+import time
 from functools import partial
 from typing import List, NamedTuple, Optional
 
@@ -655,6 +656,7 @@ class DecodePool:
                     # nothing (known to be) active: finish the tail
                     self._drain(*inflight)
                     inflight = None
+                self.engine.last_used = time.time()   # the idle clock
             except Exception as e:  # fail in-flight requests, not the thread
                 log.exception("decode-pool segment failed: %s", e)
                 inflight = None

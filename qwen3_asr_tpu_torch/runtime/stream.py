@@ -65,6 +65,7 @@ The session cache of an int4 engine is fp8, as JAX's is
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -561,6 +562,7 @@ class StreamSession:
         n = len(window)
         if n == 0:
             return "", []
+        self.engine.last_used = time.time()   # the idle watchdog's clock
         if n > self.pinned_samples:
             window = window[-self.pinned_samples:]
         self.stats["ticks"] += 1

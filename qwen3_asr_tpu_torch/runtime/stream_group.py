@@ -48,6 +48,7 @@ re-raised. The group cache of an int4 engine is fp8, as JAX's is
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -212,6 +213,7 @@ class StreamGroup:
         ``StreamSession``'s (and so to the fused resume path's). Returns
         [(text, ids)] in request order."""
         plan = self.plan
+        self.engine.last_used = time.time()   # the idle watchdog's clock
         seen = set()
         reqs: List[_Req] = []
         for member, window in requests:

@@ -3,12 +3,14 @@
 Counterpart of ``qwen3_asr_tpu/serving/server.py``'s public routes, with
 its request forms, answers, error codes and statuses:
 
-- ``GET /health``, with JAX's fields (``model_params_m``, ``device``
-  as the card's kind, ``num_devices``; ``hbm_used_mb`` and
-  ``hbm_limit_mb`` only for an engine on the card; ``device_arrays_mb``:
-  weights, keys, the pool, the stream sessions' and groups' stashed
-  state and the aligner's weights; ``executable_count``: the bucket and
-  stream keys, the live stream groups and the pool's graphs), the forced
+- ``GET /health``, with JAX's fields (``model_loaded`` and ``model_id``,
+  false and null before the first load and after an idle unload; while
+  loaded ``model_params_m``, ``hbm_used_mb`` and ``hbm_limit_mb`` only for
+  an engine on the card, ``device_arrays_mb``: both engines' weights and
+  keys, the pool, the stream sessions' and groups' stashed state and the
+  aligner's weights, ``executable_count``: both engines' bucket, spec and
+  stream keys, the live stream groups and the pool's graphs; ``device``
+  as the card's kind and ``num_devices`` always), the forced
   aligner's state (``aligner``: ``loaded``, ``unavailable_retrying`` or
   ``not_loaded``) and, when the decode pool runs,
   ``continuous_batching`` (``slots``, ``window``, ``depth``);
@@ -32,9 +34,13 @@ its request forms, answers, error codes and statuses:
 - ``WS /ws/transcribe`` (``serving/ws.py``: the upgrade, the frame codec
   and the streaming session).
 
-Each request runs on its own thread. All device work (transcriptions, the
-aligner's load and alignments) runs as jobs of the manager's queue on its
-one device thread, which serializes it, so the handlers need no lock;
+Each request runs on its own thread. Every route first has the manager
+load its engines if they are not loaded (``ensure_loaded``: the first
+request after start or after an idle unload pays the load; a failed load
+answers 500 ``MODEL_LOAD_FAILED``). All device work (loads and unloads,
+transcriptions, the aligner's load and alignments) runs as jobs of the
+manager's queue on its one device thread, which serializes it, so the
+handlers need no lock;
 concurrent same-bucket uploads and SSE chunks go through the
 micro-batcher, which joins them into one batched engine run. A WS
 connection holds its thread for its lifetime. Every response carries
@@ -43,7 +49,10 @@ with ``Content-Length`` or ``Transfer-Encoding: chunked``.
 
 Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
 qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
-``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights);
+``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights),
+loaded on the first request (``runtime/lifecycle.py``: ``IDLE_TIMEOUT``,
+``ASR_WATCHDOG_INTERVAL``; ``FAST_MODEL_ID`` with ``DUAL_MODEL`` or
+``USE_SPECULATIVE``, ``ASR_SPECULATIVE_MODE``, ``ASR_SPEC_GAMMA``);
 ``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with ``ASR_INT4_GROUP``),
 ``ASR_KV_CACHE_DTYPE`` (``bf16``, ``fp8``, ``int4``), ``ASR_INT8_ACT``,
 ``ASR_MAX_BATCH`` (8),
@@ -72,7 +81,7 @@ import torch
 
 from .. import config
 from ..audio.codec import AudioDecodeError, decode_audio
-from ..runtime.lifecycle import ModelManager, load_engine
+from ..runtime.lifecycle import ModelManager
 from ..ops.quant import param_count
 from ..runtime.queue import STANDARD
 from ..sidecars import subtitle
@@ -244,11 +253,15 @@ def health_memory(device: torch.device) -> dict:
 def device_bytes(mgr) -> int:
     """``/health``'s ``device_arrays_mb`` in bytes: every tensor the server
     holds on its device (the e2e memory gate's source where the device has
-    no memory stats): the engine's weights, keys and stream groups'
+    no memory stats): both engines' weights, keys and stream groups'
     stashed state, the decode pool's, the registered stream sessions'
-    stashed state and the forced aligner's weights, each once."""
-    engine, pool = mgr.engine, mgr.pool
-    return (engine.held_bytes() + (pool.held_bytes() if pool else 0)
+    stashed state and the forced aligner's weights, each once; 0 while
+    nothing is loaded."""
+    engine, fast, pool = mgr.engine, mgr.fast_engine, mgr.pool
+    if engine is None:
+        return 0
+    return (engine.held_bytes() + (fast.held_bytes() if fast else 0)
+            + (pool.held_bytes() if pool else 0)
             + mgr.stream_session_bytes()
             + subtitle.aligner_bytes(engine.model.params))
 
@@ -299,33 +312,7 @@ class _Handler(BaseHTTPRequestHandler):
         if route != "/health":
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
-        mgr = self.server.manager
-        engine, pool = mgr.engine, mgr.pool
-        held = device_bytes(mgr)
-        graphs = engine.executable_count + (pool.executable_count
-                                            if pool else 0)
-        cuda = engine.device.type == "cuda"
-        pooled = ({"continuous_batching": {"slots": pool.max_slots,
-                                           "window": pool.window,
-                                           "depth": pool.depth}}
-                  if pool is not None else {})
-        self._json(200, {"status": "ok",
-                         "model_loaded": True,
-                         "model_id": engine.model_id,
-                         "model_params_m": round(
-                             param_count(engine.model.params) / 1e6, 1),
-                         "device": (torch.cuda.get_device_name(engine.device)
-                                    if cuda else "cpu"),
-                         "num_devices": (torch.cuda.device_count()
-                                         if cuda else 1),
-                         "dtype": str(engine.dtype).replace("torch.", ""),
-                         "kv_cache_dtype": str(engine.cache_dtype).replace(
-                             "torch.", ""),
-                         **health_memory(engine.device),
-                         "device_arrays_mb": round(held / 1024 ** 2),
-                         "executable_count": graphs,
-                         **pooled,
-                         "active_ws_sessions": mgr.ws_sessions,
+        self._json(200, {**self.server.manager_health(),
                          "aligner": self.server.aligner_state()})
 
     def do_POST(self):
@@ -338,11 +325,23 @@ class _Handler(BaseHTTPRequestHandler):
             self._error("NOT_FOUND", f"no route {self.path}", 404)
             return
         try:
-            route(*self._read_form())
+            form = self._read_form()
+            self._ensure_loaded()
+            route(*form)
         except _Answered:
             pass
 
     # -- steps shared by the routes ------------------------------------------------
+    def _ensure_loaded(self) -> None:
+        """The engines loaded (a lazy manager's first request, or the first
+        after an idle unload, waits for the load); a failed load answers
+        500 MODEL_LOAD_FAILED."""
+        try:
+            self.server.manager.ensure_loaded()
+        except Exception as e:
+            log.exception("model load failed")
+            self._error("MODEL_LOAD_FAILED", f"{type(e).__name__}: {e}", 500)
+            raise _Answered
     def _read_form(self) -> Tuple[dict, Optional[bytes]]:
         """The multipart upload's (fields, file bytes)."""
         chunked = "chunked" in self.headers.get("Transfer-Encoding",
@@ -574,7 +573,8 @@ class AsrServer(ThreadingHTTPServer):
         the device thread (a no-op once loaded); raises what the load
         raises."""
         mgr = self.manager
-        mgr.queue.submit(lambda: subtitle.load_aligner(mgr.engine.device),
+        device = mgr.serving_engine().device
+        mgr.queue.submit(lambda: subtitle.load_aligner(device),
                          priority=STANDARD).result(
             timeout=mgr.request_timeout)
 
@@ -597,6 +597,40 @@ class AsrServer(ThreadingHTTPServer):
             log.info("Aligner unavailable for timestamps (%s); "
                      "char-proportional estimates until the next retry "
                      "window", e)
+
+    def manager_health(self) -> dict:
+        """``/health``'s fields of the manager, from one snapshot of its
+        engines and pool (an unload may null them meanwhile), so a body
+        never has a ``model_id`` without a model."""
+        mgr = self.manager
+        engine, fast, pool = mgr.engine, mgr.fast_engine, mgr.pool
+        body = {"status": "ok", "model_loaded": engine is not None,
+                "model_id": engine.model_id if engine is not None else None}
+        device = torch.device(engine.device if engine is not None
+                              else mgr.device)
+        cuda = device.type == "cuda" and torch.cuda.is_available()
+        body.update(device=(torch.cuda.get_device_name(device) if cuda
+                            else "cpu"),
+                    num_devices=torch.cuda.device_count() if cuda else 1)
+        if engine is not None:
+            engines = [e for e in (engine, fast) if e is not None]
+            body.update(
+                model_params_m=round(
+                    param_count(engine.model.params) / 1e6, 1),
+                dtype=str(engine.dtype).replace("torch.", ""),
+                kv_cache_dtype=str(engine.cache_dtype).replace("torch.",
+                                                               ""),
+                **health_memory(engine.device),
+                device_arrays_mb=round(device_bytes(mgr) / 1024 ** 2),
+                executable_count=(
+                    sum(e.executable_count for e in engines)
+                    + (pool.executable_count if pool else 0)))
+        if pool is not None:
+            body["continuous_batching"] = {"slots": pool.max_slots,
+                                           "window": pool.window,
+                                           "depth": pool.depth}
+        body["active_ws_sessions"] = mgr.ws_sessions
+        return body
 
     def aligner_state(self) -> str:
         """``/health``'s ``aligner``."""
@@ -628,12 +662,13 @@ def main():
     model_id = os.environ.get("MODEL_ID")
     if not model_id:
         parser.error("set MODEL_ID to a checkpoint directory or preset:NAME")
-    manager = ModelManager(load_engine(model_id, device=args.device))
+    # lazy, as the JAX server's manager: the first request loads MODEL_ID
+    # (the log names the device then), and an idle unload frees the card
+    manager = ModelManager(device=args.device)
     manager.start()
     server = build_server(manager, args.host, args.port)
-    log.info("serving %s on %s:%d (%s, KV cache %s)", model_id, args.host,
-             server.server_address[1], manager.engine.device,
-             manager.engine.cache_dtype)
+    log.info("serving %s on %s:%d (device %s, loaded on first use)",
+             model_id, args.host, server.server_address[1], args.device)
     try:
         server.serve_forever()
     finally:

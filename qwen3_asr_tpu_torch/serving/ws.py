@@ -36,7 +36,16 @@ Two parts:
    decode pool running and ``ASR_POOL_WS=true``, a solo tick or flush goes
    to the pool instead.
    The host DSP of a tick (s16 → f32, the 300-3400 Hz bandpass) is numpy;
-   the VAD runs on the engine's device.
+   the VAD runs on the manager's device.
+
+The manager's engines may be unloaded while a connection idles and loaded
+again by its next tick (``ensure_loaded`` at the connection and every
+tick). Partials go to the fast engine when one is loaded (``DUAL_MODEL``),
+finals to the main one; a prefix session or group member is bound to the
+engine that serves partials, ``mgr.fast_engine or mgr.engine``, and bound
+anew when that engine is gone (an unload released it), as JAX's
+``session_for_tick`` (``server.py:684-707``); the trim quantum comes from
+the same engine.
 
 The messages and their order are the JAX server's: the greeting
 ``{"status": "connected", "sample_rate", "format", "buffer_size",
@@ -77,6 +86,7 @@ from ..audio.frontend import fir_bandpass_kernel, fir_same, pcm16_to_f32
 from ..audio.vad import default_flush_ticks as _vad_default_flush_ticks
 from ..audio.vad import is_speech
 from ..config import _safe_int, resolve_ws_mode
+from ..runtime.batcher import dispatch_engine
 from ..runtime.queue import EXPRESS
 from ..text.repetition import detect_and_fix_repetitions
 
@@ -351,10 +361,11 @@ def _trim_exact(window: bytearray) -> None:
 
 def trim_quantum_bytes(engine, prefix: bool) -> int:
     """The partial window's trim step: in mode ``prefix`` one encoder
-    chunk (``n_window * 2`` frames: 2 s at preset:1.7b), so cached blocks
-    stay on their grid between trims; a cap under one chunk holds no grid,
-    and every other mode trims sample-exact."""
-    if not prefix:
+    chunk (``n_window * 2`` frames: 2 s at preset:1.7b) of the engine that
+    serves partials, so cached blocks stay on their grid between trims; a
+    cap under one chunk holds no grid, and every other mode (or no engine
+    loaded) trims sample-exact."""
+    if not prefix or engine is None:
         return 2
     chunk_bytes = engine.model.cfg.encoder.n_window * 2 * 160 * 2
     return chunk_bytes if chunk_bytes <= WS_WINDOW_MAX_BYTES else 2
@@ -372,17 +383,33 @@ def _trim_partial(window: bytearray, quantum: int) -> None:
     del window[:trim]
 
 
-def _bind_session(mgr, lang_code, grouped: bool = False):
-    """A prefix-mode session for the connection (with ``grouped``, a
-    member of a stream group), built on the device thread and registered
-    with the manager; or the exception that stopped it, logged and
-    counted."""
+def partial_engine(mgr):
+    """The engine that serves partials: the fast one when loaded."""
+    return mgr.fast_engine or mgr.engine
+
+
+def session_for_tick(mgr, session, lang_code, grouped: bool = False):
+    """The connection's prefix-mode session (with ``grouped``, a member of
+    a stream group) for its next partial: ``session`` while the engine it
+    holds still serves partials; else a new one, built on the device
+    thread (which loads the engines first when an unload won the race)
+    for ``partial_engine(mgr)`` and registered with the manager. Returns
+    (session, None), or (None, the exception that stopped the bind),
+    logged and counted."""
     global prefix_bind_failures
-    engine = mgr.engine
-    bind = engine.stream_group_member if grouped else engine.stream_session
     try:
-        future = mgr.queue.submit(
-            lambda: bind(WS_WINDOW_MAX_S, lang_code), priority=EXPRESS)
+        mgr.ensure_loaded()
+        if session is not None and session.engine is not None \
+                and session.engine is partial_engine(mgr):
+            return session, None
+        if session is not None:
+            session.release()          # its engine is gone
+
+        def bind():
+            engine = dispatch_engine(mgr, use_fast=True)
+            return (engine.stream_group_member if grouped
+                    else engine.stream_session)(WS_WINDOW_MAX_S, lang_code)
+        future = mgr.queue.submit(bind, priority=EXPRESS)
         session = future.result(timeout=mgr.request_timeout)
         mgr.register_stream_session(session)
         return session, None
@@ -408,6 +435,8 @@ def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
     t0 = time.time()
     future = None
     try:
+        # a tick after an idle unload loads the engines again
+        mgr.ensure_loaded()
         full = bytearray(audio_bytes)
         if pad_silence:
             full.extend(bytes(int((WS_FLUSH_SILENCE_MS / 1000)
@@ -415,7 +444,7 @@ def _transcribe_with_context(mgr, audio_bytes: bytes, pad_silence: bool,
         if not full:
             return "", None
         audio = fir_same(pcm16_to_f32(bytes(full)), _bandpass_kernel())
-        if use_vad and not is_speech(audio, device=mgr.engine.device):
+        if use_vad and not is_speech(audio, device=mgr.device):
             log.info("[WS] VAD: silence, skipping inference")
             return "", resume_tokens
         if session is not None and not pad_silence:
@@ -533,7 +562,7 @@ def websocket_transcribe(handler) -> None:
         # fixed for the connection's lifetime
         ws_mode = resolve_ws_mode(WS_WINDOW_MAX_S, sessions)
         prefix = ws_mode.prefix
-        quantum = trim_quantum_bytes(mgr.engine, prefix)
+        mgr.ensure_loaded()
 
         def flush_bytes() -> bytes:
             return bytes(exact_window if prefix else audio_window)
@@ -620,12 +649,13 @@ def websocket_transcribe(handler) -> None:
                 exact_window.extend(audio_buffer)
                 _trim_exact(exact_window)
             audio_buffer.clear()
-            _trim_partial(audio_window, quantum)
+            _trim_partial(audio_window,
+                          trim_quantum_bytes(partial_engine(mgr), prefix))
             vad_flushed = False
             if use_vad:
                 tail = bytes(audio_window[-WS_BUFFER_SIZE:])
                 has_speech = is_speech(pcm16_to_f32(tail),
-                                       device=mgr.engine.device)
+                                       device=mgr.device)
                 if has_speech:
                     prev_had_speech, silent_ticks = True, 0
                 else:
@@ -646,9 +676,9 @@ def websocket_transcribe(handler) -> None:
                     prev_tokens = None
             if not vad_flushed:
                 bind_error = None
-                if prefix and stream_session is None:
-                    stream_session, bind_error = _bind_session(
-                        mgr, lang_code, grouped=ws_mode.tick)
+                if prefix:
+                    stream_session, bind_error = session_for_tick(
+                        mgr, stream_session, lang_code, grouped=ws_mode.tick)
                 if bind_error is not None:
                     # no fused fallback: the tick fails as it is
                     text, prev_tokens = f"[error: {bind_error}]", None

@@ -1643,3 +1643,146 @@ def test_vad_entry_points_run_on_the_card_by_default(dev, monkeypatch):
     net = vad_model.params_from_jax(vad_model.load_params())
     assert next(net.parameters()).device.type == "cuda"
     assert vad.failures == before
+
+
+# -- token-level speculation and the lifecycle on the card -------------------------
+
+def _draft_model(dev, seed=1):
+    """SMALL with other random weights: the same tokenizer and chunking
+    as ``_model``, so it attaches as its draft."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dec = init_decoder_params(SMALL.decoder, gen, dev, torch.bfloat16)
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        dec["layers"][k] *= 10
+    params = {"encoder": init_encoder_params(SMALL.encoder, gen, dev,
+                                             torch.bfloat16),
+              "decoder": dec}
+    return AsrModel(SMALL, params, preset_tokenizer(512))
+
+
+@pytest.mark.parametrize("batch,self_draft", [(1, False), (8, False),
+                                              (1, True)],
+                         ids=["b1", "b8", "b1_self"])
+def test_spec_graph_replay_equals_eager(dev, batch, self_draft):
+    """A spec key in bf16: the captured request gives the eager run's
+    tokens and rounds bit for bit. A chunk records, a round, one flash
+    launch a verifier layer (the T = 4 window at a per-row q_offset), the
+    draft's γ decode launches a layer (#2 at B=1, #3 at B=8), and kernel
+    B once a layer for each draft step and the window (its per-row route
+    at B=8)."""
+    from qwen3_asr_tpu_torch.runtime.speculative import rounds_per_chunk
+    model = _model(dev)
+    eng = TranscriptionEngine(model, device=dev)
+    eng.attach_draft(model if self_draft else _draft_model(dev))
+    key, inputs = _request(eng, batch)
+    exe, capture_s = eng.executable(*key, gamma=4)
+    assert capture_s > 0 and exe.chunk.graph is not None
+    rounds, layers = rounds_per_chunk(4), SMALL.decoder.num_hidden_layers
+    rec = exe.chunk.recorded
+    kernel = "decode_attention" if batch == 1 else "decode_attention_batch"
+    assert rec["flash_attention"] == rounds * layers
+    assert rec[kernel] == rounds * 4 * layers
+    # one position a row: counted per row at B > 1
+    assert rec["qk_rope_kv"] == rounds * 5 * layers
+    assert rec["qk_rope_kv_per_row"] == (rec["qk_rope_kv"] if batch > 1
+                                         else 0)
+    assert exe.front.recorded["qk_rope_kv"] == 2 * layers
+    graph = exe.run(*inputs)
+    eager = exe.run(*inputs, eager=True)
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert (graph.steps, graph.steps_run) == (eager.steps, eager.steps_run)
+    assert len(set(graph.tokens[0].tolist())) >= 3
+    if self_draft:
+        # every draft accepted: γ tokens a round
+        n = int(graph.lengths[0])
+        assert graph.steps <= n // 4 + 2
+
+
+def _trained(dev, name):
+    import os
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    return load_engine(os.path.join(os.path.dirname(__file__), "..", "e2e",
+                                    "data", name),
+                       device=dev, dtype=torch.float32)
+
+
+def test_spec_f32_trained_pair_equals_greedy(dev):
+    """trained_ckpt with trained_draft attached, f32 on the card: the spec
+    ids of real clips, alone and four at once, are the plain greedy ids,
+    in fewer verifier rounds than tokens."""
+    import glob
+    import os
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    plain, spec = _trained(dev, "trained_ckpt"), _trained(dev,
+                                                          "trained_ckpt")
+    spec.attach_draft(_trained(dev, "trained_draft").model)
+    paths = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..",
+                                          "e2e", "data", "real", "*.wav")))
+    clips = []
+    tokens = rounds = 0
+    for path in paths[:6]:
+        with open(path, "rb") as f:
+            audio, sr = decode_audio(f.read())
+        clips.append((audio, sr))
+        got = spec.transcribe(audio, sr)
+        assert spec.last_run["spec"]
+        tokens += spec.last_run["generated"] - 1
+        rounds += spec.last_run["rounds"]
+        assert [r.token_ids for r in got] == \
+            [r.token_ids for r in plain.transcribe(audio, sr)]
+    assert rounds < tokens
+    batch = spec.transcribe_batch(clips[:4])
+    assert [r.token_ids for r in batch] == \
+        [r.token_ids for r in plain.transcribe_batch(clips[:4])]
+
+
+# what an idle unload may leave allocated on the card: what the first load
+# of a process creates and torch keeps for the process (cuBLAS's workspace,
+# 32 MiB on the H100, cuFFT's plans, the decode kernels' ticket buffer)
+UNLOAD_RESIDUE_BYTES = 64 * 2 ** 20
+
+
+def test_idle_unload_returns_the_card_memory(dev, monkeypatch):
+    """A lazy manager on the card (trained_ckpt and its draft, f32,
+    speculative, the pool on): after the unload the allocator holds at
+    most ``UNLOAD_RESIDUE_BYTES`` more than before the load, and the
+    reload serves the same ids."""
+    import gc
+    import os
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    root = os.path.join(os.path.dirname(__file__), "..", "e2e", "data")
+    for k, v in {"MODEL_ID": os.path.join(root, "trained_ckpt"),
+                 "FAST_MODEL_ID": os.path.join(root, "trained_draft"),
+                 "USE_SPECULATIVE": "true", "ASR_CONTINUOUS_BATCHING": "true",
+                 "ASR_POOL_SLOTS": "2", "ASR_WARMUP_BUCKETS": "2",
+                 "ASR_WARMUP_BATCH_SHAPES": ""}.items():
+        monkeypatch.setenv(k, v)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    mgr = ModelManager(device=dev, dtype=torch.float32)
+    mgr.queue.start()
+    try:
+        mgr.ensure_loaded()
+        audio = np.random.default_rng(3).standard_normal(24000).astype(
+            np.float32) * 0.1
+        first = mgr.queue.submit(lambda: mgr.transcribe_sync(
+            audio, 16000, "en")).result(300)
+        loaded = torch.cuda.memory_allocated(dev)
+        assert mgr.engine.last_run["spec"] and mgr.pool is not None
+        mgr.idle_timeout = 0
+        mgr.queue.submit(mgr._unload_sync).result(300)
+        gc.collect()
+        after = torch.cuda.memory_allocated(dev)
+        print(f"allocated before {before}, loaded {loaded}, after unload "
+              f"{after}: residue {after - before} bytes; reserved "
+              f"{torch.cuda.memory_reserved(dev)}")
+        assert mgr.engine is None
+        assert after - before <= UNLOAD_RESIDUE_BYTES and after < loaded
+        mgr.ensure_loaded()
+        again = mgr.queue.submit(lambda: mgr.transcribe_sync(
+            audio, 16000, "en")).result(300)
+        assert again[0].token_ids == first[0].token_ids
+    finally:
+        mgr.stop()
