@@ -165,10 +165,12 @@ without a CUDA device, and whenever any phase fails. Phases:
    WS streaming 40 s of the real clips tiled, unpaced: partial wall
    p50/p90, each tick's stream ms by kind (tail at each rung, full, redo),
    the session's memory, its hand-overs (none), replays only; each stream
-   graph's device ms and a hand-over's copies; then the same audio in mode
-   ``solo`` (its resume keys warmed first): partial wall p50/p90; (c) the
-   same prefix session with ``QUANTIZE=int8 ASR_KV_CACHE_DTYPE=int4
-   ASR_INT8_ACT=true``: an fp8 session cache, #3 at B=1, kernels A and C.
+   graph's device ms and a hand-over's copies; then the first 20 s of the
+   audio in mode ``solo`` (its resume keys warmed first): partial wall
+   p50/p90 beside the prefix session's over the same ticks; (c) the
+   same prefix session on the first 20 s with ``QUANTIZE=int8
+   ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true``: an fp8 session cache, #3
+   at B=1, kernels A and C.
    The phase fails on a bind failure (``serving/ws.py``
    ``prefix_bind_failures``) or a VAD failure. Phases 2 and 3 also hold
    flash at the mode's shapes: the segment prefill at T = 64 and 389
@@ -187,7 +189,8 @@ without a CUDA device, and whenever any phase fails. Phases:
    batcher dispatching when all 4 have landed, within 200 ms): its group
    sizes and dispatches, partial wall p50/p90, each dispatch's device ms
    by rung, bind failures (none); a fixed schedule of direct ticks (two
-   members, a third joining) through the graphs and eagerly: the same ids
+   members of 2 ticks, a third joining at the second cadence for 1)
+   through the graphs and eagerly: the same ids
    and the members' prompt keys and audio tokens bit-equal; each front
    recording flash and kernel B twice a layer, the chunk #3 and kernel
    B's per-row route once a layer and step; the device ms of a front at
@@ -222,22 +225,51 @@ without a CUDA device, and whenever any phase fails. Phases:
    share of a round that widening the verifier's layers takes. Phases 2
    and 3 also hold flash at the verify window (T = γ = 4 at a per-row
    q_offset over S = 768, B = 1 and 8) and kernel B writing the window at
-   a position a row.
+   a position a row;
+16. the serving contract and the lossless codecs: (a) 4 of phase 4's
+   clips (every third: Cantonese, Chinese, Hindi, Japanese; samples
+   clipped to +-32767, so that every container holds them exactly) as
+   WAV and re-encoded as FLAC (16-bit fixed subframes, 24-bit LPC
+   subframes, 16-bit stereo with the channel duplicated, by the port's
+   ``encode_flac``), AIFF, AIFC float32, AU, CAF and W64, uploaded through
+   the port's server to a lazy ``ModelManager`` of trained_ckpt in f32 on
+   the card: every upload's body, and the token ids of its own engine
+   dispatches, equal the WAV upload's; the first upload, which loads the model, carries an ``X-Request-ID``
+   that the JSON log lines of its request thread and of the device thread
+   (the load) carry as ``requestId``; the FLAC helper
+   (``csrc/audio_dsp.cpp``) built and used; (b) preset:1.7b bf16 (phase
+   5's engine): a 29.5 s FLAC of the real clips at 44.1 kHz stereo, host
+   decode ms with the helper against its plain version (Python loops, on
+   the first 5 s), and its request wall against the same audio as WAV, in
+   turns; the 330 s tiled clip as FLAC: decode ms per audio second; (c)
+   ``POST /debug/trace?seconds=3`` while a 29.5 s upload runs: a second
+   capture answers 409, the newest Chrome trace in ``ASR_TRACE_DIR`` holds
+   the port's flash and decode kernels and no library attention kernel;
+   kernel events counted, the upload's wall with and without the capture;
+   (d) ``/metrics``: ``asr_requests_total`` equals the requests the phase
+   sent, by route, method and status (a 404 as ``unmatched``), the
+   duration histogram counts them, the gauges are there; ``/openapi.json``
+   lists every route of ``serving/meta.py``. #1 and #2 must launch in (b)
+   and (c).
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import gc
 import glob
 import json
+import logging
 import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -3030,9 +3062,10 @@ EDGE_TOL = 1e-3        # word edges, the card (f32) against the CPU
 SSE_STREAMS, SSE_CLIP_S = 4, 20
 
 
-def post_form(url: str, data: bytes, fields=(), timeout: float = 600):
-    """POST a multipart upload with form ``fields``: (status, headers,
-    body bytes), whatever the status."""
+def post_form(url: str, data: bytes, fields=(), timeout: float = 600,
+              headers=None):
+    """POST a multipart upload with form ``fields`` (and ``headers``):
+    (status, response headers, body bytes), whatever the status."""
     bnd = uuid.uuid4().hex
     body = b"".join(
         f"--{bnd}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
@@ -3042,7 +3075,8 @@ def post_form(url: str, data: bytes, fields=(), timeout: float = 600):
         f"\r\n--{bnd}--\r\n".encode()
     req = urllib.request.Request(
         url, data=body, method="POST",
-        headers={"Content-Type": f"multipart/form-data; boundary={bnd}"})
+        headers={"Content-Type": f"multipart/form-data; boundary={bnd}",
+                 **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, r.headers, r.read()
@@ -3974,7 +4008,8 @@ def pool_phase(dev, bf16_engine, real) -> dict:
 
 STREAM_CAP_F32 = 8.5      # (a): pins trained_ckpt's 10 s bucket, 5 blocks
 STREAM_CAP_S = 30.0       # (b), (c): pins the 30 s bucket, 8 blocks
-STREAM_SECONDS = 40.0     # (b), (c): the real clips tiled, unpaced
+STREAM_SECONDS = 40.0     # (b): the real clips tiled, unpaced
+STREAM_SHORT_SECONDS = 20.0   # (b)'s solo run and (c): the first 20 s
 # a lone session: no batched flush keys to warm, and the cap's bucket
 STREAM_ENV = {"ASR_WS_STREAM_MODE": "prefix", "WS_WINDOW_MAX_S": "30",
               "ASR_WS_TICK_MAX_BATCH": "1", "ASR_WARMUP_BUCKETS": "30",
@@ -4297,6 +4332,7 @@ def stream_phase(dev, engine, f32: bool = True) -> dict:
         add(stream_f32_phase(dev, card))
     pcm = np.round(real_audio()[:int(STREAM_SECONDS * 16000)]
                    * 32768.0).astype("<i2").tobytes()
+    short = pcm[:int(STREAM_SHORT_SECONDS * 16000) * 2]
     with environ(**STREAM_ENV), ws_cap(STREAM_CAP_S):
         # (b) preset:1.7b bf16, phase 5's engine: prefix, then solo
         launches, walls, sess, work = stream_session_ws(
@@ -4320,14 +4356,15 @@ def stream_phase(dev, engine, f32: bool = True) -> dict:
             manager.warmed = True
             with ws_serving(manager) as url:
                 counter = PathLaunches(engine)
-                ws_stream(url, pcm, "?use_server_vad=false")
+                ws_stream(url, short, "?use_server_vad=false")
                 solo_launches, _ = counter.read()
             solo_walls = [w for kind, w, _ in manager.ws_calls
                           if kind == "partial"]
-        log(f"[stream] (b) the same audio in mode solo (resume, the whole "
-            f"window re-encoded every tick): partial wall "
-            f"{percentiles(solo_walls)}; prefix: {percentiles(walls)}; "
-            f"launches {solo_launches} | {card}")
+        log(f"[stream] (b) the first {STREAM_SHORT_SECONDS:.0f} s in mode "
+            f"solo (resume, the whole window re-encoded every tick): "
+            f"partial wall {percentiles(solo_walls)}; prefix over the same "
+            f"ticks: {percentiles(walls[:len(solo_walls)])}; launches "
+            f"{solo_launches} | {card}")
         del manager
         torch.cuda.empty_cache()
         # (c) the JAX package's default serving row: an fp8 session cache
@@ -4336,7 +4373,7 @@ def stream_phase(dev, engine, f32: bool = True) -> dict:
             qeng, _ = quantized_engine(dev, DEFAULT_ENV, card,
                                        "(c) int8 + int4 KV + W8A8")
             launches, walls_c, sess, work = stream_session_ws(
-                qeng, "(c) int8 + int4 KV + W8A8 prefix", pcm, card)
+                qeng, "(c) int8 + int4 KV + W8A8 prefix", short, card)
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -4542,9 +4579,9 @@ def group_fixed_schedule(engine, name: str, card: str) -> tuple:
     audio tokens bit-equal. Returns (launches of the graph run, the
     workspace)."""
     audio = real_audio()
-    plan = [("a", "en", audio[:int(1.35 * 16000)], 0, None),
-            ("b", "en", audio[int(40 * 16000):int(41.35 * 16000)], 0, None),
-            ("c", "zh", audio[int(80 * 16000):int(80.9 * 16000)], 1, None)]
+    plan = [("a", "en", audio[:int(0.9 * 16000)], 0, None),
+            ("b", "en", audio[int(40 * 16000):int(40.9 * 16000)], 0, None),
+            ("c", "zh", audio[int(80 * 16000):int(80.45 * 16000)], 1, None)]
     counter = PathLaunches(engine)
     t0 = time.perf_counter()
     group, ids, _, rows, left = group_schedule(engine, STREAM_CAP_S, plan,
@@ -5301,6 +5338,455 @@ def spec_phase(dev, engine, real) -> dict:
     return total
 
 
+# -- phase 16: the serving contract and the lossless codecs -----------------------
+
+TRACE_SECONDS = 3.0
+# kernel names of PyTorch's and cuDNN's attention (SDPA's backends; the
+# encoder's convolutions run other cuDNN kernels)
+LIBRARY_ATTENTION = ("flash_fwd", "pytorch_flash", "fmha",
+                     "efficient_attention", "sdpa", "flash_fprop")
+
+
+def pcm_payload(v, bits: int, fmt: str = "pcm", big: bool = False) -> bytes:
+    """Samples ``v`` [N, C] interleaved: PCM ints of ``bits`` bits (ints in
+    range; 8-bit stored unsigned, as WAV's) or IEEE floats."""
+    order = ">" if big else "<"
+    v = np.asarray(v).reshape(-1)
+    if fmt == "float":
+        return v.astype(f"{order}f{bits // 8}").tobytes()
+    v = v.astype(np.int64)
+    if bits == 8:
+        return (v + 128).astype(np.uint8).tobytes()
+    if bits == 24:
+        b = ((v[:, None] >> np.array([0, 8, 16])) & 0xFF).astype(np.uint8)
+        return (b[:, ::-1] if big else b).tobytes()
+    return v.astype(f"{order}i{bits // 8}").tobytes()
+
+
+def wav_bytes(v, sr: int, bits: int = 16) -> bytes:
+    """PCM WAV of int samples ``v`` [N, C]."""
+    ch, body = v.shape[1], pcm_payload(v, bits)
+    return (b"RIFF" + struct.pack("<I", 36 + len(body)) + b"WAVE" + b"fmt "
+            + struct.pack("<IHHIIHH", 16, 1, ch, sr, sr * ch * bits // 8,
+                          ch * bits // 8, bits)
+            + b"data" + struct.pack("<I", len(body)) + body)
+
+
+def w64_bytes(v, sr: int, bits: int = 16, fmt: str = "pcm") -> bytes:
+    """Sony Wave64: GUID chunk ids (the FourCC, then 12 bytes), int64
+    sizes counting the 24-byte header, 8-byte alignment."""
+    ch = v.shape[1]
+    fmt_body = struct.pack("<HHIIHH", 3 if fmt == "float" else 1, ch, sr,
+                           sr * ch * bits // 8, ch * bits // 8, bits)
+
+    def chunk(cc: bytes, body: bytes) -> bytes:
+        size = 24 + len(body)
+        return cc + bytes(12) + struct.pack("<q", size) + body + \
+            bytes(-size % 8)
+    chunks = chunk(b"fmt ", fmt_body) + chunk(b"data",
+                                               pcm_payload(v, bits, fmt))
+    return (b"riff" + bytes(12) + struct.pack("<q", 40 + len(chunks))
+            + b"wave" + bytes(12) + chunks)
+
+
+def ext80(rate: int) -> bytes:
+    """An integer rate as an IEEE 754 80-bit extended float."""
+    e = rate.bit_length() - 1
+    return struct.pack(">HQ", 16383 + e, rate << (63 - e))
+
+
+def aiff_bytes(v, sr: int, bits: int = 16, comp=None,
+               fmt: str = "pcm") -> bytes:
+    """AIFF, or AIFC with compression type ``comp`` (``NONE``, ``twos``,
+    ``sowt`` for ints; ``fl32``, ``fl64`` for floats)."""
+    comm = struct.pack(">HIH", v.shape[1], v.shape[0], bits) + ext80(sr)
+    if comp is not None:
+        comm += comp + b"\x00\x00"     # and an empty name, padded
+    ssnd = bytes(8) + pcm_payload(v, bits, fmt, big=comp != b"sowt")
+
+    def chunk(cc: bytes, body: bytes) -> bytes:
+        return cc + struct.pack(">I", len(body)) + body + \
+            bytes(len(body) & 1)
+    body = (b"AIFC" if comp is not None else b"AIFF") + \
+        chunk(b"COMM", comm) + chunk(b"SSND", ssnd)
+    return b"FORM" + struct.pack(">I", len(body)) + body
+
+
+AU_ENCODINGS = {2: (8, "pcm"), 3: (16, "pcm"), 4: (24, "pcm"),
+                5: (32, "pcm"), 6: (32, "float"), 7: (64, "float")}
+
+
+def au_bytes(v, sr: int, encoding: int = 3) -> bytes:
+    bits, fmt = AU_ENCODINGS[encoding]
+    body = pcm_payload(v, bits, fmt, big=True)
+    return struct.pack(">IIIIII", 0x2E736E64, 24, len(body), encoding, sr,
+                       v.shape[1]) + body
+
+
+def caf_bytes(v, sr: int, bits: int = 16, fmt: str = "pcm",
+              little: bool = False, open_ended: bool = False) -> bytes:
+    """Core Audio Format, LPCM; ``open_ended``: the data chunk's size -1
+    (to the end of the file)."""
+    ch = v.shape[1]
+    flags = (1 if fmt == "float" else 0) | (2 if little else 0)
+    desc = struct.pack(">d", float(sr)) + b"lpcm" + struct.pack(
+        ">IIIII", flags, ch * bits // 8, 1, ch, bits)
+    data = bytes(4) + pcm_payload(v, bits, fmt, big=not little)
+    return (b"caff" + struct.pack(">HH", 1, 0)
+            + b"desc" + struct.pack(">q", len(desc)) + desc
+            + b"data" + struct.pack(">q", -1 if open_ended else len(data))
+            + data)
+
+
+def codec_variants(ints: np.ndarray, sr: int = 16000) -> dict:
+    """16-bit mono samples ``ints`` (within +-32767) as WAV and in every
+    other lossless container the port decodes, each holding them exactly,
+    so that each decodes to the WAV's floats."""
+    from qwen3_asr_tpu_torch.audio.flac import encode_flac
+    v = ints[:, None]
+    return {
+        "wav": wav_bytes(v, sr),
+        "flac16": encode_flac(ints / 32767, sr),
+        "flac24_lpc": encode_flac((ints << 8) / 8388607, sr, bps=24,
+                                  subframe_opts={"mode": "lpc"}),
+        "flac16_stereo": encode_flac(
+            None, sr, channels=np.stack([ints, ints], 1) / 32767,
+            stereo_mode="mid_side"),
+        "aiff": aiff_bytes(v, sr),
+        "aifc_float32": aiff_bytes(v / 32768, sr, bits=32, comp=b"fl32",
+                                   fmt="float"),
+        "au": au_bytes(v, sr),
+        "caf": caf_bytes(v, sr),
+        "w64": w64_bytes(v, sr)}
+
+
+class JsonLog(logging.Handler):
+    """Every record as the port's JSON line (``utils/logging.py``), with
+    the name of the thread that logged it."""
+
+    def __init__(self):
+        from qwen3_asr_tpu_torch.utils.logging import JsonFormatter
+        super().__init__()
+        self.setFormatter(JsonFormatter())
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append((record.threadName, json.loads(self.format(record))))
+
+
+@contextlib.contextmanager
+def json_log():
+    """A ``JsonLog`` on the root logger at INFO while it is open."""
+    handler, level = JsonLog(), logging.root.level
+    logging.root.addHandler(handler)
+    logging.root.setLevel(logging.INFO)
+    try:
+        yield handler
+    finally:
+        logging.root.removeHandler(handler)
+        logging.root.setLevel(level)
+
+
+def request(url: str, data: bytes = None, method: str = "GET",
+            headers=None, timeout: float = 600):
+    """(status, body bytes) of one request, whatever the status."""
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+@contextlib.contextmanager
+def run_ids():
+    """A list that gains the token ids of every engine dispatch
+    (``TranscriptionEngine._run_bucket``) made while it is open, a list
+    of rows a dispatch."""
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    runs, orig = [], TranscriptionEngine._run_bucket
+
+    def recorded(self, *args, **kwargs):
+        texts, ids = orig(self, *args, **kwargs)
+        runs.append([list(row) for row in ids])
+        return texts, ids
+
+    TranscriptionEngine._run_bucket = recorded
+    try:
+        yield runs
+    finally:
+        TranscriptionEngine._run_bucket = orig
+
+
+def codec_f32_phase(dev, card: str) -> None:
+    """Phase 16 (a): 4 of the real clips in every lossless container through
+    the server to a lazy trained_ckpt f32 manager: bodies and token ids
+    equal to the WAV upload's; the loading request's id in the JSON lines
+    of its thread and of the device thread."""
+    from qwen3_asr_tpu_torch.audio import native
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    # every third clip: four languages; the CPU tests hold every
+    # container bit-equal to JAX's decoder on all twelve
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))[::3]
+    req_id = f"smoke-{uuid.uuid4().hex}"
+    env = {"MODEL_ID": os.path.join(DATA, "trained_ckpt"),
+           "IDLE_TIMEOUT": "0", "SKIP_WARMUP": "true"}
+    t_enc, uploads, clipped = 0.0, 0, 0
+    with environ(**env), json_log() as jlog, run_ids() as runs:
+        manager = ModelManager(device=dev, dtype=torch.float32)
+        with serving(manager) as url:
+            for i, path in enumerate(clips):
+                with open(path, "rb") as f:
+                    ints = np.round(decode_audio(f.read())[0] * 32768
+                                    ).astype(np.int64)
+                clipped += int((ints < -32767).sum())
+                ints = ints.clip(-32767, 32767)
+                t0 = time.perf_counter()
+                variants = codec_variants(ints)
+                t_enc += time.perf_counter() - t0
+                runs.clear()
+                status, _, wav_body = post_form(
+                    url, variants["wav"],
+                    headers={"X-Request-ID": req_id} if i == 0 else None)
+                if status != 200:
+                    raise AssertionError(f"{path}: WAV upload {status}")
+                ref = runs[:]
+                if not ref or not ref[0]:
+                    raise AssertionError(f"{path}: the WAV upload's run "
+                                         f"was not recorded: {ref}")
+                want = decode_audio(variants["wav"])[0]
+                for name, data in variants.items():
+                    if name == "wav":
+                        continue
+                    audio, sr = decode_audio(data)
+                    runs.clear()
+                    status, _, body = post_form(url, data)
+                    ids = runs[:]
+                    uploads += 1
+                    if (status, body) != (200, wav_body) or ids != ref \
+                            or sr != 16000 or not np.array_equal(audio, want):
+                        raise AssertionError(
+                            f"{os.path.basename(path)} as {name}: {status} "
+                            f"{body[:200]!r} / {ids[:8]} vs the WAV's "
+                            f"{wav_body[:200]!r} / {ref[:8]}; samples equal "
+                            f"{np.array_equal(audio, want)}")
+    log(f"[codec] (a) trained_ckpt f32, lazy: {len(clips)} clips x "
+        f"{len(variants)} containers ({', '.join(variants)}), {uploads} "
+        f"uploads besides the WAV's: every body, token ids (each upload's "
+        f"own dispatches) and decoded sample equal to the WAV upload's "
+        f"({clipped} samples of -32768 clipped to -32767 first); "
+        f"containers built in {t_enc:.2f} s | {card}")
+    if native.get_lib() is None:
+        raise AssertionError("the FLAC helper (csrc/audio_dsp.cpp) was not "
+                             "built: the plain version decoded")
+    mine = [(thread, line) for thread, line in jlog.lines
+            if line.get("requestId") == req_id]
+    threads = sorted({t for t, _ in mine})
+    log(f"[codec] (a) {len(mine)} JSON log lines carry the first upload's "
+        f"X-Request-ID, on threads {threads}; e.g. "
+        f"{next((l for t, l in mine if t == 'device-dispatch'), None)}")
+    if "device-dispatch" not in threads or len(threads) < 2:
+        raise AssertionError(f"request id {req_id} on threads {threads}: "
+                             f"want the device thread and the request's")
+
+
+def decode_ms(data: bytes, native: bool = True, repeats: int = 3) -> float:
+    from qwen3_asr_tpu_torch.audio.flac import decode_flac
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        decode_flac(data, native=native)
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def codec_bf16_phase(base: str, sent, card: str) -> None:
+    """Phase 16 (b): host FLAC decode with the helper and without, and a
+    FLAC upload's wall against the same audio as WAV, on phase 5's
+    engine; the 330 s clip's decode. ``sent`` counts the requests."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.audio.flac import encode_flac
+    real = real_audio()
+    mono = real[:int(29.5 * 16000)]
+    t44 = np.arange(int(29.5 * 44100)) / 44100
+    left = np.interp(t44, np.arange(len(mono)) / 16000, mono)
+    st = np.round(np.stack([left, 0.8 * np.roll(left, 3)], 1) * 32767
+                  ).astype(np.int64).clip(-32767, 32767)
+    t0 = time.perf_counter()
+    flac = encode_flac(None, 44100, channels=st / 32767,
+                       stereo_mode="mid_side")
+    enc_s = time.perf_counter() - t0
+    wav = wav_bytes(st, 44100)
+    if not np.array_equal(decode_audio(flac)[0], decode_audio(wav)[0]):
+        raise AssertionError("(b): the 44.1 kHz FLAC and WAV decode apart")
+    five = encode_flac(None, 44100, channels=st[:5 * 44100] / 32767,
+                       stereo_mode="mid_side")
+    native_ms, plain_ms = decode_ms(flac), decode_ms(five, False, 1)
+    per_s = native_ms / 29.5
+    plain_per_s = plain_ms / 5.0
+    log(f"[codec] (b) 29.5 s FLAC, 44.1 kHz stereo 16-bit mid/side "
+        f"({len(flac) / 1e6:.2f} MB, WAV {len(wav) / 1e6:.2f} MB, encoded in "
+        f"{enc_s:.2f} s): host decode {native_ms:.1f} ms with the helper = "
+        f"{per_s:.3f} ms per audio second ({per_s * 60:.1f} ms a minute); "
+        f"plain version {plain_ms:.1f} ms on the first 5 s = "
+        f"{plain_per_s:.3f} ms per audio second, {plain_per_s / per_s:.1f}x "
+        f"the helper's | {card}")
+    url = base + "/v1/audio/transcriptions"
+    walls = {"wav": [], "flac": []}
+    bodies = set()
+    for kind in ("wav", "flac", "flac", "wav"):
+        t0 = time.perf_counter()
+        status, _, body = post_form(url, wav if kind == "wav" else flac)
+        walls[kind].append(time.perf_counter() - t0)
+        sent[("/v1/audio/transcriptions", "POST", str(status))] += 1
+        bodies.add((status, body))
+    log(f"[codec] (b) preset:1.7b bf16 upload walls, in turns: WAV "
+        f"{walls['wav'][0]:.3f} / {walls['wav'][1]:.3f} s, FLAC "
+        f"{walls['flac'][0]:.3f} / {walls['flac'][1]:.3f} s (FLAC / WAV "
+        f"{sum(walls['flac']) / sum(walls['wav']):.3f}); one body for all "
+        f"four: {len(bodies) == 1} | {card}")
+    if len(bodies) != 1 or next(iter(bodies))[0] != 200:
+        raise AssertionError(f"(b): bodies {bodies}")
+    long = np.round(np.tile(real, -(-330 * 16000 // len(real)))[
+        :330 * 16000] * 32767).astype(np.int64).clip(-32767, 32767)
+    t0 = time.perf_counter()
+    flac330 = encode_flac(long / 32767, 16000)
+    enc_s = time.perf_counter() - t0
+    ms330 = decode_ms(flac330, repeats=1)
+    log(f"[codec] (b) 330 s FLAC, 16 kHz mono 16-bit ({len(flac330) / 1e6:.2f}"
+        f" MB, encoded in {enc_s:.2f} s): host decode {ms330:.1f} ms with the "
+        f"helper = {ms330 / 330:.3f} ms per audio second | {card}")
+
+
+def trace_phase(base: str, wav: bytes, sent, card: str) -> None:
+    """Phase 16 (c): ``/debug/trace`` during an upload; its Chrome trace's
+    kernels; a second capture answers 409."""
+    url = base + "/v1/audio/transcriptions"
+    trace_url = f"{base}/debug/trace?seconds={TRACE_SECONDS:g}"
+
+    def upload() -> float:
+        t0 = time.perf_counter()
+        status, _, _ = post_form(url, wav)
+        sent[("/v1/audio/transcriptions", "POST", str(status))] += 1
+        if status != 200:
+            raise AssertionError(f"(c): upload answered {status}")
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as trace_dir, \
+            environ(ASR_TRACE_DIR=trace_dir):
+        off = [upload(), upload()]
+        first = {}
+
+        def capture():
+            first["answer"] = request(trace_url, b"", "POST")
+        thread = threading.Thread(target=capture)
+        thread.start()
+        time.sleep(0.5)
+        second = request(trace_url, b"", "POST")
+        sent[("/debug/trace", "POST", str(second[0]))] += 1
+        on = upload()
+        thread.join(timeout=120)
+        status, body = first.get("answer", (None, b""))
+        sent[("/debug/trace", "POST", str(status))] += 1
+        files = sorted(glob.glob(os.path.join(trace_dir, "*.json")),
+                       key=os.path.getmtime)
+        if status != 200 or json.loads(body) != {
+                "trace_dir": trace_dir, "seconds": TRACE_SECONDS} \
+                or second[0] != 409 or not files:
+            raise AssertionError(f"(c): trace {status} {body[:200]!r}, "
+                                 f"second {second}, files {files}")
+        size = os.path.getsize(files[-1])
+        t0 = time.perf_counter()
+        with open(files[-1], encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        read_s = time.perf_counter() - t0
+    kernels = collections.Counter(e.get("name", "") for e in events
+                                  if e.get("cat") == "kernel")
+    flash = sum(n for k, n in kernels.items() if "flash_bf16_kernel" in k)
+    decode = sum(n for k, n in kernels.items() if "decode_split_kernel" in k)
+    library = {k[:80]: n for k, n in kernels.items()
+               if any(p in k.lower() for p in LIBRARY_ATTENTION)}
+    log(f"[trace] (c) POST /debug/trace?seconds={TRACE_SECONDS:g} during a "
+        f"29.5 s upload: 200 {json.loads(body)}; a second capture meanwhile "
+        f"answered {second[0]} {json.loads(second[1])['code']}; the trace "
+        f"{size / 1e6:.1f} MB ({read_s:.1f} s to parse), {len(events)} "
+        f"events, {sum(kernels.values())} kernel events of "
+        f"{len(kernels)} names: flash_bf16_kernel {flash}, "
+        f"decode_split_kernel {decode}, library attention {library} | {card}")
+    log(f"[trace] (c) the upload's wall: {off[0]:.3f} / {off[1]:.3f} s "
+        f"without a capture, {on:.3f} s under it | {card}")
+    if not flash or not decode or library:
+        raise AssertionError(f"(c): the trace holds flash {flash}, decode "
+                             f"{decode}, library attention {library}")
+
+
+def metrics_phase(base: str, sent, card: str) -> None:
+    """Phase 16 (d): ``/metrics`` against the requests the phase sent;
+    ``/openapi.json`` and ``/docs``; a 404."""
+    from qwen3_asr_tpu_torch.serving.meta import route_metadata
+    for path in ("/openapi.json", "/docs", "/no/such/route"):
+        status, body = request(base + path)
+        sent[(path if status != 404 else "unmatched", "GET",
+              str(status))] += 1
+        if path == "/openapi.json":
+            doc = json.loads(body)
+    routes = {(r["path"], r["method"].lower()) for r in route_metadata()}
+    listed = {(p, m) for p, ops in doc["paths"].items() for m in ops}
+    status, text = request(base + "/metrics")
+    text = text.decode()
+    got, hist, types = {}, {}, collections.Counter()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            types[line.split()[2]] += 1
+            continue
+        name, _, value = line.rpartition(" ")
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', name))
+        if name.startswith("asr_requests_total{"):
+            got[(labels["path"], labels["method"], labels["status"])] = \
+                float(value)
+        elif name.startswith("asr_request_duration_seconds_count{"):
+            hist[labels["path"]] = float(value)
+    want_hist = collections.Counter()
+    for (path, _, _), n in sent.items():
+        if path != "unmatched":
+            want_hist[path] += n
+    gauges = [g for g in ("asr_model_loaded 1.0", "asr_queue_depth 0.0",
+                          "asr_ws_sessions 0.0") if g in text.splitlines()]
+    log(f"[metrics] (d) asr_requests_total {got}; the duration histogram's "
+        f"counts {hist}; gauges {gauges}; one TYPE line a name "
+        f"{max(types.values()) == 1}; /openapi.json lists "
+        f"{len(listed)} operations, every route of meta.py: "
+        f"{routes <= listed} | {card}")
+    if status != 200 or got != {k: float(n) for k, n in sent.items()} \
+            or hist != {k: float(n) for k, n in want_hist.items()} \
+            or len(gauges) != 3 or max(types.values()) != 1 \
+            or not routes <= listed:
+        raise AssertionError(f"(d): /metrics {got} / {hist} against the "
+                             f"requests sent {dict(sent)}")
+
+
+def contract_phase(dev, engine) -> dict:
+    """Phase 16: the serving contract and the lossless codecs. Returns the
+    kernels' launches over (b) and (c)."""
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    card = card_line()
+    codec_f32_phase(dev, card)
+    manager = ModelManager(engine)
+    manager.warmed = True
+    sent = collections.Counter()
+    with serving(manager) as url:
+        base = url.rsplit("/v1/", 1)[0]
+        counter = PathLaunches(engine)
+        codec_bf16_phase(base, sent, card)
+        trace_phase(base, upload_bodies()[-1][1], sent, card)
+        launches, _ = counter.read()
+        metrics_phase(base, sent, card)
+    log(f"[contract] phase 16 launches {launches}")
+    return launches
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -5446,6 +5932,14 @@ def main() -> int:
         launches[name] += spec[name]
     launches_per_row += spec["qk_rope_kv_per_row"]
     phase_done("phase 15 (lifecycle, the fast engine, speculation)")
+    contract = contract_phase(dev, engine)
+    # this slice's path, counted from 0 just before its runs: uploads at
+    # B=1 through the encoder, prefill and decode
+    for name in ("flash_attention", "decode_attention", "qk_rope_kv"):
+        if not contract.get(name):
+            raise AssertionError(f"phase 16 launched no {name}")
+        launches[name] += contract[name]
+    phase_done("phase 16 (the serving contract, lossless codecs)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

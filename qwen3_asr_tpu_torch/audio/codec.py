@@ -1,8 +1,11 @@
-"""Audio container decode — pure numpy. WAV only in this slice.
+"""Audio container decode — numpy, no libsndfile or ffmpeg.
 
-Counterpart of ``qwen3_asr_tpu/audio/codec.py``: the WAV family (RIFF,
-RIFX, RF64; PCM 8/16/24/32-bit and float32/float64) decodes here. Every
-other container is recognized and refused with ``UnsupportedFormatError``
+Counterpart of ``qwen3_asr_tpu/audio/codec.py``: WAV (RIFF, RIFX, RF64;
+PCM 8/16/24/32-bit and float32/float64), W64 (Sony Wave64), AIFF/AIFC
+(uncompressed, ``sowt`` and float), AU/SND, CAF (LPCM) and FLAC
+(``audio/flac.py``) decode here to the JAX package's samples, rate, error
+classes and messages. MP3 and OGG, which JAX decodes through pygame's
+SDL_mixer, are recognized and refused with ``UnsupportedFormatError``
 (the server answers 422 AUDIO_DECODE_FAILED); anything unrecognized raises
 ``AudioDecodeError``. Decoded audio is mono float32 in [-1, 1] plus the
 sample rate.
@@ -147,13 +150,167 @@ def _wave_to_audio(fmt_tag, sampwidth, channels, sr, data,
     return audio, sr
 
 
+# --- W64 (Sony Wave64) ---------------------------------------------------------
+
+def _decode_w64(buf: bytes) -> Tuple[np.ndarray, int]:
+    """Sony Wave64: the RIFF layout with 16-byte GUID chunk ids and int64
+    sizes (which INCLUDE the 24-byte chunk header), 8-byte aligned. The
+    GUID's first four bytes are the classic FourCC ('riff', 'wave',
+    'fmt ', 'data'); fmt body is byte-identical to WAV's."""
+    if buf[:4] != b"riff" or buf[24:28] != b"wave":
+        raise AudioDecodeError("not a Wave64 file")
+    pos = 40
+    fmt_tag = channels = sr = sampwidth = None
+    data = None
+    while pos + 24 <= len(buf):
+        cid = buf[pos:pos + 4]
+        (csize,) = struct.unpack("<q", buf[pos + 16:pos + 24])
+        if csize < 24:
+            raise AudioDecodeError("corrupt Wave64 chunk size")
+        body = buf[pos + 24:pos + csize]
+        if cid == b"fmt ":
+            if len(body) < 16:
+                raise AudioDecodeError("truncated fmt chunk")
+            fmt_tag, channels, sr, _, _, bits = struct.unpack("<HHIIHH",
+                                                              body[:16])
+            if fmt_tag == _WAVE_FORMAT_EXTENSIBLE and len(body) >= 26:
+                (fmt_tag,) = struct.unpack("<H", body[24:26])
+            sampwidth = (bits + 7) // 8
+        elif cid == b"data":
+            data = body
+        pos += (csize + 7) & ~7  # chunks are 8-byte aligned
+    if fmt_tag is None or data is None:
+        raise AudioDecodeError("missing fmt or data chunk")
+    return _wave_to_audio(fmt_tag, sampwidth, channels, sr, data,
+                          big_endian=False)
+
+
+# --- AIFF / AIFC -------------------------------------------------------------
+
+def _read_ext_float80(b: bytes) -> float:
+    """IEEE 754 80-bit extended float (AIFF sample rate encoding)."""
+    (expon,) = struct.unpack(">H", b[:2])
+    (hi, lo) = struct.unpack(">II", b[2:10])
+    sign = -1.0 if expon & 0x8000 else 1.0
+    expon &= 0x7FFF
+    mant = (hi << 32) | lo
+    if expon == 0 and mant == 0:
+        return 0.0
+    return sign * mant * 2.0 ** (expon - 16383 - 63)
+
+
+def _decode_aiff(buf: bytes) -> Tuple[np.ndarray, int]:
+    form_type = buf[8:12]
+    if form_type not in (b"AIFF", b"AIFC"):
+        raise AudioDecodeError("not an AIFF file")
+    pos = 12
+    channels = sr = sampwidth = None
+    comp = b"NONE"
+    data = None
+    while pos + 8 <= len(buf):
+        cid = buf[pos:pos + 4]
+        (csize,) = struct.unpack(">I", buf[pos + 4:pos + 8])
+        body = buf[pos + 8:pos + 8 + csize]
+        if cid == b"COMM":
+            channels, _nframes = struct.unpack(">HI", body[:6])
+            (bits,) = struct.unpack(">H", body[6:8])
+            sampwidth = (bits + 7) // 8
+            sr = int(round(_read_ext_float80(body[8:18])))
+            if form_type == b"AIFC" and len(body) >= 22:
+                comp = body[18:22]
+        elif cid == b"SSND":
+            (offset, _block) = struct.unpack(">II", body[:8])
+            data = body[8 + offset:]
+        pos += 8 + csize + (csize & 1)
+    if channels is None or data is None:
+        raise AudioDecodeError("missing COMM or SSND chunk")
+    check_stream_params(sr, channels)
+    if comp in (b"NONE", b"twos"):
+        audio = _decode_pcm_block(data, sampwidth, channels, "pcm", big_endian=True)
+    elif comp == b"sowt":
+        audio = _decode_pcm_block(data, sampwidth, channels, "pcm", big_endian=False)
+    elif comp in (b"fl32", b"FL32"):
+        audio = _decode_pcm_block(data, 4, channels, "float", big_endian=True)
+    elif comp in (b"fl64", b"FL64"):
+        audio = _decode_pcm_block(data, 8, channels, "float", big_endian=True)
+    else:
+        raise UnsupportedFormatError(f"AIFC compression {comp!r} not supported")
+    return audio, sr
+
+
+# --- CAF (Apple Core Audio Format) --------------------------------------------
+
+def _decode_caf(buf: bytes) -> Tuple[np.ndarray, int]:
+    """Core Audio Format, LPCM only. Big-endian chunked container: 8-byte file header ('caff', version, flags), then
+    (type[4], int64 size) chunks. 'desc' is the stream description;
+    'data' begins with a uint32 edit count; a size of -1 on the final
+    data chunk means "to EOF" (streaming writers)."""
+    if buf[:4] != b"caff":
+        raise AudioDecodeError("not a CAF file")
+    pos = 8
+    sr = channels = sampwidth = None
+    fmt = "pcm"
+    big_endian = True
+    data = None
+    while pos + 12 <= len(buf):
+        ctype = buf[pos:pos + 4]
+        (csize,) = struct.unpack(">q", buf[pos + 4:pos + 12])
+        if csize < 0:
+            if ctype != b"data":
+                raise AudioDecodeError("open-ended non-data CAF chunk")
+            csize = len(buf) - (pos + 12)
+        body = buf[pos + 12:pos + 12 + csize]
+        if ctype == b"desc":
+            (srate,) = struct.unpack(">d", body[:8])
+            fmt_id = body[8:12]
+            flags, _bpp, _fpp, ch, bits = struct.unpack(">IIIII", body[12:32])
+            if fmt_id != b"lpcm":
+                raise UnsupportedFormatError(
+                    f"CAF codec {fmt_id!r} not supported (LPCM only)")
+            if bits < 16:
+                raise UnsupportedFormatError(
+                    f"CAF {bits}-bit LPCM not supported")
+            sr = int(round(srate))
+            channels = ch
+            sampwidth = (bits + 7) // 8
+            fmt = "float" if flags & 0x1 else "pcm"   # kCAF...IsFloat
+            big_endian = not (flags & 0x2)            # kCAF...IsLittleEndian
+        elif ctype == b"data":
+            data = body[4:]  # uint32 edit count precedes the samples
+        pos += 12 + csize
+    if sr is None or data is None:
+        raise AudioDecodeError("missing desc or data chunk")
+    check_stream_params(sr, channels)
+    audio = _decode_pcm_block(data, sampwidth, channels, fmt,
+                              big_endian=big_endian)
+    return audio, sr
+
+
+# --- AU / SND ----------------------------------------------------------------
+
+_AU_ENCODINGS = {2: (1, "pcm"), 3: (2, "pcm"), 4: (3, "pcm"), 5: (4, "pcm"),
+                 6: (4, "float"), 7: (8, "float")}
+
+
+def _decode_au(buf: bytes) -> Tuple[np.ndarray, int]:
+    magic, hdr_size, _data_size, encoding, sr, channels = struct.unpack(
+        ">IIIIII", buf[:24])
+    if magic != 0x2E736E64:  # ".snd"
+        raise AudioDecodeError("not an AU file")
+    if encoding not in _AU_ENCODINGS:
+        raise UnsupportedFormatError(f"AU encoding {encoding} not supported")
+    check_stream_params(sr, channels)
+    sampwidth, fmt = _AU_ENCODINGS[encoding]
+    audio = _decode_pcm_block(buf[hdr_size:], sampwidth, channels, fmt,
+                              big_endian=True)
+    return audio, sr
+
+
 # --- public API ---------------------------------------------------------------
 
-# Containers the JAX package decodes that this slice does not yet.
-_NOT_YET = ((b"riff", "W64"), (b"FORM", "AIFF"), (b".snd", "AU"),
-            (b"caff", "CAF"), (b"fLaC", "FLAC"), (b"OggS", "OGG"),
-            (b"ID3", "MP3"))
-_SUPPORTED = "supported formats: WAV, RF64"
+_COMPRESSED = ((b"OggS", "OGG"), (b"ID3", "MP3"))
+_SUPPORTED = ("supported formats: WAV, W64, RF64, AIFF/AIFC, AU/SND, CAF, "
+              "FLAC")
 
 
 def decode_audio(audio_bytes: bytes) -> Tuple[np.ndarray, int]:
@@ -163,18 +320,29 @@ def decode_audio(audio_bytes: bytes) -> Tuple[np.ndarray, int]:
     if len(audio_bytes) < 16:
         raise AudioDecodeError(f"input too short to be audio ({len(audio_bytes)} bytes)")
     head = audio_bytes[:4]
-    if head in (b"RIFF", b"RIFX", b"RF64"):
-        try:
+    try:
+        if head in (b"RIFF", b"RIFX", b"RF64"):
             return _decode_wav(audio_bytes)
-        except (struct.error, IndexError, ValueError) as e:
-            raise AudioDecodeError(f"corrupt audio container: {e}") from e
-    kind = next((name for magic, name in _NOT_YET
+        if head == b"riff":  # Wave64 uses a lowercase GUID FourCC
+            return _decode_w64(audio_bytes)
+        if head == b"FORM":
+            return _decode_aiff(audio_bytes)
+        if head == b".snd":
+            return _decode_au(audio_bytes)
+        if head == b"caff":
+            return _decode_caf(audio_bytes)
+        if head == b"fLaC":
+            from .flac import decode_flac
+            return decode_flac(audio_bytes)
+    except (struct.error, IndexError, ValueError) as e:
+        raise AudioDecodeError(f"corrupt audio container: {e}") from e
+    kind = next((name for magic, name in _COMPRESSED
                  if audio_bytes.startswith(magic)), None)
     if kind is None and audio_bytes[0] == 0xFF \
             and (audio_bytes[1] & 0xE0) == 0xE0:
         kind = "MP3"  # raw MPEG frame sync, no ID3 tag
     if kind is not None:
-        raise UnsupportedFormatError(f"{kind} is not supported yet; {_SUPPORTED}")
+        raise UnsupportedFormatError(f"{kind} is not supported; {_SUPPORTED}")
     raise AudioDecodeError(f"unknown audio format; {_SUPPORTED}")
 
 

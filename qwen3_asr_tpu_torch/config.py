@@ -20,6 +20,14 @@ package's environment variables and meanings:
 ``check_ws_modes`` refuses, at start, a mode name it does not know,
 rather than serving another mode in its place.
 
+``validate_env`` (``:75-288``) checks the environment when the server
+starts with every one of JAX's rules (``MODEL_ID``, ``REQUEST_TIMEOUT``,
+``IDLE_TIMEOUT``, ``LOG_LEVEL``, ``QUANTIZE``, the gateway's
+``WORKER_PORT`` and the fleet's ``WORKER_PORTS``/``WORKER_HOSTS``,
+``WS_WINDOW_MAX_S``, ``ASR_MAX_SESSIONS``, ``ASR_WS_STREAM_MODE``), logs
+every problem and exits 1; then it says what the port does with the
+CUDA-era flags.
+
 Priority: ``ASR_WS_STREAM_MODE`` names a mode (``auto`` = the policy); else
 the legacy flags ``ASR_WS_PREFIX_CACHE`` / ``ASR_WS_TICK_BATCH``, if either
 is set; else the policy: a cap of ``ASR_WS_GROUP_MIN_CAP_S`` (10 s) or more
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 from typing import List, NamedTuple
 
 log = logging.getLogger(__name__)
@@ -55,6 +64,10 @@ def _safe_float(name: str, default: str) -> float:
 
 def _safe_int(name: str, default: str) -> int:
     return _safe_parse(name, default, int)
+
+
+def _safe_bool(name: str, default: str = "false") -> bool:
+    return os.getenv(name, default).lower() in ("true", "1", "yes")
 
 
 TRANSLATE_TEMPERATURE = _safe_float("TRANSLATE_TEMPERATURE", "0.3")
@@ -125,3 +138,137 @@ def check_ws_modes() -> List[WsMode]:
             f"ASR_WS_STREAM_MODE takes auto or one of "
             f"{list(PORTED_WS_MODES)}")
     return modes
+
+
+# -- fail-fast validation at start ------------------------------------------------
+# Each rule returns a problem or None; every problem is logged before the
+# exit, so an operator sees them all at once.
+
+_LOG_LEVELS = {"TRACE", "DEBUG", "INFO", "WARNING", "WARN", "ERROR",
+               "CRITICAL", "FATAL"}
+_LOG_ALIASES = {"WARN": "WARNING", "FATAL": "CRITICAL"}
+_QUANTIZE_MODES = {"", "int8", "fp8", "int4"}
+_WS_STREAM_MODES = {"", "auto", "solo", "tick", "prefix", "grouped"}
+
+
+def _check_model_id():
+    if not os.getenv("MODEL_ID", ""):
+        return "MODEL_ID is required but empty or unset"
+
+
+def _check_request_timeout():
+    try:
+        value = int(os.getenv("REQUEST_TIMEOUT", "300"))
+    except ValueError as e:
+        return f"REQUEST_TIMEOUT must be an integer: {e}"
+    if value <= 0:
+        return f"REQUEST_TIMEOUT must be positive, got {value}"
+
+
+def _check_idle_timeout():
+    try:
+        value = int(os.getenv("IDLE_TIMEOUT", "120"))
+    except ValueError as e:
+        return f"IDLE_TIMEOUT must be an integer: {e}"
+    if value < 0:
+        return f"IDLE_TIMEOUT must be non-negative, got {value}"
+
+
+def _check_log_level():
+    level = os.getenv("LOG_LEVEL", "info").upper()
+    level = _LOG_ALIASES.get(level, level)
+    if level not in _LOG_LEVELS:
+        return f"LOG_LEVEL must be one of {_LOG_LEVELS}, got '{level}'"
+
+
+def _check_quantize():
+    mode = os.getenv("QUANTIZE", "")
+    if mode not in _QUANTIZE_MODES:
+        return f"QUANTIZE must be one of {_QUANTIZE_MODES}, got '{mode}'"
+
+
+def _check_worker_port():
+    if os.getenv("GATEWAY_MODE", "false").lower() != "true":
+        return None
+    try:
+        port = int(os.getenv("WORKER_PORT", "8001"))
+    except ValueError as e:
+        return f"WORKER_PORT must be an integer: {e}"
+    if not 1 <= port <= 65535:
+        return f"WORKER_PORT must be 1-65535, got {port}"
+
+
+def _check_worker_fleet():
+    """``WORKER_PORTS`` / ``WORKER_HOSTS`` (the gateway's fleet), checked
+    whenever they are set, not only under ``GATEWAY_MODE``."""
+    for p in os.getenv("WORKER_PORTS", "").split(","):
+        p = p.strip()
+        if not p:
+            continue
+        if not p.isdigit() or not 1 <= int(p) <= 65535:
+            return f"WORKER_PORTS entries must be ports 1-65535, got {p!r}"
+    for spec in os.getenv("WORKER_HOSTS", "").split(","):
+        spec = spec.strip()
+        if not spec:
+            continue
+        host, _, port = spec.partition(":")
+        if not host:
+            return f"WORKER_HOSTS entries must be host[:port], got {spec!r}"
+        if port and (not port.isdigit() or not 1 <= int(port) <= 65535):
+            return (f"WORKER_HOSTS port must be 1-65535, got {port!r} "
+                    f"in {spec!r}")
+
+
+def _check_ws_window():
+    try:
+        value = float(os.getenv("WS_WINDOW_MAX_S", "6.0"))
+    except ValueError as e:
+        return f"WS_WINDOW_MAX_S must be a float: {e}"
+    if value <= 0:
+        return f"WS_WINDOW_MAX_S must be positive, got {value}"
+
+
+def _check_max_sessions():
+    raw = os.getenv("ASR_MAX_SESSIONS", "0") or "0"
+    try:
+        value = int(raw)
+    except ValueError as e:
+        return f"ASR_MAX_SESSIONS must be an integer: {e}"
+    if value < 0:
+        return f"ASR_MAX_SESSIONS must be >= 0 (0 = unlimited), got {value}"
+
+
+def _check_ws_stream_mode():
+    mode = os.getenv("ASR_WS_STREAM_MODE", "").lower()
+    if mode not in _WS_STREAM_MODES:
+        return (f"ASR_WS_STREAM_MODE must be one of "
+                f"{sorted(_WS_STREAM_MODES - {''})}, got {mode!r}")
+
+
+_VALIDATORS = (_check_model_id, _check_request_timeout, _check_idle_timeout,
+               _check_log_level, _check_quantize, _check_worker_port,
+               _check_worker_fleet, _check_ws_window, _check_max_sessions,
+               _check_ws_stream_mode)
+
+
+def validate_env() -> None:
+    """Check the environment at start; log every problem, then exit 1."""
+    errors = [err for err in (rule() for rule in _VALIDATORS) if err]
+    if errors:
+        for err in errors:
+            log.error("Config validation failed: %s", err)
+        sys.exit(1)
+    # the CUDA-era flags, and what the port does with them
+    if _safe_bool("USE_CUDA_GRAPHS"):
+        log.info("USE_CUDA_GRAPHS=true: the warmup captures the CUDA graphs "
+                 "of every bucket of the ladder (requests on the card "
+                 "always run as graph replays)")
+    for flag in ("ONNX_ENCODER_PATH", "TRT_ENCODER_PATH"):
+        if os.getenv(flag, ""):
+            log.info("%s set: ignored — the encoder runs as the port's own "
+                     "CUDA graphs and kernels", flag)
+    if _safe_bool("USE_GRANIAN"):
+        log.info("USE_GRANIAN=true: n/a — this build serves HTTP/WS/SSE on "
+                 "the standard library's threading HTTP server in-process "
+                 "(no ASGI server layer)")
+    log.info("Config validation passed")

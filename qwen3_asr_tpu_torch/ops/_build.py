@@ -7,6 +7,10 @@ library's file name carries a hash of its source, of every header under
 rebuilds and an unchanged one is reused. Builds happen at first use
 (never at import) into ``qwen3_asr_tpu_torch/_build/``. A failed build
 raises; nothing falls back.
+
+``build_host`` does the same for a host source, ``csrc/<name>.cpp``: C++
+with a plain C interface, compiled with ``g++`` into ``_build/``, keyed by
+a hash of the source and the flags.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -92,3 +98,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def host_library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """The path of ``csrc/<name>.cpp``'s library, compiling it first if it
+    is not built. Raises ``RuntimeError`` if the compiler fails or is
+    missing."""
+    lib = host_library_path(name)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = ["g++", *HOST_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cpp")]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=120)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"host build of {name} failed: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build of {name}: {cmd[0]} exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib

@@ -8,7 +8,9 @@ padding, and future settling that survives any failure. Device dispatch
 always happens OUTSIDE the lock: a batched call can take seconds and must
 not stall the admission of other requests. The port's server runs a thread
 per request, so the lock is a ``threading.Lock``, the timer a
-``threading.Timer`` and each reply a ``concurrent.futures.Future``.
+``threading.Timer`` and each reply a ``concurrent.futures.Future``; a
+group's timer flushes it in the context of the request that opened it,
+so its dispatch logs under that request's id.
 ``TickBatcher`` (``qwen3_asr_tpu/runtime/batcher.py:153-261``) coalesces
 concurrent WS sessions' partial ticks into one batched resume run, on the
 fast engine when one is loaded and the tick asks for it;
@@ -22,6 +24,7 @@ thread before it runs.
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import logging
 import os
 import threading
@@ -30,6 +33,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..utils.telemetry import Metrics
 from .queue import EXPRESS, STANDARD, settle
 
 log = logging.getLogger(__name__)
@@ -101,6 +105,9 @@ class _Collector:
                         max_batch, cap)
         self.max_batch = cap
         self.dispatches = 0           # device jobs submitted (for tests)
+        # the serving registry (/metrics); a manager without one (a test
+        # double) gets a registry of the batcher's own
+        self.metrics = getattr(manager, "metrics", None) or Metrics()
         self._groups: dict = {}
         self._lock = threading.Lock()
 
@@ -117,8 +124,9 @@ class _Collector:
             elif group is None:
                 group = [pending]
                 self._groups[key] = group
-                timer = threading.Timer(self.window_s, self._flush_later,
-                                        args=(key, group))
+                timer = threading.Timer(
+                    self.window_s, contextvars.copy_context().run,
+                    args=(self._flush_later, key, group))
                 timer.daemon = True
                 timer.start()
             else:
@@ -197,8 +205,8 @@ class GroupTickBatcher(_Collector):
             (window_ms if window_ms is not None else
              float(os.getenv("ASR_WS_TICK_WINDOW_MS", "6"))) / 1000,
             max_batch or int(os.getenv("ASR_WS_GROUP_SLOTS", "8")))
-        # dispatched rounds by size, and the ticks they carried (the JAX
-        # server's asr_group_tick_{groups,ticks}_total)
+        # dispatched rounds by size, and the ticks they carried (also
+        # counted in /metrics' asr_group_tick_{groups,ticks}_total)
         self.groups: dict = {}
         self.ticks = 0
 
@@ -232,6 +240,8 @@ class GroupTickBatcher(_Collector):
             with self._lock:
                 self.groups[len(live)] = self.groups.get(len(live), 0) + 1
                 self.ticks += len(live)
+            self.metrics.inc("asr_group_tick_groups_total", size=len(live))
+            self.metrics.inc("asr_group_tick_ticks_total", float(len(live)))
 
             def run(live=live):
                 out: List[Optional[tuple]] = [("", [])] * len(live)
@@ -342,8 +352,8 @@ class TickBatcher(_Collector):
             (window_ms if window_ms is not None else
              float(os.getenv("ASR_WS_TICK_WINDOW_MS", "6"))) / 1000,
             max_batch or int(os.getenv("ASR_WS_TICK_MAX_BATCH", "8")))
-        # dispatched groups by size, and the ticks they carried (the JAX
-        # server's asr_tick_batch_{groups,ticks}_total)
+        # dispatched groups by size, and the ticks they carried (also
+        # counted in /metrics' asr_tick_batch_{groups,ticks}_total)
         self.groups: dict = {}
         self.ticks = 0
 
@@ -375,6 +385,8 @@ class TickBatcher(_Collector):
         with self._lock:
             self.groups[len(group)] = self.groups.get(len(group), 0) + 1
             self.ticks += len(group)
+        self.metrics.inc("asr_tick_batch_groups_total", size=len(group))
+        self.metrics.inc("asr_tick_batch_ticks_total", float(len(group)))
 
         def run():
             mgr._last_used = time.time()

@@ -28,7 +28,11 @@ waits for the default stream before it starts and makes the default stream
 wait for it when it ends, and it holds ``device_lock`` from start to end,
 which every replay takes while it is enqueued. So no kernel of a build runs
 beside a replay (the decode kernels share one ticket buffer,
-``ops/decode_attention.py``), and no two captures overlap.
+``ops/decode_attention.py``), and no two captures overlap. A build also
+holds ``capture_lock`` (taken before ``device_lock``), which nothing else
+on the device path takes: the profiler starts and stops under it
+(``serving/server.py``), so neither falls inside a capture, and its stop
+(seconds for each second captured under load) leaves replays free.
 
 The wrappers' launch counters move when a kernel is launched eagerly or
 recorded into a capture, never on a replay; ``Graph.recorded`` keeps what
@@ -49,6 +53,9 @@ import torch
 _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
 # Held by a build from start to end and by a replay while it is enqueued.
 device_lock = threading.RLock()
+# Held by a build from start to end (taken before device_lock), and by the
+# profiler's start and stop.
+capture_lock = threading.RLock()
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -98,7 +105,7 @@ class Graph:
         self.capture_s = 0.0     # warm-up run and capture, seconds
         if device.type != "cuda":
             return
-        with device_lock:
+        with capture_lock, device_lock:
             self._build(fn, device, pool)
 
     def _build(self, fn, device, pool) -> None:

@@ -47,6 +47,7 @@ from ..ops.quant import (check_mode, check_quantized_dtype, param_bytes,
                          quantize_params)
 from ..text.tokenizer import BpeTokenizer, bytes_to_unicode
 from ..utils.device import resolve_device, working_dtype
+from ..utils.telemetry import Metrics
 from ..config import check_ws_modes
 from .batcher import (GroupTickBatcher, MicroBatcher, TickBatcher,
                       dispatch_engine)
@@ -248,6 +249,8 @@ class ModelManager:
         self.loaded_model_id: Optional[str] = (
             getattr(engine, "model_id", None) if engine is not None else None)
         self.queue = PriorityInferQueue()
+        # the serving metrics (/metrics), one registry a serving process
+        self.metrics = Metrics()
         self.batcher = MicroBatcher(self)
         self.tick_batcher = TickBatcher(self)
         self.group_tick_batcher = GroupTickBatcher(self)

@@ -11,19 +11,21 @@ Device work itself runs on one dedicated thread so dispatch stays
 serialized even when jobs block in native code. The port's server runs a
 thread per request rather than an event loop, so the lanes sit behind a
 ``threading.Condition`` and each job's reply is a
-``concurrent.futures.Future``.
+``concurrent.futures.Future``. A job runs in a copy of its submitter's
+``contextvars`` context, so what it logs carries the request's id.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextvars
 import threading
 from typing import Callable, Deque, Optional, Tuple
 
 EXPRESS = 0   # streaming partials / finals (WebSocket)
 STANDARD = 1  # batch HTTP work
 
-_Entry = Tuple[Callable, concurrent.futures.Future]
+_Entry = Tuple[Callable, concurrent.futures.Future, contextvars.Context]
 
 
 class PriorityInferQueue:
@@ -78,7 +80,7 @@ class PriorityInferQueue:
                 # not strand the submitter.
                 raise RuntimeError("inference queue stopped")
             lane = self._lanes[EXPRESS if priority <= EXPRESS else STANDARD]
-            lane.append((fn, reply))
+            lane.append((fn, reply, contextvars.copy_context()))
             self._cond.notify()
         return reply
 
@@ -97,15 +99,15 @@ class PriorityInferQueue:
                     self._cond.wait()
                 if self._stopped or self._thread is not me:
                     return          # stopped, or restarted after a stop
-                fn, reply = next(lane for lane in self._lanes
-                                 if lane).popleft()
+                fn, reply, ctx = next(lane for lane in self._lanes
+                                      if lane).popleft()
                 # A reply cancelled while queued (the client went away)
                 # skips the device work entirely.
                 if not reply.set_running_or_notify_cancel():
                     continue
                 self._inflight = reply
             try:
-                outcome = fn()
+                outcome = ctx.run(fn)
             except BaseException as exc:  # handed to the submitter
                 settle(reply, exc=exc)
                 if not isinstance(exc, Exception):

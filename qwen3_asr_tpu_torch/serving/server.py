@@ -32,7 +32,31 @@ its request forms, answers, error codes and statuses:
   OpenAI-compatible LLM (``sidecars/translator.py``), 502
   TRANSLATION_FAILED when it fails;
 - ``WS /ws/transcribe`` (``serving/ws.py``: the upgrade, the frame codec
-  and the streaming session).
+  and the streaming session);
+- ``GET /metrics`` (``qwen3_asr_tpu/serving/server.py:75-84``): the
+  manager's registry (``utils/telemetry.py``) in the Prometheus text
+  format, its gauges ``asr_model_loaded``, ``asr_queue_depth`` and
+  ``asr_ws_sessions`` read at the scrape. Every other request is counted
+  in ``asr_requests_total{path, method, status}`` under its route, or
+  ``unmatched`` for a 404, and a matched route's wall goes into
+  ``asr_request_duration_seconds`` (JAX's ``request_id_middleware``,
+  ``http.py:30-70``): a WS session when it closes (status 101), an SSE
+  stream when it ends;
+- ``POST /debug/trace?seconds=N`` (``server.py:959-1001``): a
+  ``torch.profiler`` capture of N seconds (3, at most 60; CPU activity, and
+  CUDA activity for a manager on the card) written as a Chrome trace into
+  ``ASR_TRACE_DIR`` (``/tmp/qwen3_asr_traces``), answering ``{"trace_dir",
+  "seconds"}``; 400 ``INVALID_JSON`` for a non-number, 409 ``WORKER_ERROR``
+  while another capture runs, 500 when the profiler fails. The profiler
+  starts and stops under ``runtime/graphs.py`` ``capture_lock``, so neither
+  falls inside a CUDA-graph capture; it starts under ``device_lock`` too,
+  so a replay is recorded whole or not at all, and stops without it, so
+  replays go on while it stops (seconds for each second captured under
+  load; ``PERF.md``); CUPTI records the kernels of every thread, the
+  device thread's and the pool's too;
+- ``GET /openapi.json`` and ``GET /docs``: the JAX server's OpenAPI
+  document and docs page (``serving/http.py``, ``meta.py``,
+  ``schemas.py``).
 
 Each request runs on its own thread. Every route first has the manager
 load its engines if they are not loaded (``ensure_loaded``: the first
@@ -44,11 +68,15 @@ handlers need no lock;
 concurrent same-bucket uploads and SSE chunks go through the
 micro-batcher, which joins them into one batched engine run. A WS
 connection holds its thread for its lifetime. Every response carries
-``X-Request-ID`` (the request's own, or a new one), and an upload may come
-with ``Content-Length`` or ``Transfer-Encoding: chunked``.
+``X-Request-ID`` (the request's own, or a new one), which the request's
+log lines carry as ``requestId`` (``utils/logging.py``; a WS session's
+lines carry its ``request_id`` query parameter, or a new id), and an
+upload may come with ``Content-Length`` or ``Transfer-Encoding: chunked``.
 
 Run: ``MODEL_ID=e2e/data/trained_ckpt python -m
-qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``.
+qwen3_asr_tpu_torch.serving.server [--port 8000] [--device cuda]``: it
+checks the environment (``config.py`` ``validate_env``: every problem
+logged, then exit 1) and logs JSON lines at ``LOG_LEVEL``.
 ``MODEL_ID`` is a checkpoint directory or ``preset:NAME`` (zero weights),
 loaded on the first request (``runtime/lifecycle.py``: ``IDLE_TIMEOUT``,
 ``ASR_WATCHDOG_INTERVAL``; ``FAST_MODEL_ID`` with ``DUAL_MODEL`` or
@@ -70,24 +98,31 @@ import concurrent.futures
 import json
 import logging
 import os
+import threading
 import time
 import uuid
 from email import policy
 from email.parser import BytesParser
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 import torch
 
 from .. import config
 from ..audio.codec import AudioDecodeError, decode_audio
+from ..runtime.graphs import capture_lock, device_lock
 from ..runtime.lifecycle import ModelManager
 from ..ops.quant import param_count
 from ..runtime.queue import STANDARD
 from ..sidecars import subtitle
 from ..text.repetition import detect_and_fix_repetitions
 from ..utils.errors import error_body
+from ..utils.logging import reset_request_id, set_request_id, setup_logging
 from . import ws
+from .http import DOCS_HTML, build_openapi
+from .meta import API_TITLE, API_VERSION, route_metadata
+from .schemas import API_DESCRIPTION, API_TAGS
 
 log = logging.getLogger(__name__)
 
@@ -266,6 +301,31 @@ def device_bytes(mgr) -> int:
             + subtitle.aligner_bytes(engine.model.params))
 
 
+def start_trace(device) -> torch.profiler.profile:
+    """A started profiler: CPU activity, and CUDA activity on the card.
+    Started under ``capture_lock``, so never inside a graph capture, and
+    under ``device_lock``, so no replay is being enqueued meanwhile: the
+    replays after the start are recorded whole."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    with capture_lock, device_lock:
+        prof.start()
+    return prof
+
+
+def stop_trace(prof: torch.profiler.profile, trace_dir: str) -> str:
+    """Stop ``prof`` (under ``capture_lock``, so replays go on while it
+    stops) and write its Chrome trace into ``trace_dir``; returns the
+    file's path."""
+    with capture_lock:
+        prof.stop()
+    path = os.path.join(trace_dir, f"trace_{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 class _Answered(Exception):
     """Raised by a step of a route that has already answered the request
     (with an error)."""
@@ -278,8 +338,12 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route access logs to logging
         log.debug("%s " + fmt, self.address_string(), *args)
 
+    def send_response(self, code, message=None):
+        self.status_code = code   # the request's status, for /metrics
+        super().send_response(code, message)
+
     def _request_id(self) -> str:
-        return self.headers.get("X-Request-ID") or str(uuid.uuid4())
+        return self.request_id
 
     def _send(self, status: int, content_type: str, data: bytes,
               filename: Optional[str] = None) -> None:
@@ -305,31 +369,121 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(status, error_body(code, message, status, **context))
 
     def do_GET(self):
+        self._serve("GET", {"/health": self._health,
+                            "/ws/transcribe": self._websocket,
+                            "/metrics": self._metrics,
+                            "/openapi.json": self._openapi,
+                            "/docs": self._docs})
+
+    def do_POST(self):
+        self._serve("POST", {
+            "/v1/audio/transcriptions": self._upload(self._transcriptions),
+            "/v1/audio/transcriptions/stream": self._upload(self._stream),
+            "/v1/audio/subtitles": self._upload(self._subtitles),
+            "/v1/audio/translations": self._upload(self._translations),
+            "/debug/trace": self._debug_trace})
+
+    def _serve(self, method: str, routes: dict) -> None:
+        """Run the request's route with its id in the logging context;
+        count it (JAX's ``request_id_middleware``): under its route, or
+        ``unmatched``; a matched route's wall too; not ``/metrics``."""
         route = self.path.split("?", 1)[0]
-        if route == "/ws/transcribe":
-            ws.websocket_transcribe(self)
-            return
-        if route != "/health":
-            self._error("NOT_FOUND", f"no route {self.path}", 404)
-            return
+        handler = routes.get(route)
+        self.request_id = (self.headers.get("X-Request-ID")
+                           or str(uuid.uuid4()))
+        self.status_code = None
+        token = set_request_id(self.request_id)
+        t0 = time.time()
+        try:
+            if handler is None:
+                self._error("NOT_FOUND", f"no route {self.path}", 404)
+            else:
+                handler()
+        finally:
+            reset_request_id(token)
+            self.server.count_request(route if handler else "unmatched",
+                                      method, self.status_code or 500,
+                                      time.time() - t0)
+
+    def _upload(self, route):
+        """A POST route that reads a multipart upload and needs the
+        engines loaded."""
+        def run():
+            try:
+                form = self._read_form()
+                self._ensure_loaded()
+                route(*form)
+            except _Answered:
+                pass
+        return run
+
+    def _websocket(self):
+        ws.websocket_transcribe(self)
+
+    def _health(self):
         self._json(200, {**self.server.manager_health(),
                          "aligner": self.server.aligner_state()})
 
-    def do_POST(self):
-        route = {"/v1/audio/transcriptions": self._transcriptions,
-                 "/v1/audio/transcriptions/stream": self._stream,
-                 "/v1/audio/subtitles": self._subtitles,
-                 "/v1/audio/translations": self._translations,
-                 }.get(self.path.split("?", 1)[0])
-        if route is None:
-            self._error("NOT_FOUND", f"no route {self.path}", 404)
+    def _metrics(self):
+        mgr = self.server.manager
+        mgr.metrics.gauge("asr_model_loaded",
+                          1.0 if mgr.engine is not None else 0.0)
+        mgr.metrics.gauge("asr_queue_depth", float(mgr.queue.depth))
+        mgr.metrics.gauge("asr_ws_sessions", float(mgr.ws_sessions))
+        self._send(200, "text/plain; charset=utf-8",
+                   mgr.metrics.render().encode("utf-8"))
+
+    def _openapi(self):
+        self._json(200, self.server.openapi)
+
+    def _docs(self):
+        self._send(200, "text/html; charset=utf-8",
+                   DOCS_HTML.format(title=API_TITLE).encode("utf-8"))
+
+    def _debug_trace(self):
+        """A profiler trace of ``seconds`` (3, at most 60), one at a
+        time."""
+        try:
+            self._read_form()
+        except _Answered:
+            return
+        query = parse_qs(urlsplit(self.path).query)
+        try:
+            seconds = min(float(query.get("seconds", ["3"])[0]), 60.0)
+        except ValueError:
+            self._error("INVALID_JSON", "seconds must be a number", 400)
+            return
+        lock = self.server.trace_lock
+        if not lock.acquire(blocking=False):
+            self._error("WORKER_ERROR",
+                        "a profiler trace is already in progress", 409)
             return
         try:
-            form = self._read_form()
-            self._ensure_loaded()
-            route(*form)
-        except _Answered:
-            pass
+            trace_dir = os.getenv("ASR_TRACE_DIR", "/tmp/qwen3_asr_traces")
+            os.makedirs(trace_dir, exist_ok=True)
+            try:
+                prof = start_trace(self.server.manager.device)
+            except Exception as e:
+                log.exception("profiler trace failed to start")
+                self._error("WORKER_ERROR", f"trace failed: {e}", 500)
+                return
+            failure = None
+            try:
+                time.sleep(max(seconds, 0.0))
+            finally:
+                try:
+                    stop_trace(prof, trace_dir)
+                except Exception as e:
+                    log.exception("profiler trace failed to stop")
+                    failure = e
+            if failure is not None:
+                self._error("WORKER_ERROR", f"trace failed: {failure}", 500)
+                return
+        finally:
+            lock.release()
+        log.info("Profiler trace captured | dir=%s seconds=%s", trace_dir,
+                 seconds)
+        self._json(200, {"trace_dir": trace_dir, "seconds": seconds})
 
     # -- steps shared by the routes ------------------------------------------------
     def _ensure_loaded(self) -> None:
@@ -564,6 +718,10 @@ class AsrServer(ThreadingHTTPServer):
     def __init__(self, manager: ModelManager, host: str, port: int):
         super().__init__((host, port), _Handler)
         self.manager = manager
+        self.openapi = build_openapi(API_TITLE, API_VERSION, API_DESCRIPTION,
+                                     API_TAGS, route_metadata())
+        # one profiler capture at a time (/debug/trace)
+        self.trace_lock = threading.Lock()
         # when a failed aligner load for word timestamps may be retried
         # (time.monotonic()); 0.0: no failure pending
         self.aligner_retry_at = 0.0
@@ -597,6 +755,19 @@ class AsrServer(ThreadingHTTPServer):
             log.info("Aligner unavailable for timestamps (%s); "
                      "char-proportional estimates until the next retry "
                      "window", e)
+
+    def count_request(self, route: str, method: str, status: int,
+                      seconds: float) -> None:
+        """``asr_requests_total`` and, for a matched route,
+        ``asr_request_duration_seconds``; ``/metrics`` is not counted."""
+        if route == "/metrics":
+            return
+        metrics = self.manager.metrics
+        metrics.inc("asr_requests_total", path=route, method=method,
+                    status=str(status))
+        if route != "unmatched":
+            metrics.observe("asr_request_duration_seconds", seconds,
+                            path=route)
 
     def manager_health(self) -> dict:
         """``/health``'s fields of the manager, from one snapshot of its
@@ -658,10 +829,9 @@ def main():
                         default=int(os.getenv("PORT", "8000")))
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    logging.basicConfig(level=logging.INFO)
-    model_id = os.environ.get("MODEL_ID")
-    if not model_id:
-        parser.error("set MODEL_ID to a checkpoint directory or preset:NAME")
+    setup_logging()
+    config.validate_env()
+    model_id = os.environ["MODEL_ID"]
     # lazy, as the JAX server's manager: the first request loads MODEL_ID
     # (the log names the device then), and an idle unload frees the card
     manager = ModelManager(device=args.device)

@@ -89,6 +89,7 @@ from ..config import _safe_int, resolve_ws_mode
 from ..runtime.batcher import dispatch_engine
 from ..runtime.queue import EXPRESS
 from ..text.repetition import detect_and_fix_repetitions
+from ..utils.logging import reset_request_id, set_request_id
 
 log = logging.getLogger(__name__)
 
@@ -512,6 +513,8 @@ def websocket_transcribe(handler) -> None:
     if ws is None:
         return
     req_id = query.get("request_id") or str(uuid.uuid4())
+    # the session's lines carry its own id, as the JAX server's do
+    token = set_request_id(req_id)
     log.info("[WS] client connected (%s)", req_id)
     audio_buffer, audio_window = bytearray(), bytearray()
     lang_code = "English"        # until a config action says otherwise
@@ -721,4 +724,5 @@ def websocket_transcribe(handler) -> None:
             # its device buffers (or its group's slot) must not outlive
             # the connection
             stream_session.release()
+        reset_request_id(token)
         ws.close()

@@ -1786,3 +1786,76 @@ def test_idle_unload_returns_the_card_memory(dev, monkeypatch):
         assert again[0].token_ids == first[0].token_ids
     finally:
         mgr.stop()
+
+
+def test_debug_trace_holds_the_ports_kernels(dev, tmp_path, monkeypatch):
+    """``POST /debug/trace`` on a server whose engine is on the card,
+    during an upload: the Chrome trace it writes holds the port's flash
+    and single-token decode kernels (launched from the device thread's
+    graph replays) and no library attention kernel; a second capture
+    meanwhile answers 409."""
+    import glob
+    import json
+    import os
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+    import uuid
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
+    from qwen3_asr_tpu_torch.serving.server import build_server
+    monkeypatch.setenv("ASR_TRACE_DIR", str(tmp_path))
+    monkeypatch.setenv("ASR_WARMUP_BUCKETS", "2")
+    monkeypatch.setenv("ASR_WARMUP_BATCH_SHAPES", "")
+    mgr = ModelManager(TranscriptionEngine(_model(dev), device=dev))
+    mgr.start()
+    server = build_server(mgr, "127.0.0.1", 0)
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body=b"", headers=None):
+        req = urllib.request.Request(base + path, data=body, method="POST",
+                                     headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    bnd = uuid.uuid4().hex
+    wav = encode_wav(np.random.default_rng(5).standard_normal(24000)
+                     .astype(np.float32) * 0.1, 16000)
+    upload = (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\"; "
+              f"filename=\"a.wav\"\r\n\r\n").encode() + wav + \
+        f"\r\n--{bnd}--\r\n".encode()
+    answers = {}
+    try:
+        capture = threading.Thread(target=lambda: answers.update(
+            first=post("/debug/trace?seconds=2")))
+        capture.start()
+        time.sleep(0.3)
+        answers["second"] = post("/debug/trace?seconds=2")
+        answers["upload"] = post(
+            "/v1/audio/transcriptions", upload,
+            {"Content-Type": f"multipart/form-data; boundary={bnd}"})
+        capture.join(timeout=120)
+    finally:
+        server.shutdown()
+        server.server_close()
+        mgr.stop()
+        serve.join(timeout=30)
+    assert answers["first"][0] == 200 and answers["upload"][0] == 200
+    assert answers["second"][0] == 409
+    files = glob.glob(os.path.join(str(tmp_path), "*.json"))
+    assert len(files) == 1
+    with open(files[0], encoding="utf-8") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    assert any("flash_bf16_kernel" in n for n in names), sorted(names)[:20]
+    assert any("decode_split_kernel" in n for n in names), sorted(names)[:20]
+    # SDPA's backends (the encoder's convolutions run other cuDNN kernels)
+    library = ("flash_fwd", "pytorch_flash", "fmha", "efficient_attention",
+               "sdpa", "flash_fprop")
+    assert not [n for n in names if any(p in n.lower() for p in library)]

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from qwen3_asr_tpu.audio.codec import AudioDecodeError as JaxDecodeError
 from qwen3_asr_tpu.audio.codec import decode_audio as jax_decode_audio
 from qwen3_asr_tpu.audio.frontend import LogMelFrontend as JaxFrontend
 from qwen3_asr_tpu.audio.frontend import _log_mel_impl
@@ -114,10 +115,20 @@ def test_wav_decode_matches_jax(name):
 
 
 def test_non_wav_containers_are_refused():
-    with pytest.raises(UnsupportedFormatError):
-        decode_audio(b"fLaC" + bytes(60))
-    with pytest.raises(UnsupportedFormatError):
-        decode_audio(b"OggS" + bytes(60))
+    """OGG and MP3 are still refused; FLAC decodes now, so a corrupt FLAC
+    stream raises the JAX package's error and message."""
+    corrupt = b"fLaC" + bytes(60)
+    with pytest.raises(AudioDecodeError) as ours:
+        decode_audio(corrupt)
+    with pytest.raises(JaxDecodeError) as ref:
+        jax_decode_audio(corrupt)
+    assert not isinstance(ours.value, UnsupportedFormatError)
+    assert type(ours.value).__name__ == type(ref.value).__name__
+    assert str(ours.value) == str(ref.value)
+    for data in (b"OggS" + bytes(60), b"ID3" + bytes(60),
+                 b"\xff\xfb" + bytes(60)):
+        with pytest.raises(UnsupportedFormatError):
+            decode_audio(data)
     with pytest.raises(AudioDecodeError):
         decode_audio(b"definitely not any audio container")
 

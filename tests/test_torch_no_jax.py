@@ -11,7 +11,7 @@ import torch  # noqa: F401
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "qwen3_asr_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "qwen3_asr_tpu", "regex", "aiohttp",
-             "safetensors", "jinja2")
+             "safetensors", "jinja2", "pydantic", "pygame")
 
 
 def _sources():

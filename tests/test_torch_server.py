@@ -156,13 +156,22 @@ def test_decode_errors_match_jax_body(url, data):
 
 
 def test_non_wav_gets_422(url):
+    """FLAC decodes now: a corrupt FLAC stream answers the JAX server's
+    422 body. OGG and MP3 (no decoder in the port) still answer 422."""
     data = b"fLaC" + bytes(100)
     status, body = _post(url, data)
     assert status == 422
-    assert body["code"] == "AUDIO_DECODE_FAILED"
-    assert body["statusCode"] == 422
-    assert body["context"] == {"fileSize": len(data)}
-    assert body["message"].startswith("Could not decode audio: FLAC")
+    assert body == _jax_decode_error(data)
+    for data, kind in ((b"OggS" + bytes(100), "OGG"),
+                       (b"ID3" + bytes(100), "MP3"),
+                       (b"\xff\xfb" + bytes(100), "MP3")):
+        status, body = _post(url, data)
+        assert status == 422
+        assert body["code"] == "AUDIO_DECODE_FAILED"
+        assert body["statusCode"] == 422
+        assert body["context"] == {"fileSize": len(data)}
+        assert body["message"].startswith(
+            f"Could not decode audio: {kind} is not supported")
 
 
 def test_timestamps_answer_501(url, jax_engine, monkeypatch):
