@@ -176,8 +176,12 @@ def load_engine(model_id: str, device="cuda",
         cfg, params = load_asr_checkpoint(model_id, dev, dtype)
         tokenizer = BpeTokenizer.from_file(os.path.join(model_id,
                                                         "tokenizer.json"))
-        model = AsrModel(cfg, params, tokenizer,
-                         PromptTemplate.from_checkpoint(model_id))
+        # the checkpoint's chat template drives the prompt when it ships one
+        template = PromptTemplate.from_checkpoint(model_id)
+        if template.chat_template:
+            log.info("Using checkpoint chat template (%d chars)",
+                     len(template.chat_template))
+        model = AsrModel(cfg, params, tokenizer, template)
     elif model_id.startswith("preset:"):
         cfg = preset(model_id.split(":", 1)[1])
         gen = torch.Generator(device=dev).manual_seed(0)

@@ -100,10 +100,7 @@ import logging
 import os
 import threading
 import time
-import uuid
-from email import policy
-from email.parser import BytesParser
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from typing import Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
@@ -117,17 +114,13 @@ from ..ops.quant import param_count
 from ..runtime.queue import STANDARD
 from ..sidecars import subtitle
 from ..text.repetition import detect_and_fix_repetitions
-from ..utils.errors import error_body
-from ..utils.logging import reset_request_id, set_request_id, setup_logging
+from ..utils.logging import setup_logging
 from . import ws
-from .http import DOCS_HTML, build_openapi
+from .http import Answered, DOCS_HTML, JsonHandler, build_openapi, parse_bool
 from .meta import API_TITLE, API_VERSION, route_metadata
 from .schemas import API_DESCRIPTION, API_TAGS
 
 log = logging.getLogger(__name__)
-
-MAX_UPLOAD_BYTES = 512 * 1024 ** 2
-
 
 def merge_results(results) -> Tuple[str, str]:
     """Join per-segment results into the one response the API promises."""
@@ -216,61 +209,6 @@ def sse_events(manager: ModelManager, audio, sr: int,
             "statusCode": 500}) + "\n\n")
 
 
-def parse_bool(raw: Optional[str], default: bool = False) -> bool:
-    if raw is None:
-        return default
-    return str(raw).lower() in ("true", "1", "yes", "on")
-
-
-def parse_multipart(content_type: str, body: bytes
-                    ) -> Tuple[dict, Optional[bytes], str]:
-    """A multipart/form-data body → (fields, file_bytes, filename)."""
-    fields: dict = {}
-    file_bytes: Optional[bytes] = None
-    filename = ""
-    if not content_type.startswith("multipart/"):
-        return fields, file_bytes, filename
-    msg = BytesParser(policy=policy.HTTP).parsebytes(
-        b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n"
-        + body)
-    if not msg.is_multipart():
-        return fields, file_bytes, filename
-    for part in msg.iter_parts():
-        name = part.get_param("name", header="content-disposition")
-        payload = part.get_payload(decode=True) or b""
-        if name == "file":
-            file_bytes = payload
-            filename = part.get_filename() or ""
-        elif name:
-            fields[name] = payload.decode("utf-8", errors="replace")
-    return fields, file_bytes, filename
-
-
-class BodyTooLarge(Exception):
-    pass
-
-
-def read_chunked(rfile, limit: int) -> bytes:
-    """A ``Transfer-Encoding: chunked`` body, read whole (trailers
-    dropped). Raises BodyTooLarge past ``limit`` bytes and ValueError on a
-    malformed chunk."""
-    parts, size = [], 0
-    while True:
-        line = rfile.readline(65537)
-        n = int(line.split(b";", 1)[0].strip(), 16)   # ValueError if bad
-        if n == 0:
-            break
-        size += n
-        if size > limit:
-            raise BodyTooLarge
-        parts.append(rfile.read(n))
-        if rfile.readline(3) not in (b"\r\n", b"\n"):
-            raise ValueError("chunk not followed by CRLF")
-    while rfile.readline(65537) not in (b"\r\n", b"\n", b""):
-        pass                                  # trailer fields
-    return b"".join(parts)
-
-
 def health_memory(device: torch.device) -> dict:
     """The card's memory in MB as JAX's ``/health`` reports it
     (``hbm_used_mb`` in use by the allocator, ``hbm_limit_mb`` the card's
@@ -326,94 +264,40 @@ def stop_trace(prof: torch.profiler.profile, trace_dir: str) -> str:
     return path
 
 
-class _Answered(Exception):
-    """Raised by a step of a route that has already answered the request
-    (with an error)."""
-
-
-class _Handler(BaseHTTPRequestHandler):
+class _Handler(JsonHandler):
     server: "AsrServer"
-    protocol_version = "HTTP/1.1"
 
-    def log_message(self, fmt, *args):  # route access logs to logging
-        log.debug("%s " + fmt, self.address_string(), *args)
-
-    def send_response(self, code, message=None):
-        self.status_code = code   # the request's status, for /metrics
-        super().send_response(code, message)
-
-    def _request_id(self) -> str:
-        return self.request_id
-
-    def _send(self, status: int, content_type: str, data: bytes,
-              filename: Optional[str] = None) -> None:
-        self.send_response(status)
-        self.send_header("Content-Type", content_type)
-        self.send_header("Content-Length", str(len(data)))
-        if filename:
-            self.send_header("Content-Disposition",
-                             f'attachment; filename="{filename}"')
-        self.send_header("X-Request-ID", self._request_id())
-        self.end_headers()
-        self.wfile.write(data)
-
-    def _json(self, status: int, body: dict) -> None:
-        self._send(status, "application/json; charset=utf-8",
-                   json.dumps(body, ensure_ascii=False).encode("utf-8"))
-
-    def _text(self, text: str, filename: Optional[str] = None) -> None:
-        self._send(200, "text/plain; charset=utf-8", text.encode("utf-8"),
-                   filename)
-
-    def _error(self, code: str, message: str, status: int, **context) -> None:
-        self._json(status, error_body(code, message, status, **context))
-
-    def do_GET(self):
-        self._serve("GET", {"/health": self._health,
-                            "/ws/transcribe": self._websocket,
-                            "/metrics": self._metrics,
-                            "/openapi.json": self._openapi,
-                            "/docs": self._docs})
-
-    def do_POST(self):
-        self._serve("POST", {
+    def routes(self, method: str) -> dict:
+        if method == "GET":
+            return {"/health": self._health,
+                    "/ws/transcribe": self._websocket,
+                    "/metrics": self._metrics,
+                    "/openapi.json": self._openapi,
+                    "/docs": self._docs}
+        return {
             "/v1/audio/transcriptions": self._upload(self._transcriptions),
             "/v1/audio/transcriptions/stream": self._upload(self._stream),
             "/v1/audio/subtitles": self._upload(self._subtitles),
             "/v1/audio/translations": self._upload(self._translations),
-            "/debug/trace": self._debug_trace})
+            "/debug/trace": self._debug_trace}
 
-    def _serve(self, method: str, routes: dict) -> None:
-        """Run the request's route with its id in the logging context;
-        count it (JAX's ``request_id_middleware``): under its route, or
-        ``unmatched``; a matched route's wall too; not ``/metrics``."""
-        route = self.path.split("?", 1)[0]
-        handler = routes.get(route)
-        self.request_id = (self.headers.get("X-Request-ID")
-                           or str(uuid.uuid4()))
-        self.status_code = None
-        token = set_request_id(self.request_id)
-        t0 = time.time()
-        try:
-            if handler is None:
-                self._error("NOT_FOUND", f"no route {self.path}", 404)
-            else:
-                handler()
-        finally:
-            reset_request_id(token)
-            self.server.count_request(route if handler else "unmatched",
-                                      method, self.status_code or 500,
-                                      time.time() - t0)
+    def count(self, route: str, method: str, status: int,
+              seconds: float) -> None:
+        """Counted as JAX's ``request_id_middleware`` counts: under its
+        route, or ``unmatched``; a matched route's wall too; not
+        ``/metrics``."""
+        self.server.count_request(route, method, status, seconds)
 
-    def _upload(self, route):
-        """A POST route that reads a multipart upload and needs the
-        engines loaded."""
+    def _upload(self, route, load: bool = True):
+        """A POST route that reads a multipart upload and (unless ``load``
+        is false: the route loads them itself) needs the engines loaded."""
         def run():
             try:
-                form = self._read_form()
-                self._ensure_loaded()
-                route(*form)
-            except _Answered:
+                fields, file_bytes, _ = self._read_upload()
+                if load:
+                    self._ensure_loaded()
+                route(fields, file_bytes)
+            except Answered:
                 pass
         return run
 
@@ -444,8 +328,8 @@ class _Handler(BaseHTTPRequestHandler):
         """A profiler trace of ``seconds`` (3, at most 60), one at a
         time."""
         try:
-            self._read_form()
-        except _Answered:
+            self._read_upload()
+        except Answered:
             return
         query = parse_qs(urlsplit(self.path).query)
         try:
@@ -495,42 +379,20 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:
             log.exception("model load failed")
             self._error("MODEL_LOAD_FAILED", f"{type(e).__name__}: {e}", 500)
-            raise _Answered
-    def _read_form(self) -> Tuple[dict, Optional[bytes]]:
-        """The multipart upload's (fields, file bytes)."""
-        chunked = "chunked" in self.headers.get("Transfer-Encoding",
-                                                "").lower()
-        length = int(self.headers.get("Content-Length") or 0)
-        try:
-            if length > MAX_UPLOAD_BYTES:
-                raise BodyTooLarge
-            body = (read_chunked(self.rfile, MAX_UPLOAD_BYTES) if chunked
-                    else self.rfile.read(length))
-        except BodyTooLarge:
-            self.close_connection = True
-            self._error("PAYLOAD_TOO_LARGE", "upload exceeds 512 MiB", 413)
-            raise _Answered
-        except ValueError:
-            self.close_connection = True
-            self._error("BAD_REQUEST", "malformed chunked body", 400)
-            raise _Answered
-        fields, file_bytes, _ = parse_multipart(
-            self.headers.get("Content-Type", ""), body)
-        return fields, file_bytes
-
+            raise Answered
     def _decode(self, file_bytes: Optional[bytes]):
         """(audio, sr) of the upload; an empty or undecodable one answers
         422 AUDIO_DECODE_FAILED, as the JAX server does."""
         if not file_bytes:
             self._error("AUDIO_DECODE_FAILED",
                         "Could not decode audio: empty file", 422, fileSize=0)
-            raise _Answered
+            raise Answered
         try:
             return decode_audio(file_bytes)
         except AudioDecodeError as e:
             self._error("AUDIO_DECODE_FAILED", f"Could not decode audio: {e}",
                         422, fileSize=len(file_bytes))
-            raise _Answered
+            raise Answered
 
     def _wait(self, future: concurrent.futures.Future, t0: float,
               route: str, timeout_code: str, timeout_message: str):
@@ -544,12 +406,12 @@ class _Handler(BaseHTTPRequestHandler):
                         time.time() - t0)
             self._error(timeout_code, timeout_message, 504,
                         elapsed=round(time.time() - t0, 2))
-            raise _Answered
+            raise Answered
         except Exception as e:  # the server must keep answering
             log.exception("%s failed", route)
             self._error("TRANSCRIPTION_FAILED", f"{type(e).__name__}: {e}",
                         500)
-            raise _Answered
+            raise Answered
 
     def _transcribe_job(self, audio, sr: int, lang_code: Optional[str]
                         ) -> concurrent.futures.Future:
@@ -584,6 +446,8 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             text, language_code = "", (lang_code or language)
         body = {"text": text, "language": language_code}
+        log.debug("%s | token ids %s", route,
+                  json.dumps([r.token_ids for r in results or []]))
         timestamps = merge_timestamps(results) if results else None
         if stamps and timestamps:
             body["timestamps"] = timestamps
@@ -601,7 +465,7 @@ class _Handler(BaseHTTPRequestHandler):
                      ("Connection", "keep-alive"),
                      ("X-Accel-Buffering", "no"),
                      ("Transfer-Encoding", "chunked"),
-                     ("X-Request-ID", self._request_id())):
+                     ("X-Request-ID", self.request_id)):
             self.send_header(k, v)
         self.end_headers()
         events = sse_events(self.server.manager, audio, sr, lang_code,
@@ -622,12 +486,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _subtitles(self, fields: dict, file_bytes: Optional[bytes]):
         route = "POST /v1/audio/subtitles"
-        language = fields.get("language", "auto")
         mode = fields.get("mode", "accurate")
-        try:
-            max_line_chars = int(fields.get("max_line_chars", "42"))
-        except ValueError:
-            max_line_chars = 42
         t0 = time.time()
         if mode not in ("fast", "accurate"):
             self._error("INVALID_MODE",
@@ -635,14 +494,28 @@ class _Handler(BaseHTTPRequestHandler):
                         422)
             return
         audio, sr = self._decode(file_bytes)
+        self._subtitle_core(fields, audio, sr, mode, route, t0, lambda e: (
+            "SUBTITLE_TIMEOUT" if "timeout" in str(e).lower()
+            else "WORKER_ERROR"))
+
+    def _subtitle_core(self, fields: dict, audio, sr: int, mode: str,
+                       route: str, t0: float, aligner_code) -> None:
+        """The subtitle flow shared with the worker's route (JAX's
+        ``subtitle_core``): the aligner's load in mode ``accurate`` (a
+        failure answers 503 with ``aligner_code(e)``), the transcription,
+        the repetition fix and the SRT."""
+        language = fields.get("language", "auto")
         lang_code = None if language == "auto" else language
+        try:
+            max_line_chars = int(fields.get("max_line_chars", "42"))
+        except ValueError:
+            max_line_chars = 42
         if mode == "accurate":
             try:
                 self.server.load_aligner()
             except Exception as e:
                 log.error("%s | aligner load failed: %s", route, e)
-                self._error("SUBTITLE_TIMEOUT" if "timeout" in str(e).lower()
-                            else "WORKER_ERROR",
+                self._error(aligner_code(e),
                             f"ForcedAligner unavailable: {e}", 503)
                 return
         results = self._wait(self._transcribe_job(audio, sr, lang_code), t0,
@@ -664,31 +537,57 @@ class _Handler(BaseHTTPRequestHandler):
         self._text(srt, "subtitles.srt")
 
     def _translations(self, fields: dict, file_bytes: Optional[bytes]):
-        from ..sidecars.translator import translate_srt, translate_text
-        route = "POST /v1/audio/translations"
-        language = fields.get("language", "en")
-        response_format = fields.get("response_format", "json")
         t0 = time.time()
         audio, sr = self._decode(file_bytes)
+        self._translate_core(fields, audio, sr, "fast",
+                             "translated_subtitles.srt",
+                             "POST /v1/audio/translations", t0)
+
+    def _translate_core(self, fields: dict, audio, sr: int, srt_mode: str,
+                        srt_filename: Optional[str], route: str,
+                        t0: float) -> None:
+        """The translation flow shared with the worker's route: the
+        transcript translated as JSON, or its SRT in ``srt_mode`` (in mode
+        ``accurate`` the aligner is loaded first, a failure answering 503
+        WORKER_ERROR) translated and sent as ``srt_filename``."""
+        from ..sidecars.translator import translate_srt, translate_text
+        language = fields.get("language", "en")
+        response_format = fields.get("response_format", "json")
         target = ("en" if language.lower() not in ("en", "zh")
                   else language.lower())
+        srt = response_format.lower() == "srt"
+        if srt and srt_mode == "accurate":
+            try:
+                self.server.load_aligner()
+            except Exception as e:
+                self._error("WORKER_ERROR", f"ForcedAligner unavailable: {e}",
+                            503)
+                return
         results = self._wait(self._transcribe_job(audio, sr, None), t0,
                              route, "TRANSCRIPTION_TIMEOUT",
                              "Transcription timed out")
-        if response_format.lower() == "srt":
+        if srt:
             if not results:
                 self._text("")
                 return
             for r in results:
                 r.text = detect_and_fix_repetitions(r.text)
-            # fast mode: host work only
-            srt = subtitle.generate_srt_from_results(
-                results, audio, sr, mode="fast", max_line_chars=42)
-            translated = self._translate(translate_srt, srt, target, route,
-                                         t0)
+            def make_srt():
+                return subtitle.generate_srt_from_results(
+                    results, audio, sr, mode=srt_mode, max_line_chars=42)
+            if srt_mode == "accurate":    # aligns on the device thread
+                original = self._wait(
+                    self.server.manager.queue.submit(make_srt,
+                                                     priority=STANDARD),
+                    t0, route, "TRANSCRIPTION_TIMEOUT",
+                    "Transcription timed out")
+            else:                         # host work only
+                original = make_srt()
+            translated = self._translate(translate_srt, original, target,
+                                         route, t0)
             log.info("%s | completed in %.2fs format=%s", route,
                      time.time() - t0, response_format)
-            self._text(translated, "translated_subtitles.srt")
+            self._text(translated, srt_filename)
             return
         text = (detect_and_fix_repetitions(merge_results(results)[0])
                 if results else "")
@@ -709,14 +608,16 @@ class _Handler(BaseHTTPRequestHandler):
                       time.time() - t0, e)
             self._error("TRANSLATION_FAILED", f"Translation API failed: {e}",
                         502)
-            raise _Answered
+            raise Answered
 
 
 class AsrServer(ThreadingHTTPServer):
     daemon_threads = True
 
-    def __init__(self, manager: ModelManager, host: str, port: int):
-        super().__init__((host, port), _Handler)
+    def __init__(self, manager: ModelManager, host: str, port: int,
+                 handler=None):
+        # the worker serves its own route table (serving/worker.py)
+        super().__init__((host, port), handler or _Handler)
         self.manager = manager
         self.openapi = build_openapi(API_TITLE, API_VERSION, API_DESCRIPTION,
                                      API_TAGS, route_metadata())

@@ -555,7 +555,12 @@ def _group_schedule(eng, eager: bool, cap_s: float = 4.0, slots: int = 4):
     return group, out, {n: w[1:] for n, w in wins.items()}
 
 
-@pytest.mark.parametrize("name", list(STREAM_KEYS))
+# the group test also takes int8 weights (the JAX package's default
+# serving row, which chip_smoke.py phase 14 (c) serves at full width)
+GROUP_KEYS = dict(STREAM_KEYS, int8_int4=(torch.bfloat16, torch.int4))
+
+
+@pytest.mark.parametrize("name", list(GROUP_KEYS))
 def test_stream_group_graphs_equal_eager(dev, name):
     """A grouped session of 4 slots at a 4 s cap, with a join, a leave and
     a slot reused: its graphs give the eager run's ids on every tick; each
@@ -564,9 +569,11 @@ def test_stream_group_graphs_equal_eager(dev, name):
     the decode kernel (#3; #2 for an f32 cache) once a layer and step; an
     int4 engine's group runs an fp8 cache. In f32 each member's ids are
     also a solo session's on its windows."""
-    dtype, kv = STREAM_KEYS[name]
+    dtype, kv = GROUP_KEYS[name]
     model = _model(dev)
     model.params = _cast_tree(model.params, dtype)
+    if name.startswith("int8"):
+        model.params = quant.quantize_params(model.params, "int8")
     eng = TranscriptionEngine(model, device=dev, dtype=dtype,
                               cache_dtype=kv)
     group, ids, wins = _group_schedule(eng, eager=False)

@@ -59,3 +59,28 @@ def test_quant_cases_on_cpu(kernel):
         assert nbytes > 2 * m * k
         labels.append(label)
     assert len(labels) == len(set(labels)) == 3 * len(SHAPES) * len(ROWS)
+
+
+DECODE = "decode_split_kernel(int, int)"
+
+
+@pytest.mark.parametrize("captured,decoded,ok", [
+    (7168, [(DECODE, 7168)], True),          # every record kept
+    (7168, [(DECODE, 6246)], True),          # 12.9% of the records lost
+    (7168, [(DECODE, 6794)], True),          # 5.2% lost
+    (7168, [], True),                        # the profile names none
+    (7168, [(DECODE, 7169)], False),         # launches outside the capture
+    (7168, [(DECODE, 3584), ("decode_split_kernel<2>", 3584)], False),
+    (7167, [(DECODE, 7167)], False),         # the capture's count is off
+])
+def test_profile_verdict_rests_on_the_capture(captured, decoded, ok):
+    verdict = _chip_smoke().profile_verdict
+    if ok:
+        line = verdict(captured, 7168, decoded)
+        if decoded:
+            kept = decoded[0][1]
+            assert f"kept {kept} of" in line
+            assert f"({7168 - kept} lost)" in line
+    else:
+        with pytest.raises(AssertionError):
+            verdict(captured, 7168, decoded)

@@ -29,6 +29,7 @@ from qwen3_asr_tpu_torch.audio.codec import decode_audio
 from qwen3_asr_tpu_torch.runtime import batcher as batcher_mod
 from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager, load_engine
 from qwen3_asr_tpu_torch.serving import ws as ws_mod
+from qwen3_asr_tpu_torch.serving import wsproto
 from qwen3_asr_tpu_torch.serving.server import build_server
 from tests.util_audio import speech_like
 
@@ -626,10 +627,10 @@ def test_fragments_ping_and_large_frames(base):
     ws = _connect(base, "?use_server_vad=false")
     ws.receive_json()
     cmd = json.dumps({"action": "config", "language": "en"}).encode()
-    frames = [(ws_mod.OP_TEXT, cmd[:5], False),
-              (ws_mod.OP_PING, b"hi", True),
-              (ws_mod.OP_CONT, cmd[5:9], False),
-              (ws_mod.OP_CONT, cmd[9:], True)]
+    frames = [(wsproto.OP_TEXT, cmd[:5], False),
+              (wsproto.OP_PING, b"hi", True),
+              (wsproto.OP_CONT, cmd[5:9], False),
+              (wsproto.OP_CONT, cmd[9:], True)]
     for op, data, fin in frames:
         _send_frame(ws, op, data, fin)
     got = ws.receive_json()
@@ -647,11 +648,11 @@ def test_fragments_ping_and_large_frames(base):
 def _send_frame(ws, op, data, fin):
     mask = b"\x01\x02\x03\x04"
     head = bytes([(0x80 if fin else 0) | op, 0x80 | len(data)]) + mask
-    ws.wfile.write(head + ws_mod._apply_mask(data, mask))
+    ws.wfile.write(head + wsproto._apply_mask(data, mask))
     ws.wfile.flush()
 
 
 def test_accept_key_is_rfc6455s_example():
-    assert ws_mod.accept_key("dGhlIHNhbXBsZSBub25jZQ==") == \
+    assert wsproto.accept_key("dGhlIHNhbXBsZSBub25jZQ==") == \
         "s3pPLMBiTxaQ9kYGzzhZRbK+xOo="
     assert struct.pack(">H", ws_mod.CLOSE_TRY_AGAIN_LATER) == b"\x03\xf5"
