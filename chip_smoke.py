@@ -6,7 +6,8 @@ without a CUDA device, and whenever any phase fails. Phases:
 1. the card's name and power limit; build the CUDA kernels from
    ``qwen3_asr_tpu_torch/csrc`` (one nvcc per source, in parallel: the four
    TPU kernels' counterparts, the quantized GEMV and GEMM and the QK-norm +
-   RoPE + KV-cache write) and print ptxas' registers, shared memory and
+   RoPE + KV-cache write, and the training path's two backward kernels)
+   and print ptxas' registers, shared memory and
    spills, and every line that reports a kernel's wgmmas serialized
    (C7508-C7520); the phase fails if one names kernel C or kernel C
    spills;
@@ -269,6 +270,30 @@ without a CUDA device, and whenever any phase fails. Phases:
    and a cold respawn's seconds. The workers' kernel launches are not
    counted here (another process): the evidence is (a)'s ids, the
    workers' ``hbm_used_mb`` and the memory and PID the card shows.
+
+18. training (``runtime/train.py``, ``tools/finetune.py``): (a) the
+   backward kernels against their plain versions in f32 and bf16, a
+   repeat call's bits equal the first's: flash attention's
+   (``csrc/flash_attention_bwd.cu``) at the encoder's 6 s (B=8) and 30 s
+   (B=1) windows and the training forward's causal shape at preset:1.7b
+   (B=8, 6 s bucket: T = 217, the prompt from 12), QK-norm + RoPE's
+   (``csrc/qk_rope_bwd.cu``) at that shape's rows and at trained_ckpt's
+   heads; bf16 times as phase 3's, the library column SDPA's backward
+   through autograd (same boolean mask, ``enable_gqa``; its forward and
+   backward captured in one graph, less its forward); (b)
+   trained_ckpt in f32: every gradient leaf of both towers non-zero (but
+   the encoder's key bias, 0 in exact arithmetic), three train steps at
+   lr 1e-5 on a ``make_batch`` of the 12 real clips with losses equal to
+   the port's on the CPU to 1e-5 relative, flash forward and backward
+   launched once an encoder and a decoder layer and step, kernel B and
+   the QK-norm + RoPE backward once a decoder layer and step; the
+   trained weights saved (``save_asr_checkpoint``), loaded through
+   ``load_engine`` on the card and on the CPU: english_01's ids equal;
+   (c) preset:1.7b at full width in bf16 with seeded random weights and
+   its byte tokenizer, B=8 real clips at the 6 s bucket: ms a step
+   (median of 3 after a warm step), finite losses, peak memory, launches
+   a step by kernel; (d) ``python -m qwen3_asr_tpu_torch.tools.finetune``
+   on the card, 2 steps on a manifest of 4 clips.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -6202,6 +6227,501 @@ def gateway_phase(dev, real) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 18 --------------------------------------------------------------------
+
+TRAIN_BUCKET_S = 6.0       # (b), (c): the training batches' bucket
+TRAIN_BATCH = 8            # (c): rows a full-width step
+TRAIN_LR = 1e-5            # (b), (c), (d): the fine-tuning CLI's default
+TRAIN_STEPS = 3            # (b): steps, card against CPU; (c): timed steps
+TRAIN_TOL = 1e-5           # (b): the losses, card against CPU, relative
+
+
+def train_shapes():
+    """The shapes a preset:1.7b training step at the 6 s bucket gives the
+    backward kernels: the encoder's windows (and at 30 s), the decoder's
+    causal forward over [prefix, audio, suffix + targets]."""
+    from qwen3_asr_tpu_torch.models.asr import PromptTemplate
+    from qwen3_asr_tpu_torch.models.config import preset
+    from qwen3_asr_tpu_torch.models.encoder import (conv_tokens_per_chunk,
+                                                    encoder_output_length)
+    from qwen3_asr_tpu_torch.runtime.engine import (PREFIX_BUDGET,
+                                                    max_new_tokens_for)
+    from qwen3_asr_tpu_torch.runtime.lifecycle import preset_tokenizer
+    cfg = preset("1.7b")
+    enc, dec = cfg.encoder, cfg.decoder
+    chunk = enc.n_window * 2
+    frames = -(-int(TRAIN_BUCKET_S * 100) // chunk) * chunk
+    tok, tmpl = preset_tokenizer(dec.vocab_size), PromptTemplate()
+    t_audio = int(encoder_output_length(frames, chunk))
+    t_train = (PREFIX_BUDGET + t_audio + len(tok.encode(tmpl.suffix_text()))
+               + max_new_tokens_for(frames / 100.0))
+    return dict(
+        t_audio=t_audio, t_enc_30s=int(encoder_output_length(3000, chunk)),
+        window=conv_tokens_per_chunk(chunk) * max(1, enc.n_window_infer
+                                                  // chunk),
+        enc_heads=enc.encoder_attention_heads, enc_d=enc.head_dim,
+        t_train=t_train, nq=dec.num_attention_heads,
+        nkv=dec.num_key_value_heads, d=dec.head_dim,
+        valid_from=PREFIX_BUDGET - len(tok.encode(tmpl.prefix_text(None))))
+
+
+def flash_bwd_cases(ts, dtype, dev):
+    """(label, args, kw, (SDPA forward, SDPA forward and backward),
+    bytes, flops) of kernel (i)
+    at the encoder's 6 s (B=8) and 30 s (B=1) windows and the training
+    forward's causal shape (B=8, rows left-padded to the prompt)."""
+    from qwen3_asr_tpu_torch.ops.attention import AttnSpec
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(18)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    shapes = [
+        ("encoder_6s_b8", 8, ts["enc_heads"], ts["enc_heads"], ts["t_audio"],
+         ts["enc_d"], AttnSpec(window_block=ts["window"])),
+        ("encoder_30s_b1", 1, ts["enc_heads"], ts["enc_heads"],
+         ts["t_enc_30s"], ts["enc_d"], AttnSpec(window_block=ts["window"])),
+        ("train_causal_b8_6s", 8, ts["nq"], ts["nkv"], ts["t_train"],
+         ts["d"], AttnSpec(causal=True, valid_from=ts["valid_from"])),
+    ]
+    out = []
+    for label, b, nq, nkv, t, d, spec in shapes:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        def i32(v):
+            return torch.full((b,), v, dtype=torch.int32, device=dev)
+
+        q, g = randn(b, nq, t, d), randn(b, nq, t, d)
+        k, v = randn(b, nkv, t, d), randn(b, nkv, t, d)
+        vf = i32(spec.valid_from or 0)
+        vt, zero = i32(t), i32(0)
+        _, m, l = flash_attention(q, k, v, causal=spec.causal,
+                                  kv_valid_from=vf,
+                                  window_block=spec.window_block,
+                                  return_residuals=True)
+        kw = dict(causal=spec.causal, window_block=spec.window_block,
+                  sm_scale=d ** -0.5)
+        mask = spec._replace(valid_from=vf).dense_mask(b, t, t, dev)
+        ins = tuple(x.clone().requires_grad_() for x in (q, k, v))
+
+        def sdpa(ins=ins, mask=mask, gqa=nq != nkv):
+            return F.scaled_dot_product_attention(
+                *ins, attn_mask=mask[:, None], enable_gqa=gqa)
+
+        def sdpa_fwd_bwd(sdpa=sdpa, ins=ins, g=g):
+            return torch.autograd.grad(sdpa(), ins, g)
+
+        # inputs q, k, v, dO, m, l and the three int32 [B]; outputs dq,
+        # dk, dv; five products over the live (row, key) pairs of every
+        # query head
+        nbytes = ((2 * b * nq * t * d + 2 * b * nkv * t * d) * esize
+                  + 2 * 4 * b * nq * t + 3 * 4 * b
+                  + (b * nq * t * d + 2 * b * nkv * t * d) * esize)
+        flops = 5 * 2 * d * nq * int(mask.sum())
+        out.append((label, (q, k, v, g, m, l, vf, vt, zero), kw,
+                    (sdpa, sdpa_fwd_bwd), nbytes, flops))
+    return out
+
+
+def qk_bwd_cases(ts, dtype, dev):
+    """(label, args, plain call, bytes, flops) of kernel (ii) at the
+    training forward's rows (B=8) and trained_ckpt's heads (d 48)."""
+    from qwen3_asr_tpu_torch.models.decoder import rope_cos_sin
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import _heads, qk_rope_bwd_plain
+    gen = torch.Generator(device=dev).manual_seed(19)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    out = []
+    for label, b, t, nq, nkv, d in (
+            ("qk_bwd_b8_6s", 8, ts["t_train"], ts["nq"], ts["nkv"], ts["d"]),
+            ("qk_bwd_trained_ckpt_b12", 12, 210, 4, 2, 48)):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        q, k = randn(b, t, nq * d), randn(b, t, nkv * d)
+        wq, wk = (1 + 0.1 * randn(d)).to(dtype), (1 + 0.1 * randn(d)).to(dtype)
+        gq, gk, gv = randn(b, nq, t, d), randn(b, nkv, t, d), \
+            randn(b, nkv, t, d)
+        cos, sin = rope_cos_sin(
+            torch.arange(t, device=dev)[None].expand(b, t), d, 1e6)
+        args = (q, k, wq, wk, cos, sin, 1e-6, gq, gk, gv)
+
+        def plain(q=q, k=k, wq=wq, wk=wk, cos=cos, sin=sin, gq=gq, gk=gk,
+                  gv=gv, d=d, b=b, t=t):
+            dq, dwq = qk_rope_bwd_plain(_heads(q, d), wq, cos, sin, 1e-6, gq)
+            dk, dwk = qk_rope_bwd_plain(_heads(k, d), wk, cos, sin, 1e-6, gk)
+            flat = lambda x: x.transpose(1, 2).reshape(b, t, -1)  # noqa
+            return flat(dq), flat(dk), flat(gv), dwq, dwk
+
+        rows = b * t * (nq + nkv) * d        # elements of q and k
+        # read x (q, k), g (q, k, v), the norms, cos and sin; write dx
+        # (q, k, v) and the two norm gradients; ~16 flops a q/k element
+        nbytes = (rows + 2 * (rows + b * t * nkv * d) + 4 * d) * esize \
+            + 2 * b * t * d * 4
+        out.append((label, args, plain, nbytes, 16 * rows))
+    return out
+
+
+def train_time_row(label, err, run, plain, library, nbytes, flops, card):
+    """Phase 3's row for a backward kernel: device ms of the kernel, of its
+    plain version and of the library's backward (CUDA graph replays; the
+    library's backward as its forward and backward, autograd captured in
+    the graph, less its forward alone), the bound."""
+    ms, plain_ms = per_call_ms(run, 0), per_call_ms(plain, 0)
+    lib_ms = (per_call_ms(library[1], 0) - per_call_ms(library[0], 0)
+              if library is not None else None)
+    if lib_ms is not None and not lib_ms > 0:
+        raise AssertionError(f"{label}: SDPA's forward and backward took no "
+                             f"longer than its forward ({lib_ms} ms)")
+    call_ms = eager_ms(run, 50)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {"shape": label, "dtype": "bfloat16", "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "eager_ms": call_ms, "bytes": nbytes, "flops": flops}
+    lib = (f"SDPA backward {lib_ms:.4f} ms (kernel / library "
+           f"{ms / lib_ms:.3f})" if lib_ms is not None else
+           "no library call")
+    log(f"[timing] {label} bf16 (device): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {lib}; one eager call {call_ms:.4f} ms; bound "
+        f"{bound:.5f} ms ({row['bound_by']}), share {bound / ms:.3%} | "
+        f"{card}")
+    return row
+
+
+def train_kernel_rows(ts, dev, card) -> dict:
+    """Phase 18 (a): kernels (i) and (ii) against their plain versions in
+    f32 (TF32 off) and bf16, a repeat call's bits equal the first's; bf16
+    times as phase 3's (library: SDPA's backward through autograd, the
+    same boolean mask, ``enable_gqa``)."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope_bwd
+    rows = {"flash_attention_bwd": [], "qk_rope_bwd": []}
+
+    def parity(kernel, label, dt, got, again, want):
+        tol = TOL[dt]
+        errs = []
+        for a, a2, w in zip(got, again, want):
+            if a.dtype != dt or not torch.equal(a, a2):
+                raise AssertionError(f"{kernel} {label}: dtype {a.dtype} or "
+                                     f"a repeat call's bits differ")
+            scale = max(float(w.float().abs().max()), 1e-6)
+            errs.append(float((a.float() - w.float()).abs().max()) / scale)
+        err = max(errs)
+        log(f"[parity] {kernel} {label} {str(dt)[6:]}: max error "
+            f"{err:.3e} of each gradient's largest magnitude (bound {tol:g});"
+            f" repeat bits equal")
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {label}: error {err} above {tol}")
+        return err
+
+    for dt in (torch.float32, torch.bfloat16):
+        for label, args, kw, sdpa, nbytes, flops in \
+                flash_bwd_cases(ts, dt, dev):
+            def run(args=args, kw=kw):
+                return flash_attention_bwd(*args, **kw)
+
+            def plain(args=args, kw=kw):
+                return flash_attention_bwd_plain(*args, **kw)
+
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            err = parity("flash_attention_bwd", label, dt, got, again, want)
+            if dt == torch.bfloat16:
+                rows["flash_attention_bwd"].append(train_time_row(
+                    label, err, run, plain, sdpa, nbytes, flops, card))
+        for label, args, plain, nbytes, flops in qk_bwd_cases(ts, dt, dev):
+            def run(args=args):
+                return qk_rope_bwd(*args)
+
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            err = parity("qk_rope_bwd", label, dt, got, again, want)
+            if dt == torch.bfloat16:
+                rows["qk_rope_bwd"].append(train_time_row(
+                    label, err, run, plain, None, nbytes, flops, card))
+    return rows
+
+
+def train_counter():
+    """Counters of the training path's four kernels, set to 0."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import (flash_attention,
+                                                         flash_attention_bwd)
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import (qk_rope_bwd,
+                                                    qk_rope_kv_write)
+    wrappers = {"flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd,
+                "qk_rope_kv": qk_rope_kv_write, "qk_rope_bwd": qk_rope_bwd}
+    for w in wrappers.values():
+        w.launches = 0
+    return lambda: {k: w.launches for k, w in wrappers.items()}
+
+
+def train_launch_check(name: str, got: dict, cfg, steps: int) -> None:
+    """Each step launches flash forward and backward once an encoder and a
+    decoder layer, kernel B and kernel (ii) once a decoder layer."""
+    layers = cfg.encoder.encoder_layers + cfg.decoder.num_hidden_layers
+    dec = cfg.decoder.num_hidden_layers
+    want = {"flash_attention": steps * layers,
+            "flash_attention_bwd": steps * layers,
+            "qk_rope_kv": steps * dec, "qk_rope_bwd": steps * dec}
+    log(f"[train] {name}: launches in {steps} step(s) {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
+
+
+def train_items(clips, lang: bool = True):
+    """Manifest rows of the real clips (their transcripts and language)."""
+    items = []
+    for path in clips:
+        with open(path[:-4] + ".txt", encoding="utf-8") as f:
+            item = {"wav": path, "text": f.read().strip()}
+        lang_f = path[:-4] + ".lang"
+        if lang and os.path.exists(lang_f):
+            with open(lang_f, encoding="utf-8") as f:
+                item["language"] = f.read().strip()
+        items.append(item)
+    return items
+
+
+def train_f32_phase(dev, card) -> dict:
+    """Phase 18 (b): trained_ckpt in f32, three train steps on a
+    make_batch of the 12 real clips, card against CPU; the gradient
+    reaches every leaf of both towers; the trained weights saved, served
+    from the card and the CPU with the same ids."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.checkpoint import save_asr_checkpoint
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    from qwen3_asr_tpu_torch.runtime.optim import adamw
+    from qwen3_asr_tpu_torch.runtime.train import (_value_and_grad, asr_loss,
+                                                   batch_to,
+                                                   init_train_state,
+                                                   make_train_step)
+    from qwen3_asr_tpu_torch.tools.finetune import make_batch
+    ckpt = os.path.join(DATA, "trained_ckpt")
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))
+    engines = {"cuda": load_engine(ckpt, device=dev, dtype=torch.float32),
+               "cpu": load_engine(ckpt, device="cpu")}
+    batch = make_batch(engines["cpu"], train_items(clips), TRAIN_BUCKET_S)
+    log(f"[train] trained_ckpt f32: batch of {len(clips)} clips, "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
+    cfg = engines["cuda"].model.cfg
+
+    # every gradient leaf of both towers on the card (the encoder's key
+    # bias: 0 in exact arithmetic, softmax ignoring a per-row constant)
+    tb = batch_to(batch, dev)
+    loss, grads = _value_and_grad(
+        asr_loss, engines["cuda"].model.params, cfg, tb["mel"],
+        tb["feature_lens"], tb["prompt_ids"], tb["target_ids"],
+        tb["target_mask"], tb["valid_from"])
+    zero = []
+    for tower in ("encoder", "decoder"):
+        for key, g in _flat(grads[tower]):
+            if not bool(g.ne(0).any()):
+                zero.append(f"{tower}/{key}")
+    log(f"[train] trained_ckpt f32 on the card: loss {float(loss):.6f}, "
+        f"gradient leaves with no non-zero element: {zero or 'none'}")
+    if zero not in ([], ["encoder/layers/bk"]):
+        raise AssertionError(f"no gradient reached {zero}")
+
+    losses, states, launched = {}, {}, None
+    for where, eng in engines.items():
+        opt = adamw(TRAIN_LR)
+        state = init_train_state(eng.model.params, opt)
+        step = make_train_step(cfg, opt)
+        read = train_counter()
+        losses[where] = []
+        for _ in range(TRAIN_STEPS):
+            state, loss = step(state, batch)
+            losses[where].append(float(loss))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            launched = read()
+        states[where] = state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    log(f"[train] trained_ckpt f32, {TRAIN_STEPS} steps at lr {TRAIN_LR:g}:"
+        f" losses card {losses['cuda']} / CPU {losses['cpu']}, largest "
+        f"relative difference {rel:.2e} (bound {TRAIN_TOL:g}) | {card}")
+    if not rel <= TRAIN_TOL:
+        raise AssertionError(f"train losses differ by {rel:.2e}")
+    train_launch_check("trained_ckpt f32", launched, cfg, TRAIN_STEPS)
+
+    # the train -> serve loop: save, load, transcribe english_01
+    root = tempfile.mkdtemp(prefix="smoke_train_")
+    try:
+        ids = {}
+        for where, state in states.items():
+            out = os.path.join(root, where)
+            save_asr_checkpoint(out, cfg, state.params)
+            shutil.copy(os.path.join(ckpt, "tokenizer.json"), out)
+            served = load_engine(out, device=dev if where == "cuda"
+                                 else "cpu",
+                                 dtype=torch.float32)
+            with open(os.path.join(DATA, "real", "english_01.wav"),
+                      "rb") as f:
+                res = served.transcribe(*decode_audio(f.read()))[0]
+            ids[where] = res.token_ids
+            log(f"[train] saved after {TRAIN_STEPS} steps ({where}), served "
+                f"on the {'card' if where == 'cuda' else 'CPU'}: "
+                f"english_01 {res.text!r}")
+            del served
+        if ids["cuda"] != ids["cpu"]:
+            raise AssertionError(f"trained checkpoint's ids: card "
+                                 f"{ids['cuda']} vs CPU {ids['cpu']}")
+        log(f"[train] the card's saved checkpoint gives the CPU's "
+            f"{len(ids['cuda'])} token ids")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launched
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def train_bf16_phase(dev, card) -> dict:
+    """Phase 18 (c): preset:1.7b at full width in bf16 with seeded random
+    weights (``init_*_params``; ``preset:`` serves zeros, whose gradients
+    vanish) and its byte tokenizer, B=8 real clips at the 6 s bucket:
+    ms a step (median of 3 after one warm step), the loss finite, peak
+    memory, launches a step by kernel."""
+    from qwen3_asr_tpu_torch.runtime.optim import adamw
+    from qwen3_asr_tpu_torch.runtime.train import (init_train_state,
+                                                   make_train_step)
+    from qwen3_asr_tpu_torch.tools.finetune import make_batch
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))
+    engine = full_width_engine(dev)
+    cfg = engine.model.cfg
+    batch = make_batch(engine, train_items(clips[:TRAIN_BATCH]),
+                       TRAIN_BUCKET_S)
+    log(f"[train] preset:1.7b bf16: batch "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
+    opt = adamw(TRAIN_LR)
+    state = init_train_state(engine.model.params, opt)
+    step = make_train_step(cfg, opt)
+    state, loss = step(state, batch)          # the warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses, launched = [], [float(loss)], {}
+    for _ in range(TRAIN_STEPS):
+        read = train_counter()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))            # synchronizes
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for k, n in read().items():
+            launched[k] = launched.get(k, 0) + n
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"preset:1.7b bf16 losses {losses}")
+    train_launch_check("preset:1.7b bf16", launched, cfg, TRAIN_STEPS)
+    log(f"[train] preset:1.7b bf16, B={TRAIN_BATCH} at the "
+        f"{TRAIN_BUCKET_S:g} s bucket: ms a step {sorted(walls)} (median "
+        f"{float(np.median(walls)):.1f}), losses {losses} (finite), peak "
+        f"memory {peak:.2f} GiB; launches a step "
+        f"{ {k: n // TRAIN_STEPS for k, n in launched.items()} } | {card}")
+    train_step_profile(step, state, batch, card)
+    del state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
+# kernel name fragments -> the parts of a training step
+STEP_PARTS = (("flash backward (i)", ("dq_kernel", "dkv_kernel")),
+              ("flash forward (#1)", ("flash_bf16_kernel", "flash_f32")),
+              ("QK-norm + RoPE (B, ii)", ("qk_rope", "norm_grad_kernel")),
+              ("GEMM", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
+              ("convolution", ("conv", "cudnn", "implicit")))
+
+
+def train_step_profile(step, state, batch, card) -> None:
+    """One more step under ``torch.profiler`` (CUDA activity only): device
+    busy share, device ms by part of the step, the top kernels."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        _, loss = step(state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    parts = collections.Counter()
+    for e in events:
+        name = e.key.lower()
+        part = next((p for p, keys in STEP_PARTS
+                     if any(k in name for k in keys)), "other")
+        parts[part] += e.device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+    log(f"[train] one preset:1.7b bf16 step under the profiler: device busy "
+        f"{busy:.1f} ms of {wall:.1f} ms wall ({busy / wall:.1%}); by part "
+        + ", ".join(f"{p} {ms:.1f} ms" for p, ms in parts.most_common())
+        + "; top kernels " + "; ".join(
+            f"{e.key[:60]} {e.device_time_total / 1e3:.2f} ms / {e.count}"
+            for e in top) + f" | {card}")
+
+
+def finetune_cli_phase(card) -> None:
+    """Phase 18 (d): ``python -m qwen3_asr_tpu_torch.tools.finetune`` on
+    the card, 2 steps on a manifest of 4 real clips, its checkpoint
+    written."""
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))[:4]
+    root = tempfile.mkdtemp(prefix="smoke_finetune_")
+    try:
+        manifest = os.path.join(root, "manifest.jsonl")
+        with open(manifest, "w", encoding="utf-8") as f:
+            for item in train_items(clips):
+                f.write(json.dumps(item) + "\n")
+        out = os.path.join(root, "out")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "qwen3_asr_tpu_torch.tools.finetune",
+             "--model-id", os.path.join(DATA, "trained_ckpt"),
+             "--manifest", manifest, "--steps", "2", "--batch-size", "4",
+             "--output", out], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        steps = [ln for ln in proc.stderr.splitlines() + proc.stdout
+                 .splitlines() if '"step ' in ln or "| loss" in ln]
+        log(f"[train] finetune CLI: exit {proc.returncode} in "
+            f"{time.time() - t0:.1f} s; " + " / ".join(
+                json.loads(s)["message"] if s.startswith("{") else s
+                for s in steps))
+        if proc.returncode != 0 or not all(
+                os.path.exists(os.path.join(out, n))
+                for n in ("model.safetensors", "config.json",
+                          "tokenizer.json")) or len(steps) != 2:
+            raise AssertionError(f"finetune CLI failed:\n{proc.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_phase(dev) -> tuple:
+    """Phase 18: training on the card. Returns the kernel rows of (a) and
+    the launches of (b) and (c), each counted from 0 just before it."""
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[train] card memory in use at the start: "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    rows = train_kernel_rows(train_shapes(), dev, card)
+    launched = train_f32_phase(dev, card)
+    for k, n in train_bf16_phase(dev, card).items():
+        launched[k] += n
+    finetune_cli_phase(card)
+    return rows, launched
+
+
 # name -> (source, TPU kernel it replaces, headline shape)
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
@@ -6229,12 +6749,23 @@ KERNELS = {
     "qk_rope_kv": ("qwen3_asr_tpu_torch/csrc/qk_rope_kv.cu",
                    "qwen3_asr_tpu/models/decoder.py:146,163,132,258",
                    "qk_b8_t1_int4"),
+    # the training path's backward kernels (phase 18)
+    "flash_attention_bwd": ("qwen3_asr_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "qwen3_asr_tpu/ops/flash_attention.py:186",
+                            "train_causal_b8_6s"),
+    "qk_rope_bwd": ("qwen3_asr_tpu_torch/csrc/qk_rope_bwd.cu",
+                    "qwen3_asr_tpu/models/decoder.py:146,163",
+                    "qk_bwd_b8_6s"),
 }
 NO_TPU_KERNEL = {"decode_attention_batch_int4": "XLA attend_xla, int4",
                  "qgemv": "XLA qdot",
                  "qgemm": "XLA qdot",
                  "qk_rope_kv": "XLA rms_norm + apply_rope + _kv_quantize + "
-                               "dynamic_update_slice"}
+                               "dynamic_update_slice",
+                 "flash_attention_bwd": "XLA's vjp of _xla_forward, the "
+                                        "custom VJP of #1",
+                 "qk_rope_bwd": "XLA's autodiff of rms_norm + apply_rope"}
+TRAIN_KERNELS = ("flash_attention_bwd", "qk_rope_bwd")
 
 
 def main() -> int:
@@ -6286,7 +6817,8 @@ def main() -> int:
     qk = {5: launches["qk_rope_kv"], 6: batched["qk_rope_kv"],
           9: default["qk_rope_kv"]}
     for name in NO_TPU_KERNEL:
-        launches[name] = default[name]
+        if name not in TRAIN_KERNELS:
+            launches[name] = default[name]
     launches["qk_rope_kv"] = sum(qk.values())
     log(f"[launches] qk_rope_kv by phase {qk}: {sum(qk.values())}")
     phase_done("phase 9 (the default configuration)")
@@ -6357,6 +6889,18 @@ def main() -> int:
     phase_done("phase 16 (the serving contract, lossless codecs)")
     gateway_phase(dev, spec_inputs)
     phase_done("phase 17 (gateway mode)")
+    del engine, bf16_b8
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rows, trained = train_phase(dev)
+    rows.update(train_rows)
+    # this slice's path, counted from 0 just before each of its runs
+    for name in ("flash_attention", "flash_attention_bwd", "qk_rope_kv",
+                 "qk_rope_bwd"):
+        if not trained.get(name):
+            raise AssertionError(f"phase 18 launched no {name}")
+        launches[name] = launches.get(name, 0) + trained[name]
+    phase_done("phase 18 (training)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

@@ -13,7 +13,10 @@ planes), written a layer at a time with QK-norm and RoPE in one op
 (``ops/qk_rope_kv.py``); prefill attention goes through the flash kernel
 and each decode step through a decode kernel (``ops.attention.attend``
 picks which), which reads the stacked cache at the layer index without a
-copy.
+copy. Training runs ``decoder_forward`` with ``cache=None``: each layer's
+keys and values are its own T tokens' (what JAX's ``asr_loss`` reads back
+from a fresh cache of length T written at 0), through the differentiable
+``qk_rope`` and flash attention.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend, is_decode_step
 from ..ops.kv_int4 import dequantize_layer
-from ..ops.qk_rope_kv import qk_rope_kv_write, rms_norm
+from ..ops.qk_rope_kv import qk_rope, qk_rope_kv_write, rms_norm
 from ..ops.quant import (is_packed_int4, is_quantized, layer_slice, qdot,
                          qdot_group, qlogits, unpack_int4)
 from .config import DecoderConfig
@@ -114,17 +117,20 @@ def init_decoder_params(cfg: DecoderConfig, generator: torch.Generator,
 
 
 def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
-           cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
+           cos: torch.Tensor, sin: torch.Tensor, cache: Optional[KVCache],
            write_pos: Union[int, torch.Tensor], spec: AttnSpec
            ) -> torch.Tensor:
     lp = layer_slice(params["layers"], i)
-    b, t, _ = hidden.shape
-    nq, d = cfg.num_attention_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
+    d, eps = cfg.head_dim, cfg.rms_norm_eps
 
     x = rms_norm(hidden, lp["ln1"], eps)
     # q, k and v read one x: one launch of the quantized GEMV on the card
     q, k, v = qdot_group(x, [lp["wq"], lp["wk"], lp["wv"]])
+    if cache is None:
+        # training: attend to this layer's own keys, differentiably
+        q, k, v = qk_rope(q, k, v, lp["q_norm"], lp["k_norm"], cos, sin, eps)
+        attn = attend(q, k, v, spec, scale=d ** -0.5)
+        return _layer_tail(cfg, hidden, lp, attn)
     # QK-norm and RoPE on q and k, and K and V written IN PLACE at (layer
     # i, write_pos): only the T new tokens are stored, in the cache's
     # format (an int4 cache quantizes them on the way). One launch on the
@@ -152,7 +158,15 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
         # request and layer.
         attn = attend(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype),
                       spec, scale=d ** -0.5)
-    attn = attn.transpose(1, 2).reshape(b, t, nq * d)
+    return _layer_tail(cfg, hidden, lp, attn)
+
+
+def _layer_tail(cfg: DecoderConfig, hidden: torch.Tensor, lp: dict,
+                attn: torch.Tensor) -> torch.Tensor:
+    """wo and the residual, then the SwiGLU block: attn [B, nq, T, D]."""
+    b, t, _ = hidden.shape
+    eps = cfg.rms_norm_eps
+    attn = attn.transpose(1, 2).reshape(b, t, -1)
     hidden = hidden + qdot(attn, lp["wo"])
 
     x = rms_norm(hidden, lp["ln2"], eps)
@@ -163,18 +177,21 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
 
 def decoder_forward(params: dict, cfg: DecoderConfig,
                     inputs_embeds: torch.Tensor, positions: torch.Tensor,
-                    cache: KVCache, write_pos: Union[int, torch.Tensor],
-                    spec: AttnSpec) -> Tuple[torch.Tensor, KVCache]:
+                    cache: Optional[KVCache],
+                    write_pos: Union[int, torch.Tensor],
+                    spec: AttnSpec) -> Tuple[torch.Tensor,
+                                             Optional[KVCache]]:
     """Run all layers. inputs_embeds: [B,T,H]; positions: [B,T]; cache:
     the stacked cache, updated in place at ``write_pos``: a host int (the
     prefill), a 0-d int64 tensor on the cache's device (a decode step,
     which then holds no host integer), or a ``[B]`` int64 tensor there,
     row b writing its T keys from ``write_pos[b]`` (the resume loop's rows,
-    each at its own frontier).
+    each at its own frontier). ``cache=None`` is training's forward: no
+    cache, differentiable (``write_pos`` unused).
 
     Returns (final_hidden [B,T,H], cache)."""
-    if not cache.int4 and cache.k.dtype not in (inputs_embeds.dtype,
-                                                torch.float8_e4m3fn):
+    if cache is not None and not cache.int4 and cache.k.dtype not in (
+            inputs_embeds.dtype, torch.float8_e4m3fn):
         raise ValueError(f"cache dtype {cache.k.dtype} is neither the "
                          f"working dtype {inputs_embeds.dtype} nor fp8")
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)

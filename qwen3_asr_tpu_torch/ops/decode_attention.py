@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ._build import load
+from .autograd import refuse_grad
 from .attention import MASK_VALUE
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -167,6 +168,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stacked cache [L, B, Nkv, S, D] with ``layer_idx`` selecting the layer
     without a copy. A CUDA tensor launches the kernel or raises; only a CPU
     tensor takes the plain version."""
+    refuse_grad("decode_attention", q, k, v)
     b, nq, t, d = q.shape
     if t != 1:
         raise ValueError("decode_attention is for single-token queries")

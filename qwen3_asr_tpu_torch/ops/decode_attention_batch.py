@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ._build import load
+from .autograd import refuse_grad
 from .attention import MASK_VALUE
 from .decode_attention import split_plan, ticket_buffer
 from .kv_int4 import unpack
@@ -241,6 +242,7 @@ def decode_attention_batched(q: torch.Tensor, k: torch.Tensor,
     scale planes, and nothing else, say that the cache is int4.
     A CUDA tensor launches the kernel or raises; only a CPU tensor takes
     the plain version."""
+    refuse_grad("decode_attention_batched", q, k, v, k_scale, v_scale)
     b, nq, t, d = q.shape
     if t != 1:
         raise ValueError("decode_attention_batched is for single-token "

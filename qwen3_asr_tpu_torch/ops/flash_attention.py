@@ -29,6 +29,16 @@ computes the tile for all G heads so K/V are read once per group; KV tiles
 that the mask kills entirely are skipped before they are loaded, so
 encoder work follows the window and not T²; the [T,S] scores never reach
 device memory.
+
+The function is differentiable: where autograd needs it (grad mode on and
+q, k or v requiring grad), ``flash_attention`` goes through
+``FlashFunction``, whose backward is ``flash_attention_bwd``: on the card
+the hand-written ``csrc/flash_attention_bwd.cu`` (two launches, counted
+once in ``flash_attention_bwd.launches``), on the CPU its plain version
+``flash_attention_bwd_plain``. It is the gradient of JAX's dense
+restatement (``_flash_diff_bwd``, ``qwen3_asr_tpu/ops/flash_attention.py:186``),
+P recomputed in f32. Cotangents on m and l (which only the context-parallel
+combine would consume; ROADMAP item 14) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -46,18 +56,13 @@ _ROWS_PER_BLOCK = 64     # kRows in csrc/flash_attention.cu
 _MAX_D = 128
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          valid_from: torch.Tensor, valid_to: torch.Tensor,
-                          q_offset: torch.Tensor, *, causal: bool,
-                          window_block: int, sm_scale: float):
-    """Dense restatement of the kernel's function in f32: MASK_VALUE
-    scores, p zeroed where masked, safe divide. Like the TPU kernel, p is
-    rounded to q's dtype before P·V (a no-op in f32) while l sums the f32
-    p. Returns (out, m, l)."""
+def _scores(q, k, valid_from, valid_to, q_offset, causal, window_block,
+            sm_scale):
+    """Masked f32 scores [B, Nkv, G, T, S] (MASK_VALUE where masked) and
+    the mask [B, 1, 1, T, S]."""
     b, nq, t, d = q.shape
     _, nkv, s_len, _ = k.shape
-    g = nq // nkv
-    qg = q.reshape(b, nkv, g, t, d).float()
+    qg = q.reshape(b, nkv, nq // nkv, t, d).float()
     s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * sm_scale
     rows = (torch.arange(t, device=q.device)[None, :, None]
             + q_offset.long()[:, None, None])
@@ -69,7 +74,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window_block > 0:
         mask = mask & ((rows // window_block) == (cols // window_block))
     mask = mask[:, None, None]                               # [B,1,1,T,S]
-    s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+    return torch.where(mask, s, torch.full_like(s, MASK_VALUE)), mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid_from: torch.Tensor, valid_to: torch.Tensor,
+                          q_offset: torch.Tensor, *, causal: bool,
+                          window_block: int, sm_scale: float):
+    """Dense restatement of the kernel's function in f32: MASK_VALUE
+    scores, p zeroed where masked, safe divide. Like the TPU kernel, p is
+    rounded to q's dtype before P·V (a no-op in f32) while l sums the f32
+    p. Returns (out, m, l)."""
+    b, nq, t, d = q.shape
+    s, mask = _scores(q, k, valid_from, valid_to, q_offset, causal,
+                      window_block, sm_scale)
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
@@ -79,6 +97,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            / l_safe[..., None])
     return (out.reshape(b, nq, t, d).to(q.dtype), m.reshape(b, nq, t),
             l.reshape(b, nq, t))
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              m: torch.Tensor, l: torch.Tensor,
+                              valid_from: torch.Tensor,
+                              valid_to: torch.Tensor, q_offset: torch.Tensor,
+                              *, causal: bool, window_block: int,
+                              sm_scale: float):
+    """The backward kernel's function, restated densely in f32: the
+    gradient of JAX's ``_xla_forward`` (P never rounded), from the
+    forward's residuals m and l. A = p / l_safe, dP = dO·Vᵀ,
+    D = rowsum(A∘dP), dS = A∘(dP − D); dq = scale·dS·K,
+    dk = scale·dSᵀ·Q and dv = Aᵀ·dO, dk/dv summed over each KV head's
+    query heads. Returns (dq, dk, dv) in q's dtype."""
+    b, nq, t, d = q.shape
+    _, nkv, s_len, _ = k.shape
+    g = nq // nkv
+    s, mask = _scores(q, k, valid_from, valid_to, q_offset, causal,
+                      window_block, sm_scale)
+    m = m.reshape(b, nkv, g, t).float()
+    l = l.reshape(b, nkv, g, t).float()
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    a = torch.where(mask, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s)) / l_safe[..., None]
+    do = dout.reshape(b, nkv, g, t, d).float()
+    dp = torch.einsum("bhgtd,bhsd->bhgts", do, v.float())
+    ds = a * (dp - (a * dp).sum(dim=-1, keepdim=True))
+    qg = q.reshape(b, nkv, g, t, d).float()
+    dq = torch.einsum("bhgts,bhsd->bhgtd", ds, k.float()) * sm_scale
+    dk = torch.einsum("bhgts,bhgtd->bhsd", ds, qg) * sm_scale
+    dv = torch.einsum("bhgts,bhgtd->bhsd", a, do)
+    return (dq.reshape(b, nq, t, d).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def _library() -> ctypes.CDLL:
@@ -138,6 +190,113 @@ def _launch(q, k, v, vf, vt, q_off, *, causal, window_block, sm_scale):
     return out, m, l
 
 
+def _bwd_library() -> ctypes.CDLL:
+    lib = load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 13 + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
+                        *, causal: bool, window_block: int, sm_scale: float):
+    """(dq, dk, dv) of ``flash_attention``'s output against ``dout``, from
+    the forward's residuals m and l (the mask arguments as the forward
+    took them: int32 [B] on q's device). A CUDA tensor launches
+    ``csrc/flash_attention_bwd.cu`` or raises; only a CPU tensor takes
+    ``flash_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, dout, m, l, valid_from, valid_to, q_offset,
+            causal=causal, window_block=window_block, sm_scale=sm_scale)
+    b, nq, t, d = q.shape
+    nkv, s_len = k.shape[1], k.shape[2]
+    dev = q.device
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype
+                                         for x in (k, v, dout)):
+        raise ValueError(f"flash_attention_bwd takes f32 or bf16 q/k/v/dout "
+                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}/"
+                         f"{dout.dtype}")
+    if dout.shape != q.shape or v.shape != k.shape or k.shape[0] != b \
+            or k.shape[3] != d:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}, dout "
+                         f"{tuple(dout.shape)} disagree")
+    if d % 4 or d > _MAX_D or nq % nkv or nq // nkv > _ROWS_PER_BLOCK:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} (a multiple of "
+                         f"4 up to {_MAX_D}) or query group {nq}/{nkv} not "
+                         f"taken")
+    for x in (m, l):
+        if x.dtype != torch.float32 or x.shape != (b, nq, t):
+            raise ValueError(f"m and l must be f32 [{b}, {nq}, {t}], got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    tensors = (q, k, v, dout, m, l)
+    if any(x.device != dev or not x.is_contiguous() for x in tensors):
+        raise ValueError("flash_attention_bwd needs contiguous q, k, v, "
+                         "dout, m and l on one device")
+    for x, name in ((valid_from, "kv_valid_from"), (valid_to, "kv_valid_to"),
+                    (q_offset, "q_offset")):
+        _check_int_vec(x, b, dev, name)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, nq, t), dtype=torch.float32, device=dev)
+    if t == 0:
+        return dq, dk.zero_(), dv.zero_()
+    err = _bwd_library().flash_attention_bwd(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), m.data_ptr(), l.data_ptr(), valid_from.data_ptr(),
+        valid_to.data_ptr(), q_offset.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, nq, nkv, t,
+        s_len, d, int(bool(causal)), int(window_block), float(sm_scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashFunction(torch.autograd.Function):
+    """``flash_attention`` as an autograd function: the forward kernel (or
+    its plain version on the CPU), and ``flash_attention_bwd`` as its
+    backward. Saves q, k, v and the f32 residuals m and l (not the output:
+    the backward takes D = rowsum(A∘dP) from the recomputed A)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, vf, vt, q_off, causal, window_block, sm_scale):
+        ctx.set_materialize_grads(False)
+        if q.device.type == "cpu":
+            out, m, l = flash_attention_plain(
+                q, k, v, vf, vt, q_off, causal=causal,
+                window_block=window_block, sm_scale=sm_scale)
+        else:
+            out, m, l = _launch(q, k, v, vf, vt, q_off, causal=causal,
+                                window_block=window_block, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, m, l, vf, vt, q_off)
+        ctx.mask = (causal, window_block, sm_scale)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, dout, dm, dl):
+        if dm is not None or dl is not None:
+            raise NotImplementedError(
+                "a cotangent on flash attention's m or l (the context-"
+                "parallel combine's inputs) has no backward in the port yet "
+                "(ROADMAP item 14)")
+        if dout is None:
+            return (None,) * 9
+        q, k, v, m, l, vf, vt, q_off = ctx.saved_tensors
+        causal, window_block, sm_scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, dout.contiguous(), m, l, vf, vt, q_off, causal=causal,
+            window_block=window_block, sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, q_offset=0,
                     kv_valid_from: Optional[torch.Tensor] = None,
@@ -148,7 +307,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``return_residuals``, m and l as [B, Nq, T] f32).
 
     A CUDA tensor launches the kernel or raises; only a CPU tensor takes
-    the plain version."""
+    the plain version. Differentiable in q, k and v (``FlashFunction``)."""
     b, nq, t, d = q.shape
     nkv, s_len = k.shape[1], k.shape[2]
     if nq % nkv:
@@ -166,7 +325,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              if torch.is_tensor(q_offset)
              else torch.full((b,), int(q_offset), dtype=torch.int32,
                              device=dev))
-    if dev.type == "cpu":
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, m, l = FlashFunction.apply(
+            q, k, v, vf.contiguous(), vt.contiguous(), q_off, causal,
+            int(window_block), float(sm_scale))
+    elif dev.type == "cpu":
         out, m, l = flash_attention_plain(q, k, v, vf, vt, q_off,
                                           causal=causal,
                                           window_block=int(window_block),

@@ -42,6 +42,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ._build import load
+from .autograd import refuse_grad
 from .decode_attention import _TICKETS, ticket_buffer
 from .qgemv import (_OUT_CODE, _S_CODE, _SMS, _W_CODE, MAX_GROUP,
                     check_operands, int4_product)
@@ -263,6 +264,7 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     (``ops/qgemv.py`` ``check_operands``: bf16 x, the payload dtypes and
     int4 layouts the kernels take, contiguous operands); only a CPU
     tensor takes the plain version."""
+    refuse_grad("qgemm", x, q, s)
     if x.device.type == "cpu":
         return qgemm_plain(x, q, s, out_dtype=out_dtype)
     return _launch(x, [(q, s)], out_dtype)[0]
@@ -275,6 +277,7 @@ def qgemm_group(x: torch.Tensor,
     (1..3 payloads of one K, one payload dtype, scale dtype and group
     layout: q, k and v; gate and up); one plain version per payload on
     the CPU."""
+    refuse_grad("qgemm_group", x, *(t for pair in pairs for t in pair))
     if x.device.type == "cpu":
         return [qgemm_plain(x, q, s, out_dtype=out_dtype) for q, s in pairs]
     return _launch(x, list(pairs), out_dtype)

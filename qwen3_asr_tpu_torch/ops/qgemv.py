@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from ._build import load
+from .autograd import refuse_grad
 from .decode_attention import ticket_buffer
 
 GEMV_MAX_ROWS = 16           # kMaxRows in csrc/qgemv.cu
@@ -323,6 +324,7 @@ def qgemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     """x [M, K] @ q[N, K].T * s[N] → [M, N] in ``out_dtype`` (int4: q
     [N, K/2] pairs, s [N, G]). A CUDA tensor launches the kernel or raises;
     only a CPU tensor takes the plain version."""
+    refuse_grad("qgemv", x, q, s)
     if x.device.type == "cpu":
         return qgemv_plain(x, q, s, out_dtype=out_dtype)
     return _launch(x, [(q, s)], out_dtype)[0]
@@ -334,6 +336,7 @@ def qgemv_group(x: torch.Tensor,
     """``[qgemv(x, q, s) for q, s in pairs]`` in ONE launch on the card
     (1..3 payloads of one K, one payload dtype and one scale dtype); one
     plain version per payload on the CPU."""
+    refuse_grad("qgemv_group", x, *(t for pair in pairs for t in pair))
     if x.device.type == "cpu":
         return [qgemv_plain(x, q, s, out_dtype=out_dtype) for q, s in pairs]
     return _launch(x, list(pairs), out_dtype)

@@ -26,6 +26,17 @@ decode step, which a CUDA graph replays at a new position), or a ``[B]``
 int64 device tensor, one position a row (the resume loop's continuation,
 each row at its own frontier; still one launch a layer); a key at or past
 the cache's end is not written.
+
+Training takes ``qk_rope`` instead, a ``torch.autograd.Function`` that
+returns the q, k and v heads with no cache: its forward is kernel B
+writing into a fresh one-layer cache of length T at position 0 (which is
+then exactly k and v, as JAX's ``asr_loss`` writes all T keys into a
+fresh cache, ``qwen3_asr_tpu/runtime/train.py:51-55``), its backward the
+hand-written ``csrc/qk_rope_bwd.cu`` (``qk_rope_bwd``; its plain version
+``qk_rope_bwd_plain``): RoPE's transpose, then RMSNorm's backward, for q
+and k, with the ``q_norm``/``k_norm`` weight gradients; v's cotangent
+passes through. The in-place ``qk_rope_kv_write`` has no backward and
+raises when autograd would need one.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from typing import Union
 import torch
 
 from ._build import load
+from .autograd import refuse_grad
 from .kv_int4 import HEAD_DIM as INT4_HEAD_DIM
 from .kv_int4 import kv_int4_write_plain, write_kv
 
@@ -81,6 +93,145 @@ def qk_rope_kv_write_plain(q, k, v, q_norm, k_norm, cos, sin, eps: float,
         write_kv(cache.k[layer], k, write_pos)
         write_kv(cache.v[layer], v, write_pos)
     return q
+
+
+def _rope_transpose(u: torch.Tensor) -> torch.Tensor:
+    """Rᵀu for apply_rope's rotation R[u1; u2] = [-u2; u1]: [u2; -u1]."""
+    half = u.shape[-1] // 2
+    return torch.cat([u[..., half:], -u[..., :half]], dim=-1)
+
+
+def qk_rope_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor, eps: float,
+                      g: torch.Tensor):
+    """The backward kernel's function on one of q or k, restated: x the
+    forward's input heads [B, N, T, D], g the cotangent of
+    ``apply_rope(rms_norm(x, weight, eps), cos, sin)``. RoPE's transpose
+    rounded to x's dtype (the gradient of the norm output's ``astype``),
+    then RMSNorm's backward in f32 from x. Returns (dx in x's dtype, the
+    weight's gradient summed over every row, in its dtype)."""
+    gf = g.float()
+    dy = (gf * cos[:, None] + _rope_transpose(gf * sin[:, None])
+          ).to(x.dtype).float()
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    n = xf * r
+    dn = dy * weight.float()
+    dx = r * (dn - n * (dn * n).mean(dim=-1, keepdim=True))
+    dw = (dy * n).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load("qk_rope_bwd")
+    fn = lib.qk_rope_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 15 + [ctypes.c_float] + [i] * 6 + [p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+_BWD_MAX_BLOCKS = 528       # 4 a streaming multiprocessor on the H100
+
+
+def qk_rope_bwd(q, k, q_norm, k_norm, cos, sin, eps: float, gq, gk, gv):
+    """Gradients of ``qk_rope``'s outputs' cotangents gq [B, nq, T, D] and
+    gk, gv [B, nkv, T, D], from its inputs q [B, T, nq*D] and k: returns
+    (dq, dk, dv) in the inputs' [B, T, heads*D] layout and the
+    ``q_norm``/``k_norm`` gradients. A CUDA tensor launches
+    ``csrc/qk_rope_bwd.cu`` or raises; only a CPU tensor takes
+    ``qk_rope_bwd_plain``."""
+    d = q_norm.shape[-1]
+    b, t, _ = q.shape
+    if q.device.type == "cpu":
+        dq, dwq = qk_rope_bwd_plain(_heads(q, d), q_norm, cos, sin, eps, gq)
+        dk, dwk = qk_rope_bwd_plain(_heads(k, d), k_norm, cos, sin, eps, gk)
+        flat = lambda x: x.transpose(1, 2).reshape(b, t, -1)  # noqa: E731
+        return flat(dq), flat(dk), flat(gv), dwq, dwk
+    dev, dt = q.device, q.dtype
+    check_head_dim(d)
+    nq, nkv = q.shape[2] // d, k.shape[2] // d
+    if dt not in _X_CODE or any(x.dtype != dt for x in
+                                (k, q_norm, k_norm, gq, gk, gv)):
+        raise ValueError("qk_rope_bwd takes f32 or bf16 inputs, norms and "
+                         "cotangents of one dtype")
+    if (gq.shape != (b, nq, t, d) or gk.shape != (b, nkv, t, d)
+            or gv.shape != gk.shape or k.shape != (b, t, nkv * d)
+            or cos.shape != (b, t, d) or sin.shape != cos.shape
+            or cos.dtype != torch.float32 or sin.dtype != torch.float32):
+        raise ValueError(f"qk_rope_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, cotangents {tuple(gq.shape)}, "
+                         f"{tuple(gk.shape)}, {tuple(gv.shape)} and cos "
+                         f"{tuple(cos.shape)} disagree")
+    tensors = (q, k, q_norm, k_norm, cos, sin, gq, gk, gv)
+    if any(x.device != dev or not x.is_contiguous() for x in tensors):
+        raise ValueError("qk_rope_bwd: every tensor contiguous on q's device")
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    dv = torch.empty_like(k)
+    dwq, dwk = torch.empty_like(q_norm), torch.empty_like(k_norm)
+    rows = b * t * (nq + 2 * nkv)
+    blocks = max(1, min(_BWD_MAX_BLOCKS, -(-rows // 8)))
+    partial = torch.empty((blocks, 2, d), dtype=torch.float32, device=dev)
+    err = _bwd_library().qk_rope_bwd(
+        _X_CODE[dt], q.data_ptr(), k.data_ptr(), q_norm.data_ptr(),
+        k_norm.data_ptr(), cos.data_ptr(), sin.data_ptr(), gq.data_ptr(),
+        gk.data_ptr(), gv.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), partial.data_ptr(), dwq.data_ptr(), dwk.data_ptr(),
+        float(eps), b, t, nq, nkv, d, blocks,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qk_rope_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    qk_rope_bwd.launches += 1
+    return dq, dk, dv, dwq, dwk
+
+
+qk_rope_bwd.launches = 0
+
+
+class QkRopeFunction(torch.autograd.Function):
+    """QK-norm + RoPE on q and k, v's heads as they are: see ``qk_rope``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_norm, k_norm, cos, sin, eps):
+        d = q_norm.shape[-1]
+        if q.device.type == "cpu":
+            qh = apply_rope(rms_norm(_heads(q, d), q_norm, eps), cos, sin)
+            kh = apply_rope(rms_norm(_heads(k, d), k_norm, eps), cos, sin)
+            out = (qh.contiguous(), kh.contiguous(),
+                   _heads(v, d).contiguous())
+        else:
+            from ..models.decoder import KVCache
+            b, t, _ = k.shape
+            shape = (1, b, k.shape[2] // d, t, d)
+            cache = KVCache(torch.empty(shape, dtype=q.dtype, device=q.device),
+                            torch.empty(shape, dtype=q.dtype, device=q.device))
+            qh = _launch(q, k, v, q_norm, k_norm, cos, sin, eps, cache, 0, 0)
+            out = (qh, cache.k[0], cache.v[0])
+        ctx.save_for_backward(q, k, q_norm, k_norm, cos, sin)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        q, k, q_norm, k_norm, cos, sin = ctx.saved_tensors
+        dq, dk, dv, dwq, dwk = qk_rope_bwd(
+            q.contiguous(), k.contiguous(), q_norm, k_norm, cos, sin,
+            ctx.eps, gq.contiguous(), gk.contiguous(), gv.contiguous())
+        return dq, dk, dv, dwq, dwk, None, None, None
+
+
+def qk_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_norm: torch.Tensor, k_norm: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor, eps: float):
+    """Training's QK-norm + RoPE: q, k, v ``[B, T, heads * D]`` → the q, k
+    and v heads ``[B, heads, T, D]``, contiguous, q and k normalised and
+    rotated at JAX's rounding points, differentiable in q, k, v and the
+    norm weights. On the card the forward is kernel B into a fresh
+    one-layer cache and the backward ``csrc/qk_rope_bwd.cu``; on the CPU
+    the plain chain and ``qk_rope_bwd_plain``."""
+    return QkRopeFunction.apply(q, k, v, q_norm, k_norm, cos, sin, eps)
 
 
 def check_head_dim(head_dim: int) -> None:
@@ -221,7 +372,8 @@ def qk_rope_kv_write(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b's keys ``write_pos[b] ..  + T - 1``), IN PLACE; returns q
     ``[B, nq, T, D]``. A CUDA tensor
     launches the kernel or raises; only a CPU tensor takes the plain
-    version."""
+    version. No backward: training takes ``qk_rope``."""
+    refuse_grad("qk_rope_kv_write", q, k, v, q_norm, k_norm)
     if q.device.type == "cpu":
         return qk_rope_kv_write_plain(q, k, v, q_norm, k_norm, cos, sin, eps,
                                       cache, layer, write_pos)

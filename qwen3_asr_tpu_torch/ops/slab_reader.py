@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from ._build import load
+from .autograd import refuse_grad
 from .decode_attention import ticket_buffer
 from .decode_attention_batch import (CACHE_TILE, HEAD_DIM, INT4_PLAN_ITEMSIZE,
                                      batch_plan)
@@ -141,6 +142,7 @@ def slab_read(k: torch.Tensor, v: torch.Tensor, *, layer_idx: int = 0,
 
     A CUDA tensor launches the kernel or raises; only a CPU tensor takes
     the plain version."""
+    refuse_grad("slab_read", k, v, k_scale, v_scale)
     if (k_scale is None) != (v_scale is None):
         raise ValueError("an int4 cache needs both k_scale and v_scale")
     s_len = k.shape[-2]

@@ -7,10 +7,14 @@ package. Parameters are plain dicts of tensors with the JAX package's keys
 and layouts (per-layer weights stacked on a leading ``[L, ...]`` axis,
 matrices as ``[in, out]``), so ``params_from_jax`` is a straight copy
 (quantized payloads are transposed to ``[..., out, in]``, ``ops/quant.py``).
+``save_asr_checkpoint`` is the inverse (``qwen3_asr_tpu/runtime/checkpoint.py``
+``save_asr_checkpoint``), through the port's own safetensors writer.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import os
 import struct
 from typing import Dict, Optional, Tuple
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 
 from ..models.config import AsrConfig, AudioEncoderConfig, DecoderConfig
+
+log = logging.getLogger(__name__)
 
 _NP_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16,
               "F64": np.float64, "I64": np.int64, "I32": np.int32}
@@ -47,6 +53,27 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
             arr = (arr.astype(np.uint32) << 16).view(np.float32)
         out[name] = arr
     return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, np.ndarray]) -> None:
+    """{name: f32 array} → one .safetensors file, the inverse of
+    ``read_safetensors``: the JSON header (names in sorted order, padded
+    with spaces to 8 bytes, as the safetensors package pads it), then each
+    array's little-endian bytes, C-contiguous, back to back."""
+    header, offset, blobs = {}, 0, []
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name], dtype="<f4")
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+        blobs.append(arr)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for arr in blobs:
+            f.write(arr.tobytes())
 
 
 def load_safetensors_dir(path: str) -> Dict[str, np.ndarray]:
@@ -230,3 +257,99 @@ def load_asr_checkpoint(path: str, device,
     tree = {"encoder": convert_encoder_state_dict(sd, cfg.encoder),
             "decoder": convert_decoder_state_dict(sd, cfg.decoder)}
     return cfg, to_torch(tree, torch.device(device), dtype)
+
+
+def config_to_dict(cfg: AsrConfig) -> dict:
+    """AsrConfig → HF-style config.json dict (AsrConfig.from_dict inverse)."""
+    return {
+        "model_type": "qwen3_asr",
+        "audio_config": dataclasses.asdict(cfg.encoder),
+        "text_config": dataclasses.asdict(cfg.decoder),
+        "audio_token_id": cfg.audio_token_id,
+        "bos_token_id": cfg.bos_token_id,
+        "eos_token_id": cfg.eos_token_id,
+        "pad_token_id": cfg.pad_token_id,
+    }
+
+
+_DECODER_LEAVES = [  # (stacked leaf, HF name, transposed back to [out, in])
+    ("ln1", "input_layernorm.weight", False),
+    ("ln2", "post_attention_layernorm.weight", False),
+    ("wq", "self_attn.q_proj.weight", True),
+    ("wk", "self_attn.k_proj.weight", True),
+    ("wv", "self_attn.v_proj.weight", True),
+    ("wo", "self_attn.o_proj.weight", True),
+    ("q_norm", "self_attn.q_norm.weight", False),
+    ("k_norm", "self_attn.k_norm.weight", False),
+    ("w_gate", "mlp.gate_proj.weight", True),
+    ("w_up", "mlp.up_proj.weight", True),
+    ("w_down", "mlp.down_proj.weight", True),
+]
+_ENCODER_LEAVES = [
+    ("ln1_w", "self_attn_layer_norm.weight", False),
+    ("ln1_b", "self_attn_layer_norm.bias", False),
+    ("wq", "self_attn.q_proj.weight", True),
+    ("bq", "self_attn.q_proj.bias", False),
+    ("wk", "self_attn.k_proj.weight", True),
+    ("bk", "self_attn.k_proj.bias", False),
+    ("wv", "self_attn.v_proj.weight", True),
+    ("bv", "self_attn.v_proj.bias", False),
+    ("wo", "self_attn.out_proj.weight", True),
+    ("bo", "self_attn.out_proj.bias", False),
+    ("ln2_w", "final_layer_norm.weight", False),
+    ("ln2_b", "final_layer_norm.bias", False),
+    ("fc1_w", "fc1.weight", True),
+    ("fc1_b", "fc1.bias", False),
+    ("fc2_w", "fc2.weight", True),
+    ("fc2_b", "fc2.bias", False),
+]
+
+
+def save_asr_checkpoint(path: str, cfg: AsrConfig, params: dict) -> str:
+    """Inverse of :func:`load_asr_checkpoint`: the stacked-layer params
+    written back as an HF-layout checkpoint directory (config.json +
+    model.safetensors, per-layer tensors in torch's ``[out, in]``
+    convention, f32 as the JAX package writes them), so ``MODEL_ID`` can
+    point at what ``runtime/train.py`` produced. Quantized params are
+    refused (save before quantizing)."""
+    from ..ops.quant import any_quantized
+    if any_quantized(params):
+        raise ValueError("params contain quantized {'q','s'} leaves "
+                         "(ops/quant.py) — save before quantizing")
+    os.makedirs(path, exist_ok=True)
+
+    def host(x) -> np.ndarray:
+        return x.detach().to("cpu", torch.float32).numpy()
+
+    dec, enc = params["decoder"], params["encoder"]
+    sd: Dict[str, np.ndarray] = {}
+    p = "model."
+    sd[p + "embed_tokens.weight"] = host(dec["embed"])
+    sd[p + "norm.weight"] = host(dec["final_norm"])
+    if "lm_head" in dec:
+        sd["lm_head.weight"] = host(dec["lm_head"]).T
+    for i in range(cfg.decoder.num_hidden_layers):
+        for leaf, name, t in _DECODER_LEAVES:
+            a = host(dec["layers"][leaf][i])
+            sd[f"{p}layers.{i}.{name}"] = a.T if t else a
+
+    p = "audio_tower."
+    for n in (1, 2, 3):
+        sd[p + f"conv2d{n}.weight"] = host(enc[f"conv{n}_w"])
+        sd[p + f"conv2d{n}.bias"] = host(enc[f"conv{n}_b"])
+    sd[p + "conv_out.weight"] = host(enc["conv_out_w"]).T
+    sd[p + "ln_post.weight"] = host(enc["ln_post_w"])
+    sd[p + "ln_post.bias"] = host(enc["ln_post_b"])
+    for n in (1, 2):
+        sd[p + f"proj{n}.weight"] = host(enc[f"proj{n}_w"]).T
+        sd[p + f"proj{n}.bias"] = host(enc[f"proj{n}_b"])
+    for i in range(cfg.encoder.encoder_layers):
+        for leaf, name, t in _ENCODER_LEAVES:
+            a = host(enc["layers"][leaf][i])
+            sd[p + f"layers.{i}.{name}"] = a.T if t else a
+
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1)
+    log.info("Checkpoint saved to %s (%d tensors)", path, len(sd))
+    return path

@@ -1866,3 +1866,205 @@ def test_debug_trace_holds_the_ports_kernels(dev, tmp_path, monkeypatch):
     library = ("flash_fwd", "pytorch_flash", "fmha", "efficient_attention",
                "sdpa", "flash_fprop")
     assert not [n for n in names if any(p in n.lower() for p in library)]
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels (csrc/flash_attention_bwd.cu,
+# csrc/qk_rope_bwd.cu) against their plain versions on the card
+
+FLASH_BWD_CASES = {
+    # (b, nq, nkv, t, s, d, causal, window, valid_from, valid_to, q_offset)
+    # the encoder's windows at preset:1.7b (50 tokens a window): 6 s, 30 s
+    "encoder_6s": (2, 20, 20, 75, 75, 64, False, 50, [0, 0], [75, 60],
+                   [0, 0]),
+    "encoder_30s": (1, 20, 20, 375, 375, 64, False, 50, [0], [375], [0]),
+    # the training forward at preset:1.7b, 6 s bucket: [prefix 64, audio
+    # 75, suffix + targets 78], the prompt from 12
+    "train_causal_1p7b": (2, 16, 8, 217, 217, 128, True, 0, [12, 0],
+                          [217, 217], [0, 0]),
+    "trained_ckpt_heads": (2, 4, 2, 150, 150, 48, True, 0, [20, 45],
+                           [150, 150], [0, 0]),
+    "fully_masked_rows": (2, 2, 2, 40, 40, 64, False, 0, [45, 3], [40, 30],
+                          [0, 0]),
+    "group8_q_offset": (1, 16, 2, 29, 200, 96, True, 0, [3], [200], [171]),
+    "window_crossing_tiles": (2, 2, 2, 230, 230, 64, False, 50, [0, 0],
+                              [230, 171], [0, 0]),
+}
+
+
+def _flash_bwd_inputs(dev, name, dtype, seed=0):
+    b, nq, nkv, t, s, d, causal, window, vf, vt, qo = FLASH_BWD_CASES[name]
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, nq, t, d), dtype, dev)
+    k = _randn(rng, (b, nkv, s, d), dtype, dev)
+    v = _randn(rng, (b, nkv, s, d), dtype, dev)
+    g = _randn(rng, (b, nq, t, d), dtype, dev)
+    vf, vt, qo = (torch.tensor(x, dtype=torch.int32, device=dev)
+                  for x in (vf, vt, qo))
+    out, m, l = flash_attention(q, k, v, causal=causal, q_offset=qo,
+                                kv_valid_from=vf, kv_valid_to=vt,
+                                window_block=window, return_residuals=True)
+    kw = dict(causal=causal, window_block=window, sm_scale=d ** -0.5)
+    return (q, k, v, g, m, l, vf, vt, qo), kw
+
+
+def _close_to_max(got, want, tol):
+    scale = max(float(want.float().abs().max()), 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(FLASH_BWD_CASES))
+def test_flash_bwd_kernel_matches_plain(dev, name, dtype):
+    """Kernel (i) against ``flash_attention_bwd_plain`` on the same card
+    inputs: f32 to 2e-5 and bf16 to 2e-2 of each gradient's largest
+    magnitude (outputs rounded to bf16 on both sides); a repeat call
+    gives the same bits; every fully masked row's dq is 0."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    args, kw = _flash_bwd_inputs(dev, name, dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*args, **kw)
+    again = flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    want = flash_attention_bwd_plain(*args, **kw)
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b_)
+        _close_to_max(a, w, TOL[dtype])
+    l = args[5]
+    assert torch.all(got[0][l == 0] == 0)
+
+
+def test_flash_autograd_on_card_launches_the_backward(dev):
+    """flash_attention under autograd on the card: FlashFunction, forward
+    kernel then kernel (i); gradients equal the direct call's."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    (q, k, v, g, m, l, vf, vt, qo), kw = _flash_bwd_inputs(
+        dev, "train_causal_1p7b", torch.bfloat16)
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*ts, causal=True, kv_valid_from=vf,
+                          kv_valid_to=vt, q_offset=qo)
+    got = torch.autograd.grad(out, ts, g)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches
+            - b0) == (1, 1)
+    want = flash_attention_bwd(q, k, v, g, m, l, vf, vt, qo, **kw)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_flash_residual_cotangent_raises_on_card(dev):
+    (q, k, v, *_), _ = _flash_bwd_inputs(dev, "encoder_6s", torch.bfloat16)
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, m, l = flash_attention(*ts, window_block=50, return_residuals=True)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        (out.float().sum() + l.sum()).backward()
+
+
+QK_BWD_SHAPES = {
+    # (b, t, nq, nkv, d): preset:1.7b's training rows, its encoder-free
+    # decoder at head_dim 128, trained_ckpt's 48, an odd 24
+    "1p7b_b8": (8, 217, 16, 8, 128),
+    "trained_ckpt": (2, 150, 4, 2, 48),
+    "d24": (3, 7, 4, 2, 24),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(QK_BWD_SHAPES))
+def test_qk_rope_bwd_kernel_matches_plain(dev, shape, dtype):
+    """``qk_rope`` on the card: the forward is kernel B (one launch) and
+    equals the plain chain within an ulp; kernel (ii)'s dx and norm
+    gradients equal ``qk_rope_bwd_plain``'s (f32 2e-5, bf16 2e-2 of the
+    largest magnitude), v's cotangent passes through exactly, and a
+    repeat call gives the same bits."""
+    from qwen3_asr_tpu_torch.models.decoder import rope_cos_sin
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import (
+        _heads, apply_rope, qk_rope, qk_rope_bwd, qk_rope_bwd_plain,
+        qk_rope_kv_write, rms_norm)
+    b, t, nq, nkv, d = QK_BWD_SHAPES[shape]
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (b, t, nq * d), dtype, dev)
+    k = _randn(rng, (b, t, nkv * d), dtype, dev)
+    v = _randn(rng, (b, t, nkv * d), dtype, dev)
+    wq = (1 + 0.1 * _randn(rng, (d,), torch.float32, dev)).to(dtype)
+    wk = (1 + 0.1 * _randn(rng, (d,), torch.float32, dev)).to(dtype)
+    gq = _randn(rng, (b, nq, t, d), dtype, dev)
+    gk = _randn(rng, (b, nkv, t, d), dtype, dev)
+    gv = _randn(rng, (b, nkv, t, d), dtype, dev)
+    cos, sin = rope_cos_sin(torch.arange(t, device=dev)[None].expand(b, t),
+                            d, 1e6)
+    f0 = qk_rope_kv_write.launches
+    outs = qk_rope(q, k, v, wq, wk, cos, sin, 1e-6)
+    torch.cuda.synchronize()
+    assert qk_rope_kv_write.launches == f0 + 1
+    refs = (apply_rope(rms_norm(_heads(q, d), wq, 1e-6), cos, sin),
+            apply_rope(rms_norm(_heads(k, d), wk, 1e-6), cos, sin),
+            _heads(v, d))
+    for o, r in zip(outs, refs):
+        _close_to_max(o, r, TOL[dtype])
+    b0 = qk_rope_bwd.launches
+    got = qk_rope_bwd(q, k, wq, wk, cos, sin, 1e-6, gq, gk, gv)
+    again = qk_rope_bwd(q, k, wq, wk, cos, sin, 1e-6, gq, gk, gv)
+    torch.cuda.synchronize()
+    assert qk_rope_bwd.launches == b0 + 2
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    dq, dwq = qk_rope_bwd_plain(_heads(q, d), wq, cos, sin, 1e-6, gq)
+    dk, dwk = qk_rope_bwd_plain(_heads(k, d), wk, cos, sin, 1e-6, gk)
+    flat = lambda x: x.transpose(1, 2).reshape(b, t, -1)  # noqa: E731
+    for a, w in zip(got, (flat(dq), flat(dk), flat(gv), dwq, dwk)):
+        assert a.dtype == dtype
+        _close_to_max(a, w, TOL[dtype])
+    assert torch.equal(got[2], flat(gv))
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Three f32 steps of the port's train step (clip + adamw) on a tiny
+    random model, card against CPU: losses to 1e-5 relative, and the
+    step launched flash's and qk_rope's forward and backward kernels."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from qwen3_asr_tpu_torch.ops.qk_rope_kv import (qk_rope_bwd,
+                                                    qk_rope_kv_write)
+    from qwen3_asr_tpu_torch.runtime import optim
+    from qwen3_asr_tpu_torch.runtime.train import (init_train_state,
+                                                   make_train_step)
+    cfg = preset("tiny")
+    rng = np.random.default_rng(0)
+    batch = {
+        "mel": rng.standard_normal((2, 128, 200)).astype(np.float32),
+        "feature_lens": np.array([200, 150], np.int32),
+        "prompt_ids": rng.integers(0, 400, (2, 8)).astype(np.int32),
+        "target_ids": rng.integers(0, 400, (2, 10)).astype(np.int32),
+        "target_mask": np.ones((2, 10), np.int32),
+        "valid_from": np.array([0, 3], np.int32),
+    }
+    losses = {}
+    for where in ("cpu", "cuda"):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        params = {"encoder": init_encoder_params(cfg.encoder, gen, "cpu"),
+                  "decoder": init_decoder_params(cfg.decoder, gen, "cpu")}
+        params = optim.tree_map(lambda x: x.to(where), params)
+        opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(1e-3))
+        state, step = init_train_state(params, opt), make_train_step(cfg, opt)
+        counts = [f.launches for f in (flash_attention, flash_attention_bwd,
+                                       qk_rope_kv_write, qk_rope_bwd)]
+        out = []
+        for _ in range(3):
+            state, loss = step(state, batch)
+            out.append(float(loss))
+        losses[where] = out
+        if where == "cuda":
+            launched = [f.launches - c for f, c in zip(
+                (flash_attention, flash_attention_bwd, qk_rope_kv_write,
+                 qk_rope_bwd), counts)]
+            layers = cfg.encoder.encoder_layers + cfg.decoder.num_hidden_layers
+            assert launched == [3 * layers, 3 * layers,
+                                3 * cfg.decoder.num_hidden_layers,
+                                3 * cfg.decoder.num_hidden_layers], launched
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)

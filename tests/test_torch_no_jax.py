@@ -11,7 +11,8 @@ import torch  # noqa: F401
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "qwen3_asr_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "qwen3_asr_tpu", "regex", "aiohttp",
-             "safetensors", "jinja2", "pydantic", "pygame")
+             "safetensors", "jinja2", "pydantic", "pygame", "optax",
+             "tokenizers")
 
 
 def _sources():
