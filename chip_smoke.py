@@ -243,9 +243,11 @@ without a CUDA device, and whenever any phase fails. Phases:
    the first 5 s), and its request wall against the same audio as WAV, in
    turns; the 330 s tiled clip as FLAC: decode ms per audio second; (c)
    ``POST /debug/trace?seconds=3`` while a 29.5 s upload runs: a second
-   capture answers 409, the newest Chrome trace in ``ASR_TRACE_DIR`` holds
+   capture answers 409, the answer's seconds recorded agree with its
+   ``budget_reached``, the newest Chrome trace in ``ASR_TRACE_DIR`` holds
    the port's flash and decode kernels and no library attention kernel;
-   kernel events counted, the upload's wall with and without the capture;
+   kernel events counted beside the answer's estimate, the upload's wall
+   with and without the capture;
    (d) ``/metrics``: ``asr_requests_total`` equals the requests the phase
    sent, by route, method and status (a 404 as ``unmatched``), the
    duration histogram counts them, the gauges are there; ``/openapi.json``
@@ -273,7 +275,10 @@ without a CUDA device, and whenever any phase fails. Phases:
 
 18. training (``runtime/train.py``, ``tools/finetune.py``): (a) the
    backward kernels against their plain versions in f32 and bf16, a
-   repeat call's bits equal the first's: flash attention's
+   repeat call's bits equal the first's, each call on the route
+   ``bwd_route`` names (flash's tensor cores in bf16, CUDA cores in f32;
+   QK-norm + RoPE's 16-byte vectors at head dim 128, a warp a row at 48),
+   every route timed: flash attention's
    (``csrc/flash_attention_bwd.cu``) at the encoder's 6 s (B=8) and 30 s
    (B=1) windows and the training forward's causal shape at preset:1.7b
    (B=8, 6 s bucket: T = 217, the prompt from 12), QK-norm + RoPE's
@@ -292,8 +297,9 @@ without a CUDA device, and whenever any phase fails. Phases:
    (c) preset:1.7b at full width in bf16 with seeded random weights and
    its byte tokenizer, B=8 real clips at the 6 s bucket: ms a step
    (median of 3 after a warm step), finite losses, peak memory, launches
-   a step by kernel; (d) ``python -m qwen3_asr_tpu_torch.tools.finetune``
-   on the card, 2 steps on a manifest of 4 clips.
+   a step by kernel and by route; (d) ``python -m
+   qwen3_asr_tpu_torch.tools.finetune`` on the card, 2 steps on a manifest
+   of 4 clips.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -642,7 +648,12 @@ EARLIER_MS = {
     "wk_wv_m8_int8": 0.0055,
     # kernel B, the int4 cache write alone (before its redesign)
     "qk_b1_t1_int4": 0.0018, "qk_b8_t1_int4": 0.0019,
-    "qk_b96_t1_int4": 0.0022}
+    "qk_b96_t1_int4": 0.0022,
+    # kernels (i) and B' in bf16, their first versions (f32 arithmetic on
+    # the CUDA cores, a warp a row)
+    "encoder_6s_b8": 0.2057, "encoder_30s_b1": 0.1455,
+    "train_causal_b8_6s": 0.8282, "qk_bwd_b8_6s": 0.0456,
+    "qk_bwd_trained_ckpt_b12": 0.0243}
 
 
 def graph_node_types(graph: "torch.cuda.CUDAGraph") -> list:
@@ -5725,8 +5736,16 @@ def trace_phase(base: str, wav: bytes, sent, card: str) -> None:
         sent[("/debug/trace", "POST", str(status))] += 1
         files = sorted(glob.glob(os.path.join(trace_dir, "*.json")),
                        key=os.path.getmtime)
-        if status != 200 or json.loads(body) != {
+        answer = json.loads(body) if status == 200 else {}
+        # one upload's records come near the budget in 3 s: the answer
+        # says whether it cut the recording
+        cut = answer.get("budget_reached")
+        if status != 200 or {k: answer.get(k) for k in (
+                "trace_dir", "seconds")} != {
                 "trace_dir": trace_dir, "seconds": TRACE_SECONDS} \
+                or not 0 < answer.get("captured_seconds", 0) <= TRACE_SECONDS \
+                or cut != (answer["captured_seconds"] < TRACE_SECONDS) \
+                or not answer.get("kernel_records") \
                 or second[0] != 409 or not files:
             raise AssertionError(f"(c): trace {status} {body[:200]!r}, "
                                  f"second {second}, files {files}")
@@ -5742,11 +5761,12 @@ def trace_phase(base: str, wav: bytes, sent, card: str) -> None:
     library = {k[:80]: n for k, n in kernels.items()
                if any(p in k.lower() for p in LIBRARY_ATTENTION)}
     log(f"[trace] (c) POST /debug/trace?seconds={TRACE_SECONDS:g} during a "
-        f"29.5 s upload: 200 {json.loads(body)}; a second capture meanwhile "
+        f"29.5 s upload: 200 {answer}; a second capture meanwhile "
         f"answered {second[0]} {json.loads(second[1])['code']}; the trace "
         f"{size / 1e6:.1f} MB ({read_s:.1f} s to parse), {len(events)} "
         f"events, {sum(kernels.values())} kernel events of "
-        f"{len(kernels)} names: flash_bf16_kernel {flash}, "
+        f"{len(kernels)} names (the answer's estimate "
+        f"{answer['kernel_records']}): flash_bf16_kernel {flash}, "
         f"decode_split_kernel {decode}, library attention {library} | {card}")
     log(f"[trace] (c) the upload's wall: {off[0]:.3f} / {off[1]:.3f} s "
         f"without a capture, {on:.3f} s under it | {card}")
@@ -6360,11 +6380,13 @@ def qk_bwd_cases(ts, dtype, dev):
     return out
 
 
-def train_time_row(label, err, run, plain, library, nbytes, flops, card):
+def train_time_row(label, dt, route, err, run, plain, library, nbytes,
+                   flops, card):
     """Phase 3's row for a backward kernel: device ms of the kernel, of its
     plain version and of the library's backward (CUDA graph replays; the
     library's backward as its forward and backward, autograd captured in
-    the graph, less its forward alone), the bound."""
+    the graph, less its forward alone), the bound (the products at the
+    dtype's peak: bf16's tensor cores, f32's CUDA cores)."""
     ms, plain_ms = per_call_ms(run, 0), per_call_ms(plain, 0)
     lib_ms = (per_call_ms(library[1], 0) - per_call_ms(library[0], 0)
               if library is not None else None)
@@ -6373,9 +6395,11 @@ def train_time_row(label, err, run, plain, library, nbytes, flops, card):
                              f"longer than its forward ({lib_ms} ms)")
     call_ms = eager_ms(run, 50)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / (BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS) * 1e3
     bound = max(t_bytes, t_ops)
-    row = {"shape": label, "dtype": "bfloat16", "max_abs_err": err,
+    name = str(dt)[6:]
+    row = {"shape": label if dt == torch.bfloat16 else f"{label}_{name}",
+           "dtype": name, "route": route, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -6383,22 +6407,39 @@ def train_time_row(label, err, run, plain, library, nbytes, flops, card):
     lib = (f"SDPA backward {lib_ms:.4f} ms (kernel / library "
            f"{ms / lib_ms:.3f})" if lib_ms is not None else
            "no library call")
-    log(f"[timing] {label} bf16 (device): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, {lib}; one eager call {call_ms:.4f} ms; bound "
-        f"{bound:.5f} ms ({row['bound_by']}), share {bound / ms:.3%} | "
-        f"{card}")
+    earlier = EARLIER_MS.get(row["shape"])
+    before = (f"; its first version {earlier:.4f} ms (PERF.md)"
+              if earlier is not None else "")
+    log(f"[timing] {label} {name}, route {route} (device): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {lib}; one eager call "
+        f"{call_ms:.4f} ms; bound {bound:.5f} ms ({row['bound_by']}), share "
+        f"{bound / ms:.3%}{before} | {card}")
     return row
 
 
 def train_kernel_rows(ts, dev, card) -> dict:
     """Phase 18 (a): kernels (i) and (ii) against their plain versions in
-    f32 (TF32 off) and bf16, a repeat call's bits equal the first's; bf16
-    times as phase 3's (library: SDPA's backward through autograd, the
-    same boolean mask, ``enable_gqa``)."""
-    from qwen3_asr_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain)
-    from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope_bwd
+    f32 (TF32 off) and bf16, a repeat call's bits equal the first's, each
+    call on the route ``bwd_route`` names; times as phase 3's (library:
+    SDPA's backward through autograd, the same boolean mask,
+    ``enable_gqa``): (i) in bf16 (the tensor cores) and f32 (the CUDA
+    cores), (ii) in bf16 (the vector route at head dim 128, the row route
+    at trained_ckpt's 48)."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.ops import qk_rope_kv as qk
+    flash_attention_bwd = fa.flash_attention_bwd
+    flash_attention_bwd_plain = fa.flash_attention_bwd_plain
+    qk_rope_bwd = qk.qk_rope_bwd
     rows = {"flash_attention_bwd": [], "qk_rope_bwd": []}
+
+    def routed(kernel, fn, want):
+        before = dict(kernel.route_launches)
+        out = fn()
+        got = {r: n - before[r] for r, n in kernel.route_launches.items()}
+        if got != {**{r: 0 for r in got}, want: 1}:
+            raise AssertionError(f"{kernel.__name__}: routes {got}, want "
+                                 f"{want}")
+        return out
 
     def parity(kernel, label, dt, got, again, want):
         tol = TOL[dt]
@@ -6426,27 +6467,34 @@ def train_kernel_rows(ts, dev, card) -> dict:
             def plain(args=args, kw=kw):
                 return flash_attention_bwd_plain(*args, **kw)
 
-            got, again, want = run(), run(), plain()
+            route = fa.bwd_route(dt, args[0].shape[-1])
+            got, again = (routed(flash_attention_bwd, run, route)
+                          for _ in range(2))
+            want = plain()
             torch.cuda.synchronize()
             err = parity("flash_attention_bwd", label, dt, got, again, want)
-            if dt == torch.bfloat16:
-                rows["flash_attention_bwd"].append(train_time_row(
-                    label, err, run, plain, sdpa, nbytes, flops, card))
+            rows["flash_attention_bwd"].append(train_time_row(
+                label, dt, route, err, run, plain, sdpa, nbytes, flops,
+                card))
         for label, args, plain, nbytes, flops in qk_bwd_cases(ts, dt, dev):
             def run(args=args):
                 return qk_rope_bwd(*args)
 
-            got, again, want = run(), run(), plain()
+            route = qk.bwd_route(dt, args[2].shape[-1])
+            got, again = (routed(qk_rope_bwd, run, route) for _ in range(2))
+            want = plain()
             torch.cuda.synchronize()
             err = parity("qk_rope_bwd", label, dt, got, again, want)
             if dt == torch.bfloat16:
                 rows["qk_rope_bwd"].append(train_time_row(
-                    label, err, run, plain, None, nbytes, flops, card))
+                    label, dt, route, err, run, plain, None, nbytes, flops,
+                    card))
     return rows
 
 
 def train_counter():
-    """Counters of the training path's four kernels, set to 0."""
+    """Counters of the training path's four kernels, and of the backward
+    kernels' routes, set to 0."""
     from qwen3_asr_tpu_torch.ops.flash_attention import (flash_attention,
                                                          flash_attention_bwd)
     from qwen3_asr_tpu_torch.ops.qk_rope_kv import (qk_rope_bwd,
@@ -6456,17 +6504,33 @@ def train_counter():
                 "qk_rope_kv": qk_rope_kv_write, "qk_rope_bwd": qk_rope_bwd}
     for w in wrappers.values():
         w.launches = 0
-    return lambda: {k: w.launches for k, w in wrappers.items()}
+    for w in (flash_attention_bwd, qk_rope_bwd):
+        w.route_launches.update((r, 0) for r in w.route_launches)
+    return lambda: {**{k: w.launches for k, w in wrappers.items()},
+                    **{f"{k}:{r}": n for k in ("flash_attention_bwd",
+                                                 "qk_rope_bwd")
+                       for r, n in wrappers[k].route_launches.items()}}
 
 
-def train_launch_check(name: str, got: dict, cfg, steps: int) -> None:
+def train_launch_check(name: str, got: dict, cfg, steps: int,
+                       dtype: torch.dtype) -> None:
     """Each step launches flash forward and backward once an encoder and a
-    decoder layer, kernel B and kernel (ii) once a decoder layer."""
-    layers = cfg.encoder.encoder_layers + cfg.decoder.num_hidden_layers
-    dec = cfg.decoder.num_hidden_layers
-    want = {"flash_attention": steps * layers,
-            "flash_attention_bwd": steps * layers,
+    decoder layer, kernel B and kernel (ii) once a decoder layer, the
+    backward kernels on the routes the dtype and head dims pick."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.ops import qk_rope_kv as qk
+    enc, dec = cfg.encoder.encoder_layers, cfg.decoder.num_hidden_layers
+    want = {"flash_attention": steps * (enc + dec),
+            "flash_attention_bwd": steps * (enc + dec),
             "qk_rope_kv": steps * dec, "qk_rope_bwd": steps * dec}
+    routes = collections.Counter()
+    routes[f"flash_attention_bwd:"
+           f"{fa.bwd_route(dtype, cfg.encoder.head_dim)}"] += steps * enc
+    routes[f"flash_attention_bwd:"
+           f"{fa.bwd_route(dtype, cfg.decoder.head_dim)}"] += steps * dec
+    routes[f"qk_rope_bwd:{qk.bwd_route(dtype, cfg.decoder.head_dim)}"] += \
+        steps * dec
+    want.update({k: routes.get(k, 0) for k in got if ":" in k})
     log(f"[train] {name}: launches in {steps} step(s) {got} (want {want})")
     if got != want:
         raise AssertionError(f"{name}: launches {got}, want {want}")
@@ -6547,7 +6611,8 @@ def train_f32_phase(dev, card) -> dict:
         f"relative difference {rel:.2e} (bound {TRAIN_TOL:g}) | {card}")
     if not rel <= TRAIN_TOL:
         raise AssertionError(f"train losses differ by {rel:.2e}")
-    train_launch_check("trained_ckpt f32", launched, cfg, TRAIN_STEPS)
+    train_launch_check("trained_ckpt f32", launched, cfg, TRAIN_STEPS,
+                       torch.float32)
 
     # the train -> serve loop: save, load, transcribe english_01
     root = tempfile.mkdtemp(prefix="smoke_train_")
@@ -6621,7 +6686,8 @@ def train_bf16_phase(dev, card) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if not all(np.isfinite(losses)):
         raise AssertionError(f"preset:1.7b bf16 losses {losses}")
-    train_launch_check("preset:1.7b bf16", launched, cfg, TRAIN_STEPS)
+    train_launch_check("preset:1.7b bf16", launched, cfg, TRAIN_STEPS,
+                       torch.bfloat16)
     log(f"[train] preset:1.7b bf16, B={TRAIN_BATCH} at the "
         f"{TRAIN_BUCKET_S:g} s bucket: ms a step {sorted(walls)} (median "
         f"{float(np.median(walls)):.1f}), losses {losses} (finite), peak "
@@ -6637,7 +6703,7 @@ def train_bf16_phase(dev, card) -> dict:
 # kernel name fragments -> the parts of a training step
 STEP_PARTS = (("flash backward (i)", ("dq_kernel", "dkv_kernel")),
               ("flash forward (#1)", ("flash_bf16_kernel", "flash_f32")),
-              ("QK-norm + RoPE (B, ii)", ("qk_rope", "norm_grad_kernel")),
+              ("QK-norm + RoPE (B, ii)", ("qk_rope", "norm_grad")),
               ("GEMM", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
               ("convolution", ("conv", "cudnn", "implicit")))
 
@@ -6909,6 +6975,10 @@ def main() -> int:
                  if name in NO_TPU_KERNEL else {})
         if name == "qk_rope_kv":
             extra["launches_per_row"] = launches_per_row
+        if name in TRAIN_KERNELS:   # phase 18's launches by route
+            extra["launches_by_route"] = {
+                k.split(":")[1]: n for k, n in trained.items()
+                if k.startswith(name + ":")}
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, **extra,
                       "launches": launches[name],

@@ -34,8 +34,11 @@ The function is differentiable: where autograd needs it (grad mode on and
 q, k or v requiring grad), ``flash_attention`` goes through
 ``FlashFunction``, whose backward is ``flash_attention_bwd``: on the card
 the hand-written ``csrc/flash_attention_bwd.cu`` (two launches, counted
-once in ``flash_attention_bwd.launches``), on the CPU its plain version
-``flash_attention_bwd_plain``. It is the gradient of JAX's dense
+once in ``flash_attention_bwd.launches`` and once by route in
+``route_launches``: bf16 at head dims a multiple of 16 on the tensor
+cores, with P and dS split into two bf16 halves rather than rounded; f32
+and other head dims on the CUDA cores; ``bwd_route``), on the CPU its
+plain version ``flash_attention_bwd_plain``. It is the gradient of JAX's dense
 restatement (``_flash_diff_bwd``, ``qwen3_asr_tpu/ops/flash_attention.py:186``),
 P recomputed in f32. Cotangents on m and l (which only the context-parallel
 combine would consume; ROADMAP item 14) raise NotImplementedError.
@@ -192,12 +195,87 @@ def _launch(q, k, v, vf, vt, q_off, *, causal, window_block, sm_scale):
 
 def _bwd_library() -> ctypes.CDLL:
     lib = load("flash_attention_bwd")
-    fn = lib.flash_attention_bwd
-    if fn.argtypes is None:
+    if lib.flash_attention_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 13 + [i] * 8 + [ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd.argtypes = (
+            [i] + [p] * 13 + [i] * 8 + [ctypes.c_float, p])
+        lib.flash_attention_bwd_tc.argtypes = (
+            [p] * 13 + [i] * 8 + [ctypes.c_float, p])
+        for fn in (lib.flash_attention_bwd, lib.flash_attention_bwd_tc):
+            fn.restype = ctypes.c_int
     return lib
+
+
+# kernel (i)'s tiles (csrc/flash_attention_bwd.cu, namespace tc): pass 1
+# takes 64 query rows a block (all G heads) and walks key tiles of 32;
+# pass 2 takes 64 keys a block and walks tiles of 32 query rows a head
+BWD_ROWS, BWD_BLOCK_K, BWD_KEYS, BWD_BLOCK_Q = 64, 32, 64, 32
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Kernel (i)'s route: ``"tensor_cores"`` for bf16 at a head dim that
+    is a multiple of 16 (mma.sync's k step), ``"cuda_cores"`` for f32 (the
+    parity dtype: no tensor-core product keeps f32 to 2e-5) and for other
+    head dims (trained_draft's 24)."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def bwd_plan(b, nq, nkv, t_len, s_len, *, causal, window, valid_from,
+             valid_to, q_offset):
+    """The tensor-core route's two grids as the kernel walks them, block by
+    block in launch order: pass 1 as ``(batch row, KV head, first query
+    position, block_q, [key tile starts])`` and pass 2 as ``(batch row, KV
+    head, first key, [(query head of the group, first query position)])``
+    (``valid_from``, ``valid_to``, ``q_offset``: a value a batch row).
+
+    The block index counts (batch row, KV head) fastest and the tile
+    slowest, by descending work under the causal mask (pass 1's last query
+    tile first, pass 2's first key block first), so the longest walks
+    launch first and the short ones fill in behind them. A pass-2 block's
+    two streams of warps take its walk's even and odd tiles."""
+    group = nq // nkv
+    block_q = BWD_ROWS // group
+    tiles_q = -(-t_len // block_q)
+    blocks_k = -(-s_len // BWD_KEYS)
+    pass1, pass2 = [], []
+    for rank in range(tiles_q):
+        t0 = (tiles_q - 1 - rank if causal else rank) * block_q
+        for bh in range(b * nkv):
+            bi, h = divmod(bh, nkv)
+            # the forward's live keys of query positions [pos_lo, pos_hi]
+            pos_lo = t0 + q_offset[bi]
+            pos_hi = min(t0 + block_q, t_len) - 1 + q_offset[bi]
+            lo, hi = max(valid_from[bi], 0), min(valid_to[bi], s_len)
+            if causal:
+                hi = min(hi, pos_hi + 1)
+            if window > 0:
+                lo = max(lo, (pos_lo // window) * window)
+                hi = min(hi, (pos_hi // window + 1) * window)
+            first = (lo // BWD_BLOCK_K) * BWD_BLOCK_K
+            pass1.append((bi, h, t0, block_q,
+                          list(range(first, hi, BWD_BLOCK_K))
+                          if lo < hi else []))
+    for rank in range(blocks_k):
+        c0 = rank * BWD_KEYS
+        for bh in range(b * nkv):
+            bi, h = divmod(bh, nkv)
+            klo = max(c0, valid_from[bi])
+            khi = min(c0 + BWD_KEYS, s_len, valid_to[bi])
+            pos_lo, pos_hi = -(1 << 40), 1 << 40
+            if causal:
+                pos_lo = klo
+            if window > 0:
+                pos_lo = max(pos_lo, (klo // window) * window)
+                pos_hi = ((khi - 1) // window + 1) * window
+            t_lo = min(max(pos_lo - q_offset[bi], 0), t_len)
+            t_hi = min(max(pos_hi - q_offset[bi], 0), t_len)
+            walk = ([(g, t) for g in range(group)
+                     for t in range(t_lo, t_hi, BWD_BLOCK_Q)]
+                    if klo < khi else [])
+            pass2.append((bi, h, c0, walk))
+    return pass1, pass2
 
 
 def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
@@ -240,24 +318,37 @@ def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
                     (q_offset, "q_offset")):
         _check_int_vec(x, b, dev, name)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    delta = torch.empty((b, nq, t), dtype=torch.float32, device=dev)
+    route = bwd_route(q.dtype, d)
+    # pass 1 leaves D for pass 2; the tensor-core route m log2e + log2 l too
+    delta = torch.empty((b, nq, t, 2) if route == "tensor_cores"
+                        else (b, nq, t), dtype=torch.float32, device=dev)
     if t == 0:
         return dq, dk.zero_(), dv.zero_()
-    err = _bwd_library().flash_attention_bwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), m.data_ptr(), l.data_ptr(), valid_from.data_ptr(),
-        valid_to.data_ptr(), q_offset.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, nq, nkv, t,
-        s_len, d, int(bool(causal)), int(window_block), float(sm_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            m.data_ptr(), l.data_ptr(), valid_from.data_ptr(),
+            valid_to.data_ptr(), q_offset.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
+    rest = (b, nq, nkv, t, s_len, d, int(bool(causal)), int(window_block),
+            float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+    lib = _bwd_library()
+    if route == "tensor_cores":
+        if any(p % 16 for p in ptrs[:4] + ptrs[9:12]):
+            raise ValueError("flash_attention_bwd's tensor-core route needs "
+                             "16-byte aligned q, k, v, dout and gradients")
+        err = lib.flash_attention_bwd_tc(*ptrs, *rest)
+    else:
+        err = lib.flash_attention_bwd(_DTYPE_CODE[q.dtype], *ptrs, *rest)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"({route}): CUDA error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+# launches by route (bwd_route), each also counted in ``launches``
+flash_attention_bwd.route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 class FlashFunction(torch.autograd.Function):

@@ -124,15 +124,37 @@ def qk_rope_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
 
 def _bwd_library() -> ctypes.CDLL:
     lib = load("qk_rope_bwd")
-    fn = lib.qk_rope_bwd
-    if fn.argtypes is None:
+    if lib.qk_rope_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 15 + [ctypes.c_float] + [i] * 6 + [p]
-        fn.restype = ctypes.c_int
+        lib.qk_rope_bwd.argtypes = (
+            [i] + [p] * 15 + [ctypes.c_float] + [i] * 6 + [p])
+        lib.qk_rope_bwd_vec.argtypes = (
+            [i] + [p] * 15 + [ctypes.c_float] + [i] * 7 + [p])
+        for fn in (lib.qk_rope_bwd, lib.qk_rope_bwd_vec):
+            fn.restype = ctypes.c_int
     return lib
 
 
-_BWD_MAX_BLOCKS = 528       # 4 a streaming multiprocessor on the H100
+_BWD_MAX_BLOCKS = 528       # the row route: 4 a streaming multiprocessor
+_BWD_VEC_BLOCKS = 396       # the vector route: one wave, 3 blocks of 256
+                            # threads on each of the H100's 132
+                            # multiprocessors (a second wave cost 20-30%)
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Kernel B′'s route: ``"vector"`` where a row splits into 16-byte
+    pieces over a power of two lanes, 2 to 32 (bf16 at head dims 16, 32,
+    64, 128; f32 at 8 to 128), else ``"rows"`` (a warp a row, an element
+    a lane at a time: trained_ckpt's 48, trained_draft's 24)."""
+    lanes, rem = divmod(head_dim, 16 // dtype.itemsize)
+    return "vector" if rem == 0 and lanes in (2, 4, 8, 16, 32) else "rows"
+
+
+def bwd_vec_grid(tokens: int):
+    """(tokens a block, blocks) of the vector route's first launch: whole
+    tokens a block, at most ``_BWD_VEC_BLOCKS`` blocks."""
+    per_block = -(-tokens // _BWD_VEC_BLOCKS)
+    return per_block, -(-tokens // per_block)
 
 
 def qk_rope_bwd(q, k, q_norm, k_norm, cos, sin, eps: float, gq, gk, gv):
@@ -170,24 +192,40 @@ def qk_rope_bwd(q, k, q_norm, k_norm, cos, sin, eps: float, gq, gk, gv):
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dv = torch.empty_like(k)
     dwq, dwk = torch.empty_like(q_norm), torch.empty_like(k_norm)
-    rows = b * t * (nq + 2 * nkv)
-    blocks = max(1, min(_BWD_MAX_BLOCKS, -(-rows // 8)))
+    route = bwd_route(dt, d)
+    if route == "vector":
+        per_block, blocks = bwd_vec_grid(b * t)
+        grid = (per_block, blocks)
+    else:
+        rows = b * t * (nq + 2 * nkv)
+        blocks = max(1, min(_BWD_MAX_BLOCKS, -(-rows // 8)))
+        grid = (blocks,)
     partial = torch.empty((blocks, 2, d), dtype=torch.float32, device=dev)
-    err = _bwd_library().qk_rope_bwd(
-        _X_CODE[dt], q.data_ptr(), k.data_ptr(), q_norm.data_ptr(),
-        k_norm.data_ptr(), cos.data_ptr(), sin.data_ptr(), gq.data_ptr(),
-        gk.data_ptr(), gv.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), partial.data_ptr(), dwq.data_ptr(), dwk.data_ptr(),
-        float(eps), b, t, nq, nkv, d, blocks,
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), q_norm.data_ptr(), k_norm.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), gq.data_ptr(), gk.data_ptr(),
+            gv.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            partial.data_ptr(), dwq.data_ptr(), dwk.data_ptr())
+    lib = _bwd_library()
+    if route == "vector":
+        if any(p % 16 for p in ptrs):
+            raise ValueError("qk_rope_bwd's vector route needs 16-byte "
+                             "aligned tensors")
+        fn = lib.qk_rope_bwd_vec
+    else:
+        fn = lib.qk_rope_bwd
+    err = fn(_X_CODE[dt], *ptrs, float(eps), b, t, nq, nkv, d, *grid,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"qk_rope_bwd kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"qk_rope_bwd kernel launch failed ({route}): "
+                           f"CUDA error {err}")
     qk_rope_bwd.launches += 1
+    qk_rope_bwd.route_launches[route] += 1
     return dq, dk, dv, dwq, dwk
 
 
 qk_rope_bwd.launches = 0
+# launches by route (bwd_route), each also counted in ``launches``
+qk_rope_bwd.route_launches = {"vector": 0, "rows": 0}
 
 
 class QkRopeFunction(torch.autograd.Function):

@@ -30,17 +30,25 @@ which every replay takes while it is enqueued. So no kernel of a build runs
 beside a replay (the decode kernels share one ticket buffer,
 ``ops/decode_attention.py``), and no two captures overlap. A build also
 holds ``capture_lock`` (taken before ``device_lock``), which nothing else
-on the device path takes: the profiler starts and stops under it
-(``serving/server.py``), so neither falls inside a capture, and its stop
-(seconds for each second captured under load) leaves replays free.
+on the device path takes: the profiler starts and stops under both
+(``serving/server.py``), so neither falls inside a capture and no replay
+is enqueued while the profiler processes its records.
 
 The wrappers' launch counters move when a kernel is launched eagerly or
 recorded into a capture, never on a replay; ``Graph.recorded`` keeps what
 its capture recorded and ``Graph.replays`` counts replays, so a run's
 launches are the eager ones plus recorded × replays (``launches``).
+``Graph.nodes`` is the number of nodes its capture holds (read through
+the CUDA driver before the capture ends), and every replay adds it to a
+process-wide count (``replayed_nodes``): the device records a profiler
+takes of the serving path, one a node replayed, counted without a
+profiler. ``wait_for_nodes`` blocks until that count has grown by a
+budget, woken by the replay that crosses it: ``/debug/trace`` stops
+recording there.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import threading
 import time
@@ -56,6 +64,54 @@ device_lock = threading.RLock()
 # Held by a build from start to end (taken before device_lock), and by the
 # profiler's start and stop.
 capture_lock = threading.RLock()
+
+
+# Nodes of every replay so far, all graphs, and the (count, event) pairs
+# of waiters to wake once it reaches count (both under device_lock).
+_replayed_nodes = [0]
+_node_alarms: list = []
+
+
+def replayed_nodes() -> int:
+    """Graph nodes replayed so far in this process, every graph."""
+    return _replayed_nodes[0]
+
+
+def wait_for_nodes(count: int, timeout: float) -> bool:
+    """Block until ``count`` more graph nodes have been replayed (True) or
+    ``timeout`` seconds have passed (False). One blocking wait, woken by
+    the replay that crosses the count: nothing polls."""
+    event = threading.Event()
+    with device_lock:
+        alarm = (_replayed_nodes[0] + count, event)
+        _node_alarms.append(alarm)
+    try:
+        return event.wait(timeout)
+    finally:
+        with device_lock:
+            _node_alarms.remove(alarm)
+
+
+def capture_nodes(stream: torch.cuda.Stream) -> int:
+    """The nodes of the graph ``stream`` is capturing, through the CUDA
+    driver (a capture in progress may be read). Raises if the stream is
+    not capturing or the driver refuses."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    status, cid = ctypes.c_int(0), ctypes.c_uint64(0)
+    graph, deps = ctypes.c_void_p(), ctypes.c_void_p()
+    ndeps = ctypes.c_size_t()
+    err = cu.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status),
+        ctypes.byref(cid), ctypes.byref(graph), ctypes.byref(deps),
+        ctypes.byref(ndeps))
+    if err or status.value != 1 or not graph.value:  # 1: capture active
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2: error {err}, "
+                           f"status {status.value}")
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes: error {err}")
+    return n.value
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -102,6 +158,7 @@ class Graph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.recorded: Dict[str, int] = {}
         self.replays = 0
+        self.nodes = 0           # the capture's graph nodes
         self.capture_s = 0.0     # warm-up run and capture, seconds
         if device.type != "cuda":
             return
@@ -130,6 +187,7 @@ class Graph:
                     graph, pool=pool, stream=stream,
                     capture_error_mode="thread_local"):
                 fn()
+                self.nodes = capture_nodes(stream)
         finally:
             if collecting:
                 gc.enable()
@@ -145,6 +203,10 @@ class Graph:
         with device_lock:
             self.graph.replay()
             self.replays += 1
+            _replayed_nodes[0] += self.nodes
+            for count, event in _node_alarms:
+                if _replayed_nodes[0] >= count:
+                    event.set()
 
 
 def launches(graphs: Iterable[Graph], eager: Dict[str, int]

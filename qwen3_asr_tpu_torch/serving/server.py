@@ -45,15 +45,19 @@ its request forms, answers, error codes and statuses:
 - ``POST /debug/trace?seconds=N`` (``server.py:959-1001``): a
   ``torch.profiler`` capture of N seconds (3, at most 60; CPU activity, and
   CUDA activity for a manager on the card) written as a Chrome trace into
-  ``ASR_TRACE_DIR`` (``/tmp/qwen3_asr_traces``), answering ``{"trace_dir",
-  "seconds"}``; 400 ``INVALID_JSON`` for a non-number, 409 ``WORKER_ERROR``
+  ``ASR_TRACE_DIR`` (``/tmp/qwen3_asr_traces``); the recording stops
+  early at ``TRACE_RECORD_BUDGET`` device records (a loaded server takes
+  that many in about a second) and the request still takes the N seconds
+  and the stop; answering ``{"trace_dir", "seconds"}`` and, beyond JAX's
+  body, ``captured_seconds``, ``kernel_records`` and ``budget_reached``;
+  400 ``INVALID_JSON`` for a non-number, 409 ``WORKER_ERROR``
   while another capture runs, 500 when the profiler fails. The profiler
   starts and stops under ``runtime/graphs.py`` ``capture_lock``, so neither
-  falls inside a CUDA-graph capture; it starts under ``device_lock`` too,
-  so a replay is recorded whole or not at all, and stops without it, so
-  replays go on while it stops (seconds for each second captured under
-  load; ``PERF.md``); CUPTI records the kernels of every thread, the
-  device thread's and the pool's too;
+  falls inside a CUDA-graph capture; it starts and stops under
+  ``device_lock`` too, so a replay is recorded whole or not at all and
+  none runs while the profiler processes its records (a stop beside
+  replays hung under load; ``PERF.md`` §6); CUPTI records the kernels
+  of every thread, the device thread's and the pool's too;
 - ``GET /openapi.json`` and ``GET /docs``: the JAX server's OpenAPI
   document and docs page (``serving/http.py``, ``meta.py``,
   ``schemas.py``).
@@ -108,7 +112,8 @@ import torch
 
 from .. import config
 from ..audio.codec import AudioDecodeError, decode_audio
-from ..runtime.graphs import capture_lock, device_lock
+from ..runtime.graphs import (capture_lock, device_lock, replayed_nodes,
+                              wait_for_nodes)
 from ..runtime.lifecycle import ModelManager
 from ..ops.quant import param_count
 from ..runtime.queue import STANDARD
@@ -239,29 +244,66 @@ def device_bytes(mgr) -> int:
             + subtitle.aligner_bytes(engine.model.params))
 
 
-def start_trace(device) -> torch.profiler.profile:
-    """A started profiler: CPU activity, and CUDA activity on the card.
-    Started under ``capture_lock``, so never inside a graph capture, and
-    under ``device_lock``, so no replay is being enqueued meanwhile: the
-    replays after the start are recorded whole."""
+# A capture stops recording once the device records it has taken (graph
+# nodes replayed, ``runtime/graphs.py`` ``replayed_nodes``) reach this
+# budget: stopping the profiler and writing its trace hold the GIL
+# ~60-110 µs a kernel record (PERF.md §6), so the budget, not the
+# seconds asked for, bounds the stall a capture costs a loaded server
+# (15-28 s). An idle server records none.
+TRACE_RECORD_BUDGET = 250_000
+
+
+def trace_activities(device) -> list:
+    """What a capture records: the CPU's ops, and for a manager on the
+    card its activity too (CUPTI: every kernel, graph nodes one by one).
+    The card's activity alone is not taken: with torch 2.11 its stop held
+    the GIL for over 200 s after one second of a loaded server's work,
+    where both together took 19 s after two (PERF.md §6)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    return acts
+
+
+def start_trace(device) -> torch.profiler.profile:
+    """A started profiler of ``trace_activities(device)``. Started under
+    ``capture_lock``, so never inside a graph capture, and under
+    ``device_lock``, so no replay is being enqueued meanwhile: the replays
+    after the start are recorded whole."""
+    prof = torch.profiler.profile(activities=trace_activities(device))
     with capture_lock, device_lock:
         prof.start()
     return prof
 
 
 def stop_trace(prof: torch.profiler.profile, trace_dir: str) -> str:
-    """Stop ``prof`` (under ``capture_lock``, so replays go on while it
-    stops) and write its Chrome trace into ``trace_dir``; returns the
-    file's path."""
-    with capture_lock:
+    """Stop ``prof`` as it started, under ``capture_lock`` and
+    ``device_lock``, and write its Chrome trace into ``trace_dir`` (with
+    no lock); returns the file's path. No replay is enqueued while the
+    profiler flushes and processes CUPTI's records: a stop beside running
+    replays held the GIL for over 200 s in five of seven captures under
+    load, and the stop holds the GIL anyway, so replays gained nothing from
+    it (PERF.md §6). Logs the stop's and the write's seconds apart."""
+    t0 = time.perf_counter()
+    with capture_lock, device_lock:
         prof.stop()
+    t1 = time.perf_counter()
     path = os.path.join(trace_dir, f"trace_{time.time_ns()}.pt.trace.json")
     prof.export_chrome_trace(path)
+    t2 = time.perf_counter()
+    log.info("Profiler trace stopped in %.3fs, written in %.3fs | %s",
+             t1 - t0, t2 - t1, path)
     return path
+
+
+def capture(seconds: float, budget: int) -> Tuple[float, int]:
+    """Wait while a started profiler records, for ``seconds`` or until the
+    graph nodes replayed meanwhile reach ``budget``, whichever comes
+    first; returns (seconds recorded, nodes replayed meanwhile)."""
+    n0, t0 = replayed_nodes(), time.perf_counter()
+    cut = seconds > 0 and wait_for_nodes(budget, seconds)
+    return (time.perf_counter() - t0 if cut else seconds,
+            replayed_nodes() - n0)
 
 
 class _Handler(JsonHandler):
@@ -325,8 +367,16 @@ class _Handler(JsonHandler):
                    DOCS_HTML.format(title=API_TITLE).encode("utf-8"))
 
     def _debug_trace(self):
-        """A profiler trace of ``seconds`` (3, at most 60), one at a
-        time."""
+        """A profiler trace of ``seconds`` (3, at most 60), one at a time.
+
+        The request takes as long as JAX's: the seconds asked and the
+        stop. But the recording stops once ``TRACE_RECORD_BUDGET`` device
+        records are taken; the trace is then stopped and written at once,
+        and the rest of the seconds is waited out after. The answer is JAX's
+        ``{"trace_dir", "seconds"}`` and, a divergence (ROADMAP §3), the
+        seconds recorded (``captured_seconds``), the records estimated
+        (``kernel_records``) and whether the budget ended the recording
+        (``budget_reached``)."""
         try:
             self._read_upload()
         except Answered:
@@ -342,6 +392,10 @@ class _Handler(JsonHandler):
             self._error("WORKER_ERROR",
                         "a profiler trace is already in progress", 409)
             return
+        # every answer is sent once the lock is free, so a client that is
+        # answered can start the next capture at once
+        failure, asked = None, max(seconds, 0.0)
+        captured, records = 0.0, 0
         try:
             trace_dir = os.getenv("ASR_TRACE_DIR", "/tmp/qwen3_asr_traces")
             os.makedirs(trace_dir, exist_ok=True)
@@ -349,25 +403,31 @@ class _Handler(JsonHandler):
                 prof = start_trace(self.server.manager.device)
             except Exception as e:
                 log.exception("profiler trace failed to start")
-                self._error("WORKER_ERROR", f"trace failed: {e}", 500)
-                return
-            failure = None
-            try:
-                time.sleep(max(seconds, 0.0))
-            finally:
+                failure = e
+            else:
                 try:
-                    stop_trace(prof, trace_dir)
-                except Exception as e:
-                    log.exception("profiler trace failed to stop")
-                    failure = e
-            if failure is not None:
-                self._error("WORKER_ERROR", f"trace failed: {failure}", 500)
-                return
+                    captured, records = capture(asked, TRACE_RECORD_BUDGET)
+                finally:
+                    try:
+                        stop_trace(prof, trace_dir)
+                    except Exception as e:
+                        log.exception("profiler trace failed to stop")
+                        failure = e
+                if failure is None and captured < asked:
+                    time.sleep(asked - captured)   # the budget ended it
         finally:
             lock.release()
-        log.info("Profiler trace captured | dir=%s seconds=%s", trace_dir,
-                 seconds)
-        self._json(200, {"trace_dir": trace_dir, "seconds": seconds})
+        if failure is not None:
+            self._error("WORKER_ERROR", f"trace failed: {failure}", 500)
+            return
+        reached = captured < asked
+        log.info("Profiler trace captured | dir=%s seconds=%s recorded=%.2fs "
+                 "records=%d budget_reached=%s", trace_dir, seconds, captured,
+                 records, reached)
+        self._json(200, {"trace_dir": trace_dir, "seconds": seconds,
+                         "captured_seconds": captured,
+                         "kernel_records": records,
+                         "budget_reached": reached})
 
     # -- steps shared by the routes ------------------------------------------------
     def _ensure_loaded(self) -> None:

@@ -5,15 +5,17 @@ with ``MODEL_ID=preset:1.7b`` (bf16, the preset's zero weights, so every
 upload decodes to its token limit), keeps ``CLIENTS`` uploads of 29.5 s
 of the in-repo speech running back to back, and takes one capture of each
 length in ``--seconds`` through ``POST /debug/trace``. For each it reports
-the server's resident memory before the capture and its peak during it
-(``VmRSS`` of ``/proc/<pid>/status``, sampled every 0.2 s), the request's
-wall, the seconds past the capture until a ``*.json`` file appears in
-the trace directory (``stop_s``) and from then to the answer
-(``export_s``; on the card the file appears whole at the end, so
-``stop_s`` holds the stop and the writing and ``export_s`` is 0), the
-trace file's size and its kernel events, and the uploads finished during
-the request and by the time the file appeared, against those finished in
-as many seconds just before, without a capture. Each trace file is deleted once
+the server's resident memory before the capture, its peak during it
+and after the answer (``VmRSS`` of ``/proc/<pid>/status``, sampled every
+0.2 s), the request's wall, what the answer says (the seconds recorded,
+the device records, whether the budget ended the recording), the seconds
+from the request until a ``*.json`` file appears in the trace directory
+(``file_s``: the recording, the stop and the writing; the server's log
+times the stop and the writing apart), the trace file's size and its
+kernel events, and the uploads finished during the request and by the
+time the file appeared, against those finished in as many seconds just
+before, without a capture (``upload_rate_share``: the rate over the
+request's wall against the rate without). Each trace file is deleted once
 counted.
 
 Run on a machine with the card:
@@ -173,14 +175,23 @@ def capture(base: str, pid: int, seconds: float, trace_dir: str,
         os.remove(path)
     # a trace written between two samples: its writing took under 0.2 s
     t_file, uploads_file = seen.get("file", (t1, len(done)))
+    answer = json.loads(body)
+    during, wall = len(done) - uploads0, t1 - t0
     return {"seconds": seconds, "status": status,
-            "request_wall_s": t1 - t0,
-            "stop_s": t_file - t0 - seconds, "export_s": t1 - t_file,
+            "request_wall_s": wall,
+            "captured_s": answer.get("captured_seconds"),
+            "budget_reached": answer.get("budget_reached"),
+            "kernel_records": answer.get("kernel_records"),
+            "file_s": t_file - t0,
             "rss_before_mib": before, "rss_peak_mib": max(peak),
             "rss_after_mib": after, "trace_mb": size / 1e6,
             "kernel_events": kernels, "uploads_without": without,
-            "uploads_during": len(done) - uploads0,
-            "uploads_by_stop_end": uploads_file - uploads0, "card": card}
+            "uploads_during": during,
+            "uploads_by_file": uploads_file - uploads0,
+            # uploads a second over the request's wall against those a
+            # second in as many seconds just before, without a capture
+            "upload_rate_share": (during / wall) / (without / seconds)
+            if without else None, "card": card}
 
 
 def main() -> int:

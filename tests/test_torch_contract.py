@@ -448,16 +448,22 @@ def test_debug_trace_invalid_and_capped(url, tmp_path, monkeypatch):
     assert body == jax_error_body("INVALID_JSON", "seconds must be a number",
                                   400)
     monkeypatch.setattr(server_mod, "time", _NoSleep())
+    # an idle server: the wait for the record budget times out at once
+    monkeypatch.setattr(server_mod, "wait_for_nodes",
+                        lambda count, timeout: False)
     status, _, raw = _request(url + "/debug/trace?seconds=600", "POST", b"")
     assert status == 200
-    assert json.loads(raw) == {"trace_dir": str(tmp_path), "seconds": 60.0}
+    assert json.loads(raw) == {"trace_dir": str(tmp_path), "seconds": 60.0,
+                               "captured_seconds": 60.0, "kernel_records": 0,
+                               "budget_reached": False}
 
 
 def test_debug_trace_writes_a_trace_and_refuses_a_second(url, tmp_path,
                                                          monkeypatch):
     """The default capture writes a Chrome trace into ``ASR_TRACE_DIR``
-    and answers ``{"trace_dir", "seconds"}``; a second request meanwhile
-    answers 409 WORKER_ERROR."""
+    and answers JAX's ``{"trace_dir", "seconds"}`` with the seconds
+    recorded (all of them on an idle server), the records and the budget
+    unreached; a second request meanwhile answers 409 WORKER_ERROR."""
     trace_dir = tmp_path / "traces"
     monkeypatch.setenv("ASR_TRACE_DIR", str(trace_dir))
     first = {}
@@ -473,10 +479,118 @@ def test_debug_trace_writes_a_trace_and_refuses_a_second(url, tmp_path,
         "WORKER_ERROR", "a profiler trace is already in progress", 409)
     status, _, raw = first["answer"]
     assert status == 200
-    assert json.loads(raw) == {"trace_dir": str(trace_dir), "seconds": 1.5}
+    assert json.loads(raw) == {"trace_dir": str(trace_dir), "seconds": 1.5,
+                               "captured_seconds": 1.5, "kernel_records": 0,
+                               "budget_reached": False}
     files = list(trace_dir.glob("*.json"))
     assert len(files) == 1
     assert "traceEvents" in json.loads(files[0].read_text())
+
+
+def test_trace_activities_by_device():
+    """A capture records the CPU's ops, and on the card CUPTI's kernels
+    too (graph nodes one by one): the kernels' names are the trace's
+    point there, and the card's activity alone stops far slower."""
+    acts = torch.profiler.ProfilerActivity
+    assert server_mod.trace_activities("cuda") == [acts.CPU, acts.CUDA]
+    assert server_mod.trace_activities(torch.device("cuda", 0)) == \
+        [acts.CPU, acts.CUDA]
+    assert server_mod.trace_activities("cpu") == [acts.CPU]
+
+
+class _Sleeps(_NoSleep):
+    """``time`` for the server module whose ``sleep`` returns at once and
+    adds up what it was asked to sleep."""
+
+    def __init__(self):
+        self.total = 0.0
+
+    def sleep(self, seconds):
+        self.total += seconds
+
+
+class _Replays:
+    """``replayed_nodes`` and ``wait_for_nodes`` for the server module: a
+    load that replays ``per_second`` graph nodes a second, on a clock
+    that only the wait moves (the wait returns at once)."""
+
+    def __init__(self, per_second):
+        self.per_second, self.now, self.waits = per_second, 0.0, []
+
+    def replayed_nodes(self):
+        return int(self.now * self.per_second)
+
+    def wait_for_nodes(self, count, timeout):
+        self.waits.append((count, timeout))
+        need = count / self.per_second if self.per_second else timeout + 1
+        self.now += min(need, timeout)
+        return need <= timeout
+
+    def perf_counter(self):
+        return self.now
+
+
+@pytest.mark.parametrize("per_second, seconds, captured, reached", [
+    (0, 10.0, 10.0, False),          # an idle server: every second
+    (8_000, 10.0, 10.0, False),      # 80000 nodes in 10 s, under budget
+    (100_000, 10.0, 1.0, True),      # the budget reached after 1 s
+    (500_000, 3.0, 0.2, True),
+])
+def test_debug_trace_stops_recording_at_the_budget(url, tmp_path,
+                                                   monkeypatch, per_second,
+                                                   seconds, captured,
+                                                   reached):
+    """The recording stops once the graph nodes replayed meanwhile reach
+    the budget (one wait for that many nodes or the seconds asked): the
+    answer says the seconds recorded, the nodes and whether the budget
+    was reached, a trace is written, and the request still lasts the
+    seconds asked (the wait and the sleep add up to them)."""
+    monkeypatch.setenv("ASR_TRACE_DIR", str(tmp_path))
+    monkeypatch.setattr(server_mod, "TRACE_RECORD_BUDGET", 100_000)
+    load, clock = _Replays(per_second), _Sleeps()
+    clock.perf_counter = load.perf_counter
+    monkeypatch.setattr(server_mod, "time", clock)
+    monkeypatch.setattr(server_mod, "replayed_nodes", load.replayed_nodes)
+    monkeypatch.setattr(server_mod, "wait_for_nodes", load.wait_for_nodes)
+    status, _, raw = _request(url + f"/debug/trace?seconds={seconds:g}",
+                              "POST", b"")
+    assert status == 200
+    body = json.loads(raw)
+    assert body["trace_dir"] == str(tmp_path) and body["seconds"] == seconds
+    assert body["captured_seconds"] == pytest.approx(captured)
+    assert body["budget_reached"] is reached
+    assert body["kernel_records"] == (100_000 if reached
+                                      else int(per_second * seconds))
+    assert load.waits == [(100_000, seconds)]
+    assert load.now + clock.total == pytest.approx(seconds)
+    assert len(list(tmp_path.glob("*.json"))) == 1
+
+
+def test_wait_for_nodes_wakes_at_the_replay_that_crosses_the_count():
+    """``wait_for_nodes`` returns True once replays have added the count
+    (the replay path sets the waiter's event under ``device_lock``) and
+    False at its timeout; the waiter is removed either way."""
+    from qwen3_asr_tpu_torch.runtime import graphs
+
+    def replay(nodes):
+        with graphs.device_lock:
+            graphs._replayed_nodes[0] += nodes
+            for count, event in graphs._node_alarms:
+                if graphs._replayed_nodes[0] >= count:
+                    event.set()
+    got = {}
+    waiter = threading.Thread(target=lambda: got.update(
+        hit=graphs.wait_for_nodes(1000, 30)))
+    waiter.start()
+    while not graphs._node_alarms:
+        time.sleep(0.01)
+    replay(600)
+    assert waiter.is_alive()
+    replay(600)
+    waiter.join(30)
+    assert got == {"hit": True} and graphs._node_alarms == []
+    assert graphs.wait_for_nodes(10 ** 12, 0.05) is False
+    assert graphs._node_alarms == []
 
 
 def test_debug_trace_failure_answers_500(url, tmp_path, monkeypatch):
@@ -497,12 +611,12 @@ def test_debug_trace_failure_answers_500(url, tmp_path, monkeypatch):
 
 
 def test_trace_start_waits_for_replays_and_stop_does_not(tmp_path):
-    """The profiler starts under ``capture_lock`` and ``device_lock`` (a
-    graph build holds both, a replay the second), so the start waits for
-    a build and for a replay being enqueued; it stops under
-    ``capture_lock`` alone, so a replay does not wait for the stop, which
-    takes seconds for each second captured under load, and a build
-    does."""
+    """The profiler starts and stops under ``capture_lock`` and
+    ``device_lock`` (a graph build holds both, a replay the second), so
+    the start and the stop wait for a build and for a replay being
+    enqueued, and no replay is enqueued while the stop processes CUPTI's
+    records: a stop beside running replays hung a loaded server on the
+    card (the test's name is from when the stop left replays free)."""
     from qwen3_asr_tpu_torch.runtime.graphs import capture_lock, device_lock
 
     def holding(lock):
@@ -517,7 +631,7 @@ def test_trace_start_waits_for_replays_and_stop_does_not(tmp_path):
         assert taken.wait(30)
         return thread, release
 
-    for lock, stop_waits in ((device_lock, False), (capture_lock, True)):
+    for lock in (device_lock, capture_lock):
         started, go, stopped = (threading.Event(), threading.Event(),
                                 threading.Event())
 
@@ -540,7 +654,7 @@ def test_trace_start_waits_for_replays_and_stop_does_not(tmp_path):
         holder, release = holding(lock)
         try:
             go.set()
-            assert stopped.wait(0.5 if stop_waits else 60) != stop_waits
+            assert not stopped.wait(0.5)
         finally:
             release.set()
             holder.join(30)

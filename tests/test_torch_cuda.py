@@ -1889,6 +1889,9 @@ FLASH_BWD_CASES = {
     "group8_q_offset": (1, 16, 2, 29, 200, 96, True, 0, [3], [200], [171]),
     "window_crossing_tiles": (2, 2, 2, 230, 230, 64, False, 50, [0, 0],
                               [230, 171], [0, 0]),
+    # trained_draft's head dim, not a multiple of 16: the CUDA cores in
+    # bf16 too
+    "draft_d24": (2, 4, 2, 60, 60, 24, True, 0, [5, 0], [60, 60], [0, 0]),
 }
 
 
@@ -1921,15 +1924,22 @@ def test_flash_bwd_kernel_matches_plain(dev, name, dtype):
     """Kernel (i) against ``flash_attention_bwd_plain`` on the same card
     inputs: f32 to 2e-5 and bf16 to 2e-2 of each gradient's largest
     magnitude (outputs rounded to bf16 on both sides); a repeat call
-    gives the same bits; every fully masked row's dq is 0."""
+    gives the same bits; every fully masked row's dq is 0. bf16 takes the
+    tensor-core route but at head dim 24; f32 the CUDA cores."""
     from qwen3_asr_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain)
     args, kw = _flash_bwd_inputs(dev, name, dtype)
+    route = ("tensor_cores" if dtype == torch.bfloat16 and name != "draft_d24"
+             else "cuda_cores")
     before = flash_attention_bwd.launches
+    routes = dict(flash_attention_bwd.route_launches)
     got = flash_attention_bwd(*args, **kw)
     again = flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 2
+    assert {r: n - routes[r] for r, n in
+            flash_attention_bwd.route_launches.items()} == {
+        "tensor_cores": 0, "cuda_cores": 0, route: 2}
     want = flash_attention_bwd_plain(*args, **kw)
     for a, b_, w in zip(got, again, want):
         assert a.dtype == dtype and torch.equal(a, b_)
@@ -1971,6 +1981,8 @@ QK_BWD_SHAPES = {
     "1p7b_b8": (8, 217, 16, 8, 128),
     "trained_ckpt": (2, 150, 4, 2, 48),
     "d24": (3, 7, 4, 2, 24),
+    # the vector route at 8 (bf16) and 16 (f32) lanes a row
+    "d64": (2, 33, 4, 2, 64),
 }
 
 
@@ -2009,10 +2021,16 @@ def test_qk_rope_bwd_kernel_matches_plain(dev, shape, dtype):
     for o, r in zip(outs, refs):
         _close_to_max(o, r, TOL[dtype])
     b0 = qk_rope_bwd.launches
+    routes = dict(qk_rope_bwd.route_launches)
     got = qk_rope_bwd(q, k, wq, wk, cos, sin, 1e-6, gq, gk, gv)
     again = qk_rope_bwd(q, k, wq, wk, cos, sin, 1e-6, gq, gk, gv)
     torch.cuda.synchronize()
     assert qk_rope_bwd.launches == b0 + 2
+    # 16-byte pieces at head dims 128 and 64; a warp a row at 48 and 24
+    route = "vector" if shape in ("1p7b_b8", "d64") else "rows"
+    assert {r: n - routes[r] for r, n in
+            qk_rope_bwd.route_launches.items()} == {
+        "vector": 0, "rows": 0, route: 2}
     for a, a2 in zip(got, again):
         assert torch.equal(a, a2)
     dq, dwq = qk_rope_bwd_plain(_heads(q, d), wq, cos, sin, 1e-6, gq)
