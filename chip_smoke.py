@@ -322,6 +322,7 @@ import sys
 import tempfile
 import threading
 import time
+import tracemalloc
 import urllib.error
 import urllib.request
 import uuid
@@ -5616,6 +5617,7 @@ def codec_f32_phase(dev, card: str) -> None:
                             f"{body[:200]!r} / {ids[:8]} vs the WAV's "
                             f"{wav_body[:200]!r} / {ref[:8]}; samples equal "
                             f"{np.array_equal(audio, want)}")
+            compressed_f32_phase(url, clips, runs, card)
     log(f"[codec] (a) trained_ckpt f32, lazy: {len(clips)} clips x "
         f"{len(variants)} containers ({', '.join(variants)}), {uploads} "
         f"uploads besides the WAV's: every body, token ids (each upload's "
@@ -5820,9 +5822,159 @@ def metrics_phase(base: str, sent, card: str) -> None:
                              f"requests sent {dict(sent)}")
 
 
+COMPRESSED = os.path.join(DATA, "compressed")
+
+
+def float_wav_bytes(audio, sr: int) -> bytes:
+    """Mono IEEE-float WAV of float32 ``audio``."""
+    pcm = np.asarray(audio, "<f4").tobytes()
+    return (b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE" + b"fmt "
+            + struct.pack("<IHHIIHH", 16, 3, 1, sr, 4 * sr, 4, 32)
+            + b"data" + struct.pack("<I", len(pcm)) + pcm)
+
+
+def cer(ref: str, hyp: str) -> float:
+    """Character error rate of ``hyp`` against ``ref``, whitespace and
+    case aside (Levenshtein over characters)."""
+    a, b = "".join(ref.lower().split()), "".join(hyp.lower().split())
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                           prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1] / max(1, len(a))
+
+
+def compressed_f32_phase(url: str, clips, runs, card: str) -> None:
+    """Phase 16 (a'): (a)'s clips as MP3 (16 kHz mono, MPEG-2) and Ogg
+    Vorbis, committed in ``e2e/data/compressed``: each upload's body and
+    its dispatch's token ids equal those of a float32 WAV upload of the
+    port's own decode of the file; the C++ helper is built and decodes the
+    shortest file of each codec as the plain loops do; the MP3
+    transcripts' CER against the clips' text, printed."""
+    from qwen3_asr_tpu_torch.audio import mp3, native, vorbis
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    t0 = time.perf_counter()
+    cers, uploads = [], 0
+    for path in clips:
+        stem = os.path.basename(path)[:-4]
+        for ext in ("mp3", "ogg"):
+            with open(os.path.join(COMPRESSED, f"{stem}.{ext}"), "rb") as f:
+                data = f.read()
+            audio, sr = decode_audio(data)
+            runs.clear()
+            status, _, ref_body = post_form(url, float_wav_bytes(audio, sr))
+            ref = runs[:]
+            runs.clear()
+            got, _, body = post_form(url, data)
+            ids = runs[:]
+            uploads += 2
+            if status != 200 or (got, body) != (200, ref_body) \
+                    or ids != ref or not ref:
+                raise AssertionError(
+                    f"(a') {stem}.{ext}: {got} {body[:200]!r} / {ids[:8]} "
+                    f"vs the float WAV's {status} {ref_body[:200]!r} / "
+                    f"{ref[:8]}")
+            if ext == "mp3":
+                with open(path[:-4] + ".txt", encoding="utf-8") as f:
+                    want = f.read().strip()
+                cers.append(f"{stem} {cer(want, json.loads(body)['text']):.3f}")
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("(a'): the helper (csrc/audio_dsp.cpp) was not "
+                             "built: the plain version decoded")
+    same = []
+    for ext, decode in (("mp3", mp3.decode_mp3),
+                        ("ogg", vorbis.decode_vorbis)):
+        path = min(glob.glob(os.path.join(COMPRESSED, f"*.{ext}")),
+                   key=os.path.getsize)
+        with open(path, "rb") as f:
+            data = f.read()
+        a, b = decode(data)[0], decode(data, native=False)[0]
+        if not np.array_equal(a, b):
+            raise AssertionError(f"(a'): {os.path.basename(path)}: the "
+                                 f"helper and the plain loops decode apart")
+        same.append(f"{os.path.basename(path)} ({len(a)} samples)")
+    log(f"[codec] (a') trained_ckpt f32: {len(clips)} clips as MP3 and Ogg "
+        f"Vorbis, {uploads} uploads: every body and token ids equal to a "
+        f"float32 WAV upload of the port's decode; helper built and used "
+        f"({lib._name}), equal to the plain loops bit for bit on "
+        f"{', '.join(same)}; MP3 CER {'; '.join(cers)}; "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+
+
+def compressed_bf16_phase(base: str, engine, sent, card: str) -> dict:
+    """Phase 16 (b'): the ~29.5 s MP3 (MPEG-1 joint stereo, 44.1 kHz, LAME
+    tag) and Ogg Vorbis (44.1 kHz stereo) of the FLEURS clips on phase 5's
+    engine: host decode ms an audio second with the helper and with the
+    plain loops (on the first 2 s), and each upload's wall against a float
+    WAV of the same decode, in turns. Returns the kernels' launches."""
+    from qwen3_asr_tpu_torch.audio import mp3, vorbis
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    url = base + "/v1/audio/transcriptions"
+    t_phase = time.perf_counter()
+    counter = PathLaunches(engine)
+    for ext, decode in (("mp3", mp3.decode_mp3),
+                        ("ogg", vorbis.decode_vorbis)):
+        with open(os.path.join(COMPRESSED, f"long_44k_stereo.{ext}"),
+                  "rb") as f:
+            data = f.read()
+        audio, sr = decode_audio(data)
+        seconds = len(audio) / sr
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            decode(data)
+            best = min(best, time.perf_counter() - t0)
+        tracemalloc.start()
+        decode_audio(data)
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        head = data[:int(len(data) * 2.0 / seconds)]
+        t0 = time.perf_counter()
+        plain = decode(head, native=False)[0]
+        plain_s = time.perf_counter() - t0
+        per_s, plain_per_s = best * 1e3 / seconds, plain_s * 1e3 / (
+            len(plain) / sr)
+        wav = float_wav_bytes(audio, sr)
+        walls = {"wav": [], ext: []}
+        bodies = set()
+        for kind in ("wav", ext, ext, "wav"):
+            t0 = time.perf_counter()
+            status, _, body = post_form(url, wav if kind == "wav" else data)
+            walls[kind].append(time.perf_counter() - t0)
+            sent[("/v1/audio/transcriptions", "POST", str(status))] += 1
+            bodies.add((status, body))
+        log(f"[codec] (b') {seconds:.2f} s {ext.upper()}, 44.1 kHz stereo "
+            f"({len(data) / 1e6:.3f} MB): host decode {best * 1e3:.1f} ms "
+            f"with the helper = {per_s:.3f} ms per audio second; plain "
+            f"loops {plain_s * 1e3:.1f} ms on the first "
+            f"{len(plain) / sr:.2f} s = {plain_per_s:.3f} ms per audio "
+            f"second ({plain_per_s / per_s:.1f}x); the upload's decode "
+            f"allocates at most {peak / 2**20:.1f} MiB (tracemalloc) for "
+            f"{audio.nbytes / 2**20:.1f} MiB of mono float32; preset:1.7b "
+            f"bf16 upload "
+            f"walls in turns: WAV {walls['wav'][0]:.3f} / "
+            f"{walls['wav'][1]:.3f} s, {ext.upper()} {walls[ext][0]:.3f} / "
+            f"{walls[ext][1]:.3f} s ({ext.upper()} / WAV "
+            f"{sum(walls[ext]) / sum(walls['wav']):.3f}); one body for all "
+            f"four: {len(bodies) == 1} | {card}")
+        if len(bodies) != 1 or next(iter(bodies))[0] != 200:
+            raise AssertionError(f"(b') {ext}: bodies {bodies}")
+    launches, _ = counter.read()
+    for name in ("flash_attention", "decode_attention"):
+        if not launches.get(name):
+            raise AssertionError(f"(b') launched no {name}: {launches}")
+    log(f"[codec] (b') launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches
+
+
 def contract_phase(dev, engine) -> dict:
-    """Phase 16: the serving contract and the lossless codecs. Returns the
-    kernels' launches over (b) and (c)."""
+    """Phase 16: the serving contract and the upload codecs. Returns the
+    kernels' launches over (b), (c) and (b')."""
     from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
     card = card_line()
     codec_f32_phase(dev, card)
@@ -5835,7 +5987,10 @@ def contract_phase(dev, engine) -> dict:
         codec_bf16_phase(base, sent, card)
         trace_phase(base, upload_bodies()[-1][1], sent, card)
         launches, _ = counter.read()
+        compressed = compressed_bf16_phase(base, engine, sent, card)
         metrics_phase(base, sent, card)
+    for name, n in compressed.items():
+        launches[name] = launches.get(name, 0) + n
     log(f"[contract] phase 16 launches {launches}")
     return launches
 
@@ -6952,7 +7107,7 @@ def main() -> int:
         if not contract.get(name):
             raise AssertionError(f"phase 16 launched no {name}")
         launches[name] += contract[name]
-    phase_done("phase 16 (the serving contract, lossless codecs)")
+    phase_done("phase 16 (the serving contract, the upload codecs)")
     gateway_phase(dev, spec_inputs)
     phase_done("phase 17 (gateway mode)")
     del engine, bf16_b8

@@ -4,9 +4,11 @@ Counterpart of ``qwen3_asr_tpu/audio/codec.py``: WAV (RIFF, RIFX, RF64;
 PCM 8/16/24/32-bit and float32/float64), W64 (Sony Wave64), AIFF/AIFC
 (uncompressed, ``sowt`` and float), AU/SND, CAF (LPCM) and FLAC
 (``audio/flac.py``) decode here to the JAX package's samples, rate, error
-classes and messages. MP3 and OGG, which JAX decodes through pygame's
-SDL_mixer, are recognized and refused with ``UnsupportedFormatError``
-(the server answers 422 AUDIO_DECODE_FAILED); anything unrecognized raises
+classes and messages. MP3 and Ogg Vorbis, which JAX decodes through
+pygame's SDL_mixer, go to the port's own decoders (``audio/compressed.py``)
+from the same magic bytes; what those refuse (Ogg Opus, MPEG Layer I/II,
+intensity stereo, Vorbis floor 0) raises ``UnsupportedFormatError`` (the
+server answers 422 AUDIO_DECODE_FAILED); anything unrecognized raises
 ``AudioDecodeError``. Decoded audio is mono float32 in [-1, 1] plus the
 sample rate.
 """
@@ -32,6 +34,10 @@ class UnsupportedFormatError(AudioDecodeError):
 # AUDIO_DECODE_FAILED. Bound it to the real-world range libsndfile accepts.
 _MAX_SAMPLE_RATE = 768_000
 _MAX_CHANNELS = 1024
+# Samples over all channels that an MP3 or Ogg Vorbis upload may decode to:
+# 3.4 h of 44.1 kHz stereo. Their headers make a few bytes decode to
+# thousands of samples, so the decoders refuse more before they allocate.
+MAX_DECODED_SAMPLES = 1 << 29
 
 
 def check_stream_params(sr: int, channels: int | None = None) -> int:
@@ -310,7 +316,7 @@ def _decode_au(buf: bytes) -> Tuple[np.ndarray, int]:
 
 _COMPRESSED = ((b"OggS", "OGG"), (b"ID3", "MP3"))
 _SUPPORTED = ("supported formats: WAV, W64, RF64, AIFF/AIFC, AU/SND, CAF, "
-              "FLAC")
+              "FLAC, MP3, OGG")
 
 
 def decode_audio(audio_bytes: bytes) -> Tuple[np.ndarray, int]:
@@ -342,7 +348,8 @@ def decode_audio(audio_bytes: bytes) -> Tuple[np.ndarray, int]:
             and (audio_bytes[1] & 0xE0) == 0xE0:
         kind = "MP3"  # raw MPEG frame sync, no ID3 tag
     if kind is not None:
-        raise UnsupportedFormatError(f"{kind} is not supported; {_SUPPORTED}")
+        from .compressed import decode_compressed
+        return decode_compressed(audio_bytes, kind)
     raise AudioDecodeError(f"unknown audio format; {_SUPPORTED}")
 
 

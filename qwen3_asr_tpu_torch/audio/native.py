@@ -1,4 +1,7 @@
-"""ctypes bindings to FLAC's per-sample loops in C++ (``csrc/audio_dsp.cpp``).
+"""ctypes bindings to the audio decoders' bit loops in C++
+(``csrc/audio_dsp.cpp``): FLAC's residuals and prediction, MP3's side
+information, scale factors and Huffman regions, and Vorbis's packets
+(floors, residues, coupling).
 
 Counterpart of the FLAC half of ``qwen3_asr_tpu/audio/native.py``: the
 library is built at first use (``ops/_build.py`` ``build_host``, into
@@ -52,6 +55,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.flac_raw_decode.restype = i64
         lib.flac_predict.argtypes = [i64p, i64, i32p, i32, i32]
         lib.flac_predict.restype = i32
+        lib.mp3_frames.argtypes = [u8p, i64, i64p, i64, i32, i32, i32, i32p,
+                                   i32p, i64, i32p, i32p, u8p, i32p, i32p,
+                                   i32p, i32p]
+        lib.mp3_frames.restype = i64
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.vorbis_packets.argtypes = [u8p, i64, i64p, i64, i32p, i64,
+                                       i32p, i64, f64p, i64, f64p, i64p,
+                                       f64p, i64]
+        lib.vorbis_packets.restype = i64
         _lib = lib
         log.info("native audio DSP loaded: %s", path)
         return _lib

@@ -3,8 +3,9 @@
 Counterpart of ``qwen3_asr_tpu/serving/schemas.py``. The card's machine has
 no pydantic, so each model is the plain JSON-schema dict that JAX's
 pydantic model emits (``model_json_schema``), built by ``_model`` from the
-same fields, descriptions and examples; ``API_TAGS`` and
-``API_DESCRIPTION`` are JAX's.
+same fields, descriptions and examples; ``API_TAGS`` is JAX's, and so is
+``API_DESCRIPTION`` but for its "Audio formats" paragraph, which says what
+the port decodes.
 """
 from __future__ import annotations
 
@@ -151,9 +152,9 @@ rebuilt on JAX/XLA/Pallas.
 - **Translation** via external LLM API
 
 ## Audio formats
-WAV (PCM/float), AIFF/AIFC, AU, RF64, FLAC (native decoder), MP3 and
-Ogg Vorbis/Opus (SDL_mixer backend, stream-native sample rate). M4A/AAC
-is not supported.
+WAV (PCM/float), AIFF/AIFC, AU, RF64, W64, CAF, FLAC, MP3 (MPEG-1, 2
+and 2.5 Layer III) and Ogg Vorbis, each decoded natively at the stream's
+own sample rate. Ogg Opus, MP3 Layer I/II and M4A/AAC are not supported.
 
 ## WebSocket protocol
 Connect to `/ws/transcribe`, stream raw PCM (s16le, mono, 16 kHz), and use

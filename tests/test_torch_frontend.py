@@ -115,8 +115,9 @@ def test_wav_decode_matches_jax(name):
 
 
 def test_non_wav_containers_are_refused():
-    """OGG and MP3 are still refused; FLAC decodes now, so a corrupt FLAC
-    stream raises the JAX package's error and message."""
+    """FLAC decodes now, so a corrupt FLAC stream raises the JAX package's
+    error and message; MP3 and Ogg Vorbis decode too, so bytes
+    that only start like them raise AudioDecodeError, as JAX's do."""
     corrupt = b"fLaC" + bytes(60)
     with pytest.raises(AudioDecodeError) as ours:
         decode_audio(corrupt)
@@ -127,8 +128,10 @@ def test_non_wav_containers_are_refused():
     assert str(ours.value) == str(ref.value)
     for data in (b"OggS" + bytes(60), b"ID3" + bytes(60),
                  b"\xff\xfb" + bytes(60)):
-        with pytest.raises(UnsupportedFormatError):
+        with pytest.raises(AudioDecodeError):
             decode_audio(data)
+        with pytest.raises(JaxDecodeError):
+            jax_decode_audio(data)
     with pytest.raises(AudioDecodeError):
         decode_audio(b"definitely not any audio container")
 

@@ -77,3 +77,50 @@ def test_gateway_modules_import_no_torch(module):
     inside = {p for p in _relative_imports(path)
               if os.path.isfile(os.path.join(PKG, p))}
     assert inside <= set(TORCH_FREE), f"{module} imports {inside}"
+
+
+# The port decodes MP3 and Ogg Vorbis itself: no codec library is loaded
+# through ctypes or imported (JAX's decode goes through pygame's SDL_mixer,
+# mpg123 and libvorbisfile).
+CODEC_LIBS = ("mpg123", "vorbisfile", "mp3lame", "sndfile", "sdl", "opus")
+_LOADERS = ("CDLL", "PyDLL", "LoadLibrary", "find_library", "dlopen",
+            "load_library")
+
+
+def _loads_and_imports(path):
+    """The module names a source imports and the strings it hands to a
+    library loader."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in _LOADERS:
+                for arg in ast.walk(node):
+                    if isinstance(arg, ast.Constant) and isinstance(
+                            arg.value, str):
+                        yield arg.value
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_codec_library(path):
+    bad = sorted({s for s in _loads_and_imports(path)
+                  if any(lib in s.lower() for lib in CODEC_LIBS)})
+    assert not bad, f"{os.path.relpath(path, ROOT)} loads {bad}"
+
+
+def test_the_codec_check_sees_a_ctypes_load(tmp_path):
+    src = tmp_path / "x.py"
+    src.write_text("import ctypes\nctypes.CDLL('libmpg123.so.0')\n"
+                   "from ctypes.util import find_library\n"
+                   "find_library('vorbisfile')\n")
+    assert sorted(s for s in _loads_and_imports(str(src))
+                  if any(lib in s.lower() for lib in CODEC_LIBS)) == \
+        ["libmpg123.so.0", "vorbisfile"]

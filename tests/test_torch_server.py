@@ -156,22 +156,22 @@ def test_decode_errors_match_jax_body(url, data):
 
 
 def test_non_wav_gets_422(url):
-    """FLAC decodes now: a corrupt FLAC stream answers the JAX server's
-    422 body. OGG and MP3 (no decoder in the port) still answer 422."""
+    """FLAC, MP3 and Ogg decode now: a corrupt FLAC stream answers the JAX
+    server's 422 body; corrupt OGG and MP3 bytes answer 422
+    AUDIO_DECODE_FAILED with their size, as JAX's server does for them."""
     data = b"fLaC" + bytes(100)
     status, body = _post(url, data)
     assert status == 422
     assert body == _jax_decode_error(data)
-    for data, kind in ((b"OggS" + bytes(100), "OGG"),
-                       (b"ID3" + bytes(100), "MP3"),
-                       (b"\xff\xfb" + bytes(100), "MP3")):
+    for data in (b"OggS" + bytes(100), b"ID3" + bytes(100),
+                 b"\xff\xfb" + bytes(100)):
         status, body = _post(url, data)
         assert status == 422
         assert body["code"] == "AUDIO_DECODE_FAILED"
         assert body["statusCode"] == 422
         assert body["context"] == {"fileSize": len(data)}
-        assert body["message"].startswith(
-            f"Could not decode audio: {kind} is not supported")
+        assert body["message"].startswith("Could not decode audio: ")
+        assert _jax_decode_error(data)["statusCode"] == 422
 
 
 def test_timestamps_answer_501(url, jax_engine, monkeypatch):
@@ -199,6 +199,29 @@ def test_timestamps_answer_501(url, jax_engine, monkeypatch):
     for ours, ref in zip(body["timestamps"], stamps):
         assert abs(ours["start"] - ref["start"]) <= 1e-3
         assert abs(ours["end"] - ref["end"]) <= 1e-3
+
+
+def _float_wav(audio: np.ndarray, sr: int) -> bytes:
+    """Mono IEEE-float WAV of float32 ``audio``."""
+    pcm = np.asarray(audio, "<f4").tobytes()
+    return (b"RIFF" + (36 + len(pcm)).to_bytes(4, "little") + b"WAVE"
+            + b"fmt " + (16).to_bytes(4, "little") + (3).to_bytes(2, "little")
+            + (1).to_bytes(2, "little") + sr.to_bytes(4, "little")
+            + (4 * sr).to_bytes(4, "little") + (4).to_bytes(2, "little")
+            + (32).to_bytes(2, "little") + b"data"
+            + len(pcm).to_bytes(4, "little") + pcm)
+
+
+@pytest.mark.parametrize("name", ["hindi_01.mp3", "hindi_01.ogg"])
+def test_mp3_and_ogg_uploads_answer_as_a_wav_of_their_decode(url, name):
+    """An MP3 or Ogg Vorbis upload answers the body of a float32 WAV
+    upload of the port's own decode of the same file."""
+    with open(os.path.join(ROOT, "compressed", name), "rb") as f:
+        data = f.read()
+    audio, sr = decode_audio(data)
+    status, body = _post(url, data)
+    assert status == 200 and body["text"]
+    assert (status, body) == _post(url, _float_wav(audio, sr))
 
 
 @pytest.mark.parametrize("upload", ["empty", "garbage"])
