@@ -3,7 +3,10 @@
 Run from the repository root: ``python3 chip_smoke.py``. It exits non-zero
 without a CUDA device, and whenever any phase fails. Phases:
 
-1. the card's name and power limit; build the CUDA kernels from
+1. the card's name and power limit; a cold boot by part at preset:1.7b,
+   int8 + int4 KV (``tools_perf/boot.py`` in a process of its own, into
+   an empty ``ASR_AOT_CACHE_DIR``; phase 19 (f) boots from it), whose
+   build is this phase's: build the CUDA kernels from
    ``qwen3_asr_tpu_torch/csrc`` (one nvcc per source, in parallel: the four
    TPU kernels' counterparts, the quantized GEMV and GEMM and the QK-norm +
    RoPE + KV-cache write, and the training path's two backward kernels)
@@ -86,9 +89,8 @@ without a CUDA device, and whenever any phase fails. Phases:
    run bit for bit; then the same with ``QUANTIZE=int4
    ASR_KV_CACHE_DTYPE=int4`` (kernel A's int4 route, kernel C's); the
    front graph's ms and ms per decode step at B=1 and B=8 of both beside
-   the bf16 engines' (phases 5 and 6); the default configuration's 30 s
-   request under the profiler, with the kernels a decode step as in phase
-   7; one B=1 request with ``QUANTIZE=fp8``;
+   the bf16 engines' (phases 5 and 6), with the kernels a decode step as
+   in phase 7; one B=1 request with ``QUANTIZE=fp8``;
 10. real-time transcription over ``WS /ws/transcribe`` through the port's
    server and its stdlib client (``serving/ws.py``), with the tick
    batches of 3 or 4 sessions (``ASR_WS_TICK_MIN_SESSIONS=3``,
@@ -104,8 +106,7 @@ without a CUDA device, and whenever any phase fails. Phases:
    B's per-row route and #3 launched; per-tick wall p50/p90, one tick's
    device busy share under the profiler; (c) the same with ``QUANTIZE=int8
    ASR_KV_CACHE_DTYPE=int4 ASR_INT8_ACT=true`` (kernel C on the verify
-   rows, B's int4 per-row route, #3-int4) and the share of a tick that
-   widening the int4 cache layers for T > 1 takes. Phases 2 and 3 also
+   rows, B's int4 per-row route, #3-int4). Phases 2 and 3 also
    hold the real-time path's kernel shapes: flash at the verify windows
    (T = 24, 32 and 64 at the 1 s and 6 s prompts, B = 1 and 4, f32 and
    bf16), kernel B with a ``[B]`` write position (T=1 at B = 8 and 96,
@@ -262,8 +263,7 @@ without a CUDA device, and whenever any phase fails. Phases:
    gateway, answers and token ids (the workers' debug lines, by forwarded
    ``X-Request-ID``) equal to phase 4's, both workers serving, their
    ``/health`` ``hbm_used_mb``; an SSE stream and a WS session (english_02)
-   through the gateway equal to the same sent to a worker; (ii) one
-   without the system block: the ids equal the port's on the CPU; (b)
+   through the gateway equal to the same sent to a worker; (b)
    preset:1.7b bf16 at full width, one worker warmed at 10 and 30 s: the
    10 s and 30 s uploads direct and through the gateway in turns (medians
    of 5, the hop's ms), 8 uploads at once (one B=8 dispatch in the
@@ -301,6 +301,34 @@ without a CUDA device, and whenever any phase fails. Phases:
    qwen3_asr_tpu_torch.tools.finetune`` on the card, 2 steps on a manifest
    of 4 clips.
 
+19. the operator tools: (a) ``tools/transcribe.py`` through ``main``:
+   trained_ckpt in f32 (``--dtype float32``), the 12 real clips in one
+   call with ``--json``, records and token ids equal to phase 4's server
+   answers and ids, then the same call with ``--srt --srt-mode accurate``
+   and ``FORCED_ALIGNER_ID`` at trained_ckpt; preset:1.7b bf16 with a 45 s
+   file (the long-form split), 8 clips of 9.5 s in one batch (#3) and a
+   5 s clip alone (#2): the launches of #1, #2 and #3 and the CLI's audio
+   seconds a wall second; (b) the preset:1.7b bf16 encoder exported
+   (``tools/export_encoder.py``) at the 6 s bucket: 32 nodes of the
+   registered flash operator and no SDPA in the graph, the program's
+   output equal to the eager ``encoder_forward`` bit for bit (its 32
+   flash launches counted), saved, loaded and run again; then phase 7's
+   key captured again with the operator registered: its front and chunk
+   graphs hold phase 7's node counts; (c) ``tools/train_vad.py`` on the card
+   (1500 steps, output to a temporary file): train-set FP/FN, the worst
+   flap rate and the held-out clips' rates beside the committed weights'
+   through the same ``evaluate()``, its seconds, and the committed file
+   unchanged; (d) the BPE trainer on the 12 clips' transcripts: the
+   committed ``trained_ckpt/tokenizer.json`` byte for byte (850 merges);
+   then ``tools/overfit.py --size base`` without ``--tokenizer`` on 2
+   clips for 31 steps; (e) ``runtime/roofline.py``: the analytic cost of
+   phase 5's 30 s B=1 request and phase 6's B=8 dispatch and their
+   ``mfu`` and ``hbm_util`` from the walls those phases measured; (f) a
+   boot by part from the boot cache phase 1's cold boot filled, into an
+   empty build directory (no compiler runs; ``QUANTIZE=int8
+   ASR_KV_CACHE_DTYPE=int4``): token ids equal to the cold boot's, the
+   seconds saved.
+
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -327,12 +355,17 @@ import urllib.error
 import urllib.request
 import uuid
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "e2e", "data")
+# walls and graph sizes phases 5-7 measured, for phase 19's roofline and
+# its check of phase 7's key
+MEASURED = {}
 SMOKE_BUCKETS = "10,15,30"         # the buckets phases 5-7 run
 KV_NAMES = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "fp8"}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -340,8 +373,12 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the log, after the seconds since the script started."""
+    print(f"{time.time() - _T0:7.1f} {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -623,13 +660,21 @@ def slab_cases(dev):
         del cache
 
 
-def per_call_ms(fn, layers: int) -> float:
+# Replays of a plain version's graph (of 10 calls, each layer) when it is
+# timed: its time is a column beside the kernel's, not a bound, and the
+# plain versions are 5-100x slower, so 20 replays cost ~80 s of the run.
+PLAIN_ITERS = 2
+
+
+def per_call_ms(fn, layers: int, iters: int = 20) -> float:
     """Device ms of one call; with ``layers``, the calls step through every
-    layer of the stacked cache (larger than L2), as the decode loop does."""
+    layer of the stacked cache (larger than L2), as the decode loop does.
+    ``iters`` replays of a graph of 10 calls (of every layer)."""
     from qwen3_asr_tpu_torch.tools_perf.attn_phase import device_ms
     if not layers:
-        return device_ms(fn)
-    return device_ms(lambda: [fn(i) for i in range(layers)]) / layers
+        return device_ms(fn, iters=iters)
+    return device_ms(lambda: [fn(i) for i in range(layers)],
+                     iters=iters) / layers
 
 
 # Device ms of kernels #3, #4, A and B before their redesigns, as PERF.md's
@@ -711,7 +756,7 @@ def time_row(label, dt, err, run, plain, sdpa, nbytes, flops, layers,
              card, sdpa_note="", lib_name="sdpa", note=""):
     """Phase 3 for one case in bf16: the row of the kernel table."""
     ms = per_call_ms(run, layers)
-    plain_ms = per_call_ms(plain, layers)
+    plain_ms = per_call_ms(plain, layers, PLAIN_ITERS)
     lib_ms = per_call_ms(sdpa, layers)
     call_ms = eager_ms(run if not layers else (lambda: run(layers - 1)), 50)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -792,7 +837,7 @@ def kernel_phases(sh, dev):
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
-        plain_ms = per_call_ms(plain, layers)
+        plain_ms = per_call_ms(plain, layers, PLAIN_ITERS)
         log(f"[parity] {label}: max_abs_err={err:.3e} (bound 1e-5 + "
             f"1e-5 relative); plain {plain_ms:.4f} ms (device) | {card}")
         if label == KERNELS["slab_reader"][2]:
@@ -1161,7 +1206,8 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
             row.update(note)
             row["earlier_ms"] = None
             if earlier is not None:
-                row["earlier_ms"] = per_call_ms(earlier, layers)
+                row["earlier_ms"] = per_call_ms(earlier, layers,
+                                                PLAIN_ITERS)
                 log(f"[timing] {kernel} {label}: the route it replaced "
                     f"(widened_product: the payload widened, then cuBLAS) "
                     f"{row['earlier_ms']:.4f} ms; kernel / earlier "
@@ -1176,7 +1222,8 @@ def quant_kernel_rows(sh, dev, card, rows) -> None:
         if label == KERNELS["qk_rope_kv"][2]:
             one_kernel_per_call("qk_rope_kv", label,
                                 lambda: run(layers - 1))
-        ms, plain_ms = per_call_ms(run, layers), per_call_ms(plain, layers)
+        ms = per_call_ms(run, layers)
+        plain_ms = per_call_ms(plain, layers, PLAIN_ITERS)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
@@ -1469,7 +1516,8 @@ def qk_row_rows(cases, card, rows, headline=None, tag="") -> None:
             one_kernel_per_call("qk_rope_kv", label,
                                 lambda: run(layers - 1),
                                 also=("qk_rope_kv_per_row",))
-        ms, plain_ms = per_call_ms(run, layers), per_call_ms(plain, layers)
+        ms = per_call_ms(run, layers)
+        plain_ms = per_call_ms(plain, layers, PLAIN_ITERS)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
@@ -2013,12 +2061,13 @@ def check_records(engine, name: str) -> None:
         raise AssertionError(f"{name}: qk_rope_kv records {got}")
 
 
-def step_kernels(exe, name: str, card: str) -> None:
+def step_kernels(exe, name: str, card: str, plain: bool = False) -> None:
     """The CUDA kernels one decode step records (torch.profiler, CUDA
     activity, over DECODE_CHUNK steps after the front's reset): a chunk
-    replay, the chunk's function run eagerly, and the same with the plain
-    chain (rms_norm, apply_rope, the cache's indexed write) in the
-    kernel's place, which is what the step ran before it."""
+    replay and the chunk's function run eagerly; with ``plain`` (phase 7
+    only: each count is a profiled run of several seconds), also the same
+    with the plain chain (rms_norm, apply_rope, the cache's indexed write)
+    in the kernel's place, which is what the step ran before it."""
     from qwen3_asr_tpu_torch.models import decoder
     from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope_kv_write_plain
     from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
@@ -2037,15 +2086,18 @@ def step_kernels(exe, name: str, card: str) -> None:
                    ) / DECODE_CHUNK
 
     graph, eager = count(exe.chunk), count(exe.chunk.fn)
-    kernel = decoder.qk_rope_kv_write
-    decoder.qk_rope_kv_write = qk_rope_kv_write_plain
-    try:
-        plain = count(exe.chunk.fn)
-    finally:
-        decoder.qk_rope_kv_write = kernel
-    log(f"[kernels] {name}: CUDA kernels a decode step: {graph:.1f} in a "
-        f"chunk replay, {eager:.1f} eager; {plain:.1f} eager with the plain "
-        f"chain in the kernel's place ({plain - eager:+.1f}) | {card}")
+    line = (f"[kernels] {name}: CUDA kernels a decode step: {graph:.1f} in "
+            f"a chunk replay, {eager:.1f} eager")
+    if plain:
+        kernel = decoder.qk_rope_kv_write
+        decoder.qk_rope_kv_write = qk_rope_kv_write_plain
+        try:
+            chain = count(exe.chunk.fn)
+        finally:
+            decoder.qk_rope_kv_write = kernel
+        line += (f"; {chain:.1f} eager with the plain chain in the kernel's "
+                 f"place ({chain - eager:+.1f})")
+    log(f"{line} | {card}")
 
 
 def key_report(engine, name: str, card: str) -> None:
@@ -2166,6 +2218,7 @@ def main_path_phase(engine, uploads, dev):
             want_decode += layers * run["steps_run"]
             want_qk += layers * (1 + run["steps_run"])
             first = first or (wall, run["generated"])
+            MEASURED["phase 5, 30 s upload at B=1"] = (wall, dict(run))
             log(f"[serve] preset:1.7b bf16 {name}: {wall:.3f} s wall, "
                 f"{run['generated']} tokens generated, {run['steps']} steps "
                 f"({run['steps_run']} computed), {run['replays']} replays, "
@@ -2237,6 +2290,11 @@ def batch_phase(engine, dev, solo):
             launches, eager = counter.read()
         run = eng.last_run
         name = KV_NAMES[kv]
+        if kv == bf16:
+            MEASURED["phase 6, 8 uploads at B=8, bf16 KV"] = (
+                min(batch_wall, MEASURED.get(
+                    "phase 6, 8 uploads at B=8, bf16 KV",
+                    (batch_wall,))[0]), dict(run))
         for body in replies:
             if not isinstance(body.get("text"), str) or "language" not in body:
                 raise AssertionError(f"{name}: bad response {body}")
@@ -2274,9 +2332,7 @@ def batch_phase(engine, dev, solo):
 
 # -- phase 7 ---------------------------------------------------------------------
 
-def profile_phase(engine, wav: bytes, top: int = 12,
-                  decode: str = "decode_attention",
-                  kernel: str = "decode_split_kernel") -> None:
+def profile_phase(engine, wav: bytes, top: int = 12) -> None:
     """One more transcription of ``wav`` through the warm engine under
     torch.profiler (CUDA activity only): wall, device busy time (sum of
     CUDA kernel time) and its share of the wall, the kernels that took the
@@ -2299,7 +2355,7 @@ def profile_phase(engine, wav: bytes, top: int = 12,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     run = engine.last_run
-    captured = counter.read()[0][decode]
+    captured = counter.read()[0]["decode_attention"]
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_time_total", 0) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2320,7 +2376,8 @@ def profile_phase(engine, wav: bytes, top: int = 12,
     if stale:
         raise AssertionError(f"the request ran {stale}: the cache is written "
                              f"by qk_rope_kv alone")
-    decoded = [(e.key[:60], e.count) for e in kernels if kernel in e.key]
+    decoded = [(e.key[:60], e.count) for e in kernels
+               if "decode_split_kernel" in e.key]
     want = engine.model.cfg.decoder.num_hidden_layers * run["steps_run"]
     log(f"[profile] decode kernels: {decoded} (want one name, {want} calls); "
         f"from the capture: {captured}; {sum(e.count for e in kernels)} "
@@ -2330,7 +2387,10 @@ def profile_phase(engine, wav: bytes, top: int = 12,
                if key[0] == run["bucket_frames"] and key[2] == run["batch"]
                and not x.resume)
     step_kernels(exe, f"{len(audio) / sr:.1f} s upload, B={run['batch']}, "
-                 f"{str(engine.cache_dtype).replace('torch.', '')} KV", card)
+                 f"{str(engine.cache_dtype).replace('torch.', '')} KV", card,
+                 plain=True)
+    # for phase 19 (b)
+    MEASURED["phase 7 graph nodes"] = (exe.front.nodes, exe.chunk.nodes)
 
 
 def profile_verdict(captured: int, want: int, decoded: list) -> str:
@@ -2549,11 +2609,15 @@ def front_step_report(engines, card: str) -> None:
     """The front graph's ms, ms per decode step and CUDA kernels a step of
     each (engine, name)'s 30 s B=1 and 10 s B=8 keys it has built."""
     from qwen3_asr_tpu_torch.runtime.engine import max_new_tokens_for
+    done = set()
     for eng, name in engines:
         for sec, batch in ((30, 1), (10, 8)):
             bf, bs = eng.bucket_frames(16000 * sec)
             key = (bf, max_new_tokens_for(bs), batch, eng.cache_dtype)
-            if key in eng.executables:
+            # a configuration's key once (phases 5 and 6 both hold the
+            # bf16 B=8 key)
+            if key in eng.executables and (name, key) not in done:
+                done.add((name, key))
                 exe = eng.executables[key]
                 front, step = front_and_step_ms(exe)
                 log(f"[default] {name}, {sec} s bucket, B={batch}: front "
@@ -2568,9 +2632,8 @@ def default_config_phase(dev, sh, bf16_engine, bf16_b8_engine, uploads):
     an int4 KV cache, at preset:1.7b, each served by ``serve_quantized``;
     the front graph's ms, ms per decode step and kernels a decode step at
     B=1 (30 s) and B=8 (10 s) of both beside the bf16 engines'
-    (``bf16_engine`` from phase 5, ``bf16_b8_engine`` from phase 6); the
-    default configuration's 30 s request under the profiler; then one B=1
-    request with QUANTIZE=fp8. Returns each kernel's launches over the
+    (``bf16_engine`` from phase 5, ``bf16_b8_engine`` from phase 6); then
+    one B=1 request with QUANTIZE=fp8. Returns each kernel's launches over the
     phase's three served configurations."""
     from qwen3_asr_tpu_torch.audio.codec import encode_wav
     from qwen3_asr_tpu_torch.runtime.lifecycle import ModelManager
@@ -2596,11 +2659,7 @@ def default_config_phase(dev, sh, bf16_engine, bf16_b8_engine, uploads):
                            (bf16_b8_engine, "bf16 weights, bf16 KV"),
                            (engine, "int8 weights, int4 KV"),
                            (int4, "int4 weights, int4 KV")), card)
-        del int4
-        torch.cuda.empty_cache()
-        profile_phase(engine, long_wav, decode="decode_attention_batch_int4",
-                      kernel="decode_batch_kernel")
-        del engine
+        del int4, engine
         torch.cuda.empty_cache()
 
         fp8, _ = quantized_engine(dev, dict(DEFAULT_ENV, QUANTIZE="fp8"),
@@ -3019,39 +3078,6 @@ def cast_tree(tree, dtype):
     return tree.to(dtype)
 
 
-def widened_share(engine, tick: dict, card: str, name: str) -> None:
-    """With an int4 or fp8 cache a T > 1 forward widens each cache layer
-    before flash: twice a layer a tick (the prompt and the verify window).
-    Device ms of those widenings alone on the tick's key (a captured graph
-    of them), against the tick's device ms (front + its chunks)."""
-    from qwen3_asr_tpu_torch.ops.kv_int4 import dequantize_layer
-    cache = tick["exe"].loop.cache
-    layers = engine.model.cfg.decoder.num_hidden_layers
-
-    def widen():
-        for _ in range(2):
-            for i in range(layers):
-                if cache.int4:
-                    dequantize_layer(cache.k[i], cache.k_scale[i],
-                                     torch.bfloat16)
-                    dequantize_layer(cache.v[i], cache.v_scale[i],
-                                     torch.bfloat16)
-                else:
-                    cache.k[i].to(torch.bfloat16)
-                    cache.v[i].to(torch.bfloat16)
-
-    from qwen3_asr_tpu_torch.runtime.graphs import Graph
-    graph = Graph(widen, torch.device("cuda"))
-    ms = replay_ms(graph)
-    run = tick["run"]
-    from qwen3_asr_tpu_torch.runtime.generate import DECODE_CHUNK
-    tick_ms = tick["front_ms"] + tick["chunk_ms"] * run["steps_run"] \
-        / DECODE_CHUNK
-    log(f"[ws] {name}: widening the cache layers for T > 1 (2 x "
-        f"{layers} layers, K and V) takes {ms:.3f} ms of a tick's "
-        f"{tick_ms:.3f} ms device time ({ms / tick_ms:.1%}) | {card}")
-
-
 def realtime_phase(dev, bf16_model) -> dict:
     """Phase 10: real-time transcription over WS /ws/transcribe (resume
     decoding, tick batching, the server VAD). Returns the kernels' launches
@@ -3108,10 +3134,7 @@ def realtime_phase(dev, bf16_model) -> dict:
             raise AssertionError(f"(c): launches {launches}, verify "
                                  f"products {verify}")
         add(launches)
-        tick = tick_busy_share(engine, ticks, card,
-                               "(c) int8 + int4 KV + W8A8")
-        widened_share(engine, tick, card, "(c) int8 + int4 KV + W8A8")
-        del engine, manager, ticks, tick
+        del engine, manager, ticks
         torch.cuda.empty_cache()
     finally:
         for k, v in saved.items():
@@ -5998,9 +6021,10 @@ def contract_phase(dev, engine) -> dict:
 # -- phase 17: gateway mode ----------------------------------------------------
 
 # Chat templates in the Qwen style for trained_ckpt (its tokenizer has the
-# builtin prompt's special tokens): (i) renders the builtin prompt's layout,
-# (ii) drops the system block. tests/test_torch_chat_template.py holds both
-# against jinja2 and the JAX engine on the CPU.
+# builtin prompt's special tokens): (i) renders the builtin prompt's layout
+# (phase 17 (a) serves it), (ii) drops the system block.
+# tests/test_torch_chat_template.py holds both against jinja2 and the JAX
+# engine on the CPU.
 TEMPLATE_BUILTIN_LAYOUT = (
     "{%- for message in messages %}\n"
     "{{- '<|im_start|>' + message['role'] + '\\n' }}\n"
@@ -6020,11 +6044,11 @@ TEMPLATE_BUILTIN_LAYOUT = (
     "{%- if add_generation_prompt %}\n"
     "{{- '<|im_start|>assistant\\n' }}\n"
     "{%- endif %}\n")
+
 TEMPLATE_NO_SYSTEM = TEMPLATE_BUILTIN_LAYOUT.replace(
     "{%- for message in messages %}\n",
     "{%- for message in messages %}\n"
     "{%- if message.role == 'system' %}{% continue %}{% endif %}\n", 1)
-
 
 
 def template_ckpt(root: str, name: str, template: str) -> str:
@@ -6131,23 +6155,10 @@ def gateway_f32_phase(dev, real, root: str, card: str) -> None:
     renders the builtin layout: phase 4's 12 clips at once through the
     gateway, answers and token ids equal to phase 4's card results, both
     workers serving; an SSE stream and a WS session (english_02) through
-    the gateway equal to the same sent to a worker directly; (ii) one
-    without the system block: the 12 clips' ids equal the port's on the
-    CPU."""
-    from qwen3_asr_tpu_torch.audio.codec import decode_audio
-    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    the gateway equal to the same sent to a worker directly."""
     from qwen3_asr_tpu_torch.serving.gateway import WorkerFleet
     wavs, wants, ids = real
     builtin = template_ckpt(root, "builtin_layout", TEMPLATE_BUILTIN_LAYOUT)
-    no_system = template_ckpt(root, "no_system", TEMPLATE_NO_SYSTEM)
-    cpu_ids = {}
-
-    def cpu_reference():                   # (ii)'s, while workers start
-        cpu = load_engine(no_system, device="cpu")
-        cpu_ids["ids"] = [cpu.transcribe(*decode_audio(w))[0].token_ids
-                          for w in wavs]
-    ref = threading.Thread(target=cpu_reference)
-    ref.start()
     with environ(WORKER_PORTS=f"{free_port()},{free_port()}"):
         fleet = WorkerFleet.from_env(device="cuda", dtype="float32")
     for s in fleet.supervisors:
@@ -6199,31 +6210,9 @@ def gateway_f32_phase(dev, real, root: str, card: str) -> None:
             if events[0] != events[1] or msgs[0] != msgs[1] or \
                     events[0][-1] != {"done": True} or len(msgs[0]) < 4:
                 raise AssertionError(f"(a): SSE {events}, WS {msgs}")
-            # (ii): both workers respawned on the second checkpoint
-            fleet.kill_all()
-            for s in fleet.supervisors:
-                s.spawn_env["MODEL_ID"] = no_system
-            fleet.ensure_all_managed()
-            before = [s.served for s in fleet.supervisors]
-            bodies = send_at_once(url, wavs, "p17a-ii")
-            got = logged_ids(fleet, [f"p17a-ii-{i}"
-                                     for i in range(len(wavs))])
-            got = [got.get(f"p17a-ii-{i}") for i in range(len(wavs))]
-            ref.join()
-            served = [s.served - b for s, b in zip(fleet.supervisors, before)]
-            log(f"[gateway] (a)(ii) template without the system block: "
-                f"token ids equal to the port's on the CPU: "
-                f"{got == cpu_ids['ids']}; differ from (i)'s for "
-                f"{sum(a != b for a, b in zip(got, ids))} of {len(wavs)} "
-                f"clips; served {served} | {card}")
-            if got != cpu_ids["ids"] or min(served) < 1:
-                raise AssertionError(f"(a)(ii): ids {got} vs CPU "
-                                     f"{cpu_ids['ids']}, served {served}")
     except BaseException:
         log(worker_tails(fleet))
         raise
-    finally:
-        ref.join()
 
 
 def real_text_wav(name: str) -> bytes:
@@ -6542,7 +6531,7 @@ def train_time_row(label, dt, route, err, run, plain, library, nbytes,
     library's backward as its forward and backward, autograd captured in
     the graph, less its forward alone), the bound (the products at the
     dtype's peak: bf16's tensor cores, f32's CUDA cores)."""
-    ms, plain_ms = per_call_ms(run, 0), per_call_ms(plain, 0)
+    ms, plain_ms = per_call_ms(run, 0), per_call_ms(plain, 0, PLAIN_ITERS)
     lib_ms = (per_call_ms(library[1], 0) - per_call_ms(library[0], 0)
               if library is not None else None)
     if lib_ms is not None and not lib_ms > 0:
@@ -6944,6 +6933,411 @@ def train_phase(dev) -> tuple:
 
 
 # name -> (source, TPU kernel it replaces, headline shape)
+# -- phase 19 ----------------------------------------------------------------------
+
+TOOLS_LONG_S = 45.0        # (a): the long-form file
+TOOLS_BATCH = 8            # (a): the clips of one batch, 9.5 s each
+EXPORT_BUCKET_S = 6.0      # (b): the exported encoder's bucket
+VAD_STEPS = 1500           # (c): train_vad's default, not cut
+OVERFIT_STEPS = 31         # (d): the overfit CLI's steps (its cosine
+                           # decay needs more than its 30 warmup steps)
+BOOT_ENV = {"QUANTIZE": "int8", "ASR_KV_CACHE_DTYPE": "int4"}   # (f)
+
+
+@contextlib.contextmanager
+def cli_engines():
+    """The engines ``load_engine`` builds meanwhile (a CLI builds its own),
+    each with a ``PathLaunches`` made as it is built, and the token ids
+    every ``transcribe``/``transcribe_batch`` result carries."""
+    from qwen3_asr_tpu_torch.runtime import lifecycle
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    real_load = lifecycle.load_engine
+    real_batch = TranscriptionEngine.transcribe_batch
+    got = {"engines": [], "ids": []}
+
+    def load(*a, **k):
+        eng = real_load(*a, **k)
+        got["engines"].append((eng, PathLaunches(eng)))
+        return eng
+
+    def batch(self, clips, language=None):
+        out = real_batch(self, clips, language)
+        got["ids"] += [r.token_ids for r in out]
+        return out
+
+    lifecycle.load_engine = load
+    TranscriptionEngine.transcribe_batch = batch
+    try:
+        yield got
+    finally:
+        lifecycle.load_engine = real_load
+        TranscriptionEngine.transcribe_batch = real_batch
+
+
+def cli_run(main, argv) -> tuple:
+    """(exit code, stdout, stderr, wall s) of a CLI's ``main(argv)`` run in
+    this process."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def summary_rt(err: str) -> float:
+    """The transcribe CLI's audio seconds a wall second (its summary)."""
+    m = re.search(r"\(([0-9.]+)x RT\)", err)
+    if not m:
+        raise AssertionError(f"no summary line in the CLI's stderr: {err}")
+    return float(m.group(1))
+
+
+def transcribe_cli_phase(real, tmp: str, card: str) -> dict:
+    """(a): the offline CLI on trained_ckpt f32 (phase 4's answers and
+    ids), with accurate SRTs, and on preset:1.7b bf16 (long-form, B=8,
+    B=1). Returns the launches of the preset:1.7b call."""
+    from qwen3_asr_tpu_torch.audio.codec import encode_wav
+    from qwen3_asr_tpu_torch.sidecars import subtitle
+    from qwen3_asr_tpu_torch.tools import transcribe
+    _, _, wants, ids = real
+    ckpt = os.path.join(DATA, "trained_ckpt")
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))
+    with cli_engines() as got:
+        rc, out, err, wall = cli_run(transcribe.main, clips + [
+            "--model", ckpt, "--json", "--dtype", "float32"])
+    records = [json.loads(line) for line in out.splitlines()]
+    (engine, counter), = got["engines"]
+    launches, _ = counter.read()
+    if (rc != 0 or [r["file"] for r in records] != clips
+            or [{"text": r["text"], "language": r["language"]}
+                for r in records] != wants
+            or sorted(got["ids"]) != sorted(ids)):
+        raise AssertionError(f"transcribe CLI on trained_ckpt: rc {rc}, "
+                             f"{records} against phase 4's {wants}")
+    log(f"[tools] (a) transcribe CLI, trained_ckpt f32, {len(clips)} clips "
+        f"in one call: records equal to phase 4's server answers, token ids "
+        f"equal to phase 4's; {len(engine.executables)} keys; "
+        f"{summary_rt(err):.1f} s of audio a wall second ({wall:.2f} s with "
+        f"the load); launches {launches} | {card}")
+    saved = subtitle.FORCED_ALIGNER_ID
+    subtitle.FORCED_ALIGNER_ID = ckpt
+    try:
+        rc, out, err, wall = cli_run(transcribe.main, clips + [
+            "--model", ckpt, "--json", "--dtype", "float32", "--srt",
+            "--srt-mode", "accurate", "--output-dir",
+            os.path.join(tmp, "srt")])
+    finally:
+        subtitle.unload_aligner()
+        subtitle.FORCED_ALIGNER_ID = saved
+    records = [json.loads(line) for line in out.splitlines()]
+    events = []
+    for r in records:
+        with open(r["srt"]) as f:
+            events.append(f.read().count("-->"))
+    if rc != 0 or len(records) != len(clips) or min(events) < 1:
+        raise AssertionError(f"accurate SRTs: rc {rc}, events {events}")
+    log(f"[tools] (a) the same with --srt --srt-mode accurate "
+        f"(FORCED_ALIGNER_ID=trained_ckpt): {sum(events)} subtitle events "
+        f"in {len(records)} files, {wall:.2f} s | {card}")
+
+    audio = real_audio()
+    seg = int(9.5 * 16000)
+    files = [os.path.join(tmp, "long_45s.wav"), os.path.join(tmp, "solo_5s.wav")]
+    with open(files[0], "wb") as f:
+        f.write(encode_wav(audio[:int(TOOLS_LONG_S * 16000)], 16000))
+    with open(files[1], "wb") as f:
+        f.write(encode_wav(audio[-5 * 16000:], 16000))
+    for i in range(TOOLS_BATCH):
+        files.append(os.path.join(tmp, f"clip_{i}.wav"))
+        with open(files[-1], "wb") as f:
+            f.write(encode_wav(audio[i * seg:(i + 1) * seg], 16000))
+    with environ(SKIP_WARMUP="true"), cli_engines() as got:
+        rc, out, err, wall = cli_run(transcribe.main, files + [
+            "--model", "preset:1.7b", "--json"])
+    (engine, counter), = got["engines"]
+    launches, eager = counter.read()
+    records = [json.loads(line) for line in out.splitlines()]
+    audio_s = TOOLS_LONG_S + 5.0 + TOOLS_BATCH * 9.5
+    log(f"[tools] (a) transcribe CLI, preset:1.7b bf16: a {TOOLS_LONG_S:g} s "
+        f"file, a 5 s clip and {TOOLS_BATCH} clips of 9.5 s in one call: "
+        f"{summary_rt(err):.1f} s of audio a wall second of inference "
+        f"({audio_s / wall:.1f} with the load, {wall:.2f} s); keys "
+        f"{sorted(k[:3] for k in engine.executables)}; launches #1 "
+        f"{launches['flash_attention']}, #2 {launches['decode_attention']}, "
+        f"#3 {launches['decode_attention_batch']} (eager {eager}) | {card}")
+    if (rc != 0 or len(records) != len(files)
+            or not all(isinstance(r["text"], str) for r in records)
+            or not all(launches[k] for k in ("flash_attention",
+                                             "decode_attention",
+                                             "decode_attention_batch"))):
+        raise AssertionError(f"transcribe CLI on preset:1.7b: rc {rc}, "
+                             f"launches {launches}")
+    return launches
+
+
+def export_phase(dev, tmp: str, card: str) -> tuple:
+    """(b): the preset:1.7b bf16 encoder exported at the 6 s bucket, then
+    the kernels a decode step records at phase 7's key. Returns the flash
+    launches of the program's runs and the engine (for (e))."""
+    from qwen3_asr_tpu_torch.models.encoder import encoder_forward
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    from qwen3_asr_tpu_torch.tools.export_encoder import (bucket_mel_frames,
+                                                          export_program,
+                                                          flash_nodes,
+                                                          load_encoder)
+    engine = load_engine("preset:1.7b", device=dev)
+    cfg = engine.model.cfg.encoder
+    frames = bucket_mel_frames(cfg, EXPORT_BUCKET_S)
+    t0 = time.perf_counter()
+    program = export_program(engine.model.params["encoder"], cfg, 1, frames,
+                             torch.bfloat16, dev)
+    export_s = time.perf_counter() - t0
+    names = [str(n.target) for n in program.graph.nodes]
+    nodes = flash_nodes(program)
+    sdpa = [n for n in names if "scaled_dot_product" in n]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    mel = torch.randn((1, cfg.num_mel_bins, frames), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    lens = torch.tensor([frames - 37], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        want, want_lens = encoder_forward(engine.model.params["encoder"],
+                                          cfg, mel, lens)
+    flash_attention.launches = 0
+    got, got_lens = program.module()(mel, lens)
+    torch.cuda.synchronize()
+    launched = flash_attention.launches
+    path = os.path.join(tmp, "encoder.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(program, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = load_encoder(path)
+    load_s = time.perf_counter() - t0
+    got2 = again.module()(mel, lens)[0]
+    torch.cuda.synchronize()
+    launched2 = flash_attention.launches - launched
+    layers = cfg.encoder_layers
+    log(f"[tools] (b) encoder export, preset:1.7b bf16 at the "
+        f"{EXPORT_BUCKET_S:g} s bucket ({frames} mel frames): {export_s:.1f} "
+        f"s, {len(names)} nodes, {nodes} of the flash operator, SDPA nodes "
+        f"{len(sdpa)}; the program's output equal to the eager encoder: "
+        f"{torch.equal(got, want) and torch.equal(got_lens, want_lens)}, "
+        f"flash launches {launched}; saved {os.path.getsize(path) / 2**20:.0f}"
+        f" MiB in {save_s:.1f} s, loaded in {load_s:.1f} s, equal again: "
+        f"{torch.equal(got2, want)} ({launched2} launches) | {card}")
+    if (nodes != layers or sdpa or not torch.equal(got, want)
+            or not torch.equal(got_lens, want_lens)
+            or not torch.equal(got2, want) or launched != layers
+            or launched2 != layers):
+        raise AssertionError("the exported encoder does not hold the flash "
+                             "operator or differs from the eager encoder")
+    del program, again, got, got2
+    os.remove(path)
+    # phase 7's key with the operator registered: the same kernels a step
+    long = real_audio()[:int(29.5 * 16000)]
+    engine.transcribe(long, 16000)
+    run = engine.last_run
+    exe = next(x for key, x in engine.executables.items()
+               if key[0] == run["bucket_frames"] and key[2] == 1
+               and not x.resume)
+    nodes = (exe.front.nodes, exe.chunk.nodes)
+    want = MEASURED.get("phase 7 graph nodes")
+    log(f"[tools] (b) phase 7's key (30 s, B=1, bf16 KV) with the flash "
+        f"operator registered: graph nodes (front, chunk) {nodes}, phase 7's "
+        f"{want} | {card}")
+    if want is not None and nodes != want:
+        raise AssertionError(f"the key's graphs hold {nodes} nodes against "
+                             f"phase 7's {want}")
+    return 2 * layers, engine
+
+
+def vad_train_phase(dev, tmp: str, card: str) -> None:
+    """(c): ``tools/train_vad.py`` on the card, beside the committed
+    weights through the same ``evaluate()``."""
+    import hashlib
+    from qwen3_asr_tpu_torch.audio import vad_model
+    from qwen3_asr_tpu_torch.tools import train_vad
+    data = os.path.join(DATA, "real")
+    digest = hashlib.sha256(open(vad_model.WEIGHTS_PATH, "rb").read()
+                            ).hexdigest()
+    saved = {k: os.environ.get(k) for k in ("ASR_VAD", "ASR_VAD_WEIGHTS")}
+    try:
+        t0 = time.perf_counter()
+        windows, labels, names, _ = train_vad.build_dataset(data)
+        feats = train_vad.featurize_windows(windows, dev)
+        data_s = time.perf_counter() - t0
+        params = train_vad.init_params(0, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = train_vad.train(params, feats, labels, VAD_STEPS,
+                                         3e-3, 0, log_every=0)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        params, offset, _, fp, fn = train_vad.calibrate(params, feats, labels)
+        out = os.path.join(tmp, "vad.npz")
+        train_vad.save_params(params, out)
+        ours = train_vad.report(data, out, dev, names, fp, fn)
+        committed = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                     for k, v in vad_model.load_params(
+                         vad_model.WEIGHTS_PATH).items()}
+        c_fp, c_fn = train_vad.error_rates(committed, feats, labels)
+        theirs = train_vad.report(data, vad_model.WEIGHTS_PATH, dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        vad_model._read.cache_clear()
+        vad_model._model.cache_clear()
+    loss = [float(x) for x in losses[::300]] + [float(losses[-1])]
+    held = {k: ours["flap_table"][k]["flap_rate"] for k in train_vad.HELD_OUT}
+    c_held = {k: theirs["flap_table"][k]["flap_rate"]
+              for k in train_vad.HELD_OUT}
+    log(f"[tools] (c) train_vad on the card: {len(labels)} windows "
+        f"({int(labels.sum())} speech) built and featurized in {data_s:.1f} "
+        f"s, {VAD_STEPS} steps in {train_s:.1f} s "
+        f"({1e3 * train_s / VAD_STEPS:.2f} ms a step), loss {loss}; "
+        f"boundary offset {offset:+.2f}; "
+        f"train FP {fp:.4f} / FN {fn:.4f} (committed weights {c_fp:.4f} / "
+        f"{c_fn:.4f} at their own boundary); worst flap {ours['worst_flap_rate']}"
+        f" (committed {theirs['worst_flap_rate']}); held out {held} "
+        f"(committed {c_held}) | {card}")
+    if hashlib.sha256(open(vad_model.WEIGHTS_PATH, "rb").read()
+                      ).hexdigest() != digest:
+        raise AssertionError("train_vad wrote the committed weights")
+    if not all(np.isfinite(loss)) or loss[-1] >= loss[0]:
+        raise AssertionError(f"train_vad's loss did not fall: {loss}")
+
+
+def bpe_overfit_phase(tmp: str, card: str) -> None:
+    """(d): the BPE trainer on the card's host, then the overfit CLI
+    without ``--tokenizer``."""
+    from qwen3_asr_tpu_torch.tools import overfit
+    real = os.path.join(DATA, "real")
+    texts = [open(p, encoding="utf-8").read().strip()
+             for p in sorted(glob.glob(os.path.join(real, "*.txt")))]
+    path = os.path.join(tmp, "tokenizer.json")
+    t0 = time.perf_counter()
+    overfit.build_tokenizer(texts, path)
+    bpe_s = time.perf_counter() - t0
+    with open(path, encoding="utf-8") as f, open(os.path.join(
+            DATA, "trained_ckpt", "tokenizer.json"), encoding="utf-8") as g:
+        ours, theirs = f.read(), g.read()
+    merges = len(json.loads(ours)["model"]["merges"])
+    log(f"[tools] (d) BPE trainer on {len(texts)} transcripts: {merges} "
+        f"merges in {bpe_s:.3f} s, trained_ckpt/tokenizer.json byte for "
+        f"byte: {ours == theirs} | {card}")
+    if ours != theirs or merges != 850:
+        raise AssertionError("the BPE trainer did not reproduce "
+                             "trained_ckpt/tokenizer.json")
+    data = os.path.join(tmp, "overfit_data")
+    os.makedirs(data)
+    for name in ("english_01", "chinese_02"):
+        for ext in (".wav", ".txt", ".lang"):
+            if os.path.exists(os.path.join(real, name + ext)):
+                shutil.copy(os.path.join(real, name + ext), data)
+    out = os.path.join(tmp, "overfit_out")
+    t0 = time.perf_counter()
+    overfit.main(["--data-dir", data, "--output", out, "--size", "base",
+                  "--max-steps", str(OVERFIT_STEPS), "--eval-every", "1000",
+                  "--device", "cuda"])
+    with open(os.path.join(out, "overfit_manifest.json")) as f:
+        manifest = json.load(f)
+    log(f"[tools] (d) overfit CLI without --tokenizer, --size base, 2 clips, "
+        f"{OVERFIT_STEPS} steps on the card: {time.perf_counter() - t0:.1f} s"
+        f", {manifest['n_params']} parameters, exact {manifest['exact']}/"
+        f"{manifest['total_strict']} | {card}")
+
+
+def roofline_phase(engine, card: str) -> None:
+    """(e): the analytic cost and the shares of phases 5 and 6."""
+    from qwen3_asr_tpu_torch.runtime.roofline import analytic_cost, utilization
+    for name in ("phase 5, 30 s upload at B=1",
+                 "phase 6, 8 uploads at B=8, bf16 KV"):
+        if name not in MEASURED:
+            log(f"[tools] (e) {name}: not measured in this run")
+            continue
+        wall, run = MEASURED[name]
+        frames = run["bucket_frames"]
+        cost = analytic_cost(engine, run["batch"], frames, frames / 100.0)
+        shares = utilization(cost, wall)
+        log(f"[tools] (e) roofline, {name}: {cost.as_dict()}; wall {wall:.3f}"
+            f" s: mfu {shares['mfu']:.4f}, hbm_util {shares['hbm_util']:.4f} "
+            f"(of 989 TFLOP/s and 3.35 TB/s) | {card}")
+
+
+def boot_run(cache: str, build: Optional[str] = None) -> dict:
+    """One boot (``tools_perf/boot.py``) in a process of its own, with the
+    boot cache ``cache``, into the build directory ``build`` (the
+    package's ``_build/`` when None)."""
+    env = dict(os.environ, ASR_AOT_CACHE_DIR=cache, **BOOT_ENV)
+    env.pop("ASR_WARMUP_BUCKETS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "qwen3_asr_tpu_torch.tools_perf.boot"]
+        + (["--build-dir", build] if build else []),
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"boot failed: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def boot_line(name: str, b: dict, card: str) -> None:
+    log(f"[boot] {name} ({b['quantize']} weights, {b['kv']} KV, build "
+        f"directory empty: {b['build_dir_empty']}, compiler processes "
+        f"{b['compiler_runs']}): {b['process_s']:.1f} s of process, "
+        f"{b['total_s']:.1f} s from import to the first answer; by part "
+        f"{json.dumps(b['parts'])} | {card}")
+
+
+def cold_boot(cache: str, card: str) -> dict:
+    """Phase 1: a cold boot into an empty boot cache, whose build of every
+    kernel (``nvcc``, into the package's ``_build/``: empty in a fresh
+    checkout) is the build the later phases load."""
+    cold = boot_run(cache)
+    boot_line("cold, phase 1", cold, card)
+    return cold
+
+
+def boot_phase(cache: str, cold: dict, card: str) -> None:
+    """(f): a boot from the cache phase 1's cold boot filled, into an
+    empty build directory."""
+    warm = boot_run(cache, os.path.join(cache, "build_warm"))
+    boot_line("from the cache", warm, card)
+    saved = cold["process_s"] - warm["process_s"]
+    log(f"[boot] saved by the cache: {saved:.1f} s of process (the build "
+        f"{cold['parts']['build_s'] - warm['parts']['build_s']:.1f} s); "
+        f"token ids equal to the cold boot's: "
+        f"{cold['token_ids'] == warm['token_ids']} | {card}")
+    if (cold["token_ids"] != warm["token_ids"] or not warm["build_dir_empty"]
+            or warm["compiler_runs"]
+            or (cold["build_dir_empty"] and not cold["compiler_runs"])):
+        raise AssertionError("the boot from the cache differs from the cold "
+                             "boot, or compiled again")
+
+
+def tools_phase(dev, real, boot_cache: str, cold: dict) -> dict:
+    """Phase 19 (docstring). Returns its launches of #1, #2 and #3."""
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="smoke_tools_") as tmp:
+        launches = transcribe_cli_phase(real, tmp, card)
+        flash, engine = export_phase(dev, tmp, card)
+        launches["flash_attention"] += flash
+        roofline_phase(engine, card)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        vad_train_phase(dev, tmp, card)
+        bpe_overfit_phase(tmp, card)
+        boot_phase(boot_cache, cold, card)
+    return launches
+
+
 KERNELS = {
     "flash_attention": ("qwen3_asr_tpu_torch/csrc/flash_attention.cu",
                         "qwen3_asr_tpu/ops/flash_attention.py:39",
@@ -7008,8 +7402,10 @@ def main() -> int:
         log(f"[time] {name}: {now - t0:.1f} s")
         t0 = now
 
+    boot_cache = tempfile.mkdtemp(prefix="smoke_boot_")
+    cold = cold_boot(boot_cache, card)
     build_kernels()
-    phase_done("phase 1 (build)")
+    phase_done("phase 1 (a cold boot: the build)")
     sh = main_path_shapes()
     log(f"[shapes] {sh}")
     rows = kernel_phases(sh, dev)
@@ -7064,6 +7460,7 @@ def main() -> int:
     phase_done("phase 11 (timestamps, subtitles, SSE, translations)")
     pooled = pool_phase(dev, engine, real)
     spec_inputs = real[1:]         # phase 15 (a): the uploads, answers, ids
+    real_ids = (None,) + real[1:]  # phase 19 (a): the answers and ids
     del real
     # this slice's path, counted from 0 just before it
     for name in ("flash_attention", "decode_attention",
@@ -7122,6 +7519,15 @@ def main() -> int:
             raise AssertionError(f"phase 18 launched no {name}")
         launches[name] = launches.get(name, 0) + trained[name]
     phase_done("phase 18 (training)")
+    tools = tools_phase(dev, real_ids, boot_cache, cold)
+    shutil.rmtree(boot_cache, ignore_errors=True)
+    # this slice's path, counted from 0 just before each of its runs
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_batch"):
+        if not tools.get(name):
+            raise AssertionError(f"phase 19 launched no {name}")
+        launches[name] += tools[name]
+    phase_done("phase 19 (the operator tools)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():

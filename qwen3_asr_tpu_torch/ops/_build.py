@@ -11,6 +11,11 @@ raises; nothing falls back.
 ``build_host`` does the same for a host source, ``csrc/<name>.cpp``: C++
 with a plain C interface, compiled with ``g++`` into ``_build/``, keyed by
 a hash of the source and the flags.
+
+With ``ASR_AOT_CACHE_DIR`` set (``runtime/aot_cache.py``), a library that
+is not in ``_build/`` is first looked up in that cache, and one that is
+compiled here, or found here, is published there (unless the cache holds
+it already), so a later boot with an empty ``_build/`` needs no compiler.
 """
 from __future__ import annotations
 
@@ -33,6 +38,11 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _boot_cache():
+    from ..runtime.aot_cache import AotCache
+    return AotCache.from_env()
 
 
 def nvcc_path() -> str:
@@ -61,10 +71,15 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     from the log kept beside each library."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cache = _boot_cache()
     procs = {}
     for name in names:
         lib = library_path(name)
         if lib.exists():
+            if cache:
+                cache.publish_library(lib, NVCC_FLAGS)
+            continue
+        if cache and cache.fetch_library(lib, NVCC_FLAGS):
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -80,6 +95,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             continue
         os.replace(tmp, lib)
+        if cache:
+            cache.publish_library(lib, NVCC_FLAGS)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     reports = {}
@@ -111,7 +128,12 @@ def build_host(name: str) -> Path:
     is not built. Raises ``RuntimeError`` if the compiler fails or is
     missing."""
     lib = host_library_path(name)
+    cache = _boot_cache()
     if lib.exists():
+        if cache:
+            cache.publish_library(lib, HOST_FLAGS)
+        return lib
+    if cache and cache.fetch_library(lib, HOST_FLAGS):
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
@@ -127,4 +149,6 @@ def build_host(name: str) -> Path:
         raise RuntimeError(f"host build of {name}: {cmd[0]} exited "
                            f"{proc.returncode}\n{proc.stdout}")
     os.replace(tmp, lib)
+    if cache:
+        cache.publish_library(lib, HOST_FLAGS)
     return lib

@@ -42,11 +42,21 @@ plain version ``flash_attention_bwd_plain``. It is the gradient of JAX's dense
 restatement (``_flash_diff_bwd``, ``qwen3_asr_tpu/ops/flash_attention.py:186``),
 P recomputed in f32. Cotangents on m and l (which only the context-parallel
 combine would consume; ROADMAP item 14) raise NotImplementedError.
+
+For ``torch.export`` the forward is also a registered operator,
+``torch.ops.qwen3_asr_torch.flash_attention`` (``registered_op``): its CPU
+implementation is ``flash_attention_plain``, its CUDA one ``_launch``, and
+its fake one gives the output shapes, so an exported graph holds the
+operator rather than the plain version's arithmetic. Only a trace under
+``through_registered_op()`` (``tools/export_encoder.py``) takes it; the
+served and training paths call the kernel directly, so they pay no
+dispatcher hop.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -388,6 +398,67 @@ class FlashFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+_OP_NAME = "qwen3_asr_torch::flash_attention"
+_op = None
+_via_op = False
+
+
+def registered_op():
+    """The forward as a ``torch.library`` operator, registered on first
+    use (a second copy of the package in one process reuses the first's
+    registration)."""
+    global _op
+    if _op is not None:
+        return _op
+    ns, name = _OP_NAME.split("::")
+    try:
+        _op = getattr(getattr(torch.ops, ns), name).default
+        return _op
+    except AttributeError:
+        pass
+
+    @torch.library.custom_op(_OP_NAME, mutates_args=(), device_types="cpu")
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           valid_from: torch.Tensor, valid_to: torch.Tensor,
+           q_offset: torch.Tensor, causal: bool, window_block: int,
+           sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        return flash_attention_plain(
+            q, k, v, valid_from, valid_to, q_offset, causal=causal,
+            window_block=window_block, sm_scale=sm_scale)
+
+    @op.register_kernel("cuda")
+    def _(q, k, v, valid_from, valid_to, q_offset, causal, window_block,
+          sm_scale):
+        return _launch(q, k, v, valid_from, valid_to, q_offset,
+                       causal=causal, window_block=window_block,
+                       sm_scale=sm_scale)
+
+    @op.register_fake
+    def _(q, k, v, valid_from, valid_to, q_offset, causal, window_block,
+          sm_scale):
+        b, nq, t, _ = q.shape
+        return (torch.empty_like(q),
+                q.new_empty((b, nq, t), dtype=torch.float32),
+                q.new_empty((b, nq, t), dtype=torch.float32))
+
+    _op = torch.ops.qwen3_asr_torch.flash_attention.default
+    return _op
+
+
+@contextlib.contextmanager
+def through_registered_op():
+    """Within this block ``flash_attention`` calls ``registered_op()``
+    (for a ``torch.export`` trace; not for autograd)."""
+    global _via_op
+    registered_op()
+    prev, _via_op = _via_op, True
+    try:
+        yield
+    finally:
+        _via_op = prev
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, q_offset=0,
                     kv_valid_from: Optional[torch.Tensor] = None,
@@ -416,8 +487,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              if torch.is_tensor(q_offset)
              else torch.full((b,), int(q_offset), dtype=torch.int32,
                              device=dev))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if _via_op:
+        out, m, l = registered_op()(
+            q.contiguous(), k.contiguous(), v.contiguous(), vf.contiguous(),
+            vt.contiguous(), q_off, bool(causal), int(window_block),
+            float(sm_scale))
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
         out, m, l = FlashFunction.apply(
             q, k, v, vf.contiguous(), vt.contiguous(), q_off, causal,
             int(window_block), float(sm_scale))

@@ -236,6 +236,7 @@ class TranscriptionEngine:
         int4 group layouts the card's kernels must take."""
         self.model = model
         self.model_id: Optional[str] = None     # set by load_engine
+        self.load_parts: dict = {}   # load_engine's seconds by part
         self.device = resolve_device(device)
         self.dtype = dtype or working_dtype(self.device)
         self.cache_dtype = cache_dtype or self.dtype

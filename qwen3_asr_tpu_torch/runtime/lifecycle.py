@@ -172,6 +172,9 @@ def load_engine(model_id: str, device="cuda",
     if mode:
         # refuse before loading: the engine would refuse after
         check_quantized_dtype(dev, dtype)
+    # seconds by part, for boot measurements (tools_perf/boot.py)
+    parts = {}
+    t0 = time.perf_counter()
     if os.path.isdir(model_id):
         cfg, params = load_asr_checkpoint(model_id, dev, dtype)
         tokenizer = BpeTokenizer.from_file(os.path.join(model_id,
@@ -196,12 +199,23 @@ def load_engine(model_id: str, device="cuda",
             f"MODEL_ID '{model_id}' is neither a local checkpoint directory "
             "nor preset:NAME")
     del params
+    parts["read_weights_s"] = _synced(dev, t0)
     if mode:
+        t0 = time.perf_counter()
         quantize_model(model, mode)
+        parts["quantize_s"] = _synced(dev, t0)
     engine = TranscriptionEngine(model, device=dev, dtype=dtype,
                                  cache_dtype=cache_dtype)
     engine.model_id = model_id
+    engine.load_parts = parts
     return engine
+
+
+def _synced(dev: torch.device, t0: float) -> float:
+    """Seconds since ``t0`` once ``dev``'s queued work has finished."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
 
 
 def _relay(source: concurrent.futures.Future,

@@ -237,6 +237,10 @@ class BpeTokenizer:
                             norm_forms=_unicode_norm_forms(
                                 blob.get("normalizer")))
 
+    @property
+    def vocab_size(self) -> int:
+        return max(self.vocab.values()) + 1
+
     # -- BPE core -------------------------------------------------------------
     def _bpe(self, token: str) -> List[str]:
         cached = self._bpe_cache.get(token)

@@ -6,16 +6,17 @@ serving stack (the e2e accuracy tiers), where the released weights cannot
 be downloaded. The model is tiny and memorizes the given clips.
 
     python -m qwen3_asr_tpu_torch.tools.overfit --data-dir e2e/data/real \\
-        --tokenizer e2e/data/trained_ckpt/tokenizer.json \\
         --output /tmp/trained_ckpt
 
 Data layout: <name>.wav + <name>.txt (+ <name>.lang). The output is an
 HF-layout checkpoint (config.json, model.safetensors, tokenizer.json) plus
 ``overfit_manifest.json``, the marker the e2e accuracy gate reads.
 
-``--tokenizer`` is required: the JAX tool trains a byte-level BPE with the
-``tokenizers`` package when none is given, and the port has no BPE trainer
-(ROADMAP, documented divergences). It runs on the card in f32 unless
+Without ``--tokenizer`` it trains a byte-level BPE on the transcripts and
+the prompt text, as the JAX tool does with the ``tokenizers`` package, with
+the port's own trainer (``text/bpe_train.py``: the same vocabulary and
+merges); ``--tokenizer`` reuses an existing one (a draft paired with a main
+checkpoint needs its ids). It runs on the card in f32 unless
 ``--device cpu`` is given. The weights are drawn from ``--seed`` with
 torch's generator, so they are not the JAX tool's.
 """
@@ -44,6 +45,24 @@ def collect_clips(data_dir: str):
         lang = lang_f.read_text().strip() if lang_f.exists() else "en"
         rows.append((str(wav), txt.read_text().strip(), lang))
     return rows
+
+
+SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>",
+            "<|AUDIO|>", "<|audio_bos|>", "<|audio_eos|>"]
+
+
+def build_tokenizer(texts, out_path: str, vocab_size: int = 2048) -> None:
+    """Byte-level BPE trained on the target transcripts (+ prompt text),
+    on the JAX tool's corpus."""
+    from ..models.asr import LANGUAGE_NAMES
+    from ..text.bpe_train import byte_alphabet, train_bpe, write_tokenizer
+
+    corpus = list(texts) * 20
+    corpus += [f"Language: {name}\n" for name in LANGUAGE_NAMES.values()] * 5
+    corpus += ["You are a speech recognition model.",
+               "system", "user", "assistant"] * 5
+    vocab, merges = train_bpe(corpus, vocab_size, SPECIALS, byte_alphabet())
+    write_tokenizer(out_path, vocab, merges, SPECIALS)
 
 
 _ENCODERS = {
@@ -118,16 +137,12 @@ def main(argv=None) -> None:
                              "for --size large, else full-batch); the "
                              "accumulation is update-exact")
     parser.add_argument("--tokenizer", default=None,
-                        help="the tokenizer.json to train with (required: "
-                             "the port has no BPE trainer)")
+                        help="reuse an existing tokenizer.json (needed for "
+                             "a draft paired with a main checkpoint: "
+                             "token-level speculation needs shared ids)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu; f32 on both")
     args = parser.parse_args(argv)
-    if not args.tokenizer:
-        parser.error("--tokenizer is required: the port trains no BPE "
-                     "tokenizer (the JAX tool's needs the `tokenizers` "
-                     "package); pass an existing tokenizer.json, e.g. "
-                     "e2e/data/trained_ckpt/tokenizer.json")
 
     manifest_path = os.path.join(args.output, "overfit_manifest.json")
     if os.path.exists(manifest_path) and not args.force:
@@ -166,8 +181,11 @@ def main(argv=None) -> None:
 
     os.makedirs(args.output, exist_ok=True)
     tok_path = os.path.join(args.output, "tokenizer.json")
-    if os.path.abspath(args.tokenizer) != os.path.abspath(tok_path):
-        shutil.copyfile(args.tokenizer, tok_path)
+    if args.tokenizer:
+        if os.path.abspath(args.tokenizer) != os.path.abspath(tok_path):
+            shutil.copyfile(args.tokenizer, tok_path)
+    else:
+        build_tokenizer([t for _, t, _ in rows], tok_path)
     tokenizer = BpeTokenizer.from_file(tok_path)
     with open(tok_path) as f:
         specials = {t["content"]: t["id"]

@@ -2086,3 +2086,108 @@ def test_train_step_on_card_matches_cpu(dev):
                                 3 * cfg.decoder.num_hidden_layers,
                                 3 * cfg.decoder.num_hidden_layers], launched
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+# -- slice 23: the registered flash operator, the encoder export, the boot
+# cache's libraries and train_vad on the card -------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_registered_op_launches_the_kernel(dev, dtype):
+    """On a CUDA tensor the operator runs ``_launch`` (one launch, the
+    kernel's bits), never the plain version."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(23)
+    b, nq, nkv, t, s, d = 2, 4, 2, 70, 96, 64
+    q = _randn(rng, (b, nq, t, d), dtype, dev)
+    k, v = (_randn(rng, (b, nkv, s, d), dtype, dev) for _ in range(2))
+    vf = torch.tensor([0, 9], dtype=torch.int32, device=dev)
+    vt = torch.tensor([96, 80], dtype=torch.int32, device=dev)
+    qo = torch.tensor([26, 10], dtype=torch.int32, device=dev)
+    want = fa._launch(q, k, v, vf, vt, qo, causal=True, window_block=0,
+                      sm_scale=0.125)
+    fa.flash_attention.launches = 0
+    got = fa.registered_op()(q, k, v, vf, vt, qo, True, 0, 0.125)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == 1
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+def test_encoder_export_on_the_card_equals_eager(dev, tmp_path):
+    """trained_ckpt's encoder exported on the card: the operator's nodes,
+    output bit-equal to the eager encoder, a launch a layer; saved and
+    loaded back."""
+    import os
+    from qwen3_asr_tpu_torch.models.encoder import encoder_forward
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    from qwen3_asr_tpu_torch.tools.export_encoder import (bucket_mel_frames,
+                                                          export_program,
+                                                          flash_nodes,
+                                                          load_encoder)
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "e2e", "data",
+                        "trained_ckpt")
+    engine = load_engine(ckpt, device=dev)
+    cfg = engine.model.cfg.encoder
+    frames = bucket_mel_frames(cfg, 4.0)
+    program = export_program(engine.model.params["encoder"], cfg, 2, frames,
+                             torch.bfloat16, dev)
+    assert flash_nodes(program) == cfg.encoder_layers
+    rng = np.random.default_rng(1)
+    mel = _randn(rng, (2, cfg.num_mel_bins, frames), torch.bfloat16, dev)
+    lens = torch.tensor([frames, frames - 150], dtype=torch.int32,
+                        device=dev)
+    with torch.inference_mode():
+        want = encoder_forward(engine.model.params["encoder"], cfg, mel,
+                               lens)[0]
+    fa.flash_attention.launches = 0
+    got = program.module()(mel, lens)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == cfg.encoder_layers
+    assert torch.equal(got, want)
+    path = str(tmp_path / "enc.pt2")
+    torch.export.save(program, path)
+    assert torch.equal(load_encoder(path).module()(mel, lens)[0], want)
+
+
+def test_boot_cache_serves_cuda_libraries(dev, tmp_path, monkeypatch):
+    """A kernel built into an empty build directory is published to the
+    boot cache; another empty build directory then takes it from there
+    with no nvcc, and it launches."""
+    import subprocess
+    from qwen3_asr_tpu_torch.ops import _build
+    monkeypatch.setenv("ASR_AOT_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "b1")
+    _build.build(["slab_reader"])
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "b2")
+
+    def refuse(*a, **k):
+        raise AssertionError("nvcc ran: the cache was not used")
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    reports = _build.build(["slab_reader"])
+    assert (tmp_path / "b2" / _build.library_path("slab_reader").name
+            ).is_file()
+    assert "registers" in reports["slab_reader"]
+
+
+def test_train_vad_steps_on_the_card_match_the_cpu(dev):
+    """20 steps of the VAD trainer on the card and on the CPU from the same
+    weights and batches (f32, TF32 off)."""
+    import os
+    from qwen3_asr_tpu_torch.tools import train_vad
+    rng = np.random.default_rng(3)
+    windows = (rng.standard_normal((300, 16000)) * 0.1).astype(np.float32)
+    labels = (rng.random(300) > 0.5).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        feats = train_vad.featurize_windows(windows, d)
+        params = train_vad.init_params(0, d)
+        params, losses = train_vad.train(params, feats, labels, 20, 3e-3, 0,
+                                         log_every=0)
+        out[d.type] = ({k: v.cpu() for k, v in params.items()},
+                       [float(x) for x in losses])
+    (gp, gl), (cp, cl) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    for k in cp:
+        assert (gp[k] - cp[k]).abs().max() <= 1e-4 * cp[k].abs().max(), k

@@ -124,3 +124,38 @@ def test_the_codec_check_sees_a_ctypes_load(tmp_path):
     assert sorted(s for s in _loads_and_imports(str(src))
                   if any(lib in s.lower() for lib in CODEC_LIBS)) == \
         ["libmpg123.so.0", "vorbisfile"]
+
+
+# Slice 23's modules, imported in a fresh interpreter: none of them loads
+# a forbidden package at run time either (the BPE trainer in particular
+# must not reach for the `tokenizers` package the JAX tool uses).
+SLICE_23 = ("text/bpe_train.py", "runtime/roofline.py",
+            "runtime/aot_cache.py", "tools/transcribe.py",
+            "tools/debug_audio.py", "tools/train_vad.py",
+            "tools/export_encoder.py", "tools/overfit.py",
+            "tools_perf/boot.py")
+
+
+@pytest.fixture(scope="module")
+def slice_23_loaded():
+    import json
+    import subprocess
+    import sys
+    mods = ["qwen3_asr_tpu_torch." + m[:-3].replace("/", ".")
+            for m in SLICE_23]
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted({m.split('.')[0] "
+            "for m in sys.modules})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return set(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("module", SLICE_23)
+def test_slice_23_module_loads_no_forbidden_package(module,
+                                                    slice_23_loaded):
+    assert os.path.join(PKG, module) in _sources()
+    bad = sorted(slice_23_loaded & set(FORBIDDEN))
+    assert not bad, f"importing slice 23's modules loaded {bad}"

@@ -296,11 +296,29 @@ def test_finetune_refuses(argv, match, capsys):
     assert match in capsys.readouterr().err
 
 
-def test_overfit_requires_tokenizer(tmp_path, capsys):
+def test_overfit_requires_tokenizer(tmp_path):
+    """``--tokenizer`` is no longer required: without it the tool trains
+    the JAX tool's tokenizer with the port's BPE trainer (one clip, 16
+    steps of the draft size here)."""
+    import shutil
+    from qwen3_asr_tpu.tools.overfit import build_tokenizer as jax_build
     from qwen3_asr_tpu_torch.tools.overfit import main
-    with pytest.raises(SystemExit):
-        main(["--output", str(tmp_path / "o")])
-    assert "--tokenizer is required" in capsys.readouterr().err
+    data = tmp_path / "data"
+    data.mkdir()
+    real = os.path.join(os.path.dirname(__file__), "..", "e2e", "data",
+                        "real")
+    for ext in (".wav", ".txt"):
+        shutil.copy(os.path.join(real, "english_01" + ext), data)
+    out = tmp_path / "o"
+    main(["--data-dir", str(data), "--output", str(out), "--size", "draft",
+          "--max-steps", "16", "--eval-every", "1000", "--device", "cpu"])
+    jax_build([(data / "english_01.txt").read_text().strip()],
+              str(tmp_path / "jax.json"))
+    assert ((out / "tokenizer.json").read_text(encoding="utf-8")
+            == (tmp_path / "jax.json").read_text(encoding="utf-8"))
+    with open(out / "config.json") as f:
+        assert json.load(f)["text_config"]["vocab_size"] == 2048
+    assert (out / "overfit_manifest.json").exists()
 
 
 @pytest.mark.parametrize("size", ["draft", "base", "medium", "large"])
