@@ -328,6 +328,25 @@ without a CUDA device, and whenever any phase fails. Phases:
    empty build directory (no compiler runs; ``QUANTIZE=int8
    ASR_KV_CACHE_DTYPE=int4``): token ids equal to the cold boot's, the
    seconds saved.
+20. parallelism: (a) kernel (i)'s m/l route (cotangents on m and l, JAX's
+   residual loss sum(out²) + 1e-3·sum(m) + sum(log l)) against its plain
+   version at the encoder's 6 s windows and the training forward's causal
+   shape, and that shape with duplicated keys (rows tie at their
+   maximum), f32 and bf16 at phase 18's tolerances, a repeat call's bits;
+   device ms beside the same call with dm = dl = None and (i)'s bound (no
+   library call computes this gradient); its launches on its path, that
+   loss differentiated through ``FlashFunction``; (b) context parallelism
+   folded onto the card (``combine_stacked``) at preset:1.7b's 30 s
+   prefill queries, causal at the end of S = 768 and 3072 keys in 4
+   shards, against one flash call, and their device ms; (c) a world-1
+   NCCL group: phase 5's preset:1.7b bf16 engine and the same model under
+   ``make_mesh(1, 1)`` on phase 5's first upload (ids bit for bit, the
+   collectives recorded in the sharded key's graphs, node counts, front
+   and decode-step device ms), the distributed CP against flash, and on
+   trained_ckpt in f32 one step of the finetune path (dp=1 mesh) and one
+   pp=1, n_micro=2 pipeline step against the plain train step. There is
+   one card: NCCL refuses two ranks on one card, so no multi-card figure
+   is taken.
 
 Each phase prints its seconds. The line before the card line is the
 kernel table as JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -7371,6 +7390,10 @@ KERNELS = {
     "qk_rope_bwd": ("qwen3_asr_tpu_torch/csrc/qk_rope_bwd.cu",
                     "qwen3_asr_tpu/models/decoder.py:146,163",
                     "qk_bwd_b8_6s"),
+    # (i)'s route with cotangents on m and l (phase 20)
+    "flash_attention_bwd_ml": (
+        "qwen3_asr_tpu_torch/csrc/flash_attention_bwd_ml.cu",
+        "qwen3_asr_tpu/ops/flash_attention.py:186", "train_causal_b8_6s_ml"),
 }
 NO_TPU_KERNEL = {"decode_attention_batch_int4": "XLA attend_xla, int4",
                  "qgemv": "XLA qdot",
@@ -7379,8 +7402,342 @@ NO_TPU_KERNEL = {"decode_attention_batch_int4": "XLA attend_xla, int4",
                                "dynamic_update_slice",
                  "flash_attention_bwd": "XLA's vjp of _xla_forward, the "
                                         "custom VJP of #1",
-                 "qk_rope_bwd": "XLA's autodiff of rms_norm + apply_rope"}
+                 "qk_rope_bwd": "XLA's autodiff of rms_norm + apply_rope",
+                 "flash_attention_bwd_ml": "XLA's vjp of _xla_forward with "
+                                           "cotangents on out, m and l"}
 TRAIN_KERNELS = ("flash_attention_bwd", "qk_rope_bwd")
+
+
+# -- phase 20 ----------------------------------------------------------------------
+
+ML_KERNEL = "flash_attention_bwd_ml"   # kernel (i)'s route with m/l cotangents
+CP_SHARDS = 4              # (b): the shards folded onto the card
+CP_VALID_FROM = 20         # (b): the left padding of the prompt's row
+PAR_LR = 1e-3              # (c): the train steps' learning rate
+PAR_TOL = 1e-4             # (c): weights after a step, absolute (lr / 10)
+
+
+def ml_cotangent_cases(ts, dtype, dev):
+    """(label, args, kw, dm, dl, bytes, flops) of kernel (i)'s m/l route:
+    the encoder's 6 s windows (B=8), the training forward's causal shape
+    (B=8, prompt from 12) and that shape with keys 40, 80 and 120 copies of
+    key 20 (rows tie at their maximum); the cotangents of JAX's residual
+    loss sum(out²) + 1e-3·sum(m) + sum(log l): dout = 2 out, dm = 1e-3,
+    dl = 1/l on rows with a live key."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+    out = []
+    for label, args, kw, _, nbytes, flops in flash_bwd_cases(ts, dtype, dev):
+        if label == "encoder_30s_b1":
+            continue
+        tied = [False, True] if label.startswith("train") else [False]
+        for tie in tied:
+            q, k, v, _, _, _, vf, vt, zero = args
+            if tie:
+                k = k.clone()
+                for c in (40, 80, 120):
+                    k[:, :, c] = k[:, :, 20]
+            o, m, l = flash_attention(q, k, v, causal=kw["causal"],
+                                      kv_valid_from=vf,
+                                      window_block=kw["window_block"],
+                                      return_residuals=True)
+            dm = torch.full_like(m, 1e-3)
+            dl = torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30),
+                             torch.zeros_like(l))
+            # (i)'s bytes and the two cotangents; the same products
+            out.append((label + ("_ml_tied" if tie else "_ml"),
+                        (q, k, v, (2 * o.float()).to(dtype), m, l, vf, vt,
+                         zero), kw, dm, dl, nbytes + 2 * m.numel() * 4,
+                        flops))
+    return out
+
+
+def ml_route_rows(ts, dev, card) -> list:
+    """Phase 20 (a): the m/l route against ``flash_attention_bwd_plain``
+    with dm and dl (f32 to 2e-5, bf16 to 2e-2 of each gradient's largest
+    magnitude; a repeat call's bits), the tied case's ties counted; device
+    ms of the route, of the same call with dm = dl = None, of the plain
+    version, beside (i)'s bound. No PyTorch call computes this gradient:
+    the library column is null."""
+    from qwen3_asr_tpu_torch.ops import flash_attention as fa
+    bwd, plain_bwd = fa.flash_attention_bwd, fa.flash_attention_bwd_plain
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for label, args, kw, dm, dl, nbytes, flops in \
+                ml_cotangent_cases(ts, dt, dev):
+            def run(args=args, kw=kw, dm=dm, dl=dl):
+                return bwd(*args, **kw, dm=dm, dl=dl)
+
+            def base(args=args, kw=kw):
+                return bwd(*args, **kw)
+
+            def plain(args=args, kw=kw, dm=dm, dl=dl):
+                return plain_bwd(*args, **kw, dm=dm, dl=dl)
+
+            before = bwd.ml_launches
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            if bwd.ml_launches != before + 2:
+                raise AssertionError(f"{label}: the m/l route launched "
+                                     f"{bwd.ml_launches - before} times")
+            want = plain()
+            errs = []
+            for a, a2, w in zip(got, again, want):
+                if a.dtype != dt or not torch.equal(a, a2):
+                    raise AssertionError(f"{ML_KERNEL} {label}: dtype "
+                                         f"{a.dtype} or a repeat call's "
+                                         f"bits differ")
+                scale = max(float(w.float().abs().max()), 1e-6)
+                errs.append(float((a.float() - w.float()).abs().max())
+                            / scale)
+            err = max(errs)
+            if not err <= TOL[dt]:
+                raise AssertionError(f"{ML_KERNEL} {label} {dt}: error "
+                                     f"{err} above {TOL[dt]}")
+            ties = ""
+            if "tied" in label:
+                q, k, _, _, _, _, vf, vt, zero = args
+                s, mask = fa._scores(q, k, vf, vt, zero, kw["causal"], 0,
+                                     kw["sm_scale"])
+                top = torch.where(mask, s, torch.full_like(s, -torch.inf))
+                n = int(((top == top.amax(-1, keepdim=True)).sum(-1) > 1)
+                        .sum())
+                if not n:
+                    raise AssertionError(f"{label}: no row ties")
+                ties = f", {n} rows with tied maxima"
+            ms, base_ms = per_call_ms(run, 0), per_call_ms(base, 0)
+            plain_ms = per_call_ms(plain, 0, PLAIN_ITERS)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / (BF16_FLOPS if dt == torch.bfloat16
+                             else F32_FLOPS) * 1e3
+            bound = max(t_bytes, t_ops)
+            name = str(dt)[6:]
+            route = fa.bwd_route(dt, args[0].shape[-1])
+            rows.append({
+                "shape": label if dt == torch.bfloat16 else f"{label}_{name}",
+                "dtype": name, "route": route, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "without_ml_ms": base_ms, "bytes": nbytes, "flops": flops})
+            log(f"[parity] {ML_KERNEL} {label} {name}, route {route}: max "
+                f"error {err:.3e} of each gradient's largest magnitude "
+                f"(bound {TOL[dt]:g}); repeat bits equal{ties}")
+            log(f"[timing] {ML_KERNEL} {label} {name} (device): m/l route "
+                f"{ms:.4f} ms, the same call with dm = dl = None {base_ms:.4f}"
+                f" ms, plain {plain_ms:.4f} ms, no library call; bound "
+                f"{bound:.5f} ms ({rows[-1]['bound_by']}), share "
+                f"{bound / ms:.3%} | {card}")
+    return rows
+
+
+def ml_path_launches(ts, dev, card) -> dict:
+    """Phase 20 (a)'s path: JAX's residual loss differentiated through
+    ``flash_attention(..., return_residuals=True)`` (``FlashFunction``) at
+    the bf16 cases, counted from 0 just before: the m/l route once a
+    call, finite non-zero gradients."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import (flash_attention,
+                                                         flash_attention_bwd)
+    cases = ml_cotangent_cases(ts, torch.bfloat16, dev)
+    flash_attention_bwd.ml_launches = 0
+    flash_attention_bwd.route_launches.update(
+        (r, 0) for r in flash_attention_bwd.route_launches)
+    for label, args, kw, *_ in cases:
+        q, k, v, _, _, _, vf, _, _ = args
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, m, l = flash_attention(*ins, causal=kw["causal"],
+                                  kv_valid_from=vf,
+                                  window_block=kw["window_block"],
+                                  return_residuals=True)
+        loss = ((o.float() ** 2).sum() + 1e-3 * m.sum()
+                + torch.log(torch.clamp(l, min=1e-30)).sum())
+        for g in torch.autograd.grad(loss, ins):
+            if not (bool(torch.isfinite(g).all())
+                    and float(g.float().abs().max()) > 0):
+                raise AssertionError(f"{label}: bad residual gradient")
+    torch.cuda.synchronize()
+    got = {ML_KERNEL: flash_attention_bwd.ml_launches,
+           **{f"{ML_KERNEL}:{r}": n
+              for r, n in flash_attention_bwd.route_launches.items()}}
+    log(f"[parallel] residual loss through FlashFunction at "
+        f"{[c[0] for c in cases]}: launches {got} | {card}")
+    if got[ML_KERNEL] != len(cases):
+        raise AssertionError(f"the m/l route launched {got}, want "
+                             f"{len(cases)}")
+    return got
+
+
+def cp_rows(dev, card) -> None:
+    """Phase 20 (b): context parallelism folded onto the card at
+    preset:1.7b's decoder shapes: the 30 s prefill's queries (B=1, 16 heads
+    of 128, T = 453) causal at the end of S keys with a left-padded
+    ``valid_from``, S = 768 in 4 shards of 192 and S = 3072 in 4 of 768,
+    against one flash call over the whole K/V (bf16 2e-2 of the largest
+    magnitude, f32 2e-5 at 768); device ms of the 4 shard calls with
+    ``combine_stacked`` against the one call."""
+    from qwen3_asr_tpu_torch.ops.context_parallel import (
+        context_parallel_folded)
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+    sh = main_path_shapes()
+    t, gen = sh["prompt_len"], torch.Generator(device=dev).manual_seed(20)
+    for s_len, dt in ((768, torch.float32), (768, torch.bfloat16),
+                      (3072, torch.bfloat16)):
+        q = torch.randn((1, 16, t, 128), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((1, 8, s_len, 128), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        kw = dict(causal=True, q_offset=s_len - t,
+                  kv_valid_from=torch.full((1,), CP_VALID_FROM,
+                                           dtype=torch.int32, device=dev))
+
+        def folded(q=q, k=k, v=v, kw=kw):
+            return context_parallel_folded(q, k, v, CP_SHARDS, **kw)
+
+        def one(q=q, k=k, v=v, kw=kw):
+            return flash_attention(q, k, v, **kw)
+
+        got, want = folded(), one()
+        scale = max(float(want.float().abs().max()), 1e-6)
+        err = float((got.float() - want.float()).abs().max()) / scale
+        if not err <= TOL[dt]:
+            raise AssertionError(f"CP S={s_len} {dt}: error {err}")
+        ms, one_ms = per_call_ms(folded, 0), per_call_ms(one, 0)
+        log(f"[parallel] CP folded, S = {s_len} in {CP_SHARDS} shards of "
+            f"{s_len // CP_SHARDS}, T = {t}, {str(dt)[6:]}: max error "
+            f"{err:.3e} of the largest magnitude against one flash call "
+            f"(bound {TOL[dt]:g}); device ms {CP_SHARDS} shards + "
+            f"combine_stacked {ms:.4f}, one call {one_ms:.4f} "
+            f"({ms / one_ms:.2f}x) | {card}")
+
+
+def world1_engine(dev, mesh, card) -> dict:
+    """Phase 20 (c): phase 5's preset:1.7b bf16 engine (seed 0) and the
+    same model under ``make_mesh(1, 1)`` on a world-1 NCCL group, each
+    running phase 5's first upload at B=1: token ids equal bit for bit,
+    the collectives recorded in the sharded key's graphs (none in the
+    unsharded one's), node counts and device ms of the front graph and a
+    decode step. Returns the mesh engine's launches, counted from 0 just
+    before its run."""
+    from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.runtime.engine import TranscriptionEngine
+    model = full_width_model(dev)
+    clip = decode_audio(upload_bodies()[0][1])[0]
+    out, launches = {}, None
+    for name, m in (("unsharded", None), ("mesh 1x1", mesh)):
+        eng = TranscriptionEngine(model, device=dev, dtype=torch.bfloat16,
+                                  mesh=m)
+        eng.transcribe(clip, 16000)                 # builds the key
+        counter = PathLaunches(eng)
+        ids = eng.transcribe(clip, 16000)[0].token_ids
+        torch.cuda.synchronize()
+        got, eager = counter.read()
+        run = eng.last_run
+        exe = eng.executables[(run["bucket_frames"], run["max_new"],
+                               run["batch"], eng.cache_dtype)]
+        front_ms, step_ms = front_and_step_ms(exe)
+        if m is not None:
+            launches = got
+        rec = (exe.front.collectives, exe.chunk.collectives)
+        out[name] = ids
+        log(f"[parallel] {name} engine, {len(ids)} tokens: front graph "
+            f"{exe.front.nodes} nodes ({rec[0]} collectives recorded) "
+            f"{front_ms:.3f} ms, decode chunk {exe.chunk.nodes} nodes "
+            f"({rec[1]} collectives) {step_ms:.4f} ms a step; launches "
+            f"{got}, eager {eager} | {card}")
+        if (m is None) != (rec == (0, 0)):
+            raise AssertionError(f"{name}: collectives in its graphs {rec}")
+        del eng
+    if out["mesh 1x1"] != out["unsharded"]:
+        raise AssertionError(f"world-1 mesh engine's ids differ: "
+                             f"{out['mesh 1x1']} vs {out['unsharded']}")
+    log(f"[parallel] the world-1 NCCL engine's ids equal the unsharded "
+        f"engine's bit for bit ({len(out['unsharded'])} tokens)")
+    return launches
+
+
+def world1_training(dev, mesh, card) -> None:
+    """Phase 20 (c): the distributed CP on the world-1 group equals flash;
+    on trained_ckpt in f32, one step of the finetune path (``make_train_step``
+    with the dp=1 mesh) and one pp=1, n_micro=2 pipeline step equal the
+    plain train step (loss 1e-5 relative, weights 1e-4 absolute at lr
+    1e-3), prompts unpadded as the pipeline's loss takes them."""
+    from qwen3_asr_tpu_torch.ops.context_parallel import (
+        context_parallel_attention)
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention
+    from qwen3_asr_tpu_torch.parallel.mesh import shard_model
+    from qwen3_asr_tpu_torch.parallel.pipeline import (make_mesh_pp,
+                                                       make_pp_train_step,
+                                                       shard_params_pp)
+    from qwen3_asr_tpu_torch.runtime.lifecycle import load_engine
+    from qwen3_asr_tpu_torch.runtime.optim import adamw, tree_leaves
+    from qwen3_asr_tpu_torch.runtime.train import (init_train_state,
+                                                   make_train_step)
+    from qwen3_asr_tpu_torch.tools.finetune import make_batch
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((1, 16, 453, 128), generator=gen, device=dev)
+    k, v = (torch.randn((1, 8, 768, 128), generator=gen, device=dev)
+            for _ in range(2))
+    got = context_parallel_attention(q, k, v, causal=True, q_offset=315)
+    want = flash_attention(q, k, v, causal=True, q_offset=315)
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"[parallel] context_parallel_attention over the world-1 NCCL "
+        f"group against flash, f32: max error {err:.3e} (bound 2e-5)")
+    if not err <= 2e-5:
+        raise AssertionError(f"distributed CP error {err}")
+
+    engine = load_engine(os.path.join(DATA, "trained_ckpt"), device=dev,
+                         dtype=torch.float32)
+    clips = sorted(glob.glob(os.path.join(DATA, "real", "*.wav")))[:4]
+    batch = make_batch(engine, train_items(clips), TRAIN_BUCKET_S)
+    del batch["valid_from"]
+    model, cfg = engine.model, engine.model.cfg
+    shard = shard_model(model, mesh)
+    pmesh = make_mesh_pp(pp=1, device_type=dev.type)
+    runs = {}
+    for name, c, params, make in (
+            ("plain", cfg, model.params,
+             lambda o: make_train_step(cfg, o)),
+            ("finetune dp=1", shard.cfg, shard.params,
+             lambda o: make_train_step(shard.cfg, o, mesh=mesh)),
+            ("pipeline pp=1", cfg, shard_params_pp(model.params, pmesh),
+             lambda o: make_pp_train_step(cfg, o, pmesh, n_micro=2))):
+        opt = adamw(PAR_LR)
+        state, loss = make(opt)(init_train_state(params, opt), batch)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), state.params)
+    base_loss, base = runs.pop("plain")
+    for name, (loss, params) in runs.items():
+        rel = abs(loss - base_loss) / abs(base_loss)
+        gap = max(float((a - b).abs().max()) for a, b in
+                  zip(tree_leaves(params), tree_leaves(base)))
+        log(f"[parallel] trained_ckpt f32, one step at lr {PAR_LR:g}: "
+            f"{name} loss {loss:.7f} against the plain step's "
+            f"{base_loss:.7f} (relative {rel:.2e}, bound 1e-5); weights "
+            f"within {gap:.2e} (bound {PAR_TOL:g}) | {card}")
+        if not (rel <= 1e-5 and gap <= PAR_TOL):
+            raise AssertionError(f"{name}: loss {rel}, weights {gap}")
+
+
+def parallel_phase(dev) -> tuple:
+    """Phase 20: parallelism. (a) kernel (i)'s m/l route; (b) context
+    parallelism folded onto the card; (c) a world-1 NCCL group: the mesh
+    engine, the distributed CP, the finetune and pipeline steps. Returns
+    (a)'s rows, its path's launches and the mesh engine's."""
+    import torch.distributed as dist
+    from qwen3_asr_tpu_torch.parallel.mesh import make_mesh
+    card = card_line()
+    ts = train_shapes()
+    rows = ml_route_rows(ts, dev, card)
+    ml = ml_path_launches(ts, dev, card)
+    cp_rows(dev, card)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(1, 1, device_type="cuda")
+        engine_launches = world1_engine(dev, mesh, card)
+        world1_training(dev, mesh, card)
+    finally:
+        dist.destroy_process_group()
+    return rows, ml, engine_launches
+
 
 
 def main() -> int:
@@ -7434,7 +7791,7 @@ def main() -> int:
     qk = {5: launches["qk_rope_kv"], 6: batched["qk_rope_kv"],
           9: default["qk_rope_kv"]}
     for name in NO_TPU_KERNEL:
-        if name not in TRAIN_KERNELS:
+        if name not in TRAIN_KERNELS + (ML_KERNEL,):
             launches[name] = default[name]
     launches["qk_rope_kv"] = sum(qk.values())
     log(f"[launches] qk_rope_kv by phase {qk}: {sum(qk.values())}")
@@ -7528,6 +7885,16 @@ def main() -> int:
             raise AssertionError(f"phase 19 launched no {name}")
         launches[name] += tools[name]
     phase_done("phase 19 (the operator tools)")
+    ml_rows, ml, meshed = parallel_phase(dev)
+    rows[ML_KERNEL] = ml_rows
+    launches[ML_KERNEL] = ml[ML_KERNEL]
+    # this slice's path, counted from 0 just before each of its runs: the
+    # residual loss's backward, and the world-1 mesh engine's request
+    for name in ("flash_attention", "decode_attention", "qk_rope_kv"):
+        if not meshed.get(name):
+            raise AssertionError(f"phase 20 launched no {name}")
+        launches[name] += meshed[name]
+    phase_done("phase 20 (parallelism)")
 
     table = []
     for name, (source, replaces, headline) in KERNELS.items():
@@ -7540,6 +7907,9 @@ def main() -> int:
             extra["launches_by_route"] = {
                 k.split(":")[1]: n for k, n in trained.items()
                 if k.startswith(name + ":")}
+        if name == ML_KERNEL:       # phase 20's launches by route
+            extra["launches_by_route"] = {
+                k.split(":")[1]: n for k, n in ml.items() if ":" in k}
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, **extra,
                       "launches": launches[name],

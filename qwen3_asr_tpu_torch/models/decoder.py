@@ -17,6 +17,12 @@ copy. Training runs ``decoder_forward`` with ``cache=None``: each layer's
 keys and values are its own T tokens' (what JAX's ``asr_loss`` reads back
 from a fresh cache of length T written at 0), through the differentiable
 ``qk_rope`` and flash attention.
+
+A tensor-parallel shard (``parallel/mesh.py`` ``shard_model``) runs the
+same code on its heads and FFN columns: its config holds the local counts
+and a ``TPShard``, and the layer calls the collectives
+(``parallel/collectives.py``) after wo and w_down, after the
+vocab-sharded lookup, and on the logits.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from ..ops.kv_int4 import dequantize_layer
 from ..ops.qk_rope_kv import qk_rope, qk_rope_kv_write, rms_norm
 from ..ops.quant import (is_packed_int4, is_quantized, layer_slice, qdot,
                          qdot_group, qlogits, unpack_int4)
+from ..parallel.collectives import (copy_to_tp, gather_from_tp,
+                                    reduce_from_tp, tp_of)
 from .config import DecoderConfig
 
 
@@ -123,12 +131,16 @@ def _layer(cfg: DecoderConfig, hidden: torch.Tensor, params: dict, i: int,
     lp = layer_slice(params["layers"], i)
     d, eps = cfg.head_dim, cfg.rms_norm_eps
 
-    x = rms_norm(hidden, lp["ln1"], eps)
+    x = copy_to_tp(rms_norm(hidden, lp["ln1"], eps), tp_of(cfg))
     # q, k and v read one x: one launch of the quantized GEMV on the card
     q, k, v = qdot_group(x, [lp["wq"], lp["wk"], lp["wv"]])
     if cache is None:
         # training: attend to this layer's own keys, differentiably
-        q, k, v = qk_rope(q, k, v, lp["q_norm"], lp["k_norm"], cos, sin, eps)
+        # the norms' weights serve every head: under tp their gradient is
+        # the sum over the ranks' heads
+        tp = tp_of(cfg)
+        q, k, v = qk_rope(q, k, v, copy_to_tp(lp["q_norm"], tp),
+                          copy_to_tp(lp["k_norm"], tp), cos, sin, eps)
         attn = attend(q, k, v, spec, scale=d ** -0.5)
         return _layer_tail(cfg, hidden, lp, attn)
     # QK-norm and RoPE on q and k, and K and V written IN PLACE at (layer
@@ -165,14 +177,14 @@ def _layer_tail(cfg: DecoderConfig, hidden: torch.Tensor, lp: dict,
                 attn: torch.Tensor) -> torch.Tensor:
     """wo and the residual, then the SwiGLU block: attn [B, nq, T, D]."""
     b, t, _ = hidden.shape
-    eps = cfg.rms_norm_eps
+    eps, tp = cfg.rms_norm_eps, tp_of(cfg)
     attn = attn.transpose(1, 2).reshape(b, t, -1)
-    hidden = hidden + qdot(attn, lp["wo"])
+    hidden = hidden + reduce_from_tp(qdot(attn, lp["wo"]), tp)
 
-    x = rms_norm(hidden, lp["ln2"], eps)
+    x = copy_to_tp(rms_norm(hidden, lp["ln2"], eps), tp)
     gate, up = qdot_group(x, [lp["w_gate"], lp["w_up"]])
     gated = F.silu(gate) * up
-    return hidden + qdot(gated, lp["w_down"])
+    return hidden + reduce_from_tp(qdot(gated, lp["w_down"]), tp)
 
 
 def decoder_forward(params: dict, cfg: DecoderConfig,
@@ -202,12 +214,26 @@ def decoder_forward(params: dict, cfg: DecoderConfig,
     return rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps), cache
 
 
-def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: dict, ids: torch.Tensor,
+                 cfg: Optional[DecoderConfig] = None) -> torch.Tensor:
     """A quantized embedding gathers payload rows (int4: unpacked along H,
     the low nibbles then the high ones), widens them to f32, multiplies the
     row scales and casts to the scales' dtype (the model's compute dtype),
-    as ``qwen3_asr_tpu/models/decoder.py:367-379``."""
+    as ``qwen3_asr_tpu/models/decoder.py:367-379``. A tensor-parallel
+    shard's ``cfg`` (required there) names its vocab slice: ids outside it
+    give zero rows, and the ranks' rows are summed."""
+    tp = tp_of(cfg)
+    if tp is None:
+        return _embed_rows(params["embed"], ids)
     w = params["embed"]
+    rows = (w["q"] if is_quantized(w) else w).shape[0]
+    local = ids - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    out = _embed_rows(w, torch.where(inside, local, torch.zeros_like(local)))
+    return reduce_from_tp(out * inside[..., None].to(out.dtype), tp)
+
+
+def _embed_rows(w, ids: torch.Tensor) -> torch.Tensor:
     if not is_quantized(w):
         return F.embedding(ids, w)
     q = w["q"]
@@ -227,9 +253,11 @@ def lm_logits(params: dict, cfg: DecoderConfig,
     ``[V, H/2]`` with row or group scales) takes ``ops.quant.qlogits``:
     ``(h @ q.T) * s`` in f32 (int4 groups: each group's sum scaled, then
     added), on the card through the quantized GEMV or GEMM."""
+    tp = tp_of(cfg)
+    hidden = copy_to_tp(hidden, tp)
     w = params["embed"] if cfg.tie_word_embeddings else params["lm_head"]
     if is_quantized(w):
-        return qlogits(hidden, w)
+        return gather_from_tp(qlogits(hidden, w), tp)
     if not cfg.tie_word_embeddings:
         w = w.T
-    return F.linear(hidden, w).float()
+    return gather_from_tp(F.linear(hidden, w).float(), tp)

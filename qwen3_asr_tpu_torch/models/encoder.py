@@ -10,7 +10,11 @@ ln_post → proj1 → GELU → proj2 into the decoder's hidden space. Only the
 last chunk can be partial, so valid tokens are a prefix: validity is one
 length per row (``valid_to``). The layers' projections go through
 ``ops.quant.qdot`` (q, k and v as one ``qdot_group``), so int8, fp8 and
-int4 weights (``QUANTIZE``) work as in JAX.
+int4 weights (``QUANTIZE``) work as in JAX. A tensor-parallel shard
+(``parallel/mesh.py``) holds its heads, FFN and proj1 columns and conv_out
+features; its config's ``TPShard`` makes the layers call their
+collectives, and the biases of wo, fc2 and proj2 are added once, after
+the sum over the ranks.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import AttnSpec, attend
 from ..ops.quant import layer_slice, qdot, qdot_group
+from ..parallel.collectives import (copy_to_tp, gather_from_tp,
+                                    reduce_from_tp, tp_of)
 from .config import AudioEncoderConfig
 
 
@@ -124,7 +130,9 @@ def _conv_frontend(params: dict, cfg: AudioEncoderConfig,
 
     bc, c, f, tt = x.shape                     # [B*n_chunks, ch, f, tok]
     x = x.permute(0, 3, 1, 2).reshape(bc, tt, c * f)
-    x = x @ params["conv_out_w"].to(x.dtype)
+    tp = tp_of(cfg)
+    x = gather_from_tp(copy_to_tp(x, tp) @ params["conv_out_w"].to(x.dtype),
+                       tp)
     x = x + _position_embedding(tt, cfg.d_model, x.device, x.dtype)[None]
     return x.reshape(b, n_chunks * tt, cfg.d_model)
 
@@ -133,22 +141,25 @@ def _encoder_layer(cfg: AudioEncoderConfig, hidden: torch.Tensor, params: dict,
                    i: int, spec: AttnSpec) -> torch.Tensor:
     lp = layer_slice(params["layers"], i)
     b, t, d = hidden.shape
+    tp = tp_of(cfg)
     nh, hd = cfg.encoder_attention_heads, cfg.head_dim
+    if tp is not None:
+        nh //= tp.size
 
     def heads(x):
         return x.reshape(b, t, nh, hd).transpose(1, 2).contiguous()
 
-    x = layer_norm(hidden, lp["ln1_w"], lp["ln1_b"])
+    x = copy_to_tp(layer_norm(hidden, lp["ln1_w"], lp["ln1_b"]), tp)
     # q, k and v read one x: one launch of the quantized GEMM on the card
     q, k, v = (heads(y + lp[b]) for y, b in zip(
         qdot_group(x, [lp["wq"], lp["wk"], lp["wv"]]), ("bq", "bk", "bv")))
     attn = attend(q, k, v, spec, scale=hd ** -0.5)
-    attn = attn.transpose(1, 2).reshape(b, t, d)
-    hidden = hidden + qdot(attn, lp["wo"]) + lp["bo"]
+    attn = attn.transpose(1, 2).reshape(b, t, nh * hd)
+    hidden = hidden + reduce_from_tp(qdot(attn, lp["wo"]), tp) + lp["bo"]
 
-    x = layer_norm(hidden, lp["ln2_w"], lp["ln2_b"])
+    x = copy_to_tp(layer_norm(hidden, lp["ln2_w"], lp["ln2_b"]), tp)
     x = F.gelu(qdot(x, lp["fc1_w"]) + lp["fc1_b"])
-    return hidden + (qdot(x, lp["fc2_w"]) + lp["fc2_b"])
+    return hidden + (reduce_from_tp(qdot(x, lp["fc2_w"]), tp) + lp["fc2_b"])
 
 
 def encoder_forward(params: dict, cfg: AudioEncoderConfig, mel: torch.Tensor,
@@ -168,7 +179,9 @@ def encoder_forward(params: dict, cfg: AudioEncoderConfig, mel: torch.Tensor,
     spec = AttnSpec(window_block=window, valid_to=token_lens)
     for i in range(cfg.encoder_layers):
         hidden = _encoder_layer(cfg, hidden, params, i, spec)
-    hidden = layer_norm(hidden, params["ln_post_w"], params["ln_post_b"])
+    tp = tp_of(cfg)
+    hidden = copy_to_tp(layer_norm(hidden, params["ln_post_w"],
+                                   params["ln_post_b"]), tp)
     hidden = F.gelu(hidden @ params["proj1_w"] + params["proj1_b"])
-    hidden = hidden @ params["proj2_w"] + params["proj2_b"]
+    hidden = reduce_from_tp(hidden @ params["proj2_w"], tp) + params["proj2_b"]
     return hidden, token_lens

@@ -40,8 +40,12 @@ cores, with P and dS split into two bf16 halves rather than rounded; f32
 and other head dims on the CUDA cores; ``bwd_route``), on the CPU its
 plain version ``flash_attention_bwd_plain``. It is the gradient of JAX's dense
 restatement (``_flash_diff_bwd``, ``qwen3_asr_tpu/ops/flash_attention.py:186``),
-P recomputed in f32. Cotangents on m and l (which only the context-parallel
-combine would consume; ROADMAP item 14) raise NotImplementedError.
+P recomputed in f32, with respect to all three outputs: cotangents on m
+and l (the context-parallel combine's inputs) take the kernel's m/l route
+(``csrc/flash_attention_bwd.cu`` ``flash_attention_bwd_ml``, four
+launches, ``csrc/flash_attention_bwd_ml.cu``, counted in
+``flash_attention_bwd.ml_launches`` and in ``launches``), and with neither
+the kernel runs as before.
 
 For ``torch.export`` the forward is also a registered operator,
 ``torch.ops.qwen3_asr_torch.flash_attention`` (``registered_op``): its CPU
@@ -118,13 +122,21 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               valid_from: torch.Tensor,
                               valid_to: torch.Tensor, q_offset: torch.Tensor,
                               *, causal: bool, window_block: int,
-                              sm_scale: float):
+                              sm_scale: float,
+                              dm: Optional[torch.Tensor] = None,
+                              dl: Optional[torch.Tensor] = None):
     """The backward kernel's function, restated densely in f32: the
     gradient of JAX's ``_xla_forward`` (P never rounded), from the
     forward's residuals m and l. A = p / l_safe, dP = dO·Vᵀ,
     D = rowsum(A∘dP), dS = A∘(dP − D); dq = scale·dS·K,
     dk = scale·dSᵀ·Q and dv = Aᵀ·dO, dk/dv summed over each KV head's
-    query heads. Returns (dq, dk, dv) in q's dtype."""
+    query heads. Returns (dq, dk, dv) in q's dtype.
+
+    ``dm``, ``dl`` ([B, Nq, T], None = 0) are cotangents on m and l:
+    dS = A∘(dP − D + dl·l) + (dm − dl·l)·[s = max]/c on live pairs, the
+    second term split among the row's c tied maxima as ``jnp.max``'s
+    derivative splits it (the ties from these recomputed scores), and
+    nothing for a row with no live key (l = 0)."""
     b, nq, t, d = q.shape
     _, nkv, s_len, _ = k.shape
     g = nq // nkv
@@ -138,6 +150,20 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     do = dout.reshape(b, nkv, g, t, d).float()
     dp = torch.einsum("bhgtd,bhsd->bhgts", do, v.float())
     ds = a * (dp - (a * dp).sum(dim=-1, keepdim=True))
+    if dm is not None or dl is not None:
+        dm_ = (torch.zeros_like(l) if dm is None
+               else dm.reshape(b, nkv, g, t).float())
+        dll = (torch.zeros_like(l) if dl is None
+               else dl.reshape(b, nkv, g, t).float() * l)
+        ds = ds + a * dll[..., None]
+        row_max = torch.where(mask, s, torch.full_like(s, -torch.inf)
+                              ).amax(dim=-1, keepdim=True)
+        tie = mask & (s == row_max)
+        count = tie.sum(dim=-1)
+        live = (l != 0.0) & (count > 0)
+        coef = torch.where(live, (dm_ - dll) / count.clamp(min=1).float(),
+                           torch.zeros_like(l))
+        ds = ds + tie.float() * coef[..., None]
     qg = q.reshape(b, nkv, g, t, d).float()
     dq = torch.einsum("bhgts,bhsd->bhgtd", ds, k.float()) * sm_scale
     dk = torch.einsum("bhgts,bhgtd->bhsd", ds, qg) * sm_scale
@@ -216,6 +242,16 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_ml_library() -> ctypes.CDLL:
+    lib = load("flash_attention_bwd_ml")
+    fn = lib.flash_attention_bwd_ml
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 18 + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 # kernel (i)'s tiles (csrc/flash_attention_bwd.cu, namespace tc): pass 1
 # takes 64 query rows a block (all G heads) and walks key tiles of 32;
 # pass 2 takes 64 keys a block and walks tiles of 32 query rows a head
@@ -289,16 +325,21 @@ def bwd_plan(b, nq, nkv, t_len, s_len, *, causal, window, valid_from,
 
 
 def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
-                        *, causal: bool, window_block: int, sm_scale: float):
-    """(dq, dk, dv) of ``flash_attention``'s output against ``dout``, from
-    the forward's residuals m and l (the mask arguments as the forward
+                        *, causal: bool, window_block: int, sm_scale: float,
+                        dm: Optional[torch.Tensor] = None,
+                        dl: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``flash_attention``'s outputs against ``dout`` and
+    the cotangents ``dm``, ``dl`` on m and l (f32 [B, Nq, T], None = 0),
+    from the forward's residuals m and l (the mask arguments as the forward
     took them: int32 [B] on q's device). A CUDA tensor launches
-    ``csrc/flash_attention_bwd.cu`` or raises; only a CPU tensor takes
+    ``csrc/flash_attention_bwd.cu`` (its m/l route where ``dm`` or ``dl``
+    is given) or raises; only a CPU tensor takes
     ``flash_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, dout, m, l, valid_from, valid_to, q_offset,
-            causal=causal, window_block=window_block, sm_scale=sm_scale)
+            causal=causal, window_block=window_block, sm_scale=sm_scale,
+            dm=dm, dl=dl)
     b, nq, t, d = q.shape
     nkv, s_len = k.shape[1], k.shape[2]
     dev = q.device
@@ -316,14 +357,16 @@ def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
         raise ValueError(f"flash_attention_bwd: head_dim {d} (a multiple of "
                          f"4 up to {_MAX_D}) or query group {nq}/{nkv} not "
                          f"taken")
-    for x in (m, l):
+    ml = [x for x in (dm, dl) if x is not None]
+    for x in [m, l] + ml:
         if x.dtype != torch.float32 or x.shape != (b, nq, t):
-            raise ValueError(f"m and l must be f32 [{b}, {nq}, {t}], got "
-                             f"{x.dtype} {tuple(x.shape)}")
-    tensors = (q, k, v, dout, m, l)
+            raise ValueError(f"m, l and their cotangents must be f32 "
+                             f"[{b}, {nq}, {t}], got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    tensors = [q, k, v, dout, m, l] + ml
     if any(x.device != dev or not x.is_contiguous() for x in tensors):
         raise ValueError("flash_attention_bwd needs contiguous q, k, v, "
-                         "dout, m and l on one device")
+                         "dout, m, l and their cotangents on one device")
     for x, name in ((valid_from, "kv_valid_from"), (valid_to, "kv_valid_to"),
                     (q_offset, "q_offset")):
         _check_int_vec(x, b, dev, name)
@@ -340,11 +383,29 @@ def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
     rest = (b, nq, nkv, t, s_len, d, int(bool(causal)), int(window_block),
             float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+    if route == "tensor_cores" and any(p % 16 for p in ptrs[:4]
+                                       + ptrs[9:12]):
+        raise ValueError("flash_attention_bwd's tensor-core route needs "
+                         "16-byte aligned q, k, v, dout and gradients")
+    if ml:
+        f32 = dict(dtype=torch.float32, device=dev)
+        tie_row = torch.empty((b, nq, t, 2), **f32)
+        tie_dq = torch.empty((b, nq, t, d), **f32)
+        tie_dk = torch.empty((b, nkv, s_len, d), **f32)
+        code = 2 if route == "tensor_cores" else _DTYPE_CODE[q.dtype]
+        err = _bwd_ml_library().flash_attention_bwd_ml(
+            code, *ptrs[:6], None if dm is None else dm.data_ptr(),
+            None if dl is None else dl.data_ptr(), *ptrs[6:],
+            tie_row.data_ptr(), tie_dq.data_ptr(), tie_dk.data_ptr(), *rest)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                               f"({route}, m/l route): CUDA error {err}")
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.ml_launches += 1
+        flash_attention_bwd.route_launches[route] += 1
+        return dq, dk, dv
     lib = _bwd_library()
     if route == "tensor_cores":
-        if any(p % 16 for p in ptrs[:4] + ptrs[9:12]):
-            raise ValueError("flash_attention_bwd's tensor-core route needs "
-                             "16-byte aligned q, k, v, dout and gradients")
         err = lib.flash_attention_bwd_tc(*ptrs, *rest)
     else:
         err = lib.flash_attention_bwd(_DTYPE_CODE[q.dtype], *ptrs, *rest)
@@ -357,6 +418,8 @@ def flash_attention_bwd(q, k, v, dout, m, l, valid_from, valid_to, q_offset,
 
 
 flash_attention_bwd.launches = 0
+# launches of the m/l route (cotangents on m or l), also in ``launches``
+flash_attention_bwd.ml_launches = 0
 # launches by route (bwd_route), each also counted in ``launches``
 flash_attention_bwd.route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 
@@ -383,18 +446,16 @@ class FlashFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dm, dl):
-        if dm is not None or dl is not None:
-            raise NotImplementedError(
-                "a cotangent on flash attention's m or l (the context-"
-                "parallel combine's inputs) has no backward in the port yet "
-                "(ROADMAP item 14)")
-        if dout is None:
+        if dout is None and dm is None and dl is None:
             return (None,) * 9
         q, k, v, m, l, vf, vt, q_off = ctx.saved_tensors
         causal, window_block, sm_scale = ctx.mask
+        dout = torch.zeros_like(q) if dout is None else dout.contiguous()
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, dout.contiguous(), m, l, vf, vt, q_off, causal=causal,
-            window_block=window_block, sm_scale=sm_scale)
+            q, k, v, dout, m, l, vf, vt, q_off, causal=causal,
+            window_block=window_block, sm_scale=sm_scale,
+            dm=None if dm is None else dm.float().contiguous(),
+            dl=None if dl is None else dl.float().contiguous())
         return dq, dk, dv, None, None, None, None, None, None
 
 

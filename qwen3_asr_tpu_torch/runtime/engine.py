@@ -43,7 +43,18 @@ and while it is attached every non-resume dispatch takes a spec key,
 batch: both encoders, each through its own model's mel frontend, both
 prompts from the same prefix ids, and a ``SpecLoop``, in two graphs as
 any key. The tokens are the plain key's; only the verifier's forwards
-change. AOT caches and meshes are not ported yet.
+change.
+
+Under a ``("dp", "tp")`` mesh (``parallel/mesh.py``; ``mesh=`` or
+``ASR_MESH_*`` through the lifecycle) the engine holds this rank's
+tensor-parallel shard of the model, whose layers call their collectives
+inside the keys' graphs, and every rank is called SPMD with the same
+inputs: a batch that divides by dp runs its dp slice of the rows here (a
+key at the local batch), and the tokens are gathered over the dp group,
+as JAX's ``batch_sharding`` places them; one that does not divide runs
+whole on every rank. Every rank returns the unsharded engine's tokens.
+The pool, the prefix-cached WS modes and speculation under a mesh are
+ROADMAP item 14b and refuse.
 """
 from __future__ import annotations
 
@@ -64,6 +75,8 @@ from ..models.encoder import encoder_forward, encoder_output_length
 from ..ops.attention import decode_kernel
 from ..ops.quant import (any_quantized, check_int4_layouts,
                          check_quantized_dtype, param_bytes)
+from ..parallel.collectives import tp_of
+from ..parallel.mesh import dp_rows, gather_rows, shard_model
 from ..utils.device import resolve_device, working_dtype
 from .batcher import _pad_pow2
 from .generate import GreedyLoop, cache_length, run_loop, strip_generation
@@ -226,14 +239,19 @@ class SpecExecutable(BucketExecutable):
 class TranscriptionEngine:
     def __init__(self, model: AsrModel, device="cuda",
                  dtype: Optional[torch.dtype] = None,
-                 cache_dtype: Optional[torch.dtype] = None):
+                 cache_dtype: Optional[torch.dtype] = None, mesh=None):
         """``model.params`` must already be on ``device``. dtype defaults to
         bf16 on the card and f32 on the CPU. The KV cache is in
         ``cache_dtype``: the working dtype by default, fp8
         (``torch.float8_e4m3fn``) or int4 (``torch.int4``: packed values
         with per-(token, head) scales), both of which need head_dim 128;
         int4 on the card needs bf16, and so do quantized weights, whose
-        int4 group layouts the card's kernels must take."""
+        int4 group layouts the card's kernels must take. ``mesh``
+        (``parallel/mesh.py`` ``make_mesh``): the engine shards ``model``
+        for this rank (``shard_model``), unless it already is a shard."""
+        if mesh is not None and tp_of(model.cfg.decoder) is None:
+            model = shard_model(model, mesh)
+        self.mesh = mesh
         self.model = model
         self.model_id: Optional[str] = None     # set by load_engine
         self.load_parts: dict = {}   # load_engine's seconds by part
@@ -289,6 +307,12 @@ class TranscriptionEngine:
         return (len(self.executables) + len(self._stream_fns)
                 + sum(len(g) for g in list(self._stream_groups.values())))
 
+    def _refuse_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a mesh is ROADMAP item 14b; this engine is "
+                f"sharded over dp={self.mesh.dp} tp={self.mesh.tp}")
+
     def attach_draft(self, draft_model: AsrModel) -> None:
         """Token-level speculative decoding: ``draft_model`` (on this
         engine's device, in its dtype) proposes and this engine's model
@@ -297,6 +321,7 @@ class TranscriptionEngine:
         the audio differently (AssertionError) or when their tokenizers
         give different prompt ids (ValueError): both prompts are built from
         one prefix buffer. Drops the spec keys of an earlier draft."""
+        self._refuse_mesh("token-level speculation")
         if draft_model.cfg.encoder.n_window != self.model.cfg.encoder.n_window:
             raise AssertionError("draft/verify chunking differs")
         probe = self.model.template.prefix_text("English", "probe context")
@@ -385,8 +410,9 @@ class TranscriptionEngine:
                            device=self.device)
         audio_embeds, _ = encoder_forward(params["encoder"], cfg.encoder,
                                           mel.to(self.dtype), flens)
-        pre = embed_tokens(params["decoder"], prefix_ids.long())
-        suf = embed_tokens(params["decoder"], self._suffix.expand(b, -1))
+        pre = embed_tokens(params["decoder"], prefix_ids.long(), cfg.decoder)
+        suf = embed_tokens(params["decoder"], self._suffix.expand(b, -1),
+                           cfg.decoder)
         return torch.cat([pre.to(self.dtype), audio_embeds.to(self.dtype),
                           suf.to(self.dtype)], dim=1)
 
@@ -429,6 +455,7 @@ class TranscriptionEngine:
                        context: str = ""):
         """A WS connection's prefix-cached session at window cap ``cap_s``:
         encoder blocks and decoder keys persist across its ticks."""
+        self._refuse_mesh("the prefix WS mode")
         from .stream import StreamSession
         return StreamSession(self, cap_s, language, context)
 
@@ -439,6 +466,7 @@ class TranscriptionEngine:
         (``runtime/stream_group.py``): it joins a group of its bucket with
         a free slot, else starts a group of ``slots``
         (``ASR_WS_GROUP_SLOTS``, 8) rows."""
+        self._refuse_mesh("the grouped WS mode")
         from .stream_group import StreamGroup
         slots = slots or int(os.getenv("ASR_WS_GROUP_SLOTS", "8"))
         key = self.bucket_frames(int(cap_s * TARGET_SR))
@@ -595,8 +623,11 @@ class TranscriptionEngine:
         resume = resume_rows is not None
         gamma = (spec_gamma() if not resume and self.draft_model is not None
                  else None)
-        exe, capture_s = self.executable(bucket_frames, max_new, batch,
-                                         resume, gamma)
+        # under a mesh, this rank's dp slice of the rows (None: all)
+        rows = dp_rows(batch, self.mesh)
+        exe, capture_s = self.executable(
+            bucket_frames, max_new,
+            batch if rows is None else rows.stop - rows.start, resume, gamma)
         audio, prefix, valid_from = self.bucket_inputs(clips, bucket_frames,
                                                        language, context)
         if language_rows is not None:
@@ -614,10 +645,19 @@ class TranscriptionEngine:
                 prev[i, :len(usable)] = usable
                 prev_len[i] = len(usable)
         replays = exe.front.replays + exe.chunk.replays
+        if rows is not None:
+            audio, prefix, valid_from = (x[rows] for x in (audio, prefix,
+                                                           valid_from))
+            if resume:
+                prev, prev_len = prev[rows], prev_len[rows]
         result = exe.run(audio, prefix, valid_from, prev=prev,
                          prev_len=prev_len)
-        tokens = result.tokens.cpu().numpy()
-        lengths = result.lengths.cpu().numpy()
+        tokens, lengths = result.tokens, result.lengths
+        if rows is not None:
+            tokens = gather_rows(tokens, self.mesh)
+            lengths = gather_rows(lengths, self.mesh)
+        tokens = tokens.cpu().numpy()
+        lengths = lengths.cpu().numpy()
         prompt_len = exe.loop.prompt_len
         self.last_run = {"batch": batch, "bucket_frames": bucket_frames,
                          "prompt_len": prompt_len,

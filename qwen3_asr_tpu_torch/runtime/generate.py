@@ -114,7 +114,8 @@ class GreedyLoop:
         active = self._is_active()
         # `last` is generated token i-1: its position is prompt_len + i - 1
         pos = self.i + (self.prompt_len - 1)
-        hidden = embed_tokens(self.params, self.last[:, None].long())
+        hidden = embed_tokens(self.params, self.last[:, None].long(),
+                              self.cfg)
         spec = AttnSpec(valid_from=self.valid_from,
                         valid_to=(pos + 1).to(torch.int32).expand(
                             self.batch).contiguous())

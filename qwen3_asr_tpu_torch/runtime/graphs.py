@@ -44,7 +44,9 @@ process-wide count (``replayed_nodes``): the device records a profiler
 takes of the serving path, one a node replayed, counted without a
 profiler. ``wait_for_nodes`` blocks until that count has grown by a
 budget, woken by the replay that crosses it: ``/debug/trace`` stops
-recording there.
+recording there. ``Graph.collectives`` is the number of
+tensor-parallel collectives (``parallel/collectives.py``) its capture
+recorded: a sharded model's keys hold them.
 """
 from __future__ import annotations
 
@@ -55,6 +57,8 @@ import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+
+from ..parallel import collectives
 
 # One capture stream per device: warm-up and capture run on the same stream
 # (so the capture finds the cuBLAS workspace its warm-up allocated).
@@ -159,6 +163,7 @@ class Graph:
         self.recorded: Dict[str, int] = {}
         self.replays = 0
         self.nodes = 0           # the capture's graph nodes
+        self.collectives = 0     # tp collectives the capture recorded
         self.capture_s = 0.0     # warm-up run and capture, seconds
         if device.type != "cuda":
             return
@@ -175,6 +180,7 @@ class Graph:
             fn()
         torch.cuda.current_stream(device).wait_stream(stream)
         before = kernel_launches()
+        calls = collectives.calls()
         graph = torch.cuda.CUDAGraph()
         # No garbage collection inside the capture: it could free another
         # graph (one left in a reference cycle, e.g. by a failed build),
@@ -193,6 +199,7 @@ class Graph:
                 gc.enable()
         after = kernel_launches()
         self.recorded = {k: after[k] - before[k] for k in after}
+        self.collectives = collectives.calls() - calls
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 

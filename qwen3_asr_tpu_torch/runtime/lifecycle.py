@@ -7,7 +7,9 @@ byte-level tokenizer; ``QUANTIZE`` (``int8``, ``fp8``, ``int4`` with
 ``ASR_INT4_GROUP``) quantizes the weights after load, on the engine's
 device; ``ASR_KV_CACHE_DTYPE`` picks
 the KV cache dtype, ``int4`` included; ``ASR_INT8_ACT`` and
-``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs), and
+``ASR_INT8_ACT_MIN_TOKENS`` are read where ``ops.quant.qdot`` runs;
+``ASR_MESH_DP``/``ASR_MESH_TP``/``ASR_MESH_AUTO`` shard the engine over the
+process group's ranks, ``mesh_from_env``), and
 ``ModelManager`` is its ``ModelManager``: the lazy load of ``MODEL_ID``
 (``ensure_loaded``), the fast engine of ``FAST_MODEL_ID`` under
 ``DUAL_MODEL`` or ``USE_SPECULATIVE`` (token-level speculation attaches
@@ -19,9 +21,11 @@ under ``ASR_CONTINUOUS_BATCHING=true`` (``runtime/pool.py``;
 watchdog (``IDLE_TIMEOUT``, ``ASR_WATCHDOG_INTERVAL``), the micro-batcher,
 the tick batchers, the live WS session count and ``transcribe_sync``. It
 refuses first a WS mode the port does not serve
-(``config.check_ws_modes``), and tracks the live prefix-mode WS sessions
-and group members (``register_stream_session``, weakly), so that an idle
-unload releases them and ``/health`` counts what they hold. The JAX
+(``config.check_ws_modes``) and a process group of more than one rank
+(serving across ranks is ROADMAP item 14b), and tracks the live
+prefix-mode WS sessions and group members (``register_stream_session``,
+weakly), so that an idle unload releases them and ``/health`` counts what
+they hold. The JAX
 manager's asyncio lock and watchdog task are a ``threading.Lock`` and a
 daemon thread here; loads and unloads run on the queue's device thread.
 """
@@ -156,6 +160,29 @@ def quantize_model(model: AsrModel, mode: str) -> None:
         torch.cuda.empty_cache()
 
 
+def mesh_from_env(dev: torch.device):
+    """The ``("dp", "tp")`` mesh ``ASR_MESH_DP``/``ASR_MESH_TP`` pin (or
+    ``ASR_MESH_AUTO=true`` derives, by JAX's rule) over the initialized
+    process group (under torchrun), for this rank; None when none is set.
+    With no process group, or one of a single rank, it logs and serves
+    unsharded, as JAX does on one device (``lifecycle.py:160-162``)."""
+    import torch.distributed as dist
+    dp_env, tp_env = os.getenv("ASR_MESH_DP"), os.getenv("ASR_MESH_TP")
+    auto = os.getenv("ASR_MESH_AUTO", "").lower() == "true"
+    if not (dp_env or tp_env or auto):
+        return None
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        log.info("Mesh requested but only 1 rank present; serving unsharded")
+        return None
+    from ..parallel.mesh import make_mesh
+    mesh = make_mesh(dp=int(dp_env) if dp_env else None,
+                     tp=int(tp_env) if tp_env else None,
+                     device_type="cuda" if dev.type == "cuda" else "cpu")
+    log.info("Mesh sharding enabled: dp=%d tp=%d over %d ranks", mesh.dp,
+             mesh.tp, dist.get_world_size())
+    return mesh
+
+
 def load_engine(model_id: str, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> TranscriptionEngine:
     """A ready engine for ``model_id`` on ``device`` (bf16 on the card and
@@ -205,7 +232,8 @@ def load_engine(model_id: str, device="cuda",
         quantize_model(model, mode)
         parts["quantize_s"] = _synced(dev, t0)
     engine = TranscriptionEngine(model, device=dev, dtype=dtype,
-                                 cache_dtype=cache_dtype)
+                                 cache_dtype=cache_dtype,
+                                 mesh=mesh_from_env(dev))
     engine.model_id = model_id
     engine.load_parts = parts
     return engine
@@ -319,7 +347,15 @@ class ModelManager:
     def start(self) -> None:
         """Refuse a WS mode the port does not serve; warm a handed engine
         and build its pool; start the device thread, and the watchdog of a
-        lazy manager."""
+        lazy manager. Under a process group of more than one rank it
+        refuses: serving across ranks (rank 0 serving, the others
+        following its dispatches) is ROADMAP item 14b."""
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise RuntimeError(
+                f"the server runs on one rank; this process group has "
+                f"{dist.get_world_size()} (serving across ranks is ROADMAP "
+                f"item 14b: use tools/transcribe.py under torchrun)")
         check_ws_modes()
         if self.engine is not None and not self.lazy:
             self._prepare(self.engine, None)

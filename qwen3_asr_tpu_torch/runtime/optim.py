@@ -13,6 +13,8 @@ defaults and arithmetic:
   update count. Moments keep the params' dtype, as optax's do.
 - ``clip_by_global_norm``: ``g / ||g|| * max_norm`` above the norm, with no
   +1e-6 in the divisor (``torch.nn.utils.clip_grad_norm_`` adds one).
+  Over a tensor-parallel shard (``mesh``) the norm counts the squares of
+  every tp-sharded leaf over the tp group and each replicated leaf once.
 - ``chain``, ``apply_updates``.
 - ``warmup_cosine_decay_schedule``: a linear warmup joined to a cosine
   decay, as optax joins them (``qwen3_asr_tpu/tools/overfit.py:293-297``).
@@ -24,6 +26,9 @@ from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import tp_sharded
 
 Schedule = Callable[[int], float]
 
@@ -80,19 +85,32 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
     return GradientTransformation(init, update)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(x.float() * x.float())
-                          for x in tree_leaves(tree)))
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32. With ``mesh``,
+    ``tree`` is a tensor-parallel shard: its sharded leaves' squares are
+    summed over the tp group (``parallel/mesh.py`` ``tp_sharded``)."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(x.float() * x.float())
+                              for x in tree_leaves(tree)))
+    flags = tree_leaves(tp_sharded(tree))
+    sq = [torch.sum(x.float() * x.float()) for x in tree_leaves(tree)]
+    dev = sq[0].device
+    shard = sum((q for q, f in zip(sq, flags) if f),
+                torch.zeros((), device=dev))
+    dist.all_reduce(shard, op=dist.ReduceOp.SUM, group=mesh.tp_group)
+    return torch.sqrt(shard + sum((q for q, f in zip(sq, flags) if not f),
+                                  torch.zeros((), device=dev)))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float,
+                        mesh=None) -> GradientTransformation:
     """optax.clip_by_global_norm: leaves kept where the global norm is below
     ``max_norm``, else ``(g / norm) * max_norm``. The choice is made on the
-    device (no host read)."""
+    device (no host read). ``mesh``: the updates are a tensor-parallel
+    shard (``global_norm``)."""
 
     def update(updates, state, params):
-        norm = global_norm(updates)
+        norm = global_norm(updates, mesh)
         keep = norm < max_norm
 
         def clip(g):

@@ -145,6 +145,9 @@ class DecodePool:
         """``buckets``: seconds whose prefills are captured now (the
         segments of every window always are); a pool that cannot build
         them raises here."""
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError("the decode pool under a mesh is "
+                                      "ROADMAP item 14b")
         self.engine = engine
         self.model = engine.model
         self.base = slots or int(os.getenv("ASR_POOL_SLOTS", "8"))
@@ -358,7 +361,7 @@ class DecodePool:
         tokens, cache = self.tokens[:w], self._views[w]
         tokens.fill_(pad_id)
         for i in range(self.segment):
-            hidden = embed_tokens(params, last[:, None].long())
+            hidden = embed_tokens(params, last[:, None].long(), cfg)
             spec = AttnSpec(valid_from=valid_from,
                             valid_to=(pos + 1).to(torch.int32))
             hidden, _ = decoder_forward(params, cfg, hidden, pos[:, None],

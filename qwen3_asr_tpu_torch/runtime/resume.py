@@ -85,7 +85,7 @@ class ResumeLoop(GreedyLoop):
         b, plen, max_new = self.batch, self.prompt_len, self.max_new
         prev = self.prev_tokens
         dev = prev.device
-        hidden = embed_tokens(self.params, prev.long())
+        hidden = embed_tokens(self.params, prev.long(), self.cfg)
         positions = (torch.arange(max_new, device=dev) + plen).expand(
             b, max_new)
         spec = AttnSpec(causal=True, q_offset=plen,
@@ -124,7 +124,8 @@ class ResumeLoop(GreedyLoop):
     def _step(self) -> None:
         live = self._live()
         pos = self.text_len + (self.prompt_len - 1)                # [B]
-        hidden = embed_tokens(self.params, self.last[:, None].long())
+        hidden = embed_tokens(self.params, self.last[:, None].long(),
+                              self.cfg)
         spec = AttnSpec(valid_from=self.valid_from,
                         valid_to=(pos + 1).to(torch.int32))
         hidden, _ = decoder_forward(self.params, self.cfg, hidden,

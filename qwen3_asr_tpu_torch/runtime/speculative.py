@@ -158,7 +158,7 @@ class SpecLoop:
         x, drafts = self.last, []
         for i in range(self.gamma):
             pos = frontier + i
-            hidden = embed_tokens(params, x[:, None].long())
+            hidden = embed_tokens(params, x[:, None].long(), cfg)
             spec = AttnSpec(valid_from=self.valid_from_d,
                             valid_to=(pos + 1).to(torch.int32))
             hidden, _ = decoder_forward(params, cfg, hidden, pos[:, None],
@@ -176,7 +176,7 @@ class SpecLoop:
         params, cfg = self.verify_params, self.verify_cfg
         frontier = self.text_len + (self.plen_v - 1)                # [B]
         ids = torch.cat([self.last[:, None], drafts[:, :-1]], dim=1)
-        hidden = embed_tokens(params, ids.long())
+        hidden = embed_tokens(params, ids.long(), cfg)
         positions = frontier[:, None] + self._slot[None, :]
         spec = AttnSpec(causal=True, q_offset=frontier.to(torch.int32),
                         valid_from=self.valid_from_v)

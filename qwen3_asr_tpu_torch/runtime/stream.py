@@ -361,8 +361,8 @@ class StreamWorkspace:
         (``ResumeLoop.verify``)."""
         eng, loop = self.engine, self.loop
         params, cfg = eng.model.params["decoder"], eng.model.cfg.decoder
-        pre = embed_tokens(params, self.prefix.long())
-        suf = embed_tokens(params, eng._suffix[None, :]).expand(
+        pre = embed_tokens(params, self.prefix.long(), cfg)
+        suf = embed_tokens(params, eng._suffix[None, :], cfg).expand(
             self.rows, -1, -1)
         prompt = torch.cat([pre.to(eng.dtype), self.audio,
                             suf.to(eng.dtype)], dim=1)      # [rows, P, H]

@@ -12,6 +12,15 @@ the card the backward runs the hand-written kernels
 torch autograd over plain ops (the products, norms, convolutions), as XLA
 differentiates them in the JAX package. Quantized weights have no
 backward: train before quantizing.
+
+Under a ``("dp", "tp")`` mesh (``parallel/mesh.py``; ``tools/finetune.py
+--dp`` under torchrun) the params are this rank's tensor-parallel shard
+(``shard_model``) and every rank gets the same batch: it takes its dp
+slice of the rows, the loss is normalized over the whole batch (the
+numerator and weight sums of ``_unnormalized_loss`` summed over the dp
+group), and the gradients are summed over the dp group. The sharded
+layers' collectives make each tp rank's gradient of a replicated leaf
+whole, and a tp-sharded leaf's gradient is its shard's.
 """
 from __future__ import annotations
 
@@ -19,12 +28,14 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.config import AsrConfig
 from ..models.decoder import decoder_forward, embed_tokens, lm_logits
 from ..models.encoder import encoder_forward
 from ..ops.attention import AttnSpec
+from ..parallel.mesh import dp_rows
 from .optim import GradientTransformation, apply_updates, tree_leaves, tree_map
 
 
@@ -63,8 +74,8 @@ def asr_loss(params: dict, cfg: AsrConfig, mel: torch.Tensor,
     dtype = params["decoder"]["embed"].dtype
     audio_embeds, _ = encoder_forward(params["encoder"], cfg.encoder,
                                       mel.to(dtype), feature_lens)
-    pre = embed_tokens(params["decoder"], prompt_ids.long())
-    tgt = embed_tokens(params["decoder"], target_ids.long())
+    pre = embed_tokens(params["decoder"], prompt_ids.long(), dec)
+    tgt = embed_tokens(params["decoder"], target_ids.long(), dec)
     inputs = torch.cat([pre, audio_embeds.to(pre.dtype), tgt], dim=1)
     b, t, _ = inputs.shape
     positions = torch.arange(t, device=inputs.device).expand(b, t)
@@ -122,8 +133,13 @@ def _value_and_grad(fn, params: dict, *args):
     return out.detach(), grads
 
 
+def _dp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.dp_group)
+    return x
+
+
 def make_train_step(cfg: AsrConfig, optimizer: GradientTransformation,
-                    microbatch: int = 0) -> Callable:
+                    microbatch: int = 0, mesh=None) -> Callable:
     """A (state, batch) → (state, loss) step. ``batch`` holds the arrays of
     ``tools/finetune.make_batch`` (numpy or tensors), moved to the params'
     device.
@@ -132,37 +148,48 @@ def make_train_step(cfg: AsrConfig, optimizer: GradientTransformation,
     accumulates their gradients in f32, so peak activation memory drops by
     B / microbatch while the update stays exactly the full-batch update:
     chunk numerators and mask weights are summed before the one
-    normalization, and pad rows (zero mask) add nothing to either."""
+    normalization, and pad rows (zero mask) add nothing to either.
+
+    ``mesh``: ``cfg`` and the state's params are a shard of it
+    (``parallel/mesh.py``); the batch's rows must divide by dp."""
 
     def step(state: TrainState, batch: dict) -> Tuple[TrainState,
                                                       torch.Tensor]:
         dev = tree_leaves(state.params)[0].device
         batch = batch_to(batch, dev)
+        if mesh is not None:
+            b = batch["mel"].shape[0]
+            rows = dp_rows(b, mesh)
+            if rows is None:
+                raise ValueError(f"a batch of {b} rows does not divide "
+                                 f"over dp={mesh.dp}")
+            batch = {k: v[rows] for k, v in batch.items()}
         vfrom = batch.get("valid_from")
-        if not microbatch:
+        if not microbatch and mesh is None:
             loss, grads = _value_and_grad(
                 asr_loss, state.params, cfg, batch["mel"],
                 batch["feature_lens"], batch["prompt_ids"],
                 batch["target_ids"], batch["target_mask"], vfrom)
         else:
             b = batch["mel"].shape[0]
-            n_chunks = -(-b // microbatch)
-            pad = n_chunks * microbatch - b
+            chunk = microbatch or b
+            n_chunks = -(-b // chunk)
+            pad = n_chunks * chunk - b
 
             def pad_rows(x):
                 if x is None or pad == 0:
                     return x
                 return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
 
-            rows = {k: pad_rows(batch.get(k)) for k in _BATCH_DTYPES}
+            padded = {k: pad_rows(batch.get(k)) for k in _BATCH_DTYPES}
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                  device=dev), state.params)
             num = torch.zeros((), dtype=torch.float32, device=dev)
             den = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(n_chunks):
                 take = {k: (None if x is None else
-                            x[i * microbatch:(i + 1) * microbatch])
-                        for k, x in rows.items()}
+                            x[i * chunk:(i + 1) * chunk])
+                        for k, x in padded.items()}
                 (n, d), g = _value_and_grad(
                     _unnormalized_loss, state.params, cfg, take["mel"],
                     take["feature_lens"], take["prompt_ids"],
@@ -170,6 +197,10 @@ def make_train_step(cfg: AsrConfig, optimizer: GradientTransformation,
                     take["valid_from"])
                 acc = tree_map(lambda a, gi: a + gi.float(), acc, g)
                 num, den = num + n, den + d
+            if mesh is not None:
+                # the whole batch's sums: every dp rank's rows
+                acc = tree_map(lambda a: _dp_sum(a, mesh), acc)
+                num, den = _dp_sum(num, mesh), _dp_sum(den, mesh)
             scale = 1.0 / torch.clamp(den, min=1.0)
             grads = tree_map(lambda a, p: (a * scale).to(p.dtype), acc,
                              state.params)

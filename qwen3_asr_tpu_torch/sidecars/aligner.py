@@ -107,8 +107,8 @@ class AlignerEngine:
         """Token ids → their rows of the decoder's table, [n, H] f32."""
         from ..models.decoder import embed_tokens
         t = torch.tensor(ids, dtype=torch.int64, device=self.device)[None]
-        return embed_tokens(self.model.params["decoder"],
-                            t)[0].float().cpu().numpy()
+        return embed_tokens(self.model.params["decoder"], t,
+                            self.model.cfg.decoder)[0].float().cpu().numpy()
 
     # -- alignment ---------------------------------------------------------------
     def similarity(self, audio: np.ndarray, sr: int, text: str):

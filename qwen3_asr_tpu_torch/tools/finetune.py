@@ -11,7 +11,16 @@ that ``MODEL_ID`` can point at.
         --model-id /ckpt --manifest data.jsonl --steps 100 --lr 1e-5
 
 It runs on the card (bf16) unless ``--device cpu`` is given (f32).
-Data parallelism (``--dp`` above 1) is not ported (ROADMAP item 14).
+Under torchrun it trains over a ``("dp", "tp")`` mesh of the group's
+ranks, as JAX's trains over its devices: ``--dp D`` takes tp = world / D
+(JAX's ``make_mesh`` rule without ``--dp``), every rank reads the same
+batch and trains its dp rows on its tensor-parallel shard
+(``runtime/train.py``), and rank 0 saves the gathered weights:
+
+    torchrun --nproc-per-node 2 -m qwen3_asr_tpu_torch.tools.finetune \
+        --model-id /ckpt --manifest data.jsonl --dp 2
+
+``--dp`` above 1 without such a group is refused.
 """
 from __future__ import annotations
 
@@ -92,7 +101,7 @@ def make_batch(engine, items, bucket_s: float = 6.0) -> dict:
     return batch
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model-id", default=os.getenv("MODEL_ID"))
     parser.add_argument("--manifest", required=True)
@@ -102,15 +111,31 @@ def main(argv=None) -> None:
     parser.add_argument("--bucket-s", type=float, default=6.0)
     parser.add_argument("--output", default="finetuned")
     parser.add_argument("--dp", type=int, default=None,
-                        help="data-parallel width: only 1 (one device)")
+                        help="data-parallel width over torchrun's ranks "
+                        "(tp = ranks / dp)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default, bf16) or cpu (f32)")
     args = parser.parse_args(argv)
-    if args.dp not in (None, 1):
-        parser.error(f"--dp {args.dp}: data parallelism is not ported "
-                     "(ROADMAP item 14); run with --dp 1 or without it")
     if not args.model_id:
         parser.error("--model-id (or MODEL_ID) is required")
+
+    import torch.distributed as dist
+
+    from ..parallel.mesh import (gather_params, init_from_env, make_mesh,
+                                 shard_model)
+    from ..utils.device import resolve_device
+    dp = args.dp or 1
+    torchrun = dist.is_initialized() or (
+        "WORLD_SIZE" in os.environ and "RANK" in os.environ)
+    device = resolve_device(args.device) if torchrun or dp == 1 else None
+    grouped = torchrun and init_from_env(device)
+    world = dist.get_world_size() if grouped else 1
+    if dp < 1 or world % dp or (dp > 1 and not grouped):
+        parser.error(f"--dp {dp}: data parallelism runs over torchrun's "
+                     f"ranks, and dp must divide them (here {world}): "
+                     f"torchrun --nproc-per-node {max(dp, 1)} -m "
+                     f"qwen3_asr_tpu_torch.tools.finetune ... --dp {dp}")
+    rank0 = not grouped or dist.get_rank() == 0
 
     from ..runtime.checkpoint import save_asr_checkpoint
     from ..runtime.lifecycle import load_engine
@@ -124,26 +149,37 @@ def main(argv=None) -> None:
         # weights, so the flag is dropped for this process
         log.warning("QUANTIZE=%s ignored for fine-tuning (float weights "
                     "required)", os.environ.pop("QUANTIZE"))
-    engine = load_engine(args.model_id, device=args.device)
+    engine = load_engine(args.model_id, device=device)
     model = engine.model
 
     with open(args.manifest) as f:
         rows = [json.loads(line) for line in f if line.strip()]
     log.info("Fine-tuning on %d clips for %d steps", len(rows), args.steps)
 
+    mesh = (make_mesh(dp=dp, device_type=device.type) if world > 1
+            else None)
+    shard = shard_model(model, mesh) if mesh is not None else model
+    if mesh is not None:
+        log.info("Training over dp=%d tp=%d", mesh.dp, mesh.tp)
     optimizer = adamw(args.lr)
-    state = init_train_state(model.params, optimizer)
-    step_fn = make_train_step(model.cfg, optimizer)
+    state = init_train_state(shard.params, optimizer)
+    step_fn = make_train_step(shard.cfg, optimizer, mesh=mesh)
+    losses = []
     for step in range(args.steps):
         items = [rows[(step * args.batch_size + i) % len(rows)]
                  for i in range(args.batch_size)]
         batch = make_batch(engine, items, args.bucket_s)
         t0 = time.time()
         state, loss = step_fn(state, batch)
-        log.info("step %d | loss %.4f | %.2fs", step, float(loss),
+        losses.append(float(loss))
+        log.info("step %d | loss %.4f | %.2fs", step, losses[-1],
                  time.time() - t0)
 
-    save_asr_checkpoint(args.output, model.cfg, state.params)
+    params = (gather_params(state.params, mesh) if mesh is not None
+              else state.params)
+    if not rank0:
+        return losses
+    save_asr_checkpoint(args.output, model.cfg, params)
     if os.path.isdir(args.model_id):
         # the tokenizer and chat template come from the source checkpoint
         for name in _SOURCE_FILES:
@@ -151,6 +187,7 @@ def main(argv=None) -> None:
             if os.path.exists(src):
                 shutil.copy(src, os.path.join(args.output, name))
     log.info("Saved servable fine-tuned checkpoint to %s", args.output)
+    return losses
 
 
 if __name__ == "__main__":

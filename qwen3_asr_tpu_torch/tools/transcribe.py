@@ -15,9 +15,14 @@ It runs on the card unless ``--device cpu`` is given (in bf16 there, unless
 ``--dtype float32``), and reads what the
 port's lifecycle reads (``MODEL_ID``, ``QUANTIZE``, ``ASR_KV_CACHE_DTYPE``,
 and ``FORCED_ALIGNER_ID`` for ``--srt-mode accurate``), so a tuned serving
-configuration is a tuned CLI configuration. The JAX CLI's
-``ASR_MESH_DP``/``ASR_MESH_TP`` have no counterpart yet: the port serves
-on one card.
+configuration is a tuned CLI configuration. Under torchrun the ranks
+form a process group and the engine is sharded over a ``("dp", "tp")``
+mesh of them (``ASR_MESH_DP``/``ASR_MESH_TP``, or JAX's default rule when
+neither is set): every rank runs the same files in lockstep, and rank 0
+alone writes the output:
+
+    ASR_MESH_TP=2 torchrun --nproc-per-node 2 \
+        -m qwen3_asr_tpu_torch.tools.transcribe clips/*.wav
 """
 from __future__ import annotations
 
@@ -103,6 +108,15 @@ def main(argv=None) -> int:
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_from_env
+    rank0 = True
+    if init_from_env(device) and dist.get_world_size() > 1:
+        rank0 = dist.get_rank() == 0
+        if not any(os.getenv(k) for k in ("ASR_MESH_DP", "ASR_MESH_TP",
+                                          "ASR_MESH_AUTO")):
+            os.environ["ASR_MESH_AUTO"] = "true"
     # Fail fast on a missing aligner checkpoint before the engine load: the
     # server degrades mid-request, a CLI exits with a clean message.
     if args.srt and args.srt_mode == "accurate":
@@ -163,7 +177,7 @@ def main(argv=None) -> int:
     srt_paths = _out_paths(ok_files, ".srt", args.output_dir)
     txt_paths = _out_paths(ok_files, ".txt", args.output_dir)
     exit_code = 0
-    for path in args.files:
+    for path in (args.files if rank0 else []):
         if path in failures:
             print(json.dumps({"file": path, "error": failures[path]})
                   if args.as_json else f"{path}: ERROR {failures[path]}",
@@ -194,6 +208,8 @@ def main(argv=None) -> int:
         print(json.dumps(record, ensure_ascii=False)
               if args.as_json else f"{path}\t{text}")
 
+    if not rank0:
+        return exit_code
     print(f"[{len(results)}/{len(args.files)} files | {audio_s:.1f}s audio "
           f"in {infer_s:.2f}s ({audio_s / max(infer_s, 1e-9):.1f}x RT) | "
           f"model load {load_s:.1f}s]", file=sys.stderr)

@@ -1967,12 +1967,76 @@ def test_flash_autograd_on_card_launches_the_backward(dev):
         assert torch.equal(a, w)
 
 
-def test_flash_residual_cotangent_raises_on_card(dev):
-    (q, k, v, *_), _ = _flash_bwd_inputs(dev, "encoder_6s", torch.bfloat16)
+def _ml_cotangents(args, tie: bool):
+    """dm and dl for ``_flash_bwd_inputs``'s args (JAX's residual loss:
+    dm = 1e-3, dl = 1/l on live rows); with ``tie`` the keys 4, 9 and 15
+    of every head copy key 4, so rows whose maximum is key 4 tie."""
+    q, k, v, g, m, l, vf, vt, qo = args
+    if tie:
+        k = k.clone()
+        for c in (9, 15):
+            k[:, :, c] = k[:, :, 4]
+        k[:, :, 4] *= 4
+        k[:, :, 9] *= 4
+        k[:, :, 15] *= 4
+    dm = torch.full_like(m, 1e-3)
+    dl = torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30),
+                     torch.zeros_like(l))
+    return (q, k, v, g, m, l, vf, vt, qo), dm, dl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["encoder_6s", "train_causal_1p7b",
+                                  "fully_masked_rows", "group8_q_offset",
+                                  "draft_d24", "tied"])
+def test_flash_bwd_ml_route_matches_plain(dev, name, dtype):
+    """Kernel (i)'s m/l route (cotangents on m and l) against
+    ``flash_attention_bwd_plain`` with dm and dl: f32 to 2e-5 and bf16 to
+    2e-2 of each gradient's largest magnitude, a repeat call's bits, the
+    route's launch counter; "tied" duplicates keys so rows tie."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    args, kw = _flash_bwd_inputs(
+        dev, "train_causal_1p7b" if name == "tied" else name, dtype)
+    args, dm, dl = _ml_cotangents(args, name == "tied")
+    if name == "tied":   # the residuals of the tied keys' forward
+        q, k, v, g, _, _, vf, vt, qo = args
+        _, m, l = flash_attention(q, k, v, causal=True, q_offset=qo,
+                                  kv_valid_from=vf, kv_valid_to=vt,
+                                  return_residuals=True)
+        args = (q, k, v, g, m, l, vf, vt, qo)
+        dl = torch.where(l > 0, 1.0 / torch.clamp(l, min=1e-30),
+                         torch.zeros_like(l))
+    ml0 = flash_attention_bwd.ml_launches
+    got = flash_attention_bwd(*args, **kw, dm=dm, dl=dl)
+    again = flash_attention_bwd(*args, **kw, dm=dm, dl=dl)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.ml_launches == ml0 + 2
+    want = flash_attention_bwd_plain(*args, **kw, dm=dm, dl=dl)
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b_)
+        _close_to_max(a, w, TOL[dtype])
+
+
+def test_flash_autograd_residual_cotangents_on_card(dev):
+    """A loss on out, m and l through FlashFunction on the card takes the
+    m/l route, and its gradients equal the direct call's."""
+    from qwen3_asr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    (q, k, v, g, m, l, vf, vt, qo), kw = _flash_bwd_inputs(
+        dev, "encoder_6s", torch.bfloat16)
     ts = [x.clone().requires_grad_() for x in (q, k, v)]
-    out, m, l = flash_attention(*ts, window_block=50, return_residuals=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        (out.float().sum() + l.sum()).backward()
+    ml0 = flash_attention_bwd.ml_launches
+    out, m2, l2 = flash_attention(*ts, window_block=50, kv_valid_from=vf,
+                                  kv_valid_to=vt, q_offset=qo,
+                                  return_residuals=True)
+    got = torch.autograd.grad((out.float() * g.float()).sum() + m2.sum()
+                              + l2.sum(), ts)
+    assert flash_attention_bwd.ml_launches == ml0 + 1
+    want = flash_attention_bwd(q, k, v, g, m, l, vf, vt, qo, **kw,
+                               dm=torch.ones_like(m), dl=torch.ones_like(l))
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 QK_BWD_SHAPES = {

@@ -20,7 +20,7 @@ from qwen3_asr_tpu.models.decoder import apply_rope as jax_apply_rope
 from qwen3_asr_tpu.models.decoder import rms_norm as jax_rms_norm
 from qwen3_asr_tpu.models.decoder import rope_cos_sin as jax_rope_cos_sin
 from qwen3_asr_tpu.ops.flash_attention import flash_attention as jax_flash
-from qwen3_asr_tpu_torch.ops.flash_attention import (flash_attention,
+from qwen3_asr_tpu_torch.ops.flash_attention import (_scores, flash_attention,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_plain)
 from qwen3_asr_tpu_torch.ops.qk_rope_kv import qk_rope, qk_rope_bwd_plain
@@ -134,16 +134,65 @@ def test_bwd_plain_matches_autograd_of_plain_forward(case):
         _close(x.numpy(), w.numpy(), F32_TOL)
 
 
-@pytest.mark.parametrize("which", ["m", "l"])
-def test_residual_cotangent_raises(which):
-    """Only the context-parallel combine (not ported, ROADMAP item 14)
-    consumes m and l; a gradient through them raises, on every device."""
-    q, k, v, _ = _inputs(CASES[0])
+# the cases above, and rows whose maxima tie: keys 4, 9, 15 and 20 equal
+# and dominant, every value a multiple of 1/4 so that every score is exact
+# and the duplicated keys' scores tie on both sides
+ML_CASES = CASES + [
+    ("tied_maxima", 2, 4, 2, 24, 24, True, 0, [0, 3], None, [0, 2]),
+]
+
+
+def _ml_inputs(case):
+    q, k, v, _ = _inputs(case, seed=3)
+    if case[0] == "tied_maxima":
+        q, k = np.round(q * 4) / 4, np.round(k * 4) / 4
+        k[:, :, 4] = np.abs(k[:, :, 4]) * 4 * np.sign(q.sum(axis=2))[:, ::2]
+        for c in (9, 15, 20):
+            k[:, :, c] = k[:, :, 4]
+    return q, k, v
+
+
+def _residual_loss(out, m, l, lib):
+    """JAX's ``test_grad_flows_through_residuals`` loss, with log l taken
+    at no less than 1e-30 so that a row with no live key adds nothing."""
+    if lib == "jax":
+        return (jnp.sum(out ** 2) + jnp.sum(m) * 1e-3
+                + jnp.sum(jnp.log(jnp.maximum(l, 1e-30))))
+    return ((out ** 2).sum() + m.sum() * 1e-3
+            + torch.log(torch.clamp(l, min=1e-30)).sum())
+
+
+@pytest.mark.parametrize("case", ML_CASES, ids=[c[0] for c in ML_CASES])
+def test_residual_cotangents_match_jax(case):
+    """Cotangents on out, m and l: the port's backward (on the CPU,
+    ``flash_attention_bwd_plain`` with dm and dl) against ``jax.vjp`` of
+    JAX's flash with residuals in interpret mode, in f32: causal with
+    offsets, left and right padding, a window, fully masked rows, tied
+    maxima."""
+    q, k, v = _ml_inputs(case)
+    kw = _mask_args(case, "jax")
+
+    def loss(q_, k_, v_):
+        return _residual_loss(*jax_flash(q_, k_, v_, interpret=True,
+                                         return_residuals=True, **kw), "jax")
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
-    out, m, l = flash_attention(*ts, causal=True, return_residuals=True)
-    loss = out.sum() + (m if which == "m" else l).sum()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        loss.backward()
+    got = torch.autograd.grad(_residual_loss(*flash_attention(
+        *ts, return_residuals=True, **_mask_args(case, "torch")), "torch"), ts)
+    for name, w, x in zip("qkv", want, got):
+        assert np.isfinite(x.numpy()).all(), name
+        _close(x.numpy(), w, F32_TOL)
+    if case[0] == "tied_maxima":
+        # the case holds ties: some row's maximum is a duplicated key
+        a = _plain_args(case, ts[0])
+        s, mask = _scores(ts[0].detach(), ts[1].detach(), a["valid_from"],
+                          a["valid_to"], a["q_offset"], a["causal"], 0,
+                          a["sm_scale"])
+        top = torch.where(mask, s, torch.full_like(s, -torch.inf))
+        ties = (top == top.amax(-1, keepdim=True)).sum(-1)
+        assert int(ties.max()) >= 3
 
 
 def test_no_graph_without_grad():

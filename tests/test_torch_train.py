@@ -287,9 +287,11 @@ def test_finetune_cli_steps_and_serves(setup, wavs, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dp", "2"], "--dp 2"),
+    (["--dp", "2"], "torchrun"),
 ], ids=["dp"])
 def test_finetune_refuses(argv, match, capsys):
+    """``--dp`` above 1 with no process group (not under torchrun) is
+    refused, naming torchrun."""
     from qwen3_asr_tpu_torch.tools.finetune import main
     with pytest.raises(SystemExit):
         main(["--model-id", "x", "--manifest", "m.jsonl"] + argv)
