@@ -227,7 +227,7 @@ without a CUDA device, and whenever any phase fails. Phases:
    verifier's layers takes. Phases 2 and 3 also hold flash at the verify
    window (T = γ = 4 at a per-row q_offset over S = 768, B = 1 and 8) and
    kernel B writing the window at a position a row;
-16. the serving contract and the lossless codecs: (a) 4 of phase 4's
+16. the serving contract and the upload codecs: (a) 4 of phase 4's
    clips (every third: Cantonese, Chinese, Hindi, Japanese; samples
    clipped to +-32767, so that every container holds them exactly) as
    WAV and re-encoded as FLAC (16-bit fixed subframes, 24-bit LPC
@@ -248,7 +248,13 @@ without a CUDA device, and whenever any phase fails. Phases:
    ``budget_reached``, the newest Chrome trace in ``ASR_TRACE_DIR`` holds
    the port's flash and decode kernels and no library attention kernel;
    kernel events counted beside the answer's estimate, the upload's wall
-   with and without the capture;
+   with and without the capture; (a') (a)'s clips as the committed MP3,
+   Ogg Vorbis, Ogg Opus (SILK, CELT, hybrid) and Layer II files of
+   ``e2e/data/compressed``: bodies and token ids equal a float WAV upload
+   of the port's decode, the helper equal to the plain loops on the
+   shortest file of each; (b') the 29.5 s stereo MP3, Ogg Vorbis, Ogg Opus
+   and Layer II on (b)'s engine: decode ms an audio second with the helper
+   and the plain loops, upload walls against WAV in turns;
    (d) ``/metrics``: ``asr_requests_total`` equals the requests the phase
    sent, by route, method and status (a 404 as ``unmatched``), the
    duration histogram counts them, the gauges are there; ``/openapi.json``
@@ -5889,21 +5895,29 @@ def cer(ref: str, hyp: str) -> float:
     return prev[-1] / max(1, len(a))
 
 
+# (a')'s files of each clip, by the suffix after its stem
+COMPRESSED_SUFFIXES = (".mp3", ".ogg", "_silk.opus", "_celt.opus",
+                       "_hybrid.opus", ".mp2")
+
+
 def compressed_f32_phase(url: str, clips, runs, card: str) -> None:
-    """Phase 16 (a'): (a)'s clips as MP3 (16 kHz mono, MPEG-2) and Ogg
-    Vorbis, committed in ``e2e/data/compressed``: each upload's body and
-    its dispatch's token ids equal those of a float32 WAV upload of the
-    port's own decode of the file; the C++ helper is built and decodes the
-    shortest file of each codec as the plain loops do; the MP3
-    transcripts' CER against the clips' text, printed."""
+    """Phase 16 (a'): (a)'s clips as MP3 (16 kHz mono, MPEG-2), Ogg
+    Vorbis, Ogg Opus of each mode (SILK 16 kHz VOIP, CELT by libsndfile,
+    hybrid at 48 kHz) and MPEG-2 Layer II behind an ID3v2 tag, committed
+    in ``e2e/data/compressed``: each upload's body and its dispatch's token
+    ids equal those of a float32 WAV upload of the port's own decode of
+    the file; the C++ helper is built and decodes the shortest file of each
+    codec as the plain loops do; the MP3 transcripts' CER against the
+    clips' text, printed."""
     from qwen3_asr_tpu_torch.audio import mp3, native, vorbis
     from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.audio.ogg_opus import decode_ogg_opus
     t0 = time.perf_counter()
     cers, uploads = [], 0
     for path in clips:
         stem = os.path.basename(path)[:-4]
-        for ext in ("mp3", "ogg"):
-            with open(os.path.join(COMPRESSED, f"{stem}.{ext}"), "rb") as f:
+        for ext in COMPRESSED_SUFFIXES:
+            with open(os.path.join(COMPRESSED, stem + ext), "rb") as f:
                 data = f.read()
             audio, sr = decode_audio(data)
             runs.clear()
@@ -5916,10 +5930,10 @@ def compressed_f32_phase(url: str, clips, runs, card: str) -> None:
             if status != 200 or (got, body) != (200, ref_body) \
                     or ids != ref or not ref:
                 raise AssertionError(
-                    f"(a') {stem}.{ext}: {got} {body[:200]!r} / {ids[:8]} "
+                    f"(a') {stem}{ext}: {got} {body[:200]!r} / {ids[:8]} "
                     f"vs the float WAV's {status} {ref_body[:200]!r} / "
                     f"{ref[:8]}")
-            if ext == "mp3":
+            if ext == ".mp3":
                 with open(path[:-4] + ".txt", encoding="utf-8") as f:
                     want = f.read().strip()
                 cers.append(f"{stem} {cer(want, json.loads(body)['text']):.3f}")
@@ -5928,9 +5942,14 @@ def compressed_f32_phase(url: str, clips, runs, card: str) -> None:
         raise AssertionError("(a'): the helper (csrc/audio_dsp.cpp) was not "
                              "built: the plain version decoded")
     same = []
-    for ext, decode in (("mp3", mp3.decode_mp3),
-                        ("ogg", vorbis.decode_vorbis)):
-        path = min(glob.glob(os.path.join(COMPRESSED, f"*.{ext}")),
+    t_same = time.perf_counter()
+    for ext, decode in ((".mp3", mp3.decode_mp3),
+                        (".ogg", vorbis.decode_vorbis),
+                        ("_silk.opus", decode_ogg_opus),
+                        ("_celt.opus", decode_ogg_opus),
+                        ("_hybrid.opus", decode_ogg_opus),
+                        (".mp2", mp3.decode_mp3)):
+        path = min(glob.glob(os.path.join(COMPRESSED, f"*{ext}")),
                    key=os.path.getsize)
         with open(path, "rb") as f:
             data = f.read()
@@ -5939,29 +5958,35 @@ def compressed_f32_phase(url: str, clips, runs, card: str) -> None:
             raise AssertionError(f"(a'): {os.path.basename(path)}: the "
                                  f"helper and the plain loops decode apart")
         same.append(f"{os.path.basename(path)} ({len(a)} samples)")
-    log(f"[codec] (a') trained_ckpt f32: {len(clips)} clips as MP3 and Ogg "
-        f"Vorbis, {uploads} uploads: every body and token ids equal to a "
-        f"float32 WAV upload of the port's decode; helper built and used "
-        f"({lib._name}), equal to the plain loops bit for bit on "
-        f"{', '.join(same)}; MP3 CER {'; '.join(cers)}; "
-        f"{time.perf_counter() - t0:.1f} s | {card}")
+    log(f"[codec] (a') trained_ckpt f32: {len(clips)} clips as MP3, Ogg "
+        f"Vorbis, Ogg Opus (SILK, CELT, hybrid) and Layer II, {uploads} "
+        f"uploads: every body and token ids equal to a float32 WAV upload "
+        f"of the port's decode; helper built and used ({lib._name}), equal "
+        f"to the plain loops bit for bit on {', '.join(same)} "
+        f"({time.perf_counter() - t_same:.1f} s); MP3 CER "
+        f"{'; '.join(cers)}; {time.perf_counter() - t0:.1f} s | {card}")
 
 
 def compressed_bf16_phase(base: str, engine, sent, card: str) -> dict:
     """Phase 16 (b'): the ~29.5 s MP3 (MPEG-1 joint stereo, 44.1 kHz, LAME
-    tag) and Ogg Vorbis (44.1 kHz stereo) of the FLEURS clips on phase 5's
-    engine: host decode ms an audio second with the helper and with the
-    plain loops (on the first 2 s), and each upload's wall against a float
-    WAV of the same decode, in turns. Returns the kernels' launches."""
+    tag), Ogg Vorbis (44.1 kHz stereo), Ogg Opus (48 kHz stereo, hybrid
+    then CELT) and MPEG-1 Layer II (44.1 kHz joint stereo) of the FLEURS
+    clips on phase 5's engine: host decode ms an audio second with the
+    helper and with the plain loops (on the first 2 s), and each upload's
+    wall against a float WAV of the same decode, in turns. Returns the
+    kernels' launches."""
     from qwen3_asr_tpu_torch.audio import mp3, vorbis
     from qwen3_asr_tpu_torch.audio.codec import decode_audio
+    from qwen3_asr_tpu_torch.audio.ogg_opus import decode_ogg_opus
     url = base + "/v1/audio/transcriptions"
     t_phase = time.perf_counter()
     counter = PathLaunches(engine)
-    for ext, decode in (("mp3", mp3.decode_mp3),
-                        ("ogg", vorbis.decode_vorbis)):
-        with open(os.path.join(COMPRESSED, f"long_44k_stereo.{ext}"),
-                  "rb") as f:
+    for ext, name, decode in (
+            ("mp3", "long_44k_stereo.mp3", mp3.decode_mp3),
+            ("ogg", "long_44k_stereo.ogg", vorbis.decode_vorbis),
+            ("opus", "long_48k_stereo.opus", decode_ogg_opus),
+            ("mp2", "long_44k_stereo.mp2", mp3.decode_mp3)):
+        with open(os.path.join(COMPRESSED, name), "rb") as f:
             data = f.read()
         audio, sr = decode_audio(data)
         seconds = len(audio) / sr
@@ -5989,7 +6014,8 @@ def compressed_bf16_phase(base: str, engine, sent, card: str) -> dict:
             walls[kind].append(time.perf_counter() - t0)
             sent[("/v1/audio/transcriptions", "POST", str(status))] += 1
             bodies.add((status, body))
-        log(f"[codec] (b') {seconds:.2f} s {ext.upper()}, 44.1 kHz stereo "
+        log(f"[codec] (b') {seconds:.2f} s {ext.upper()}, {sr / 1e3:g} kHz "
+            f"stereo "
             f"({len(data) / 1e6:.3f} MB): host decode {best * 1e3:.1f} ms "
             f"with the helper = {per_s:.3f} ms per audio second; plain "
             f"loops {plain_s * 1e3:.1f} ms on the first "

@@ -4,12 +4,13 @@ Counterpart of ``qwen3_asr_tpu/audio/codec.py``: WAV (RIFF, RIFX, RF64;
 PCM 8/16/24/32-bit and float32/float64), W64 (Sony Wave64), AIFF/AIFC
 (uncompressed, ``sowt`` and float), AU/SND, CAF (LPCM) and FLAC
 (``audio/flac.py``) decode here to the JAX package's samples, rate, error
-classes and messages. MP3 and Ogg Vorbis, which JAX decodes through
-pygame's SDL_mixer, go to the port's own decoders (``audio/compressed.py``)
-from the same magic bytes; what those refuse (Ogg Opus, MPEG Layer I/II,
-intensity stereo, Vorbis floor 0) raises ``UnsupportedFormatError`` (the
-server answers 422 AUDIO_DECODE_FAILED); anything unrecognized raises
-``AudioDecodeError``. Decoded audio is mono float32 in [-1, 1] plus the
+classes and messages. MPEG audio (Layer I, II and III), Ogg Vorbis and
+Ogg Opus, which JAX decodes through pygame's SDL_mixer, go to the port's
+own decoders (``audio/compressed.py``) from the same magic bytes; what
+those refuse (MP3 intensity stereo, Vorbis floor 0, chained Ogg streams,
+Opus channel mapping family 255, more than 8 channels) raises
+``UnsupportedFormatError`` (the server answers 422 AUDIO_DECODE_FAILED);
+anything unrecognized raises ``AudioDecodeError``. Decoded audio is mono float32 in [-1, 1] plus the
 sample rate.
 """
 from __future__ import annotations

@@ -1,24 +1,29 @@
-"""MP3 and Ogg Vorbis uploads through the port's own decoders.
+"""MPEG audio, Ogg Vorbis and Ogg Opus uploads through the port's own
+decoders.
 
 Counterpart of ``qwen3_asr_tpu/audio/compressed.py``, which decodes these
-formats through pygame's SDL_mixer (mpg123 and libvorbisfile behind it).
-The port links no codec library: MPEG audio Layer III decodes in
-``audio/mp3.py`` and Ogg Vorbis in ``audio/ogg.py`` and
-``audio/vorbis.py``, their bit loops in C++ (``audio/native.py``).
+formats through pygame's SDL_mixer (mpg123, libvorbisfile and opusfile over
+libopus behind it). The port links no codec library: MPEG audio Layer III
+decodes in ``audio/mp3.py`` and Layer I/II in ``audio/mpa.py``, Ogg Vorbis
+in ``audio/ogg.py`` and ``audio/vorbis.py``, and Ogg Opus in
+``audio/ogg_opus.py`` (``audio/opus.py``, ``audio/celt.py``,
+``audio/silk.py``), their bit loops in C++ (``audio/native.py``).
 
 ``decode_compressed`` takes JAX's steps in JAX's order: sniff the stream's
 rate from its first header (``sniff_mp3``, ``sniff_ogg``: the port's
 copies of JAX's), check it, decode, average to mono (block by block, as the
 decoders go), and refuse an empty stream. The samples are
-JAX's: 16-bit values over 32768, stereo averaged in float32; a Vorbis
-stream of 3-8 channels is folded to stereo with the weights of SDL's
-conversion (``SDL_STEREO_LEFT``) before the mean. The rate returned is
+JAX's: 16-bit values over 32768, stereo averaged in float32; a Vorbis or
+Opus stream of 3-8 channels is folded to stereo with the weights of SDL's
+conversion (``SDL_STEREO_LEFT``) before the mean. Opus decodes at 48 kHz;
+its 16-bit values are opusfile's (soft clip, noise-shaped dither). The rate returned is
 the stream's own (JAX returns the sniffed one, which SDL converts to;
 they differ only where the first header is not the stream's).
 
 What the port refuses with ``UnsupportedFormatError``, naming the feature:
-Ogg Opus, MPEG Layer I and II, MP3 intensity stereo, Vorbis floor 0,
-chained Ogg streams and more than 8 channels.
+MP3 intensity stereo, Vorbis floor 0, chained Ogg streams, Opus channel
+mapping family 255 and more than 8 channels. It decodes an MPEG Layer I/II
+stream with no ID3v2 tag in front, which SDL_mixer does not recognise.
 """
 from __future__ import annotations
 
@@ -27,8 +32,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .codec import (_SUPPORTED, AudioDecodeError, UnsupportedFormatError,
-                    check_stream_params)
+from .codec import _SUPPORTED, AudioDecodeError, check_stream_params
 
 # MPEG audio sample-rate table, indexed by version bits (header bits 19-20):
 # 0 = MPEG2.5, 2 = MPEG2, 3 = MPEG1 (1 is reserved).
@@ -147,11 +151,11 @@ def decode_compressed(data: bytes, kind: str) -> Tuple[np.ndarray, int]:
             audio, sr = decode_mp3(data, fold=to_mono)
         else:
             if _is_opus(data):
-                raise UnsupportedFormatError(
-                    f"Ogg Opus is not supported (Ogg Vorbis is); "
-                    f"{_SUPPORTED}")
-            from .vorbis import decode_vorbis
-            audio, sr = decode_vorbis(data, fold=to_mono)
+                from .ogg_opus import decode_ogg_opus
+                audio, sr = decode_ogg_opus(data, fold=to_mono)
+            else:
+                from .vorbis import decode_vorbis
+                audio, sr = decode_vorbis(data, fold=to_mono)
         check_stream_params(sr)
     except AudioDecodeError:
         raise

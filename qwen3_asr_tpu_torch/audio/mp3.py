@@ -1,7 +1,8 @@
 """MPEG audio Layer III decoder: MPEG-1, MPEG-2 and MPEG-2.5, numpy.
 
 ``decode_mp3(bytes) -> (float32 [n, channels], sample_rate)``. The frame
-scan, the tags and the gapless trim are Python. The rest runs over blocks
+scan, the tags and the gapless trim are Python; a stream whose first
+header is Layer I or II goes on to ``audio/mpa.py`` with its frames. The rest runs over blocks
 of frames (``BLOCK_ROWS`` granule rows), the filterbanks' state carried
 from one block to the next: each block's bit loops (side information, the
 bit reservoir, scale factors and the Huffman decode of each granule's
@@ -19,7 +20,7 @@ decoder behind SDL_mixer) does:
 
 * ID3v2 tags in front (the footer flag too) and ID3v1 / APE tags at the
   end are skipped; junk between frames is skipped by resynchronising on a
-  header whose next frame also syncs.
+  header of the stream's own layer whose next frame also syncs.
 * A first frame that carries a Xing/Info tag is not audio. When LAME's
   extension of that tag is intact (its CRC matches), the encoder delay plus
   529 samples of decoder delay are cut at the start and the padding less
@@ -30,7 +31,7 @@ decoder behind SDL_mixer) does:
 * Samples are rounded to 16 bits and clipped, as the 16-bit output that
   SDL_mixer asks mpg123 for.
 
-Layer I and II and intensity stereo raise ``UnsupportedFormatError``.
+Intensity stereo raises ``UnsupportedFormatError``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from . import mp3_tables as T
+from . import mpa_tables as MPA
 from .codec import (MAX_DECODED_SAMPLES, AudioDecodeError,
                     UnsupportedFormatError)
 
@@ -211,9 +213,12 @@ def parse_header(data: bytes, pos: int) -> Optional[Header]:
     if layer == 3:
         bitrate = T.BITRATES[lsf][br_idx]
         size = (144 if not lsf else 72) * bitrate * 1000 // sr + padding
+    elif mpeg25:
+        return None  # Layer I and II have no MPEG-2.5
     else:
-        bitrate = 0  # not decoded; the size is never used
-        size = 0
+        bitrate = MPA.BITRATES[layer][lsf][br_idx]
+        size = (12 * bitrate * 1000 // sr + padding) * 4 if layer == 1 \
+            else 144 * bitrate * 1000 // sr + padding
     return Header(lsf, mpeg25, layer, (b1 & 1) ^ 1, bitrate, sr_index,
                   padding, b3 >> 6, (b3 >> 4) & 3, size)
 
@@ -246,16 +251,16 @@ def _tag_bounds(data: bytes) -> Tuple[int, int]:
 
 def _sync(data: bytes, pos: int, end: int,
           like: Optional[Header]) -> Tuple[int, Optional[Header]]:
-    """The first position at or past ``pos`` where a Layer III header sits
-    (of ``like``'s stream, when given) whose next frame also syncs or ends
-    the data. Returns (end, None) where there is none."""
+    """The first position at or past ``pos`` where a header sits (of
+    ``like``'s stream, its layer included, when given) whose next frame
+    also syncs or ends the data. Returns (end, None) where there is
+    none."""
     while pos + 4 <= end:
         pos = data.find(b"\xff", pos, end - 3)
         if pos < 0:
             break
         h = parse_header(data, pos)
-        if h is not None and h.layer == 3 and (like is None
-                                               or _same_stream(h, like)):
+        if h is not None and (like is None or _same_stream(h, like)):
             nxt = pos + h.size
             if nxt + 4 > end:
                 if nxt <= end:
@@ -748,7 +753,7 @@ def granules_native(lib, data: bytes, table: np.ndarray, first: Header):
 def decode_mp3(data: bytes, native: bool = True,
                fold: Optional[Callable[[np.ndarray], np.ndarray]] = None
                ) -> Tuple[np.ndarray, int]:
-    """Decode an MPEG audio Layer III stream -> (float32 [n, channels],
+    """Decode an MPEG audio stream -> (float32 [n, channels],
     sample_rate). ``native=False`` takes the plain Huffman decode even
     where the C++ helper is built. ``fold`` maps each block of samples
     ([k, channels]) to [k], and the output is then [n]: the upload's mono
@@ -760,14 +765,8 @@ def decode_mp3(data: bytes, native: bool = True,
     start, end = _tag_bounds(data)
     pos, first = _sync(data, start, end, None)
     if first is None:
-        for p in range(start, min(end, start + 65536) - 3):
-            h = parse_header(data, p)
-            if h is not None and h.layer != 3:
-                raise UnsupportedFormatError(
-                    f"MPEG audio Layer {'I' * h.layer} is not supported; "
-                    f"MP3 (Layer III) is")
-        raise Mp3Error("no MPEG audio Layer III frame found")
-    rows: List[Tuple[int, int, int, int, int]] = []
+        raise Mp3Error("no MPEG audio frame found")
+    rows: List[Tuple[int, ...]] = []
     gapless: Optional[Gapless] = None
     while pos < end and len(rows) < MAX_FRAMES:
         h = parse_header(data, pos)
@@ -777,12 +776,26 @@ def decode_mp3(data: bytes, native: bool = True,
                 break
         if pos + h.size > end:
             break  # a truncated last frame is not decoded
+        if first.layer != 3:
+            rows.append((pos, h.crc, h.mode, h.mode_ext, h.size,
+                         MPA.alloc_table(h.lsf, h.sr_index, h.channels,
+                                         (data[pos + 2] >> 4))))
+            pos += h.size
+            continue
         if not rows:
             gapless = parse_info_tag(data, pos, h)
         rows.append((pos, h.crc, h.mode, h.mode_ext, h.size))
         pos += h.size
     if not rows:
         raise Mp3Error("no complete MPEG audio frame")
+    if first.layer != 3:
+        from .mpa import decode_mpa, slots
+        if len(rows) * 32 * slots(first.layer) * first.channels \
+                > MAX_DECODED_SAMPLES:
+            raise Mp3Error(f"the stream decodes to more than "
+                           f"{MAX_DECODED_SAMPLES} samples")
+        return decode_mpa(data, np.asarray(rows, np.int64).reshape(-1, 6),
+                          first, native, fold)
     if gapless is not None:
         rows = rows[1:]
     nch, ngr = first.channels, first.granules

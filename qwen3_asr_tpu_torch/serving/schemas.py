@@ -152,9 +152,10 @@ rebuilt on JAX/XLA/Pallas.
 - **Translation** via external LLM API
 
 ## Audio formats
-WAV (PCM/float), AIFF/AIFC, AU, RF64, W64, CAF, FLAC, MP3 (MPEG-1, 2
-and 2.5 Layer III) and Ogg Vorbis, each decoded natively at the stream's
-own sample rate. Ogg Opus, MP3 Layer I/II and M4A/AAC are not supported.
+WAV (PCM/float), AIFF/AIFC, AU, RF64, W64, CAF, FLAC, MPEG audio (Layer
+III of MPEG-1, 2 and 2.5; Layer I and II of MPEG-1 and 2), Ogg Vorbis and
+Ogg Opus (SILK, CELT and hybrid), each decoded natively at the stream's
+own sample rate (Opus at 48 kHz). M4A/AAC is not supported.
 
 ## WebSocket protocol
 Connect to `/ws/transcribe`, stream raw PCM (s16le, mono, 16 kHz), and use

@@ -1,9 +1,9 @@
 """The wall and the peak memory of an upload's decode, as the server
 decodes it (``decode_audio``: MP3 and Ogg Vorbis folded to mono).
 
-    PYTHONPATH=. python tests/decode_peak.py FILE [FILE ...]
+    PYTHONPATH=. python tests/decode_peak.py [--repeats N] FILE [FILE ...]
 
-prints one JSON line a file: ``ms``, the best of three untraced decodes
+prints one JSON line a file: ``ms``, the best of N (3) untraced decodes
 after a warm-up; ``peak``, the most bytes numpy and Python held at once
 during one more decode, traced by ``tracemalloc``; and the mono float32
 output's bytes (``out``), samples and rate. With no FILE it reads one
@@ -16,7 +16,7 @@ import time
 import tracemalloc
 
 
-def measure(data: bytes) -> dict:
+def measure(data: bytes, repeats: int = 3) -> dict:
     from qwen3_asr_tpu_torch.audio import native
     from qwen3_asr_tpu_torch.audio.codec import AudioDecodeError, decode_audio
     native.get_lib()
@@ -25,7 +25,7 @@ def measure(data: bytes) -> dict:
     except AudioDecodeError:
         pass
     best = float("inf")
-    for _ in range(3):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         decode_audio(data)
         best = min(best, time.perf_counter() - t0)
@@ -37,14 +37,18 @@ def measure(data: bytes) -> dict:
             "samples": len(audio), "sr": sr}
 
 
-def main(paths) -> None:
-    for path in paths or [None]:
+def main(args) -> None:
+    repeats = 3
+    if args[:1] == ["--repeats"]:
+        repeats, args = int(args[1]), args[2:]
+    for path in args or [None]:
         if path is None:
             data = sys.stdin.buffer.read()
         else:
             with open(path, "rb") as f:
                 data = f.read()
-        print(json.dumps({"file": path, **measure(data)}), flush=True)
+        print(json.dumps({"file": path, **measure(data, repeats)}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ import jax  # noqa: F401  (the port's tests import both frameworks)
 import torch  # noqa: F401
 
 from qwen3_asr_tpu.audio import flac as jax_flac
+from qwen3_asr_tpu.audio.codec import AudioDecodeError as JaxAudioDecodeError
 from qwen3_asr_tpu.audio.codec import decode_audio as jax_decode_audio
 from qwen3_asr_tpu_torch.audio import flac, native
 from qwen3_asr_tpu_torch.audio.codec import (AudioDecodeError,
@@ -344,16 +345,24 @@ def _opus_head() -> bytes:
 
 
 @pytest.mark.parametrize("make,feature", [
-    (_opus_head, "Ogg Opus"),
-    (lambda: b"\xff\xff\x90\x00" + bytes(600), "Layer I"),
-    (lambda: b"\xff\xfd\x90\x00" + bytes(600), "Layer II"),
+    (_opus_head, None),
+    (lambda: b"\xff\xff\x90\x00" + bytes(600), None),
+    (lambda: b"\xff\xfd\x90\x00" + bytes(600), None),
     (_intensity_stereo, "intensity stereo"),
     (_vorbis_with_floor0, "floor type 0"),
 ], ids=["opus", "layer1", "layer2", "intensity_stereo", "vorbis_floor0"])
 def test_mp3_and_ogg_are_refused_naming_the_decoded_formats(make, feature):
-    """MP3 (Layer III) and Ogg Vorbis decode now; what the port still
-    refuses answers UnsupportedFormatError naming the feature (the server's
-    422), where JAX's SDL_mixer decodes some of them (Opus, Layer I/II)."""
+    """What the port still refuses answers UnsupportedFormatError naming
+    the feature (the server's 422). Ogg Opus and MPEG Layer I/II decode
+    now: their truncated streams here (a lone OpusHead page, a Layer I or
+    II header and no frame after it) raise AudioDecodeError in both
+    packages, as JAX's SDL_mixer does."""
+    if feature is None:
+        with pytest.raises(AudioDecodeError):
+            decode_audio(make())
+        with pytest.raises(JaxAudioDecodeError):
+            jax_decode_audio(make())
+        return
     with pytest.raises(UnsupportedFormatError, match=feature):
         decode_audio(make())
 

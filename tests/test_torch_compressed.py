@@ -12,8 +12,9 @@ bit for bit; cut and bit-flipped streams decode or raise
 ``AudioDecodeError`` in a subprocess that must neither crash nor hang, and
 so do headers that ask for more channels or samples than the decoders
 take; a long upload's decode adds little more memory than its output;
-Ogg Opus, chained Ogg streams, Layer I/II, intensity stereo and Vorbis
-floor 0 are refused (``tests/test_torch_codec.py``).
+chained Ogg streams, intensity stereo and Vorbis floor 0 are refused
+(``tests/test_torch_codec.py``). Ogg Opus and MPEG Layer I/II have their
+own file, ``tests/test_torch_opus.py``.
 """
 import json
 import logging
@@ -695,20 +696,22 @@ def test_long_upload_peak_memory_stays_near_its_output(codec):
     assert got["peak"] <= 2 * got["out"] + (64 << 20), got
 
 
-# -- what stays refused: Ogg Opus, chained streams ----------------------------------
+# -- Ogg Opus (tests/test_torch_opus.py has its matrix); chained streams -----------
 
 
 @needs_pygame
 @needs_sndfile
 def test_opus_is_refused_where_jax_decodes_it():
-    """The divergence: JAX decodes Ogg Opus through SDL_mixer; the port
-    has no Opus decoder and answers UnsupportedFormatError naming it."""
+    """Ogg Opus was refused here until the port had its own decoder; now
+    libsndfile's Opus (CELT) decodes to JAX's rate and length, within the
+    bound of opusfile's dither (``tests/test_torch_opus.py``
+    ``DITHER_TOL_LSB``, ``DITHER_MIN_SNR_DB``)."""
+    from tests.test_torch_opus import DITHER_MIN_SNR_DB, DITHER_TOL_LSB
     data = F.encode_ogg(F.make_signal(48000, 1.0, 1, seed=40), 48000,
                         codec="opus")
     want, sr = jax_decode_audio(data)
     assert (sr, len(want)) == (48000, 48000)
-    with pytest.raises(UnsupportedFormatError, match="Opus"):
-        decode_audio(data)
+    _agree(data, DITHER_TOL_LSB, DITHER_MIN_SNR_DB)
 
 
 @needs_sndfile

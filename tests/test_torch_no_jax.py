@@ -79,9 +79,9 @@ def test_gateway_modules_import_no_torch(module):
     assert inside <= set(TORCH_FREE), f"{module} imports {inside}"
 
 
-# The port decodes MP3 and Ogg Vorbis itself: no codec library is loaded
-# through ctypes or imported (JAX's decode goes through pygame's SDL_mixer,
-# mpg123 and libvorbisfile).
+# The port decodes MPEG audio, Ogg Vorbis and Ogg Opus itself: no codec
+# library is loaded through ctypes or imported (JAX's decode goes through
+# pygame's SDL_mixer, mpg123, libvorbisfile and opusfile over libopus).
 CODEC_LIBS = ("mpg123", "vorbisfile", "mp3lame", "sndfile", "sdl", "opus")
 _LOADERS = ("CDLL", "PyDLL", "LoadLibrary", "find_library", "dlopen",
             "load_library")
@@ -89,13 +89,18 @@ _LOADERS = ("CDLL", "PyDLL", "LoadLibrary", "find_library", "dlopen",
 
 def _loads_and_imports(path):
     """The module names a source imports and the strings it hands to a
-    library loader."""
+    library loader. The port's own modules (relative imports, and
+    ``qwen3_asr_tpu_torch.*``) are not libraries: its Opus decoder lives in
+    modules named after the codec."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (alias.name for alias in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield from (alias.name for alias in node.names
+                        if not alias.name.startswith("qwen3_asr_tpu_torch."))
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level \
+                and not node.module.startswith("qwen3_asr_tpu_torch."):
             yield node.module
         elif isinstance(node, ast.Call):
             fn = node.func
@@ -124,6 +129,19 @@ def test_the_codec_check_sees_a_ctypes_load(tmp_path):
     assert sorted(s for s in _loads_and_imports(str(src))
                   if any(lib in s.lower() for lib in CODEC_LIBS)) == \
         ["libmpg123.so.0", "vorbisfile"]
+
+
+def test_the_codec_check_sees_libopus_but_not_the_ports_opus_modules(
+        tmp_path):
+    src = tmp_path / "x.py"
+    src.write_text("import ctypes\nctypes.CDLL('libopus.so.0')\n"
+                   "import opuslib\nfrom pyogg import opus\n"
+                   "from .opus import OpusDecoder\n"
+                   "from qwen3_asr_tpu_torch.audio.ogg_opus import x\n"
+                   "import qwen3_asr_tpu_torch.audio.opus_range\n")
+    assert sorted(s for s in _loads_and_imports(str(src))
+                  if any(lib in s.lower() for lib in CODEC_LIBS)) == \
+        ["libopus.so.0", "opuslib"]
 
 
 # Slice 23's modules, imported in a fresh interpreter: none of them loads
